@@ -1,0 +1,38 @@
+"""Load the JAX package's parameter trees into the port.
+
+The JAX package draws weights with ``jax.random``, which torch cannot
+reproduce, so parity runs load the reference's own weights.  The caller
+converts the JAX tree to numpy (``jax.tree_util.tree_map(np.asarray,
+params)``); this module turns that numpy tree into tensors, keeping the
+``stacks/g{i}`` grouping and the ``(d_in, d_out)`` layout so ``x @ W``
+matches leaf for leaf.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .models.api import ArchConfig
+from .models.transformer import check_supported
+from .utils import DeviceLike, resolve_device, tree_map
+
+
+def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    """One numpy array as a tensor on ``device``.  bfloat16 arrays (numpy
+    has no such type; JAX hands them over as ``ml_dtypes.bfloat16``) go
+    through float32, which holds every bfloat16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Any, *,
+                      device: DeviceLike = "cuda") -> Any:
+    """The JAX parameter tree, as numpy arrays, as the port's params."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), tree)

@@ -1,0 +1,67 @@
+"""Plain PyTorch versions of the port's kernels.
+
+The CPU tests run them, and ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.  Nothing on the main path calls them when the
+tensors lie on a card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def flash_attention_cached_ref(
+    q: torch.Tensor,         # (B, Sq, Hq, D)
+    k: torch.Tensor,         # (B, Sk, Hkv, D)
+    v: torch.Tensor,
+    *,
+    q_offset: torch.Tensor,  # (B,) int: absolute position of q[:, 0]
+    kv_len: torch.Tensor,    # (B,) int: valid cache rows
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Cached block attention with the CUDA kernel's exact contract.
+
+    Query ``i`` of sample ``b`` sits at absolute position
+    ``q_offset[b] + i`` and attends to cache rows ``kpos`` with
+    ``kpos < kv_len[b]``, plus ``kpos <= qpos`` when causal and
+    ``kpos > qpos - window`` when ``window > 0``.  Query head ``h`` reads
+    kv head ``h // (Hq / Hkv)``.  Scores are scaled by ``1/sqrt(D)``; the
+    softmax statistics and the sum are float32; a row with no valid key
+    gives 0.  Cache rows that no query of the sample can see are never
+    read, as in the kernel, so a non-finite stale row (left by an earlier
+    stream in the slot) cannot reach the output.  Returns (B, Sq, Hq, D)
+    in q's dtype.
+    """
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    q_offset, kv_len = q_offset.to(torch.int64), kv_len.to(torch.int64)
+    kpos = torch.arange(sk, device=q.device)[None, None, :]     # (1, 1, Sk)
+    hi = torch.minimum(kv_len, q_offset + sq) if causal else kv_len
+    seen = kpos[:, 0] < hi[:, None]                              # (B, Sk)
+    if window > 0:
+        seen = seen & (kpos[:, 0] > q_offset[:, None] - window)
+    seen = seen[:, :, None, None]
+
+    def rows(x):
+        x = torch.where(seen, x.float(), 0.0)
+        return x.repeat_interleave(group, dim=2)
+
+    kf, vf = rows(k), rows(v)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(d)
+    qpos = q_offset[:, None] + torch.arange(sq, device=q.device)[None, :]
+    mask = kpos < kv_len[:, None, None]
+    if causal:
+        mask = mask & (kpos <= qpos[..., None])
+    if window > 0:
+        mask = mask & (kpos > qpos[..., None] - window)
+    mask = mask[:, None]                                         # (B,1,Sq,Sk)
+    s = torch.where(mask, s, torch.full_like(s, -math.inf))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - torch.where(mask, m, 0.0)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    out = out / l.clamp_min(1e-30).permute(0, 2, 1, 3)
+    return out.to(q.dtype)

@@ -1,0 +1,260 @@
+"""Building blocks of the dense transformer: the port of
+``repro.models.layers`` for the serving slice.
+
+Pure functions over explicit parameter dicts in the JAX package's layout:
+weights are ``(d_in, d_out)`` so ``x @ W`` matches.  The channel deltas of
+the sparse update, MLA, MoE and cross-attention arrive with later slices.
+
+KV caches are updated **in place**: a per-layer cache holds views into the
+layer-stacked cache tensors, and the scatter writes land there, so a
+serving tick never copies the cache.  The JAX package returns new arrays
+instead; the values are the same.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Normalisation
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.float() + b.float()).to(dt)
+
+
+def apply_norm(cfg_norm: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg_norm == "rmsnorm":
+        return rms_norm(x, p["w"])
+    return layer_norm(x, p["w"], p["b"])
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (..., S) int -> cos/sin tables (..., S, dim/2), float32."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=positions.device) / dim))
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D) with cos/sin (B, S, D/2); the two halves rotate
+    together (not interleaved pairs)."""
+    dt = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / plain GELU)
+# ---------------------------------------------------------------------------
+
+
+def _act(act: str, x: torch.Tensor) -> torch.Tensor:
+    if act == "swiglu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act in ("swiglu", "geglu"):
+        h = _act(act, x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = _act(act, x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA / MQA, contiguous KV cache)
+# ---------------------------------------------------------------------------
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    return k.repeat_interleave(n_rep, dim=2)
+
+
+def dot_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int = 0,
+    kv_len: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain masked attention. q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D).
+
+    Query i sits at position i; ``kv_len`` (B,) masks cache rows per
+    sample.  Masked scores are -1e30, so a row with no valid key averages
+    every row of v, as the JAX package's version does.  Unlike it, rows at
+    or past ``kv_len`` are zeroed in v first: a stale non-finite row left
+    in the slot by an earlier stream would otherwise turn its zero weight
+    into NaN (ROADMAP queue 3).  For finite caches the result is the same.
+    """
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    n_rep = h // k.shape[2]
+    dev = q.device
+    kpos = torch.arange(sk, device=dev)[None, None, :]
+    if kv_len is not None:
+        seen = kpos[0] < kv_len[:, None]                   # (B, Sk)
+        v = torch.where(seen[:, :, None, None], v, torch.zeros_like(v))
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    scores = scores / math.sqrt(d)
+    qpos = torch.arange(sq, device=dev)[None, :]   # (1, sq)
+    mask = torch.ones((1, sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos <= qpos[..., None])
+    if window > 0:
+        mask = mask & (kpos > qpos[..., None] - window)
+    if kv_len is not None:
+        mask = mask & (kpos < kv_len[:, None, None])
+    scores = torch.where(mask[:, None], scores,
+                         torch.full_like(scores, -1e30))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def _scatter_block_rows(buf: torch.Tensor, vals: torch.Tensor,
+                        lens: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Write slot b's valid block rows into ``buf`` at its own cursor, in
+    place.
+
+    buf: (B, S_max, ...), vals: (B, S, ...), lens/valid: (B,) / (B, S).
+    Row ``lens[b] + j`` receives ``vals[b, j]`` when valid; invalid rows
+    rewrite their original value (clip collisions at the last row all
+    carry that same original value).  Valid rows must fit:
+    ``lens + sum(valid) <= S_max``.
+    """
+    b, s = vals.shape[:2]
+    s_max = buf.shape[1]
+    rows = (lens[:, None].long()
+            + torch.arange(s, device=buf.device)[None, :]).clamp(0, s_max - 1)
+    bidx = torch.arange(b, device=buf.device)[:, None]
+    vm = valid.reshape(valid.shape + (1,) * (vals.dim() - 2))
+    buf[bidx, rows] = torch.where(vm, vals.to(buf.dtype), buf[bidx, rows])
+    return buf
+
+
+def _block_cached_attention(
+    q: torch.Tensor,   # (B, S, H, D) query block
+    ck: torch.Tensor,  # (B, S_max, Hkv, D) cache keys (block rows written)
+    cv: torch.Tensor,
+    *,
+    lens: torch.Tensor,   # (B,) tokens in cache before this block
+    n_new: torch.Tensor,  # (B,) valid tokens written by this block
+) -> torch.Tensor:
+    """Causal block attention of a prompt block against a contiguous
+    (non-rolling) cache: each slot's queries sit at absolute positions
+    ``lens + j``.  Always the cached flash kernel (its plain version on
+    the CPU); the kernel masks ragged edges itself, so no shape gate."""
+    return ops.flash_attention_cached(
+        q, ck, cv, q_offset=lens, kv_len=lens + n_new, causal=True)
+
+
+def attention_apply(
+    p: Params,
+    x: torch.Tensor,
+    cfg,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Params] = None,
+    causal: bool = True,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Multi-head attention with GQA/MQA, RoPE and a contiguous KV cache.
+
+    Returns (output, updated_cache).  cache = {"k": (B, S_max, Hkv, Dh),
+    "v": ..., "len": (B,)}; k/v are written in place and the returned
+    cache holds the same tensors with the new lengths.  ``valid`` (B, S)
+    switches the cache path into block-prefill mode: each slot writes its
+    left-aligned valid tokens at its own cursor and attends causally from
+    its own offset.
+    """
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, hkv, dh)
+    v = v.reshape(b, s, hkv, dh)
+    if cfg.rope_theta > 0:
+        cos, sin = rope_tables(positions, dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if cache is None:
+        new_cache = None
+        out = dot_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    else:
+        ck, cv, lens = cache["k"], cache["v"], cache["len"]
+        s_max = ck.shape[1]
+        if cfg.sliding_window > 0 and s_max == cfg.sliding_window:
+            raise NotImplementedError(
+                "rolling sliding-window caches arrive with a later slice "
+                "(ROADMAP queue 1, item 13)")
+        if valid is not None:
+            # block prefill: per-slot scatter of the valid rows only (the
+            # serving engine's submit() validation guarantees they fit)
+            n_new = valid.sum(dim=1, dtype=torch.int32)
+            _scatter_block_rows(ck, k, lens, valid)
+            _scatter_block_rows(cv, v, lens, valid)
+            new_cache = {"k": ck, "v": cv, "len": lens + n_new}
+            out = _block_cached_attention(q, ck, cv, lens=lens, n_new=n_new)
+        else:
+            if s == 1:
+                pos = lens.clamp(max=s_max - 1).long()
+                bidx = torch.arange(b, device=x.device)
+                ck[bidx, pos] = k[:, 0].to(ck.dtype)
+                cv[bidx, pos] = v[:, 0].to(cv.dtype)
+            else:  # batch-aligned prefill write, start clamped to fit
+                start = lens[0].clamp(0, s_max - s).long()
+                rows = start + torch.arange(s, device=x.device)
+                ck[:, rows] = k.to(ck.dtype)
+                cv[:, rows] = v.to(cv.dtype)
+            new_cache = {"k": ck, "v": cv, "len": lens + s}
+            kv_len = (lens + s).clamp(max=s_max)
+            out = dot_attention(q, ck, cv, causal=False, kv_len=kv_len)
+
+    y = out.reshape(b, s, h * dh) @ p["wo"]
+    return y, new_cache

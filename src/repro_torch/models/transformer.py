@@ -1,0 +1,286 @@
+"""The dense decoder LM of the serving slice: the port of
+``repro.models.transformer``.
+
+Parameters are nested dicts of tensors in the JAX package's layout: layers
+of one homogeneous group are stacked along a leading ``L`` dim under
+``params["stacks"]["g{i}"]`` and weights are ``(d_in, d_out)``, so
+``repro_torch.bridge`` can load a JAX parameter tree leaf for leaf.  Where
+JAX scans a stack, this module loops over its layers in Python.
+
+Serving modes only: ``decode_step`` (one token per slot) and
+``prefill_block`` (a block of prompt tokens per slot at its own cache
+cursor), on contiguous caches updated in place.  The sparse-update train
+and probe modes, MoE, MLA, SSM, encoder-decoder and VLM families arrive
+with later slices (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..utils import DeviceLike, resolve_device, tree_map
+from . import layers as L
+from .api import ArchConfig
+
+Params = Dict[str, Any]
+
+
+def block_kind(cfg: ArchConfig, layer: int) -> str:
+    """Mixer kind of a decoder layer."""
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.family == "hybrid":
+        return "ssm"
+    if cfg.mla:
+        return "mla"
+    return "attn"
+
+
+def ffn_kind(cfg: ArchConfig, layer: int) -> str:
+    if cfg.family == "ssm" or cfg.family == "hybrid":
+        return "none"
+    if cfg.n_experts and layer >= cfg.moe_start_layer:
+        return "moe"
+    return "mlp"
+
+
+def stack_groups(cfg: ArchConfig) -> List[Tuple[str, List[int]]]:
+    """Partition decoder layers into homogeneous stack groups."""
+    groups: List[Tuple[str, List[int]]] = []
+    for i in range(cfg.n_layers):
+        sig = block_kind(cfg, i) + "/" + ffn_kind(cfg, i)
+        if cfg.n_experts and i < cfg.moe_start_layer:
+            sig += "/dense_head"
+        if groups and groups[-1][0] == sig:
+            groups[-1][1].append(i)
+        else:
+            groups.append((sig, [i]))
+    return groups
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for a configuration this slice cannot run."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} serving arrives with ROADMAP queue 1, "
+            "item 14 (encoder-decoder and multimodal serving)")
+    if cfg.family != "dense" or cfg.mla or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense family runs in this slice; "
+            f"{cfg.family} layers arrive with ROADMAP queue 1, item 9 "
+            "(the LM model stack)")
+
+
+def torch_dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialisation
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, *,
+                device: DeviceLike = "cuda") -> Params:
+    """Random weights in the JAX package's layout and distributions
+    (uniform ±1/sqrt(d_in) projections, N(0, 0.02²) embedding, zero
+    biases, rmsnorm weights 0 since the norm scales by ``1 + w``).  The
+    numbers are ``generator``'s, which must live on ``device``; they are
+    not ``jax.random``'s — load JAX weights with ``bridge`` instead."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+
+    def dense(*shape):  # (..., d_in, d_out)
+        s = 1.0 / math.sqrt(shape[-2])
+        u = torch.rand(shape, generator=generator, device=dev)
+        return (u * (2 * s) - s).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def norm(*lead):
+        if cfg.norm == "rmsnorm":
+            return {"w": zeros(*lead, cfg.d_model)}
+        return {"w": torch.ones(*lead, cfg.d_model, dtype=dtype, device=dev),
+                "b": zeros(*lead, cfg.d_model)}
+
+    d = cfg.d_model
+    p: Params = {"embed": (torch.randn((cfg.vocab, d), generator=generator,
+                                       device=dev) * 0.02).to(dtype),
+                 "stacks": {}}
+    for gi, (_, ids) in enumerate(stack_groups(cfg)):
+        n = len(ids)
+        attn = {"wq": dense(n, d, cfg.q_dim), "wk": dense(n, d, cfg.kv_dim),
+                "wv": dense(n, d, cfg.kv_dim), "wo": dense(n, cfg.q_dim, d)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(n, cfg.q_dim), bk=zeros(n, cfg.kv_dim),
+                        bv=zeros(n, cfg.kv_dim))
+        if cfg.act in ("swiglu", "geglu"):
+            mlp = {"w_gate": dense(n, d, cfg.d_ff), "w_up": dense(n, d, cfg.d_ff),
+                   "w_down": dense(n, cfg.d_ff, d)}
+        else:
+            mlp = {"w_up": dense(n, d, cfg.d_ff), "w_down": dense(n, cfg.d_ff, d)}
+        p["stacks"][f"g{gi}"] = {"norm1": norm(n), "attn": attn,
+                                 "norm2": norm(n), "mlp": mlp}
+    p["final_norm"] = norm()
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense(d, cfg.vocab)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                 positions: torch.Tensor, layer: int, *,
+                 cache: Optional[Params] = None,
+                 valid: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """One decoder layer (attention + MLP).  Returns (x, new_cache)."""
+    h = L.apply_norm(cfg.norm, p["norm1"], x)
+    y, c = L.attention_apply(p["attn"], h, cfg, positions=positions,
+                             cache=cache["attn"] if cache else None,
+                             valid=valid)
+    x = x + y
+    h = L.apply_norm(cfg.norm, p["norm2"], x)
+    x = x + L.mlp_apply(p["mlp"], h, cfg.act)
+    return x, ({"attn": c} if cache is not None else None)
+
+
+def forward_hidden(
+    cfg: ArchConfig,
+    params: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    caches: Optional[Dict[str, Any]] = None,
+    seq_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Run the decoder stacks and the final norm.
+
+    With ``caches`` every layer reads and writes its cache in place and
+    the same cache tree is returned with new lengths.  ``seq_valid``
+    (B, S) enables block-prefill mode (per-slot writes at each slot's own
+    cursor, ragged tails masked)."""
+    for gi, (_, ids) in enumerate(stack_groups(cfg)):
+        stack = params["stacks"][f"g{gi}"]
+        g_caches = caches.get(f"g{gi}") if caches else None
+        for j, lid in enumerate(ids):
+            lp = tree_map(lambda a: a[j], stack)
+            cache_in = (tree_map(lambda a: a[j], g_caches)
+                        if g_caches is not None else None)
+            x, nc = _apply_block(cfg, lp, x, positions, lid, cache=cache_in,
+                                 valid=seq_valid)
+            if g_caches is not None:
+                g_caches["attn"]["len"][j] = nc["attn"]["len"]
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    return x, caches
+
+
+def embed_tokens(cfg: ArchConfig, params: Params,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    e = params["embed"][tokens]
+    if (cfg.family in ("vlm", "dense") and cfg.norm == "rmsnorm"
+            and cfg.tie_embeddings):
+        # gemma-style sqrt(d) embedding scale, rounded to the weight dtype
+        # first as the JAX package does
+        e = e * torch.tensor(math.sqrt(cfg.d_model), dtype=e.dtype,
+                             device=e.device)
+    return e
+
+
+def unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    w = params["unembed"] if not cfg.tie_embeddings else params["embed"].T
+    return h @ w
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
+                device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """Contiguous decode caches for a slot batch, in the JAX package's
+    layout: ``caches["g{i}"]["attn"] = {"k", "v": (L, B, S_max, Hkv, Dh),
+    "len": (L, B) int32}``."""
+    check_supported(cfg)
+    if cfg.kv_paging:
+        raise NotImplementedError(
+            "paged KV caches arrive with ROADMAP queue 1, item 12")
+    if cfg.sliding_window and cfg.sliding_window <= max_len:
+        raise NotImplementedError(
+            "rolling sliding-window caches arrive with ROADMAP queue 1, "
+            "item 11.1")
+    dev = resolve_device(device)
+    dtype = dtype or torch_dtype(cfg)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    caches: Dict[str, Any] = {}
+    for gi, (_, ids) in enumerate(stack_groups(cfg)):
+        n = len(ids)
+        caches[f"g{gi}"] = {"attn": {
+            "k": torch.zeros((n,) + shape, dtype=dtype, device=dev),
+            "v": torch.zeros((n,) + shape, dtype=dtype, device=dev),
+            "len": torch.zeros((n, batch), dtype=torch.int32, device=dev),
+        }}
+    return caches
+
+
+def reset_slot_state(caches: Dict[str, Any],
+                     mask: torch.Tensor) -> Dict[str, Any]:
+    """Reset masked slots to a clean length-0 cache, in place.
+
+    ``mask`` is ``(B,)`` bool over the slot axis.  Only the lengths zero:
+    attention masks K/V reads by ``kv_len``, so stale rows beyond the
+    reset length are never attended to."""
+    for g in caches.values():
+        g["attn"]["len"].masked_fill_(mask, 0)
+    return caches
+
+
+def decode_step(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # (B, 1)
+    caches: Dict[str, Any],
+    pos: torch.Tensor,     # () shared or (B,) per-slot positions
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step: new token -> logits (B, 1, vocab), caches updated
+    in place."""
+    x = embed_tokens(cfg, params, tokens)
+    pos = torch.as_tensor(pos, device=tokens.device)
+    positions = pos[:, None] if pos.dim() else pos.expand(tokens.shape)
+    h, caches = forward_hidden(cfg, params, x, positions, caches=caches)
+    return unembed(cfg, params, h), caches
+
+
+def prefill_block(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # (B, S) block of prompt tokens, left-aligned valid
+    caches: Dict[str, Any],
+    pos: torch.Tensor,     # (B,) absolute position of tokens[:, 0]
+    valid: Optional[torch.Tensor] = None,  # (B, S) bool; None = all valid
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Sequence-mode prompt ingestion: a whole (B, S) block per call.
+
+    Each slot writes its ``valid`` tokens at its own cache cursor and
+    attends causally from its own offset through the cached flash kernel.
+    ``valid`` must be a left-aligned prefix mask per slot (all-False rows
+    are paused slots and advance nothing).  Returns (logits (B, S, vocab),
+    caches); only logits at valid positions are meaningful."""
+    x = embed_tokens(cfg, params, tokens)
+    s = tokens.shape[1]
+    positions = (torch.as_tensor(pos, device=tokens.device)[:, None]
+                 + torch.arange(s, device=tokens.device)[None, :])
+    if valid is None:
+        valid = torch.ones(tokens.shape, dtype=torch.bool,
+                           device=tokens.device)
+    h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
+                               seq_valid=valid)
+    return unembed(cfg, params, h), caches

@@ -1,0 +1,542 @@
+"""Serving engine: continuous batching over per-slot KV caches, the port of
+``repro.serving.engine`` for the serving slice.
+
+Per-slot request state (feed buffer, cursor, position, last token,
+remaining ``max_new`` budget, KV budget, deadline, active flag) lives in
+fixed-shape device tensors (:class:`SlotState`), and a chunk of ticks runs
+the JAX package's fused tick body: free slots admit from a device-side
+:class:`PendingBuffer` in FIFO order, one forward runs — a
+``prefill_block`` of up to ``prefill_block`` prompt tokens per prefilling
+slot while any slot is still prefilling, else a single-token
+``decode_step`` — and the lifecycle advances (greedy pick, emits, budgets,
+truncation, deadlines and the non-finite ``numerics`` guard), evicting
+finished slots so the next tick re-admits into them.  Generating slots
+pause during block ticks, so every generated token comes from the
+single-token decode program whatever the block size.
+
+Host syncs: JAX branches and loops on the device (``lax.cond``,
+``lax.while_loop``); eager PyTorch has no sync-free counterpart.  So each
+tick reads one small flag tensor — the loop's early-exit test and the
+block-vs-decode choice — and each chunk reads its event rows once.  Every
+read goes through ``core.adapt._fetch``, so ``last_run_report
+["host_syncs"]`` counts them all.  One sync per chunk is ROADMAP queue 1,
+item 11.2.
+
+Paging, sampling, the eager loop, faults, backfill, encoder runs and
+personalisation arrive with later slices; their knobs raise
+``NotImplementedError`` naming the ROADMAP item.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import adapt as _telemetry
+from ..models import transformer as T
+from ..models.api import ArchConfig
+from ..utils import DeviceLike, resolve_device
+
+# structured terminal outcomes, emitted through the per-tick event rows
+# (int32 codes) and surfaced as Request.outcome strings; the codes are the
+# JAX package's
+OUTCOME_NONE = 0        # slot still running
+OUTCOME_DONE = 1        # reached max_new
+OUTCOME_TRUNCATED = 2   # evicted by its KV budget with max_new unmet
+OUTCOME_EXPIRED = 3     # deadline_ticks resident-tick budget exhausted
+OUTCOME_NUMERICS = 6    # non-finite logits on an emitting row
+
+OUTCOME_NAMES = {
+    OUTCOME_DONE: "done", OUTCOME_TRUNCATED: "truncated",
+    OUTCOME_EXPIRED: "expired", OUTCOME_NUMERICS: "numerics",
+}
+
+# ttl sentinel for requests without a deadline: never reaches zero
+# within any realistic run (2^30 resident ticks)
+_NO_DEADLINE = 1 << 30
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray  # (S,) int32
+    max_new: int
+    # per-request KV budget (prompt + generated tokens); None = the
+    # engine-wide max_len
+    max_len: Optional[int] = None
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # evicted by its KV-budget cutoff before reaching max_new tokens
+    truncated: bool = False
+    # deadline in resident engine ticks (None = engine default / none)
+    deadline_ticks: Optional[int] = None
+    # terminal outcome: done | truncated | expired | numerics | rejected;
+    # None while in flight
+    outcome: Optional[str] = None
+
+
+class SubmitResult(NamedTuple):
+    """Typed admission verdict from :meth:`ServeEngine.submit`."""
+
+    accepted: bool
+    reason: str  # "ok" | "queue_full"
+
+
+class SlotState(NamedTuple):
+    """Per-slot request lifecycle state, device-resident."""
+
+    prompt: torch.Tensor      # (slots, max_len) int32 feed buffer
+    prompt_len: torch.Tensor  # (slots,) int32 feed length
+    cursor: torch.Tensor      # (slots,) int32; >= prompt_len => generating
+    pos: torch.Tensor         # (slots,) int32 absolute decode position
+    last_tok: torch.Tensor    # (slots,) int32 feedback token while generating
+    remaining: torch.Tensor   # (slots,) int32 max_new budget left
+    budget: torch.Tensor      # (slots,) int32 per-request KV budget
+    active: torch.Tensor      # (slots,) bool
+    rid: torch.Tensor         # (slots,) int32 engine request id; -1 free
+    ttl: torch.Tensor         # (slots,) int32 resident ticks until deadline
+
+
+class PendingBuffer(NamedTuple):
+    """Device-side admission queue, drained FIFO between host syncs.  The
+    cursor (``head``) is carried beside it through a chunk, so the buffer
+    itself is never modified and can be reused while nothing is admitted."""
+
+    prompt: torch.Tensor   # (P, max_len) int32
+    length: torch.Tensor   # (P,) int32
+    max_new: torch.Tensor  # (P,) int32
+    budget: torch.Tensor   # (P,) int32 per-request KV budget
+    rid: torch.Tensor      # (P,) int32
+    ttl: torch.Tensor      # (P,) int32 deadline in resident ticks
+    count: torch.Tensor    # () int32 valid entries
+
+
+def _later(knob: str, item: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"ServeEngine({knob}=...): {what} arrives with ROADMAP queue 1, "
+        f"item {item}")
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        cfg: ArchConfig,
+        params: Any,
+        *,
+        slots: int = 8,
+        max_len: int = 1024,
+        fused: bool = True,
+        chunk: int = 32,
+        pending: Optional[int] = None,
+        prefill_block: Optional[int] = None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        kv_paging: Optional[bool] = None,
+        kv_page_size: Optional[int] = None,
+        kv_int8: Optional[bool] = None,
+        page_budget: Optional[int] = None,
+        reserve: Optional[str] = None,
+        deadline_ticks: Optional[int] = None,
+        queue_limit: Optional[int] = None,
+        faults: Optional[Any] = None,
+        personalise: Optional[Any] = None,
+        admit_backfill: Optional[int] = None,
+        device: DeviceLike = "cuda",
+    ):
+        if not fused:
+            raise _later("fused", "11.1", "the eager per-tick loop")
+        if temperature > 0 or top_k:
+            raise _later("temperature", "11.1",
+                         "sampled decoding (temperature / top-k)")
+        paging_knobs = {"kv_paging": kv_paging, "kv_page_size": kv_page_size,
+                        "kv_int8": kv_int8, "page_budget": page_budget,
+                        "reserve": reserve}
+        for knob, val in paging_knobs.items():
+            if val:
+                raise _later(knob, "12", "the paged KV cache")
+        if cfg.kv_paging or cfg.kv_int8:
+            raise _later("kv_paging", "12", "the paged KV cache")
+        if faults is not None:
+            raise _later("faults", "13", "fault injection")
+        if admit_backfill is not None:
+            raise _later("admit_backfill", "13", "page-demand backfill")
+        if personalise is not None:
+            raise _later("personalise", "15", "per-slot personalisation")
+        T.check_supported(cfg)
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.n_slots = slots
+        self.max_len = max_len
+        self.chunk = chunk
+        self.deadline_ticks = deadline_ticks
+        self.queue_limit = queue_limit
+        # prompt tokens ingested per prefilling slot per tick; 1 = token by
+        # token, the arch default otherwise
+        self.prefill_block = int(
+            cfg.serve_prefill_block if prefill_block is None else prefill_block)
+        if self.prefill_block < 1:
+            raise ValueError(
+                f"prefill_block must be >= 1, got {self.prefill_block}")
+        self.pending_size = pending if pending is not None else max(slots * 4, 8)
+        if self.pending_size < 1:
+            raise ValueError("pending buffer needs at least one entry")
+        if chunk < 1:
+            raise ValueError(
+                f"chunk must be >= 1, got {chunk}: a zero-length chunk makes "
+                "no progress and the run loop would spin forever")
+        self.caches = T.init_caches(cfg, slots, max_len, device=self.device)
+        self.queue: Deque[Request] = collections.deque()
+        self.ticks = 0  # lifetime tick count (stat, never a per-call budget)
+        self.last_run_report: Dict[str, Any] = {}
+        # device lifecycle carry, staged-but-unadmitted requests (the host
+        # mirror of the pending buffer) and the rid -> Request map that the
+        # per-chunk event rows drain into
+        self._state: Optional[SlotState] = None
+        self._staged: Deque[Tuple[int, Request]] = collections.deque()
+        self._pending_cache: Optional[PendingBuffer] = None
+        self._pending_dirty = True
+        self._by_rid: Dict[int, Request] = {}
+        self._live: set = set()
+        self._next_rid = 0
+        self._tally: Dict[str, int] = {}
+
+    # ------------------------------------------------------------------
+    # Submission
+    # ------------------------------------------------------------------
+
+    def request_budget(self, req: Request) -> int:
+        """Effective KV budget (prompt + generated tokens) for a request:
+        its own ``max_len`` when set, else the engine-wide ``max_len``."""
+        return self.max_len if req.max_len is None else int(req.max_len)
+
+    def _validate(self, req: Request) -> None:
+        budget = self.request_budget(req)
+        if budget > self.max_len:
+            raise ValueError(
+                f"request max_len {budget} exceeds the engine's cache "
+                f"capacity max_len = {self.max_len}")
+        if budget < 2:
+            raise ValueError(
+                f"request max_len {budget} leaves no room for a prompt "
+                "token plus a generated token (need >= 2)")
+        n = int(len(req.prompt))
+        if n == 0:
+            raise ValueError("empty prompt: nothing to prefill")
+        if n >= budget - 1:
+            raise ValueError(
+                f"prompt of length {n} cannot fit: the engine evicts at "
+                f"position max_len - 1 = {budget - 1}, so prompts must "
+                f"leave room to generate (len(prompt) <= max_len - 2 = "
+                f"{budget - 2})")
+        if req.max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {req.max_new}")
+
+    def backlog_size(self) -> int:
+        """Un-admitted host state: queued + staged."""
+        return len(self.queue) + len(self._staged)
+
+    def submit(self, req: Request) -> SubmitResult:
+        """Enqueue one request.  A malformed request raises; a full queue
+        (``queue_limit``) returns a typed rejection and marks the request
+        ``outcome='rejected'``."""
+        self._validate(req)
+        if (self.queue_limit is not None
+                and self.backlog_size() >= self.queue_limit):
+            req.outcome = "rejected"
+            return SubmitResult(False, "queue_full")
+        self.queue.append(req)
+        return SubmitResult(True, "ok")
+
+    def _deadline(self, req: Request) -> int:
+        d = (self.deadline_ticks if req.deadline_ticks is None
+             else req.deadline_ticks)
+        return _NO_DEADLINE if d is None else int(d)
+
+    # ------------------------------------------------------------------
+    # The tick body
+    # ------------------------------------------------------------------
+
+    def _i32(self, *shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+    def _init_state(self) -> SlotState:
+        s = self.n_slots
+        return SlotState(
+            prompt=self._i32(s, self.max_len), prompt_len=self._i32(s),
+            cursor=self._i32(s), pos=self._i32(s), last_tok=self._i32(s),
+            remaining=self._i32(s), budget=self._i32(s),
+            active=torch.zeros(s, dtype=torch.bool, device=self.device),
+            rid=self._i32(s) - 1, ttl=self._i32(s))
+
+    def _make_pending(self) -> PendingBuffer:
+        # rebuilt (and uploaded) only when the staged set changed
+        if not self._pending_dirty and self._pending_cache is not None:
+            return self._pending_cache
+        P, maxp = self.pending_size, self.max_len
+        prompt = np.zeros((P, maxp), np.int32)
+        length = np.zeros((P,), np.int32)
+        max_new = np.zeros((P,), np.int32)
+        budget = np.zeros((P,), np.int32)
+        rid = np.full((P,), -1, np.int32)
+        ttl = np.zeros((P,), np.int32)
+        for j, (r, req) in enumerate(self._staged):
+            feed = np.asarray(req.prompt, np.int32)
+            prompt[j, :len(feed)] = feed
+            length[j] = len(feed)
+            max_new[j] = req.max_new
+            budget[j] = self.request_budget(req)
+            rid[j] = r
+            ttl[j] = min(self._deadline(req), _NO_DEADLINE)
+        dev = self.device
+        self._pending_cache = PendingBuffer(
+            *(torch.from_numpy(a).to(dev)
+              for a in (prompt, length, max_new, budget, rid, ttl)),
+            count=torch.tensor(len(self._staged), dtype=torch.int32,
+                               device=dev))
+        self._pending_dirty = False
+        return self._pending_cache
+
+    def _admit(self, st: SlotState, pend: PendingBuffer, head: torch.Tensor,
+               backlog: bool):
+        """Free slots claim pending entries in FIFO order.  Functional: the
+        caller commits the result only if the tick runs.  Also returns the
+        tick's flag tensor [stop, block]: ``stop`` is the chunk loop's exit
+        test on the state *before* admission (pending drained and either
+        no slot active, or a free slot while the host holds more queued
+        work); ``block`` chooses the prefill-block forward."""
+        P = self.pending_size
+        free = ~st.active
+        rank = torch.cumsum(free.to(torch.int32), 0) - 1
+        take = free & (head + rank < pend.count)
+        src = (head + rank).clamp(0, P - 1).long()
+
+        def sel(new, old):
+            return torch.where(take, new, old)
+
+        zero = torch.zeros_like(st.cursor)
+        new = SlotState(
+            prompt=torch.where(take[:, None], pend.prompt[src], st.prompt),
+            prompt_len=sel(pend.length[src], st.prompt_len),
+            cursor=sel(zero, st.cursor), pos=sel(zero, st.pos),
+            last_tok=sel(zero, st.last_tok),
+            remaining=sel(pend.max_new[src], st.remaining),
+            budget=sel(pend.budget[src], st.budget),
+            active=st.active | take,
+            rid=sel(pend.rid[src], st.rid), ttl=sel(pend.ttl[src], st.ttl))
+        n_admit = take.sum(dtype=torch.int32)
+        drained = head >= pend.count
+        stop = drained & (~st.active.any() | (free.any() & backlog))
+        prefilling = new.active & (new.cursor < new.prompt_len)
+        block = prefilling.any() & (self.prefill_block > 1)
+        return new, take, n_admit, head + n_admit, torch.stack([stop, block])
+
+    def _forward(self, st: SlotState, prefilling: torch.Tensor, block: bool):
+        """One forward over every slot: (last logits (slots, vocab), tokens
+        consumed per slot)."""
+        cfg, params, maxp = self.cfg, self.params, self.max_len
+        if block:
+            B = self.prefill_block
+            n_tok = torch.where(
+                prefilling,
+                torch.clamp(st.prompt_len - st.cursor, max=B), 0).to(torch.int32)
+            j = torch.arange(B, device=self.device)[None, :]
+            valid = j < n_tok[:, None]
+            gidx = (st.cursor[:, None] + j).clamp(0, maxp - 1)
+            toks = torch.where(valid, st.prompt.gather(1, gidx), 0)
+            logits, self.caches = T.prefill_block(
+                cfg, params, toks.long(), self.caches, st.pos, valid)
+            last = (n_tok - 1).clamp(0, B - 1).long()
+            idx = last[:, None, None].expand(-1, 1, logits.shape[-1])
+            return logits.gather(1, idx)[:, 0], n_tok
+        ptok = st.prompt.gather(
+            1, st.cursor.clamp(0, maxp - 1)[:, None].long())[:, 0]
+        tok = torch.where(st.active,
+                          torch.where(prefilling, ptok, st.last_tok), 0)
+        logits, self.caches = T.decode_step(
+            cfg, params, tok[:, None].long(), self.caches, st.pos)
+        return logits[:, 0], st.active.to(torch.int32)
+
+    def _advance(self, st: SlotState, n_admit: torch.Tensor, block: bool):
+        """Forward plus lifecycle advance.  Returns (state, event row)."""
+        prefilling = st.active & (st.cursor < st.prompt_len)
+        logits, n_tok = self._forward(st, prefilling, block)
+        cursor = torch.where(prefilling, st.cursor + n_tok, st.cursor)
+        emit = st.active & (n_tok > 0) & (~prefilling
+                                          | (cursor >= st.prompt_len))
+        pos = st.pos + n_tok
+        # numerics guard: a non-finite row on an emitting slot suppresses
+        # the emit and terminates the stream instead of feeding back garbage
+        finite = torch.isfinite(logits).all(dim=-1)
+        bad = emit & ~finite
+        good_emit = emit & finite
+        # greedy pick: argmax returns the first maximum, as jnp.argmax does
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        remaining = st.remaining - good_emit.to(torch.int32)
+        done = st.active & ~bad & ((remaining <= 0) | (pos >= st.budget - 1))
+        trunc = done & (remaining > 0)
+        ttl = st.ttl - st.active.to(torch.int32)
+        expired = st.active & ~bad & ~done & (ttl <= 0)
+        term = done | bad | expired
+        outcome = torch.zeros_like(st.cursor)
+        outcome = torch.where(done, OUTCOME_DONE, outcome)
+        outcome = torch.where(trunc, OUTCOME_TRUNCATED, outcome)
+        outcome = torch.where(expired, OUTCOME_EXPIRED, outcome)
+        outcome = torch.where(bad, OUTCOME_NUMERICS, outcome)
+        row = torch.cat([
+            st.rid, torch.where(good_emit, next_tok, -1), outcome,
+            st.active.any().to(torch.int32)[None], n_admit[None]])
+        st = st._replace(
+            cursor=cursor, pos=pos,
+            last_tok=torch.where(good_emit, next_tok, st.last_tok),
+            remaining=remaining, ttl=ttl, active=st.active & ~term,
+            rid=torch.where(term, -1, st.rid))
+        return st, row
+
+    # ------------------------------------------------------------------
+    # Chunks: stage -> tick loop -> one fetch of the event rows
+    # ------------------------------------------------------------------
+
+    def has_work(self) -> bool:
+        """Anything queued, staged or resident?"""
+        return bool(self.queue or self._staged or self._live)
+
+    def _dispatch(self, budget: int) -> List[torch.Tensor]:
+        """Stage queued work and run up to ``budget`` ticks; returns the
+        executed ticks' event rows (still on the device)."""
+        while self.queue and len(self._staged) < self.pending_size:
+            req = self.queue.popleft()
+            rid = self._next_rid
+            self._next_rid += 1
+            self._by_rid[rid] = req
+            self._staged.append((rid, req))
+            self._pending_dirty = True
+        # backlog: queued work beyond the pending buffer; the tick loop
+        # returns early if the buffer drains while a slot is free, so the
+        # freed slot refills from the host instead of idling out the chunk
+        backlog = bool(self.queue)
+        pend = self._make_pending()
+        head = torch.zeros((), dtype=torch.int32, device=self.device)
+        st = self._state
+        rows: List[torch.Tensor] = []
+        while len(rows) < budget:
+            new, take, n_admit, new_head, flags = self._admit(
+                st, pend, head, backlog)
+            stop, block = _telemetry._fetch(flags)  # the tick's one sync
+            if stop:
+                break
+            st, head = new, new_head
+            T.reset_slot_state(self.caches, take)
+            st, row = self._advance(st, n_admit, bool(block))
+            rows.append(row)
+        self._state = st
+        return rows
+
+    def _drain(self, rows: List[torch.Tensor], fr: Dict[str, Any]) -> None:
+        """Fetch a chunk's event rows (one sync) and book them."""
+        fr["chunks"] += 1
+        if not rows:
+            return
+        ev = _telemetry._fetch(torch.stack(rows))
+        S = self.n_slots
+        rids, toks, outs = ev[:, :S], ev[:, S:2 * S], ev[:, 2 * S:3 * S]
+        act, n_admit = ev[:, 3 * S], ev[:, 3 * S + 1]
+        for _ in range(int(n_admit.sum())):
+            rid, _req = self._staged.popleft()
+            self._live.add(rid)
+            self._pending_dirty = True
+        # np.nonzero walks ticks row-major, so per-request appends stay in
+        # generation order; terminal cells coincide with their last emit
+        for t, i in zip(*np.nonzero(toks >= 0)):
+            self._by_rid[int(rids[t, i])].out.append(int(toks[t, i]))
+        for t, i in zip(*np.nonzero(outs > 0)):
+            rid = int(rids[t, i])
+            code = int(outs[t, i])
+            req = self._by_rid.pop(rid)
+            req.outcome = OUTCOME_NAMES[code]
+            if code in (OUTCOME_DONE, OUTCOME_TRUNCATED):
+                req.done = True
+                req.truncated = code == OUTCOME_TRUNCATED
+            self._tally[req.outcome] = self._tally.get(req.outcome, 0) + 1
+            self._live.discard(rid)
+        used = int(act.sum())
+        fr["used"] += used
+        self.ticks += used
+        fr["dispatched"] += len(rows)
+        fr["toks"] += int((toks >= 0).sum())
+        fr["peak"] = max(fr["peak"], int((rids >= 0).sum(axis=1).max()))
+
+    def _run_fused(self, max_ticks: int, chunk: Optional[int]) -> None:
+        chunk = self.chunk if chunk is None else int(chunk)
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if self._state is None:
+            self._state = self._init_state()
+        fr = {"used": 0, "chunks": 0, "dispatched": 0, "peak": 0, "toks": 0,
+              "busy_s": 0.0}
+        syncs0 = _telemetry.host_sync_count()
+        while self.has_work() and fr["used"] < max_ticks:
+            t0 = time.perf_counter()
+            rows = self._dispatch(min(chunk, max_ticks - fr["used"]))
+            self._drain(rows, fr)
+            fr["busy_s"] += time.perf_counter() - t0
+        self.last_run_report = {
+            "ticks": fr["used"], "chunks": fr["chunks"],
+            # every blocking device->host read of this run: one flag read
+            # per tick plus one event fetch per chunk
+            "host_syncs": _telemetry.host_sync_count() - syncs0,
+            "ticks_dispatched": fr["dispatched"],
+            "peak_resident": fr["peak"],
+            "new_tokens": fr["toks"],
+            "busy_seconds": fr["busy_s"],
+            "outcomes": dict(self._tally),
+            "memory": self.memory_report(),
+        }
+
+    # ------------------------------------------------------------------
+    # Observability
+    # ------------------------------------------------------------------
+
+    def memory_report(self) -> Dict[str, Any]:
+        """KV-cache memory accounting from host bookkeeping (no sync).
+        Contiguous stripes: every slot pins a full-length share whether or
+        not it is occupied."""
+        total = sum(t.numel() * t.element_size()
+                    for g in self.caches.values() for t in g["attn"].values())
+        return {"kv_paging": False, "kv_cache_bytes": int(total),
+                "resident_streams": len(self._live),
+                "kv_bytes_per_stream": int(total) // self.n_slots}
+
+    # ------------------------------------------------------------------
+    # Driver
+    # ------------------------------------------------------------------
+
+    def run(self, requests: List[Request], max_ticks: int = 100_000,
+            chunk: Optional[int] = None) -> List[Request]:
+        """Serve ``requests`` until done or ``max_ticks`` engine ticks.
+
+        ``max_ticks`` budgets this call; ``self.ticks`` is a lifetime
+        statistic."""
+        for r in requests:  # validate the whole batch before enqueuing any
+            self._validate(r)
+        self._tally = {}
+        for r in requests:
+            # admission backpressure: overflow beyond queue_limit is shed
+            # with a typed terminal outcome, never silently dropped
+            if (self.queue_limit is not None
+                    and self.backlog_size() >= self.queue_limit):
+                r.outcome = "rejected"
+                self._tally["rejected"] = self._tally.get("rejected", 0) + 1
+            else:
+                self.queue.append(r)
+        self._run_fused(max_ticks, chunk)
+        return requests

@@ -4,25 +4,41 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card
-and the CUDA toolkit.  Phases, one line each, and any failure exits
-non-zero:
+and the CUDA toolkit.  Phases, one line each or more, and any failure
+exits non-zero:
 
 1. environment: torch, the card, ``nvidia-smi`` name and power limit;
-2. build: every CUDA source of the port with ``nvcc`` for ``sm_90a``;
+2. build: every CUDA source of the port with ``nvcc`` for ``sm_90a``, one
+   process per source, all started together;
 3. kernel parity: each kernel against its plain PyTorch version at the
-   main path's shapes (f32 at 1e-4 with TF32 off, bf16 at 3e-2), then its
-   median time beside its bound, the plain version's time and one
-   PyTorch library call's time (a yardstick the port never calls);
-4. small-input check: the serving engine on qwen2-smoke in f32 on the
-   card must give the same greedy streams as the plain path on the CPU;
+   main paths' shapes (cached flash: f32 at 1e-4 with TF32 off, bf16 at
+   3e-2; Fisher: f32 at 1e-5, bf16 inputs at 2e-2, masked rows holding
+   NaN), then its median time beside its bound, the plain version's time
+   and one PyTorch library call's time (a yardstick the port never calls);
+4. small-input checks on qwen2-smoke in f32, card against the plain path
+   on the CPU: the serving engine's greedy streams, and TinyTrain's
+   adaptation (the same policy, losses within 1e-4, the same streams from
+   the engine with the deltas folded in);
 5. serve: qwen2-1.5b at its published width in bf16 (random weights from
    a seeded generator), 8 requests through ``ServeEngine``; every request
-   must end ``done`` with 16 tokens, and the kernel launch count over the
-   run must be a positive multiple of the layer count.
+   must end ``done`` with 16 tokens, and the cached flash kernel's launch
+   count over the run must be a positive multiple of the layer count;
+6. adapt: the twin of ``examples/serve_batched.py`` at qwen2-1.5b's full
+   width in bf16: ``TinyTrainSession.adapt`` (Fisher probe through the
+   Fisher kernel, Eq. 3 selection, 10 fused fine-tune steps) under the
+   example's own ``edge-lm`` profile scaled to this width (2 GB of
+   backward memory, compute fraction 0.8, half of each unit's channels:
+   whatever the order of the Fisher scores, it selects both attention
+   and MLP units here), then
+   ``fold_into`` a ``ServeEngine`` and 10 requests; finite losses that
+   fall, two host transfers, two Fisher launches (one per tap group), the
+   flash kernel launched, every request ``done``.
 
-The last three lines are the card's ``nvidia-smi`` name and power limit,
-the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX or of the JAX package.
+The kernel launch counts are set to 0 just before each main path (phases
+5 and 6) and read just after.  The last three lines are the card's
+``nvidia-smi`` name and power limit, the kernels' JSON record and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -46,10 +62,27 @@ MAIN = dict(B=8, Sq=8, Hq=12, Hkv=2, D=128, Sk=512)
 Q_OFFSET = [0, 0, 37, 100, 255, 300, 504, 128]
 KV_LEN = [0, 8, 40, 108, 263, 305, 512, 136]
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+FISHER_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the adaptation slice: examples/serve_batched.py at qwen2-1.5b's width
+ADAPT = dict(batch_size=48, seq=64, max_way=8, task_way=5, pad=48, iters=10)
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def max_err(got, want, tol: float, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; fails unless every
+    element is finite and within ``tol + tol * |want|``."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    worst = err.max().item()
+    if not (torch.isfinite(got).all().item()
+            and (err <= tol + tol * want.abs()).all().item()):
+        fail(f"{what}: max abs error {worst} beyond {tol:g} (or non-finite)")
+    return worst
 
 
 def smi_line() -> str:
@@ -117,9 +150,12 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import configs
+    from repro_torch import api, configs
     from repro_torch.kernels import build, flash_attention, ops
-    from repro_torch.kernels.ref import flash_attention_cached_ref
+    from repro_torch.kernels import fisher as fisher_kernel
+    from repro_torch.kernels.ref import (
+        fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
+    )
     from repro_torch.models import transformer as T
     from repro_torch.serving import Request, ServeEngine
     from repro_torch.utils import tree_map
@@ -224,6 +260,103 @@ def main() -> int:
           f"Sk={Sk}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
           f"{nbytes} B, {nops} ops), plain {plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms", flush=True)
+    flash = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": worst}
+
+    # -- Fisher kernel: parity at the adaptation path's shapes ---------------
+    # the main path's tap-gradient groups: (layers, support rows, channels)
+    # for the attention heads and the d_ff neurons of qwen2-1.5b, with the
+    # padding rows of its episode masked (and filled with NaN here: a
+    # masked row must never be read)
+    task = api.sample_lm_task(np.random.default_rng(0), cfg.vocab,
+                              seq=ADAPT["seq"], max_way=ADAPT["task_way"],
+                              support_pad=ADAPT["pad"], query_pad=ADAPT["pad"])
+    labels = torch.from_numpy(task.support["episode_labels"]).to(dev)
+    n_rows, n_valid = labels.shape[0], task.n_support
+    row_mask = (labels >= 0).float()
+    tap_shapes = [(nl, n_rows, cfg.n_heads), (nl, n_rows, cfg.d_ff)]
+    f_worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = FISHER_TOL[dname]
+        for shape in tap_shapes:
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for m in (None, row_mask):
+                gm = g.clone()
+                if m is not None:
+                    gm[:, m == 0] = float("nan")
+                got = ops.fisher_tapgrads(gm, float(n_valid), m)
+                want = fisher_tapgrads_ref(gm, float(n_valid), m)
+                torch.cuda.synchronize()
+                err = max_err(got, want, tol, f"fisher_tapgrads {dname} "
+                              f"{shape} masked={m is not None}")
+                f_worst = max(f_worst, err)
+                print(f"[parity] fisher_tapgrads {dname} {shape} masked="
+                      f"{m is not None}: max abs err {err:.3g} (tol {tol:g} "
+                      f"rel+abs)", flush=True)
+        for shape in ((4, 1024, 512), (6, 7, 77)):
+            a = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            g = (0.1 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+            m = (torch.arange(shape[0], device=dev) < shape[0] - 2).float()
+            a[-2:], g[-2:] = float("nan"), float("nan")
+            got = ops.fisher(a, g, mask=m)
+            want = fisher_ref(a, g, m)
+            torch.cuda.synchronize()
+            err = max_err(got, want, tol, f"fisher {dname} {shape}")
+            clean_a, clean_g = a[:-2].contiguous(), g[:-2].contiguous()
+            got = ops.fisher(clean_a, clean_g)
+            err2 = max_err(got, fisher_ref(clean_a, clean_g), tol,
+                           f"fisher {dname} {shape} unmasked")
+            f_worst = max(f_worst, err, err2)
+            print(f"[parity] fisher {dname} {shape}: masked (NaN rows) max "
+                  f"abs err {err:.3g}, unmasked {err2:.3g} (tol {tol:g} "
+                  f"rel+abs)", flush=True)
+
+    # time the ffn group's reduction, f32 tap gradients as the probe makes
+    # them, cycling through 4 buffers (4 x 48 MB > the 50 MB L2) since the
+    # probe's gradients are fresh; the kernel through its C entry
+    shape = tap_shapes[1]
+    gs = [torch.randn(shape, generator=gen, device=dev) for _ in range(4)]
+    out = torch.empty(shape[::2], device=dev)
+    f_entry = fisher_kernel._entry()
+    scale = 1.0 / (2.0 * n_valid)
+    it["i"] = 0
+
+    def next_g():
+        i = it["i"] = (it["i"] + 1) % len(gs)
+        return gs[i]
+
+    def run_fisher():
+        err = f_entry(None, next_g().data_ptr(), row_mask.data_ptr(),
+                      out.data_ptr(), shape[0], shape[1], 1, shape[2], scale,
+                      0, 0, stream)
+        if err:
+            fail(f"fisher_fwd returned cudaError {err}")
+
+    def run_fisher_plain():
+        fisher_tapgrads_ref(next_g(), n_valid, row_mask)
+
+    def run_fisher_library():
+        g = next_g()
+        torch.einsum("lbc,lbc,b->lc", g, g, row_mask).mul_(scale)
+
+    f_ms = time_ms(run_fisher, 100)
+    f_plain_ms = time_ms(run_fisher_plain, 20)
+    f_library_ms = time_ms(run_fisher_library, 50)
+    cells = shape[0] * shape[2]
+    f_bytes = 4 * (n_valid * cells + n_rows + cells)  # valid rows, mask, out
+    f_ops = 3 * n_valid * cells                         # square, weight, add
+    t_bytes, t_ops = f_bytes / HBM_BYTES_PER_S, f_ops / PEAK_OPS["float32"]
+    f_bound_ms = 1e3 * max(t_bytes, t_ops)
+    f_bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[time] fisher_tapgrads f32 {shape} ({n_valid} of {n_rows} rows "
+          f"valid): kernel {f_ms:.4f} ms, bound {f_bound_ms:.5f} ms "
+          f"({f_bound_by}: {f_bytes} B, {f_ops} ops), plain "
+          f"{f_plain_ms:.4f} ms, einsum {f_library_ms:.4f} ms", flush=True)
+    fisher = {"ms": f_ms, "plain_ms": f_plain_ms,
+              "library_ms": f_library_ms, "bound_ms": f_bound_ms,
+              "bound_by": f_bound_by, "max_abs_err": f_worst}
+    del gs
 
     # -- small-input check: kernel path on the card vs plain path on the CPU
     small = configs.get_reduced("qwen2-1.5b")
@@ -247,6 +380,38 @@ def main() -> int:
           flush=True)
     if not same:
         fail(f"streams differ: cpu {streams['cpu']} cuda {streams['cuda']}")
+
+    # TinyTrain on qwen2-smoke: the card (Fisher kernel, flash kernel in
+    # the folded engine) against the plain path on the CPU, same weights
+    sbb = api.backbone("qwen2-1.5b", preset="smoke", batch_size=32, seq=16)
+    stask = api.sample_lm_task(np.random.default_rng(0), small.vocab,
+                               seq=16, max_way=5, support_pad=32,
+                               query_pad=32)
+    adapted = {}
+    for where, params in (("cpu", sp_cpu), ("cuda", sp_gpu)):
+        sess = api.TinyTrainSession(sbb, params, max_way=5)
+        ad = sess.adapt(stask, api.JETSON_NANO, iters=4)
+        eng = ServeEngine(small, params, slots=3, max_len=48, chunk=4,
+                          device=where)
+        ad.fold_into(eng)
+        reqs = [Request(uid=i, prompt=p, max_new=6)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs)
+        adapted[where] = (ad, [(r.out, r.outcome) for r in reqs])
+    (a_cpu, s_cpu), (a_gpu, s_gpu) = adapted["cpu"], adapted["cuda"]
+    loss_err = max(abs(x - y) for x, y in zip(a_cpu.losses, a_gpu.losses))
+    print(f"[check] qwen2-smoke f32 TinyTrain, card vs CPU plain path: "
+          f"policy {'identical' if a_cpu.policy.units == a_gpu.policy.units else 'DIFFERENT'} "
+          f"({a_gpu.policy.describe()}), max loss diff {loss_err:.3g} "
+          f"(tol 1e-4), folded-engine streams "
+          f"{'identical' if s_cpu == s_gpu else 'DIFFERENT'}", flush=True)
+    if a_cpu.policy.units != a_gpu.policy.units:
+        fail(f"policies differ: {a_cpu.policy.describe()} vs "
+             f"{a_gpu.policy.describe()}")
+    if not loss_err <= 1e-4:
+        fail(f"losses differ: {a_cpu.losses} vs {a_gpu.losses}")
+    if s_cpu != s_gpu:
+        fail(f"folded streams differ: cpu {s_cpu} cuda {s_gpu}")
 
     # -- serve: qwen2-1.5b at full width -----------------------------------
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -283,19 +448,91 @@ def main() -> int:
         fail(f"flash_cached launches {launches} is not a positive multiple "
              f"of n_layers = {nl}")
 
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # -- adapt: examples/serve_batched.py at qwen2-1.5b's full width --------
+    bb = api.backbone("qwen2-1.5b", preset="full",
+                      batch_size=ADAPT["batch_size"], seq=ADAPT["seq"])
+    session = api.TinyTrainSession(bb, max_way=ADAPT["max_way"], seed=0)
+    # examples/serve_batched.py's profile (4 MB, compute 0.5) selects no
+    # unit at this width: each unit's saved input alone is 18.9 MB
+    profile = api.DeviceProfile(name="edge-lm", mem_kb=4000,
+                                compute_frac=0.5).scaled(mem=500, compute=1.6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.fisher_tapgrads.launches = ops.fisher.launches = 0
+    ops.flash_attention_cached.launches = 0
+    t0 = time.perf_counter()
+    adaptation = session.adapt(task, profile, iters=ADAPT["iters"])
+    torch.cuda.synchronize()
+    adapt_wall = time.perf_counter() - t0
+    adapt_peak = torch.cuda.max_memory_allocated()
+    eng = ServeEngine(cfg, session.params, slots=4, max_len=96, chunk=16)
+    adaptation.fold_into(eng)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab, size=int(rng.integers(4, 16))).astype(np.int32),
+        max_new=12) for i in range(10)]
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    adapt_serve_wall = time.perf_counter() - t0
+    fisher_launches = ops.fisher_tapgrads.launches + ops.fisher.launches
+    adapt_flash_launches = ops.flash_attention_cached.launches
+    rep = eng.last_run_report
+    pol = adaptation.policy
+    kinds = sorted({u.kind for u in pol.units})
+    losses = adaptation.losses
+    print(f"[adapt] qwen2-1.5b bf16 full width, {profile.name} "
+          f"({profile.budget().mem_bytes:.0f} B, compute "
+          f"{profile.compute_frac}), task {task.n_support} support rows "
+          f"of {n_rows}: {pol.describe()}", flush=True)
+    print(f"[adapt] fisher_seconds {adaptation.fisher_seconds:.4f}, "
+          f"train_seconds {adaptation.train_seconds:.4f} "
+          f"({ADAPT['iters']} steps), adapt wall {adapt_wall:.4f} s, peak "
+          f"device memory {adapt_peak} B, host_transfers "
+          f"{adaptation.host_transfers:g}, skipped {adaptation.skipped_steps}, "
+          f"fisher launches {fisher_launches}, memory_report total_bytes "
+          f"{adaptation.memory_report()['total_bytes']}", flush=True)
+    print(f"[adapt] losses {[round(x, 6) for x in losses]}", flush=True)
+    print(f"[adapt] folded engine: {len(reqs)} requests, "
+          f"{sum(len(r.out) for r in reqs)} new tokens in "
+          f"{adapt_serve_wall:.3f} s, {rep['ticks']} ticks, "
+          f"{rep['host_syncs']} host syncs, outcomes {rep['outcomes']}, "
+          f"flash_cached launches {adapt_flash_launches}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"adaptation losses must be finite and fall: {losses}")
+    if adaptation.host_transfers != 2:
+        fail(f"fused adapt made {adaptation.host_transfers} host transfers, "
+             "not 2")
+    if fisher_launches != 2:
+        fail(f"the probe launched the Fisher kernel {fisher_launches} times, "
+             "not once per tap group (2)")
+    if kinds != ["attn", "mlp"]:
+        fail(f"the profile selected {kinds}, not attention and MLP units")
+    if not all(r.done and r.outcome == "done" for r in reqs):
+        fail(f"folded-engine requests not done: "
+             f"{[(r.uid, r.outcome) for r in reqs]}")
+    if adapt_flash_launches <= 0 or adapt_flash_launches % nl:
+        fail(f"the folded engine launched flash_cached "
+             f"{adapt_flash_launches} times")
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_cached",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_cached.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        "launches": launches + adapt_flash_launches,
+        **flash,
+    }, {
+        "name": "fisher_tapgrads",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/fisher.cu",
+        "replaces": "src/repro/kernels/fisher.py:66",
+        "launches": fisher_launches,
+        **fisher,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
-"""Load the JAX package's parameter trees into the port.
+"""Carry the JAX package's trees into the port and back, as numpy.
 
 The JAX package draws weights with ``jax.random``, which torch cannot
 reproduce, so parity runs load the reference's own weights.  The caller
-converts the JAX tree to numpy (``jax.tree_util.tree_map(np.asarray,
-params)``); this module turns that numpy tree into tensors, keeping the
+converts a JAX tree to numpy (``jax.tree_util.tree_map(np.asarray,
+tree)``); this module turns that numpy tree into tensors, keeping the
 ``stacks/g{i}`` grouping and the ``(d_in, d_out)`` layout so ``x @ W``
-matches leaf for leaf.
+matches leaf for leaf.  Delta packs (``{"L{i}": {kind: {weight: ...}}}``)
+and optimiser states (``{"step", "m", "v"}``) cross the same way in both
+directions, so tests compare them leaf for leaf.
 """
 from __future__ import annotations
 
@@ -34,5 +36,19 @@ def params_from_numpy(cfg: ArchConfig, tree: Any, *,
                       device: DeviceLike = "cuda") -> Any:
     """The JAX parameter tree, as numpy arrays, as the port's params."""
     check_supported(cfg)
+    return tree_from_numpy(tree, device=device)
+
+
+def tree_from_numpy(tree: Any, *, device: DeviceLike = "cuda") -> Any:
+    """Any numpy tree (params, delta packs, optimiser states) as tensors."""
     dev = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """A tree of tensors as numpy arrays (bfloat16 as float32, exactly)."""
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(one, tree)

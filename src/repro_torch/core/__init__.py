@@ -1,1 +1,2 @@
-"""Host-side telemetry shared by the adaptation and serving engines."""
+"""TinyTrain core: Fisher probe, Eq. 3 selection, sparse fine-tune, and the
+host-sync telemetry shared by the adaptation and serving engines."""

@@ -7,8 +7,46 @@ tensors lie on a card.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+
+
+def _sum_sq_rows(u: torch.Tensor, mask: Optional[torch.Tensor], scale: float,
+                 mask_norm: bool) -> torch.Tensor:
+    """The Fisher kernel's reduction over rows: u (..., N, C) float32 ->
+    (..., C) = scale · Σ_n m_n² u_n², divided by max(Σ m, 1) when
+    ``mask_norm``.  Rows with m == 0 contribute exactly 0, whatever they
+    hold."""
+    u2 = u * u
+    if mask is not None:
+        m = mask.float()
+        u2 = torch.where((m != 0)[:, None], u2 * (m * m)[:, None], 0.0)
+    out = u2.sum(dim=-2) * scale
+    if mask is not None and mask_norm:
+        out = out / torch.clamp(m.sum(), min=1.0)
+    return out
+
+
+def fisher_ref(a: torch.Tensor, g: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 2: Δ_o = 1/(2N) Σ_n (Σ_d a·g)², a, g (N, D, C) -> (C,) float32.
+
+    With a (N,) ``mask`` the rows weigh m_n² (0 for padding) and the
+    normaliser is the valid count ``max(Σ m, 1)``, so a bucket-padded batch
+    scores like the unpadded one (the JAX package's ``ops.fisher``)."""
+    u = (a.float() * g.float()).sum(dim=1)                     # (N, C)
+    if mask is None:
+        return _sum_sq_rows(u, None, 1.0 / (2.0 * a.shape[0]), False)
+    return _sum_sq_rows(u, mask, 0.5, True)
+
+
+def fisher_tapgrads_ref(g: torch.Tensor, n: float,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 2 from tap gradients: g (L, B, C) is already the inner sum u, so
+    Δ = Σ_b m_b² g² / (2n) -> (L, C) float32, ``n`` the valid-sample
+    count."""
+    return _sum_sq_rows(g.float(), mask, 1.0 / (2.0 * float(n)), False)
 
 
 def flash_attention_cached_ref(

@@ -3,10 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --preset full --requests 8 --slots 8 --max-new 16 --max-len 512
 
+With ``--adapt``, first runs TinyTrain through the façade on a synthetic
+task (Fisher probe, Eq. 3 selection, sparse fine-tune) under the device
+profile ``--profile`` and folds the deltas into the engine before serving,
+as ``examples/serve_batched.py`` does.
+
 Runs on the card unless ``--device cpu``.  Weights are random, from a
 seeded ``torch.Generator``.  The flags of ``repro.launch.serve`` that
 belong to later slices of the port are accepted by name and refused with
-the ROADMAP item that brings them.
+the ROADMAP item that brings them.  (There ``--device`` names the profile;
+here it is the torch device, and ``--profile`` names the profile.)
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .. import configs
+from .. import api, configs
 from ..models import transformer as T
 from ..serving import Request, ServeEngine
 
@@ -29,7 +35,6 @@ LATER_FLAGS = {
     "--page-budget": (True, "12"), "--kv-int8": (False, "12"),
     "--reserve": (True, "12"), "--pressure": (True, "12"),
     "--inject": (True, "13"),
-    "--adapt": (False, "10"), "--adapt-iters": (True, "10"),
     "--personalise": (False, "15"), "--users": (True, "15"),
     "--refresh-cap": (True, "15"),
     "--fleet": (True, "16"),
@@ -61,6 +66,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="torch device (cuda, or cpu for the plain path)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights' generator and the prompts")
+    ap.add_argument("--adapt", action="store_true",
+                    help="TinyTrain-adapt to a synthetic task, fold, serve")
+    ap.add_argument("--adapt-iters", type=int, default=10)
+    ap.add_argument("--profile", default="jetson-nano",
+                    help="device profile preset used with --adapt "
+                         f"({', '.join(sorted(api.PROFILES))})")
     for flag, (takes_value, _) in LATER_FLAGS.items():
         kind = {} if takes_value else {"action": "store_const", "const": True}
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kind)
@@ -79,6 +90,20 @@ def main(argv: Optional[List[str]] = None) -> None:
                       deadline_ticks=args.deadline_ticks,
                       queue_limit=args.queue_limit, device=device)
     rng = np.random.default_rng(args.seed)
+    if args.adapt:
+        bb = api.backbone(args.arch, preset=args.preset, batch_size=48,
+                          seq=64)
+        session = api.TinyTrainSession(bb, params, max_way=8)
+        task = api.sample_lm_task(rng, cfg.vocab, seq=64, max_way=5)
+        profile = api.device_profile(args.profile)
+        adaptation = session.adapt(task, profile, iters=args.adapt_iters)
+        if adaptation.policy.n_units == 0:
+            print(f"[serve] WARNING: {profile.name} budget selected no "
+                  "units; serving base weights unchanged")
+        else:
+            adaptation.fold_into(eng)
+            print(f"[serve] adapted under {profile.name}: "
+                  f"{adaptation.describe()}")
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab,
                                         size=int(rng.integers(4, 24))

@@ -1,9 +1,14 @@
 """Building blocks of the dense transformer: the port of
-``repro.models.layers`` for the serving slice.
+``repro.models.layers``.
 
 Pure functions over explicit parameter dicts in the JAX package's layout:
-weights are ``(d_in, d_out)`` so ``x @ W`` matches.  The channel deltas of
-the sparse update, MLA, MoE and cross-attention arrive with later slices.
+weights are ``(d_in, d_out)`` so ``x @ W`` matches.  ``mlp_apply`` and
+``attention_apply`` take a TinyTrain channel delta (``delta`` plus the
+selected channel indices, as a tensor): the MLP's over d_ff neurons
+(``w_gate``/``w_up`` ``(D, K)``, ``w_down`` ``(K, D)``), attention's over
+query heads (``wq`` ``(D, K·Dh)``, ``wo`` ``(K·Dh, D)``), with the column
+math in ``models.overlay``.  MLA, MoE and cross-attention arrive with
+later slices.
 
 KV caches are updated **in place**: a per-layer cache holds views into the
 layer-stacked cache tensors, and the scatter writes land there, so a
@@ -19,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import overlay as OV
 
 Params = Dict[str, Any]
 
@@ -89,12 +95,25 @@ def _act(act: str, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, act: str,
+              delta: Optional[Params] = None,
+              idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     if act in ("swiglu", "geglu"):
-        h = _act(act, x @ p["w_gate"]) * (x @ p["w_up"])
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        if delta is not None:
+            g = OV.delta_out_cols(g, x, delta["w_gate"], idx)
+            u = OV.delta_out_cols(u, x, delta["w_up"], idx)
+        h = _act(act, g) * u
     else:
-        h = _act(act, x @ p["w_up"])
-    return h @ p["w_down"]
+        h = x @ p["w_up"]
+        if delta is not None:
+            h = OV.delta_out_cols(h, x, delta["w_up"], idx)
+        h = _act(act, h)
+    y = h @ p["w_down"]
+    if delta is not None:
+        y = OV.delta_in_rows(y, h, delta["w_down"], idx)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +217,11 @@ def attention_apply(
     cache: Optional[Params] = None,
     causal: bool = True,
     valid: Optional[torch.Tensor] = None,
+    delta: Optional[Params] = None,
+    head_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Multi-head attention with GQA/MQA, RoPE and a contiguous KV cache.
+    """Multi-head attention with GQA/MQA, RoPE, a contiguous KV cache and
+    an optional channel delta over the query heads ``head_idx``.
 
     Returns (output, updated_cache).  cache = {"k": (B, S_max, Hkv, Dh),
     "v": ..., "len": (B,)}; k/v are written in place and the returned
@@ -216,6 +238,9 @@ def attention_apply(
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if delta is not None:
+        cols = OV.head_cols(head_idx, dh)
+        q = OV.delta_out_cols(q, x, delta["wq"], cols)
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
@@ -256,5 +281,8 @@ def attention_apply(
             kv_len = (lens + s).clamp(max=s_max)
             out = dot_attention(q, ck, cv, causal=False, kv_len=kv_len)
 
-    y = out.reshape(b, s, h * dh) @ p["wo"]
+    out_flat = out.reshape(b, s, h * dh)
+    y = out_flat @ p["wo"]
+    if delta is not None:
+        y = OV.delta_in_rows(y, out_flat, delta["wo"], cols)
     return y, new_cache

@@ -1,5 +1,4 @@
-"""The dense decoder LM of the serving slice: the port of
-``repro.models.transformer``.
+"""The dense decoder LM: the port of ``repro.models.transformer``.
 
 Parameters are nested dicts of tensors in the JAX package's layout: layers
 of one homogeneous group are stacked along a leading ``L`` dim under
@@ -7,17 +6,31 @@ of one homogeneous group are stacked along a leading ``L`` dim under
 ``repro_torch.bridge`` can load a JAX parameter tree leaf for leaf.  Where
 JAX scans a stack, this module loops over its layers in Python.
 
-Serving modes only: ``decode_step`` (one token per slot) and
-``prefill_block`` (a block of prompt tokens per slot at its own cache
-cursor), on contiguous caches updated in place.  The sparse-update train
-and probe modes, MoE, MLA, SSM, encoder-decoder and VLM families arrive
-with later slices (ROADMAP queue 1).
+Modes of :func:`forward_hidden`, as in the JAX package:
+
+- **train** (``deltas`` + ``plan``): the TinyTrain sparse update.  Layers
+  below the policy's backprop horizon run under ``torch.no_grad`` (no
+  saved activations, no backward work); selected layers add their channel
+  deltas; base weights never require grad, so autograd computes gradients
+  for the deltas only.
+- **probe** (``taps``): every unit's activation is scaled by a ones-valued
+  tap, and the gradient of the loss with respect to the taps is Eq. 2's
+  inner sum ``u_{n,o} = Σ_d a_nd·g_nd``.
+- **serve** (``caches``): ``decode_step`` (one token per slot) and
+  ``prefill_block`` (a block of prompt tokens per slot at its own cache
+  cursor), on contiguous caches updated in place.
+
+MoE, MLA, SSM, encoder-decoder and VLM families and the remat option
+arrive with later slices (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import DeviceLike, resolve_device, tree_map
@@ -44,6 +57,31 @@ def ffn_kind(cfg: ArchConfig, layer: int) -> str:
     if cfg.n_experts and layer >= cfg.moe_start_layer:
         return "moe"
     return "mlp"
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitDesc:
+    """One selectable unit: (layer, kind) with its channel axis size."""
+
+    layer: int
+    kind: str  # mlp | attn
+    n_channels: int
+    n_params: int
+    macs_per_token: int
+
+
+def unit_descs(cfg: ArchConfig) -> List[UnitDesc]:
+    """Selectable units with parameter and MAC costs (Eq. 3 terms)."""
+    check_supported(cfg)
+    out: List[UnitDesc] = []
+    d = cfg.d_model
+    for i in range(cfg.n_layers):
+        np_ = d * (cfg.q_dim * 2 + cfg.kv_dim * 2)
+        out.append(UnitDesc(i, "attn", cfg.n_heads, np_, np_))
+        mult = 3 if cfg.act in ("swiglu", "geglu") else 2
+        np_ = mult * d * cfg.d_ff
+        out.append(UnitDesc(i, "mlp", cfg.d_ff, np_, np_))
+    return out
 
 
 def stack_groups(cfg: ArchConfig) -> List[Tuple[str, List[int]]]:
@@ -140,16 +178,59 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, layer: int, *,
                  cache: Optional[Params] = None,
                  valid: Optional[torch.Tensor] = None,
+                 deltas: Optional[Dict[str, Params]] = None,
+                 chan_idx: Optional[Dict[str, torch.Tensor]] = None,
+                 taps: Optional[Dict[str, torch.Tensor]] = None,
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One decoder layer (attention + MLP).  Returns (x, new_cache)."""
+    """One decoder layer (attention + MLP).  Returns (x, new_cache).
+
+    ``deltas``/``chan_idx`` are this layer's delta packs and channel
+    indices by unit kind; ``taps`` its (B, C) probe taps by group
+    (``mixer``, ``ffn``).  The taps are cast to the activation's dtype: the
+    same ones either way, and in bf16 it keeps the residual stream in bf16
+    where the JAX package's float32 mixer tap promotes it to float32."""
+    deltas = deltas or {}
+    chan_idx = chan_idx or {}
+    taps = taps or {}
     h = L.apply_norm(cfg.norm, p["norm1"], x)
     y, c = L.attention_apply(p["attn"], h, cfg, positions=positions,
                              cache=cache["attn"] if cache else None,
-                             valid=valid)
+                             valid=valid, delta=deltas.get("attn"),
+                             head_idx=chan_idx.get("attn"))
+    if "mixer" in taps:
+        # tap over per-head chunks of the output: scale (B, n_heads)
+        tap = taps["mixer"]
+        yb = y.reshape(y.shape[0], y.shape[1], tap.shape[-1], -1)
+        y = (yb * tap[:, None, :, None].to(y.dtype)).reshape(y.shape)
     x = x + y
     h = L.apply_norm(cfg.norm, p["norm2"], x)
-    x = x + L.mlp_apply(p["mlp"], h, cfg.act)
+    if "ffn" in taps:
+        x = x + _mlp_tapped(p["mlp"], h, cfg.act, taps["ffn"])
+    else:
+        x = x + L.mlp_apply(p["mlp"], h, cfg.act, delta=deltas.get("mlp"),
+                            idx=chan_idx.get("mlp"))
     return x, ({"attn": c} if cache is not None else None)
+
+
+def _mlp_tapped(p: Params, x: torch.Tensor, act: str,
+                tap: torch.Tensor) -> torch.Tensor:
+    """MLP with a per-(sample, d_ff-channel) tap scale on the hidden act."""
+    if act in ("swiglu", "geglu"):
+        h = L._act(act, x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = L._act(act, x @ p["w_up"])
+    h = h * tap[:, None, :].to(h.dtype)
+    return h @ p["w_down"]
+
+
+def _layer_chan_idx(plan, chan_idx, lid: int, device) -> Dict[str, Any]:
+    """A selected layer's channel indices by kind: the caller's tensors
+    (``chan_idx``) where given, else the plan's static numpy indices."""
+    ci = (chan_idx or {}).get(lid)
+    if ci is None:
+        ci = {k: torch.as_tensor(v.astype(np.int64), device=device)
+              for k, v in plan.channel_idx.get(lid, {}).items()}
+    return ci
 
 
 def forward_hidden(
@@ -160,22 +241,49 @@ def forward_hidden(
     *,
     caches: Optional[Dict[str, Any]] = None,
     seq_valid: Optional[torch.Tensor] = None,
+    deltas: Optional[Dict[str, Params]] = None,
+    plan=None,  # core.policy.SparseUpdatePolicy
+    taps: Optional[Dict[str, Any]] = None,
+    chan_idx: Optional[Dict[int, Dict[str, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the decoder stacks and the final norm.
+
+    At most one of (``deltas`` + ``plan``), ``taps`` and ``caches`` is
+    active.  ``taps`` is ``{"g{i}": {"mixer": (L, B, H), "ffn": (L, B,
+    d_ff)}}``; each leaf may also be a list of per-layer (B, C) tensors.
+    ``chan_idx`` ({layer: {kind: int tensor}}) overrides the plan's static
+    channel indices, so one compiled step could serve many tasks.
 
     With ``caches`` every layer reads and writes its cache in place and
     the same cache tree is returned with new lengths.  ``seq_valid``
     (B, S) enables block-prefill mode (per-slot writes at each slot's own
     cursor, ragged tails masked)."""
+    if plan is not None and (plan.meta or {}).get("remat"):
+        raise NotImplementedError(
+            "rematerialised backprop spans (policy meta 'remat') arrive "
+            "with ROADMAP queue 1, item 9")
+    selected = set(plan.selected_layers()) if plan is not None else set()
+    horizon = plan.horizon if plan is not None else 0
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
         stack = params["stacks"][f"g{gi}"]
         g_caches = caches.get(f"g{gi}") if caches else None
+        g_taps = taps.get(f"g{gi}") if taps else None
         for j, lid in enumerate(ids):
             lp = tree_map(lambda a: a[j], stack)
             cache_in = (tree_map(lambda a: a[j], g_caches)
                         if g_caches is not None else None)
-            x, nc = _apply_block(cfg, lp, x, positions, lid, cache=cache_in,
-                                 valid=seq_valid)
+            tap = {k: v[j] for k, v in g_taps.items()} if g_taps else None
+            d = ci = None
+            if lid in selected:
+                d = (deltas or {}).get(f"L{lid}")
+                ci = _layer_chan_idx(plan, chan_idx, lid, x.device)
+            # below the backprop horizon: forward only, nothing saved
+            frozen = (torch.no_grad() if plan is not None and lid < horizon
+                      else contextlib.nullcontext())
+            with frozen:
+                x, nc = _apply_block(cfg, lp, x, positions, lid,
+                                     cache=cache_in, valid=seq_valid,
+                                     deltas=d, chan_idx=ci, taps=tap)
             if g_caches is not None:
                 g_caches["attn"]["len"][j] = nc["attn"]["len"]
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
@@ -197,6 +305,47 @@ def embed_tokens(cfg: ArchConfig, params: Params,
 def unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     w = params["unembed"] if not cfg.tie_embeddings else params["embed"].T
     return h @ w
+
+
+def build_inputs(cfg: ArchConfig, params: Params,
+                 batch: Dict[str, torch.Tensor]):
+    """A plain token batch -> (x_embed, positions)."""
+    tokens = batch["tokens"].long()
+    x = embed_tokens(cfg, params, tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+            x.shape[:2])
+    return x, positions
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, deltas=None, plan=None, taps=None,
+            chan_idx=None) -> torch.Tensor:
+    """Next-token cross-entropy (mean over positions with label >= 0)."""
+    x, positions = build_inputs(cfg, params, batch)
+    h, _ = forward_hidden(cfg, params, x, positions, deltas=deltas,
+                          plan=plan, taps=taps, chan_idx=chan_idx)
+    labels = batch["labels"].long()
+    logits = unembed(cfg, params, h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return (((logz - gold) * mask).sum()
+            / torch.clamp(mask.sum(), min=1.0))
+
+
+def pooled_features(cfg: ArchConfig, params: Params,
+                    batch: Dict[str, torch.Tensor], *, deltas=None,
+                    plan=None, taps=None, chan_idx=None) -> torch.Tensor:
+    """Mean-pooled final hidden state: the feature map f(x) ProtoNet uses
+    for few-shot adaptation of an LM backbone (paper Sec. 2.1)."""
+    x, positions = build_inputs(cfg, params, batch)
+    h, _ = forward_hidden(cfg, params, x, positions, deltas=deltas,
+                          plan=plan, taps=taps, chan_idx=chan_idx)
+    mask = (batch["tokens"] >= 0).to(h.dtype)
+    return ((h * mask[..., None]).sum(dim=1)
+            / torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0))
 
 
 # ---------------------------------------------------------------------------

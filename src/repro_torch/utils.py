@@ -1,7 +1,7 @@
 """Small helpers shared across the port."""
 from __future__ import annotations
 
-from typing import Any, Callable, Union
+from typing import Any, Callable, List, Union
 
 import torch
 
@@ -25,10 +25,21 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict/list/tuple tree."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict/list/tuple tree, or to
+    the matching leaves of several trees of the same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nested dict/list/tuple tree, in ``tree_map`` order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]

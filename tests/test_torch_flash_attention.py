@@ -78,6 +78,33 @@ def test_row_without_visible_key_gives_zero():
                                rtol=1e-5, atol=1e-6)
 
 
+def test_empty_cache_block_row_gives_zero():
+    """Block prefill of a slot with nothing in its cache (a free slot): the
+    port's block attention gives 0, the JAX package's non-TPU path
+    (``dot_attention``, -1e30 masking) the uniform average of the stripe.
+    Both are pinned here; 0 is the contract of the JAX package's own
+    oracle (``repro/kernels/ref.py:38`` zeroes fully-masked rows), and such
+    rows are never emitted (ROADMAP queue 3)."""
+    import jax.numpy as jnp
+
+    from repro.models import layers as JL
+    from repro_torch.models import layers as L
+
+    q, k, v = _qkv(seed=4, b=1)
+    zero = np.zeros(1, np.int32)
+    t = torch.from_numpy
+    got = L._block_cached_attention(t(q), t(k), t(v), lens=t(zero),
+                                    n_new=t(zero)).numpy()
+    want = np.asarray(JL._block_cached_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        lens=jnp.asarray(zero), n_new=jnp.asarray(zero)))
+    assert np.all(got == 0.0)
+    np.testing.assert_allclose(
+        want, np.broadcast_to(np.repeat(v.mean(1, keepdims=True), HQ // HKV,
+                                        axis=2), want.shape),
+        rtol=1e-5, atol=1e-6)
+
+
 def _poison_unseen(k, v, q_off, kv_len, window, sq=SQ):
     """Copies of k/v with NaN in every cache row that no query of its
     sample can see: past kv_len, in the causal future of the block, and

@@ -24,7 +24,8 @@ def imported_roots(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
-    assert {"engine.py", "layers.py", "ops.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "layers.py", "ops.py", "chip_smoke.py",
+            "fisher.py", "session.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

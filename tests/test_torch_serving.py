@@ -147,6 +147,30 @@ def test_numerics_stream_does_not_poison_the_next_occupant(ref, block):
     assert got[1] == alone[0] and alone[0][1] == "done"
 
 
+def test_reference_engine_lets_a_numerics_stream_poison_the_next(ref):
+    """The JAX engine on the same weights and requests as the test above:
+    its next request in the slot ends 'numerics' with no tokens, which
+    breaks ``reset_slot_state``'s promise that stale rows are never
+    attended to (``repro/models/transformer.py:818-819``).  A known state
+    of the reference (ROADMAP queue 3); the port keeps the promise."""
+    import jax.numpy as jnp
+
+    tcfg, tp, _ = ref
+    jcfg = dataclasses.replace(jconfigs.get_reduced("qwen2-1.5b"),
+                               tie_embeddings=False)
+    params = dict(tp, unembed=tp["embed"].T.clone(),
+                  embed=tp["embed"].clone())
+    params["embed"][77] = float("nan")
+    jp = jax.tree_util.tree_map(jnp.asarray, bridge.tree_to_numpy(params))
+    eng = JServeEngine(jcfg, jp, slots=1, max_len=32, chunk=4,
+                       prefill_block=8)
+    reqs = [JRequest(uid=0, prompt=np.asarray([1, 2, 3, 4, 5, 77], np.int32),
+                     max_new=4),
+            JRequest(uid=1, prompt=np.asarray([9, 10, 11], np.int32),
+                     max_new=4)]
+    assert streams(eng.run(reqs)) == [([], "numerics"), ([], "numerics")]
+
+
 def test_submit_validates_and_sheds(ref):
     tcfg, tp, _ = ref
     eng = ServeEngine(tcfg, tp, device="cpu", queue_limit=1, **ENGINE)

@@ -11,8 +11,12 @@ tokens each, weights and prompts from seed 0), broken down three ways:
   the profiled window.
 
     python3 benchmarks_torch/serve_profile.py [--trace DIR]
+        [--paging] [--page-budget N] [--kv-int8]
 
-Needs one NVIDIA card.  The profiled run is a second run of the same
+``--paging`` serves the same requests from the paged KV cache (page size
+16, the default budget of 256 pages unless ``--page-budget``; ``--kv-int8``
+stores the pages in int8), phase 7 of ``chip_smoke.py``.  Needs one
+NVIDIA card.  The profiled run is a second run of the same
 requests; the unprofiled run gives the wall times.
 """
 from __future__ import annotations
@@ -38,7 +42,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace", default=None,
                     help="directory for a chrome trace of the profiled run")
+    ap.add_argument("--paging", action="store_true",
+                    help="serve from the paged KV cache")
+    ap.add_argument("--page-budget", type=int, default=None,
+                    help="pages per layer arena (implies --paging; default: "
+                         "the fixed-stripe capacity)")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 pages with per-token scales (implies "
+                         "--paging)")
     args = ap.parse_args()
+    paged = args.paging or args.kv_int8 or args.page_budget is not None
     import numpy as np
     import torch
 
@@ -54,7 +67,9 @@ def main() -> int:
 
     cfg = configs.get_config("qwen2-1.5b")
     params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    eng = ServeEngine(cfg, params, slots=8, max_len=512, chunk=32)
+    kw = (dict(kv_paging=True, page_budget=args.page_budget,
+               kv_int8=args.kv_int8 or None) if paged else {})
+    eng = ServeEngine(cfg, params, slots=8, max_len=512, chunk=32, **kw)
     eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32), max_new=2)])
 
     # host time blocked in reads, and wall time per tick kind
@@ -71,9 +86,9 @@ def main() -> int:
     tick_s = collections.defaultdict(list)
     advance = E.ServeEngine._advance
 
-    def timed_advance(self, st, n_admit, block):
+    def timed_advance(self, plan, block):
         t0 = time.perf_counter()
-        out = advance(self, st, n_admit, block)
+        out = advance(self, plan, block)
         torch.cuda.synchronize()
         tick_s["block" if block else "decode"].append(time.perf_counter() - t0)
         return out
@@ -85,9 +100,14 @@ def main() -> int:
     wall = time.perf_counter() - t0
     adapt._fetch = fetch
     rep = eng.last_run_report
-    print(f"[run] wall {wall:.4f} s, {rep['ticks']} ticks, {rep['new_tokens']} "
-          f"new tokens, {rep['host_syncs']} host syncs, host blocked in "
-          f"_fetch {fetch_s[0]:.4f} s")
+    mem = rep["memory"]
+    layout = (f"paged KV, {mem['n_pages']} pages of {mem['page_size']} rows"
+              f"{', int8' if mem['kv_int8'] else ''}" if mem["kv_paging"]
+              else "contiguous KV")
+    print(f"[run] {layout}: wall {wall:.4f} s, {rep['ticks']} ticks, "
+          f"{rep['new_tokens']} new tokens, {rep['host_syncs']} host syncs, "
+          f"outcomes {rep['outcomes']}, host blocked in _fetch "
+          f"{fetch_s[0]:.4f} s")
 
     E.ServeEngine._advance = timed_advance
     eng.run(requests(cfg, Request, np))

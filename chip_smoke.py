@@ -12,17 +12,34 @@ exits non-zero:
    process per source, all started together;
 3. kernel parity: each kernel against its plain PyTorch version at the
    main paths' shapes (cached flash: f32 at 1e-4 with TF32 off, bf16 at
-   3e-2; Fisher: f32 at 1e-5, bf16 inputs at 2e-2, masked rows holding
-   NaN), then its median time beside its bound, the plain version's time
-   and one PyTorch library call's time (a yardstick the port never calls);
+   3e-2; paged flash: the same tolerances at page sizes 1, 5 and 16, NaN
+   in every page row no query can see, and exactly the cached kernel's
+   output on the same rows laid out contiguously; Fisher: f32 at 1e-5,
+   bf16 inputs at 2e-2, masked rows holding NaN), then its median time
+   beside its bound, the plain version's time and one PyTorch library
+   call's time (a yardstick the port never calls);
 4. small-input checks on qwen2-smoke in f32, card against the plain path
-   on the CPU: the serving engine's greedy streams, and TinyTrain's
-   adaptation (the same policy, losses within 1e-4, the same streams from
-   the engine with the deltas folded in);
+   on the CPU: the serving engine's greedy streams (contiguous, paged, and
+   paged under half the page budget with at least one requeue), and
+   TinyTrain's adaptation (the same policy, losses within 1e-4, the same
+   streams from the engine with the deltas folded in);
 5. serve: qwen2-1.5b at its published width in bf16 (random weights from
    a seeded generator), 8 requests through ``ServeEngine``; every request
    must end ``done`` with 16 tokens, and the cached flash kernel's launch
    count over the run must be a positive multiple of the layer count;
+7. paged serve, on phase 5's weights and requests: ``kv_paging=True``,
+   page size 16, the default budget (256 pages); every request ``done``
+   with 16 tokens, streams identical to phase 5's, the paged flash kernel
+   launched a positive multiple of 28 times and the cached one never,
+   and at least the fixed-stripe bytes in pages;
+8. pressure: the same model at half the page budget (128 pages) and
+   eight longer requests whose pages outgrow it; every request ``done``,
+   at least one preemption with requeue, the paged kernel launched; the
+   streams that equal an unpressured run of the same requests are
+   counted, not gated (a recompute in bf16 may round otherwise);
+9. int8 pages, phase 5's requests: every request ``done`` with 16 tokens
+   and 59,637,760 bytes of pages and scales; block prefill gathers the
+   int8 pages and runs the cached kernel;
 6. adapt: the twin of ``examples/serve_batched.py`` at qwen2-1.5b's full
    width in bf16: ``TinyTrainSession.adapt`` (Fisher probe through the
    Fisher kernel, Eq. 3 selection, 10 fused fine-tune steps) under the
@@ -34,8 +51,9 @@ exits non-zero:
    fall, two host transfers, two Fisher launches (one per tap group), the
    flash kernel launched, every request ``done``.
 
-The kernel launch counts are set to 0 just before each main path (phases
-5 and 6) and read just after.  The last three lines are the card's
+Phases 7 to 9 run right after phase 5, on its weights.  The kernel launch
+counts are set to 0 just before each main path (phases 5 to 9) and read
+just after.  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -63,6 +81,13 @@ Q_OFFSET = [0, 0, 37, 100, 255, 300, 504, 128]
 KV_LEN = [0, 8, 40, 108, 263, 305, 512, 136]
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 FISHER_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+PAGE_SIZE = 16        # cfg.kv_page_size: the paged serve's page size
+DEFAULT_PAGES = 256   # the default budget: 8 slots x ceil(512 / 16)
+# phase 8: eight requests of 160-320 prompt tokens and 48 new tokens each
+# need ceil((P + 48) / 16) = 13 to 23 pages at their ends, about 144 in
+# all for this seed (145), against a pool of 128; admission prices only the
+# prompts (10 to 20 pages each), so growth runs the pool dry mid-stream
+PRESSURE = dict(pages=128, lo=160, hi=321, max_new=48, seed=3)
 # the adaptation slice: examples/serve_batched.py at qwen2-1.5b's width
 ADAPT = dict(batch_size=48, seq=64, max_way=8, task_way=5, pad=48, iters=10)
 
@@ -131,6 +156,34 @@ def flash_work(q_offset, kv_len, sq, hq, hkv, d, elt, window):
     return nbytes, 4 * d * hq * keys
 
 
+def page_table(kv_len, ps, mp, n_pages, gen, device):
+    """A (B, mp) int32 table over a randomly permuted arena of ``n_pages``
+    pages: sample b maps ceil(kv_len[b] / ps) pages, the rest is -1."""
+    import torch
+
+    perm = torch.randperm(n_pages, generator=gen, device=device).tolist()
+    table = torch.full((len(kv_len), mp), -1, dtype=torch.int32)
+    nxt = 0
+    for b, n in enumerate(kv_len):
+        used = -(-int(n) // ps)
+        table[b, :used] = torch.tensor(perm[nxt:nxt + used])
+        nxt += used
+    return table.to(device)
+
+
+def fill_pages(arena, x, table, rows):
+    """Copy sample b's logical rows [0, rows[b]) of contiguous ``x`` (B,
+    S, Hkv, D) into its pages of ``arena`` (n_pages, ps, Hkv, D), in
+    place; every other row of the arena keeps what it held."""
+    ps = arena.shape[1]
+    tab = table.tolist()
+    for b, n in enumerate(rows):
+        for j in range(-(-int(n) // ps)):
+            m = min(ps, int(n) - j * ps)
+            arena[tab[b][j], :m] = x[b, j * ps:j * ps + m]
+    return arena
+
+
 def main() -> int:
     try:
         import torch
@@ -151,10 +204,11 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch import api, configs
-    from repro_torch.kernels import build, flash_attention, ops
+    from repro_torch.kernels import build, flash_attention, flash_paged, ops
     from repro_torch.kernels import fisher as fisher_kernel
     from repro_torch.kernels.ref import (
         fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
+        flash_attention_paged_ref,
     )
     from repro_torch.models import transformer as T
     from repro_torch.serving import Request, ServeEngine
@@ -262,6 +316,117 @@ def main() -> int:
           f"sdpa {library_ms:.4f} ms", flush=True)
     flash = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
              "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": worst}
+
+    # -- paged flash kernel: parity at the paged serve's shapes ---------------
+    # the cached kernel's cursors and rows, laid out in pages of 1, 5 and 16
+    # rows over a randomly permuted arena with unmapped tails
+    p_worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
+        cached = ops.flash_attention_cached(q, k, v, q_offset=qo, kv_len=kl)
+        for ps in (1, 5, PAGE_SIZE):
+            mp = -(-Sk // ps)
+            n_pages = sum(-(-n // ps) for n in KV_LEN) + 7
+            table = page_table(KV_LEN, ps, mp, n_pages, gen, dev)
+            shape = (n_pages, ps, Hkv, D)
+            kp = fill_pages(torch.randn(shape, generator=gen, device=dev)
+                            .to(dtype), k, table, KV_LEN)
+            vp = fill_pages(torch.randn(shape, generator=gen, device=dev)
+                            .to(dtype), v, table, KV_LEN)
+            got = ops.flash_attention_paged(q, kp, vp, table, q_offset=qo,
+                                            kv_len=kl)
+            want = flash_attention_paged_ref(q, kp, vp, table, q_offset=qo,
+                                             kv_len=kl)
+            # NaN in every arena row, but the rows some query can see
+            seen = [min(n, o + Sq) for o, n in zip(Q_OFFSET, KV_LEN)]
+            nan = torch.full(shape, float("nan"), device=dev).to(dtype)
+            pk = fill_pages(nan.clone(), k, table, seen)
+            pv = fill_pages(nan, v, table, seen)
+            poisoned = ops.flash_attention_paged(q, pk, pv, table,
+                                                 q_offset=qo, kv_len=kl)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            vs_cached = (got.float() - cached.float()).abs().max().item()
+            zero_row = got[0].float().abs().max().item()
+            print(f"[parity] flash_paged {dname} page_size={ps} ({mp} table "
+                  f"columns): max abs err {err:.3g} (tol {TOL[dname]:g}); "
+                  f"max abs diff vs flash_cached on the same rows "
+                  f"{vs_cached:g} (gate 0.0); kv_len=0 row max {zero_row:g}; "
+                  f"NaN in unseen rows: "
+                  f"{'output unchanged' if torch.equal(poisoned, got) else 'OUTPUT CHANGED'}",
+                  flush=True)
+            if not math.isfinite(err) or err > TOL[dname]:
+                fail(f"flash_paged {dname} page_size={ps} error {err}")
+            if not torch.equal(got, cached):
+                fail(f"flash_paged {dname} page_size={ps} differs from "
+                     f"flash_cached on the same rows by {vs_cached}")
+            if zero_row != 0.0:
+                fail("a kv_len = 0 row must give 0")
+            if not torch.equal(poisoned, got):
+                fail(f"flash_paged {dname} page_size={ps}: a NaN in a row no "
+                     "query can see reached the output")
+            p_worst = max(p_worst, err)
+
+    # time at the paged serve's block-prefill shapes in bf16: page size 16,
+    # 32 table columns over a permuted arena of the default 256 pages, one
+    # arena per layer (28 x 4 MiB > the 50 MB L2) cycled as a tick does
+    mp = Sk // PAGE_SIZE
+    table = page_table(KV_LEN, PAGE_SIZE, mp, DEFAULT_PAGES, gen, dev)
+    arena = (nl, DEFAULT_PAGES, PAGE_SIZE, Hkv, D)
+    kps = torch.randn(arena, generator=gen, device=dev).to(torch.bfloat16)
+    vps = torch.randn(arena, generator=gen, device=dev).to(torch.bfloat16)
+    p_entry = flash_paged._entry()
+    it["i"] = 0
+
+    def pages():
+        i = it["i"] = (it["i"] + 1) % nl
+        return kps[i], vps[i]
+
+    def run_paged():
+        kp, vp = pages()
+        err = p_entry(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                      out.data_ptr(), table.data_ptr(), qo.data_ptr(),
+                      kl.data_ptr(), B, Sq, Hq, Hkv, D, DEFAULT_PAGES,
+                      PAGE_SIZE, mp, 1, stream)
+        if err:
+            fail(f"flash_paged_fwd returned cudaError {err}")
+
+    def run_paged_plain():
+        kp, vp = pages()
+        flash_attention_paged_ref(q, kp, vp, table, q_offset=qo, kv_len=kl)
+
+    rows_ok = (table >= 0).repeat_interleave(PAGE_SIZE, dim=1)  # (B, 512)
+    gather_idx = table.long().clamp(min=0)
+
+    def run_paged_library():
+        # a gather of the pages into the logical view, then SDPA
+        kp, vp = pages()
+        kk = kp[gather_idx].reshape(B, Sk, Hkv, D).transpose(1, 2)
+        vv = vp[gather_idx].reshape(B, Sk, Hkv, D).transpose(1, 2)
+        F.scaled_dot_product_attention(qt, kk, vv,
+                                       attn_mask=mask & rows_ok[:, None, None],
+                                       enable_gqa=True)
+
+    p_ms = time_ms(run_paged, 4 * nl)
+    p_plain_ms = time_ms(run_paged_plain, nl)
+    p_library_ms = time_ms(run_paged_library, 4 * nl)
+    nbytes, nops = flash_work(Q_OFFSET, KV_LEN, Sq, Hq, Hkv, D, 2, 0)
+    nbytes += table.numel() * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS["bfloat16"]
+    p_bound_ms = 1e3 * max(t_bytes, t_ops)
+    p_bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[time] flash_paged bf16 B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
+          f"page_size={PAGE_SIZE} table {B}x{mp} over {DEFAULT_PAGES} pages: "
+          f"kernel {p_ms:.4f} ms, bound {p_bound_ms:.5f} ms ({p_bound_by}: "
+          f"{nbytes} B, {nops} ops), plain {p_plain_ms:.4f} ms, page gather "
+          f"+ sdpa {p_library_ms:.4f} ms", flush=True)
+    paged = {"ms": p_ms, "plain_ms": p_plain_ms, "library_ms": p_library_ms,
+             "bound_ms": p_bound_ms, "bound_by": p_bound_by,
+             "max_abs_err": p_worst}
+    del kps, vps
 
     # -- Fisher kernel: parity at the adaptation path's shapes ---------------
     # the main path's tap-gradient groups: (layers, support rows, channels)
@@ -380,6 +545,37 @@ def main() -> int:
           flush=True)
     if not same:
         fail(f"streams differ: cpu {streams['cpu']} cuda {streams['cuda']}")
+    # the paged engine: fp pages, then half the page budget (16 pages of 8
+    # rows for 4 slots of 32; 8 short prompts that generate 16 tokens each
+    # outgrow 8 pages, so streams are preempted and requeued)
+    rng = np.random.default_rng(1)
+    short = [rng.integers(0, small.vocab, int(rng.integers(3, 9)))
+             .astype(np.int32) for _ in range(8)]
+    paged_cases = {
+        "paged": (dict(slots=3, max_len=48, chunk=4, kv_paging=True,
+                       kv_page_size=8), prompts, 6),
+        "paged, half the pages": (dict(slots=4, max_len=32, chunk=8,
+                                       kv_paging=True, kv_page_size=8,
+                                       page_budget=8), short, 16),
+    }
+    for what, (kw, ps_, max_new) in paged_cases.items():
+        got, tally = {}, {}
+        for where, params in (("cpu", sp_cpu), ("cuda", sp_gpu)):
+            eng = ServeEngine(small, params, device=where, **kw)
+            reqs = [Request(uid=i, prompt=p, max_new=max_new)
+                    for i, p in enumerate(ps_)]
+            eng.run(reqs)
+            got[where] = [(r.out, r.outcome) for r in reqs]
+            tally[where] = eng.last_run_report["outcomes"]
+        same = got["cpu"] == got["cuda"]
+        print(f"[check] qwen2-smoke f32 {what} greedy streams, card vs CPU "
+              f"plain path: {'identical' if same else 'DIFFERENT'} over "
+              f"{len(ps_)} requests (outcomes {tally['cuda']})", flush=True)
+        if not same or tally["cpu"] != tally["cuda"]:
+            fail(f"{what} streams differ: cpu {got['cpu']} {tally['cpu']} "
+                 f"cuda {got['cuda']} {tally['cuda']}")
+        if "page_budget" in kw and tally["cuda"].get("requeued", 0) < 1:
+            fail(f"{what}: no stream was requeued ({tally['cuda']})")
 
     # TinyTrain on qwen2-smoke: the card (Fisher kernel, flash kernel in
     # the folded engine) against the plain path on the CPU, same weights
@@ -447,7 +643,141 @@ def main() -> int:
     if launches <= 0 or launches % nl:
         fail(f"flash_cached launches {launches} is not a positive multiple "
              f"of n_layers = {nl}")
+    phase5 = [list(r.out) for r in reqs]
+    prompts5 = [r.prompt for r in reqs]
+    del eng
 
+    def full_serve(reqs, **kw):
+        """Serve ``reqs`` through a fresh engine on phase 5's weights: a
+        warm-up request, then the kernel counts set to 0, the run, and the
+        counts read just after.  Returns (engine, wall seconds, paged
+        launches, cached launches)."""
+        eng = ServeEngine(cfg, params, slots=8, max_len=512, chunk=32, **kw)
+        eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
+                         max_new=2)])
+        torch.cuda.synchronize()
+        ops.flash_attention_paged.launches = 0
+        ops.flash_attention_cached.launches = 0
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        return (eng, time.perf_counter() - t0,
+                ops.flash_attention_paged.launches,
+                ops.flash_attention_cached.launches)
+
+    def all_done(reqs, n_new, what):
+        bad = [(r.uid, r.outcome, len(r.out)) for r in reqs
+               if r.outcome != "done" or len(r.out) != n_new
+               or not all(0 <= t < cfg.vocab for t in r.out)]
+        if bad:
+            fail(f"{what}: requests not done with {n_new} in-vocabulary "
+                 f"tokens: {bad}")
+
+    # -- paged serve: phase 5's requests on a paged KV cache ------------------
+    row_bytes = 2 * cfg.n_kv_heads * cfg.head_dim  # K and V of one row, bf16
+    stripe_bytes = DEFAULT_PAGES * PAGE_SIZE * nl * row_bytes * 2
+    reqs = [Request(uid=i, prompt=p, max_new=16)
+            for i, p in enumerate(prompts5)]
+    eng, wall, paged_launches, cached_in_paged = full_serve(
+        reqs, kv_paging=True, kv_page_size=PAGE_SIZE)
+    rep, mem = eng.last_run_report, eng.last_run_report["memory"]
+    table_bytes = sum(g["attn"]["page_table"].numel() * 4
+                      for g in eng.caches.values())
+    same = sum(list(r.out) == want for r, want in zip(reqs, phase5))
+    # what a stream holds at its end, in pages, against a max_len stripe
+    held = statistics.mean(-(-(len(r.prompt) + len(r.out)) // PAGE_SIZE)
+                           for r in reqs)
+    stripe = DEFAULT_PAGES // 8  # pages in one slot's 512-row stripe
+    print(f"[paged] qwen2-1.5b bf16 full width, 8 slots, max_len 512, chunk "
+          f"32, page size {PAGE_SIZE}, {mem['n_pages']} pages: "
+          f"{sum(len(r.out) for r in reqs)} new tokens in {wall:.3f} s = "
+          f"{sum(len(r.out) for r in reqs) / wall:.2f} tok/s, {rep['ticks']} "
+          f"ticks, {rep['host_syncs']} host syncs, peak {rep['peak_resident']} "
+          f"resident; streams equal to phase 5's: {same} of {len(reqs)}; "
+          f"kv_cache_bytes {mem['kv_cache_bytes']} (pages "
+          f"{mem['page_bytes'] * mem['n_pages']}, fixed-stripe bytes "
+          f"{stripe_bytes}, page table {table_bytes}); a stream holds "
+          f"{held:.2f} pages at its end, {held * mem['page_bytes']:.0f} B = "
+          f"{held / stripe:.3f}x a {stripe}-page stripe; flash_paged launches "
+          f"{paged_launches}, flash_cached launches {cached_in_paged}",
+          flush=True)
+    all_done(reqs, 16, "paged serve")
+    if same != len(reqs):
+        fail("the paged serve's streams differ from phase 5's")
+    if paged_launches <= 0 or paged_launches % nl:
+        fail(f"flash_paged launches {paged_launches} is not a positive "
+             f"multiple of n_layers = {nl}")
+    if cached_in_paged:
+        fail(f"fp pages fell through to flash_cached ({cached_in_paged} "
+             "launches)")
+    if mem["kv_cache_bytes"] < stripe_bytes:
+        fail(f"kv_cache_bytes {mem['kv_cache_bytes']} below the fixed-stripe "
+             f"bytes {stripe_bytes}")
+    del eng
+
+    # -- pressure: half the pages, streams outgrow the pool -------------------
+    rng = np.random.default_rng(PRESSURE["seed"])
+    lens8 = rng.integers(PRESSURE["lo"], PRESSURE["hi"], 8)
+    prompts8 = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+                for n in lens8]
+    demand = sum(-(-(int(n) + PRESSURE["max_new"]) // PAGE_SIZE)
+                 for n in lens8)
+    admit = sum(-(-int(n) // PAGE_SIZE) for n in lens8)
+
+    def requests8():
+        return [Request(uid=i, prompt=p, max_new=PRESSURE["max_new"])
+                for i, p in enumerate(prompts8)]
+
+    reqs = requests8()
+    eng, wall, pressure_launches, _ = full_serve(
+        reqs, kv_paging=True, kv_page_size=PAGE_SIZE,
+        page_budget=PRESSURE["pages"])
+    rep = eng.last_run_report
+    del eng
+    roomy = requests8()
+    ServeEngine(cfg, params, slots=8, max_len=512, chunk=32, kv_paging=True,
+                kv_page_size=PAGE_SIZE).run(roomy)
+    same = sum(list(a.out) == list(b.out) for a, b in zip(reqs, roomy))
+    new_tokens = sum(len(r.out) for r in reqs)
+    print(f"[pressure] {PRESSURE['pages']} pages of {PAGE_SIZE} rows (half of "
+          f"{DEFAULT_PAGES}); prompts {sorted(int(n) for n in lens8)} + "
+          f"{PRESSURE['max_new']} new tokens need {demand} pages at their "
+          f"ends ({admit} at admission): {new_tokens} new tokens in "
+          f"{wall:.3f} s = {new_tokens / wall:.2f} tok/s, {rep['ticks']} "
+          f"ticks, {rep['host_syncs']} host syncs, outcomes "
+          f"{rep['outcomes']}, preemptions {sum(r.preempts for r in reqs)}, "
+          f"peak {rep['peak_resident']} resident where the same pages hold "
+          f"{PRESSURE['pages'] // stripe} fixed stripes; streams equal to an "
+          f"unpressured run: {same} of {len(reqs)} (reported, not gated); "
+          f"flash_paged launches {pressure_launches}", flush=True)
+    all_done(reqs, PRESSURE["max_new"], "pressure")
+    if rep["outcomes"].get("requeued", 0) < 1:
+        fail(f"half the pages preempted nothing: {rep['outcomes']}")
+    if pressure_launches <= 0:
+        fail("the pressure phase never launched flash_paged")
+
+    # -- int8 pages: phase 5's requests ---------------------------------------
+    int8_bytes = DEFAULT_PAGES * PAGE_SIZE * nl * 2 * (
+        cfg.n_kv_heads * cfg.head_dim + 4)  # int8 codes + a f32 scale a row
+    reqs = [Request(uid=i, prompt=p, max_new=16)
+            for i, p in enumerate(prompts5)]
+    eng, wall, paged_in_int8, int8_launches = full_serve(
+        reqs, kv_paging=True, kv_page_size=PAGE_SIZE, kv_int8=True)
+    rep, mem = eng.last_run_report, eng.last_run_report["memory"]
+    pages_bytes = mem["page_bytes"] * mem["n_pages"]
+    same = sum(list(r.out) == want for r, want in zip(reqs, phase5))
+    print(f"[int8] int8 pages + per-row scales {pages_bytes} B (expected "
+          f"{int8_bytes}; bf16 pages {stripe_bytes} B: "
+          f"{pages_bytes / stripe_bytes:.3f}x), kv_cache_bytes "
+          f"{mem['kv_cache_bytes']}: {sum(len(r.out) for r in reqs)} new "
+          f"tokens in {wall:.3f} s = {sum(len(r.out) for r in reqs) / wall:.2f}"
+          f" tok/s, {rep['ticks']} ticks; streams equal to phase 5's: {same} "
+          f"of {len(reqs)} (reported, not gated); flash_cached launches "
+          f"{int8_launches} (block prefill over the gathered int8 view), "
+          f"flash_paged launches {paged_in_int8}", flush=True)
+    all_done(reqs, 16, "int8 pages")
+    if pages_bytes != int8_bytes:
+        fail(f"int8 pages hold {pages_bytes} B, not {int8_bytes}")
     del eng, params
     torch.cuda.empty_cache()
 
@@ -524,8 +854,15 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_cached.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
-        "launches": launches + adapt_flash_launches,
+        "launches": launches + int8_launches + adapt_flash_launches,
         **flash,
+    }, {
+        "name": "flash_attention_paged",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_paged.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:157",
+        "launches": paged_launches + pressure_launches,
+        **paged,
     }, {
         "name": "fisher_tapgrads",
         "route": "cuda",

@@ -7,7 +7,8 @@ tree)``); this module turns that numpy tree into tensors, keeping the
 ``stacks/g{i}`` grouping and the ``(d_in, d_out)`` layout so ``x @ W``
 matches leaf for leaf.  Delta packs (``{"L{i}": {kind: {weight: ...}}}``)
 and optimiser states (``{"step", "m", "v"}``) cross the same way in both
-directions, so tests compare them leaf for leaf.
+directions, so tests compare them leaf for leaf.  Paged KV stores cross
+with :func:`page_store_from_numpy`, which keeps the port's arena layout.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from .models.api import ArchConfig
 from .models.transformer import check_supported
+from .serving import paging as PG
 from .utils import DeviceLike, resolve_device, tree_map
 
 
@@ -52,3 +54,18 @@ def tree_to_numpy(tree: Any) -> Any:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree_map(one, tree)
+
+
+def page_store_from_numpy(store: Any, *, device: DeviceLike = "cuda") -> Any:
+    """A JAX page store (``{"pages": (n_pages, page_size, *feat)[,
+    "scale"]}`` as numpy) as the port's, laid out as
+    ``paging.store_init`` lays it out (with the spare row behind the
+    arena that dropped writes go to)."""
+    pages = np.asarray(store["pages"])
+    spec = PG.PagingSpec(page_size=pages.shape[1], n_pages=pages.shape[0],
+                         max_pages=1, int8=pages.dtype == np.int8)
+    dtype = tensor_from_numpy(pages[:0], torch.device("cpu")).dtype
+    out = PG.store_init(spec, pages.shape[2:], dtype, resolve_device(device))
+    for name, t in out.items():
+        t.copy_(tensor_from_numpy(store[name], t.device))
+    return out

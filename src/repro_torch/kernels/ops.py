@@ -12,7 +12,11 @@ import torch
 
 from .fisher import fisher_cuda
 from .flash_attention import flash_attention_cached_cuda
-from .ref import fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref
+from .flash_paged import flash_attention_paged_cuda
+from .ref import (
+    fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
+    flash_attention_paged_ref,
+)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -91,3 +95,21 @@ def flash_attention_cached(q, k, v, *, q_offset, kv_len, causal=True,
 
 
 flash_attention_cached.launches = 0
+
+
+def flash_attention_paged(q, k_pages, v_pages, page_table, *, q_offset,
+                          kv_len) -> torch.Tensor:
+    """Causal cached block attention over a paged arena: sample b's cache
+    row r lives in page ``page_table[b, r // page_size]`` (see
+    ``ref.flash_attention_paged_ref`` for the contract)."""
+    if not _on_card(q):
+        return flash_attention_paged_ref(q, k_pages, v_pages, page_table,
+                                         q_offset=q_offset, kv_len=kv_len)
+    out = flash_attention_paged_cuda(
+        q, k_pages, v_pages, page_table.to(torch.int32).contiguous(),
+        q_offset=q_offset.to(torch.int32), kv_len=kv_len.to(torch.int32))
+    flash_attention_paged.launches += 1
+    return out
+
+
+flash_attention_paged.launches = 0

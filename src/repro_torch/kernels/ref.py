@@ -72,6 +72,15 @@ def flash_attention_cached_ref(
     stream in the slot) cannot reach the output.  Returns (B, Sq, Hq, D)
     in q's dtype.
     """
+    return _attend_rows(q, k, v, q_offset=q_offset, kv_len=kv_len,
+                        causal=causal, window=window)
+
+
+def _attend_rows(q, k, v, *, q_offset, kv_len, causal, window,
+                 row_ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The cached attention over logical cache rows k/v (B, Sk, Hkv, D);
+    ``row_ok`` (B, Sk) marks the rows that exist (a row behind an unmapped
+    page does not), and a row that does not is masked and never read."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -81,6 +90,8 @@ def flash_attention_cached_ref(
     seen = kpos[:, 0] < hi[:, None]                              # (B, Sk)
     if window > 0:
         seen = seen & (kpos[:, 0] > q_offset[:, None] - window)
+    if row_ok is not None:
+        seen = seen & row_ok
     seen = seen[:, :, None, None]
 
     def rows(x):
@@ -91,6 +102,8 @@ def flash_attention_cached_ref(
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(d)
     qpos = q_offset[:, None] + torch.arange(sq, device=q.device)[None, :]
     mask = kpos < kv_len[:, None, None]
+    if row_ok is not None:
+        mask = mask & row_ok[:, None, :]
     if causal:
         mask = mask & (kpos <= qpos[..., None])
     if window > 0:
@@ -103,3 +116,31 @@ def flash_attention_cached_ref(
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     out = out / l.clamp_min(1e-30).permute(0, 2, 1, 3)
     return out.to(q.dtype)
+
+
+def flash_attention_paged_ref(
+    q: torch.Tensor,           # (B, Sq, Hq, D)
+    k_pages: torch.Tensor,     # (n_pages, page_size, Hkv, D)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, max_pages) int; -1 = unmapped
+    *,
+    q_offset: torch.Tensor,    # (B,) int
+    kv_len: torch.Tensor,      # (B,) int
+) -> torch.Tensor:
+    """Causal cached block attention over a paged arena, the paged CUDA
+    kernel's contract: logical cache row ``r`` of sample ``b`` is row
+    ``r % page_size`` of page ``page_table[b, r // page_size]``; a row
+    behind a -1 entry is masked and never read.  Otherwise the contract
+    of :func:`flash_attention_cached_ref` with ``causal=True`` and no
+    window: float32 statistics, a row that sees no key gives 0, and rows
+    no query can see (stale rows of a recycled page) never reach the
+    output.  Returns (B, Sq, Hq, D) in q's dtype."""
+    n_pages, ps = k_pages.shape[:2]
+    b, mp = page_table.shape
+    table = page_table.long()
+    page = table.clamp(0, n_pages - 1)
+    k = k_pages[page].reshape((b, mp * ps) + tuple(k_pages.shape[2:]))
+    v = v_pages[page].reshape((b, mp * ps) + tuple(v_pages.shape[2:]))
+    row_ok = (table >= 0).repeat_interleave(ps, dim=1)        # (B, cap)
+    return _attend_rows(q, k, v, q_offset=q_offset, kv_len=kv_len,
+                        causal=True, window=0, row_ok=row_ok)

@@ -3,6 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --preset full --requests 8 --slots 8 --max-new 16 --max-len 512
 
+With ``--paging`` the engine serves from a paged KV cache (page pool,
+reserve-as-you-go growth, preemption and requeue); ``--pressure FRAC``
+grants that fraction of the fixed-stripe page capacity, and ``--kv-int8``
+stores the pages in int8 with per-token scales:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --preset full --requests 8 --slots 8 --max-len 512 --paging \
+        --pressure 0.5
+
 With ``--adapt``, first runs TinyTrain through the façade on a synthetic
 task (Fisher probe, Eq. 3 selection, sparse fine-tune) under the device
 profile ``--profile`` and folds the deltas into the engine before serving,
@@ -31,9 +40,6 @@ from ..serving import Request, ServeEngine
 LATER_FLAGS = {
     "--temperature": (True, "11.1"), "--top-k": (True, "11.1"),
     "--eager": (False, "11.1"),
-    "--paging": (False, "12"), "--page-size": (True, "12"),
-    "--page-budget": (True, "12"), "--kv-int8": (False, "12"),
-    "--reserve": (True, "12"), "--pressure": (True, "12"),
     "--inject": (True, "13"),
     "--personalise": (False, "15"), "--users": (True, "15"),
     "--refresh-cap": (True, "15"),
@@ -56,6 +62,23 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="prompt tokens ingested per prefilling slot per "
                          "tick (default: the arch's serve_prefill_block; "
                          "1 = token-by-token prefill)")
+    ap.add_argument("--paging", action="store_true",
+                    help="paged KV cache: pages from one pool instead of "
+                         "fixed per-slot stripes")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per KV page (default: arch kv_page_size)")
+    ap.add_argument("--page-budget", type=int, default=None,
+                    help="total pages per layer arena (default: the "
+                         "fixed-stripe capacity slots*ceil(max_len/page))")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="store KV pages in int8 with per-token scales")
+    ap.add_argument("--reserve", default=None,
+                    choices=["asyougo", "worstcase"],
+                    help="page reservation discipline (default: the arch's "
+                         "kv_reserve; asyougo grows page by page)")
+    ap.add_argument("--pressure", type=float, default=None, metavar="FRAC",
+                    help="oversubscribe the page pool to FRAC of the "
+                         "fixed-stripe capacity (e.g. 0.5); implies --paging")
     ap.add_argument("--deadline-ticks", type=int, default=None,
                     help="per-request resident-tick budget; expired "
                          "requests end with outcome='expired'")
@@ -85,8 +108,19 @@ def main(argv: Optional[List[str]] = None) -> None:
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
+    page_budget, paging = args.page_budget, args.paging
+    if args.pressure is not None:
+        paging = True
+        ps = args.page_size or cfg.kv_page_size
+        stripe = args.slots * (-(-args.max_len // ps))
+        page_budget = max(1, int(stripe * args.pressure))
+        print(f"[serve] pressure {args.pressure}x: {page_budget} pages "
+              f"(fixed-stripe capacity {stripe})")
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                       chunk=args.chunk, prefill_block=args.prefill_block,
+                      kv_paging=paging or None, kv_page_size=args.page_size,
+                      kv_int8=args.kv_int8 or None, page_budget=page_budget,
+                      reserve=args.reserve,
                       deadline_ticks=args.deadline_ticks,
                       queue_limit=args.queue_limit, device=device)
     rng = np.random.default_rng(args.seed)
@@ -128,11 +162,19 @@ def main(argv: Optional[List[str]] = None) -> None:
     if lost:
         raise SystemExit(f"[serve] ENGINE ERROR: requests {lost} reached no "
                          "terminal outcome")
-    mem = rep["memory"]
-    print(f"[serve] fixed-stripe KV: {mem['kv_cache_bytes'] / 2**20:.2f} MiB "
-          f"across {args.slots} slots "
-          f"({mem['kv_bytes_per_stream'] / 2**10:.1f} KiB/stream), peak "
-          f"{rep['peak_resident']} resident streams")
+    mem, peak = rep["memory"], rep["peak_resident"]
+    if mem["kv_paging"]:
+        print(f"[serve] paged KV: {mem['kv_cache_bytes'] / 2**20:.2f} MiB "
+              f"({'int8' if mem['kv_int8'] else cfg.dtype} pages, "
+              f"{mem['page_size']} tok/page, {mem['n_pages']} pages/layer, "
+              f"{mem['page_bytes']} B/page), peak {peak} resident streams, "
+              f"worst-case {mem['kv_bytes_per_stream'] / 2**10:.1f} "
+              "KiB/stream")
+    else:
+        print(f"[serve] fixed-stripe KV: {mem['kv_cache_bytes'] / 2**20:.2f} "
+              f"MiB across {args.slots} slots "
+              f"({mem['kv_bytes_per_stream'] / 2**10:.1f} KiB/stream), peak "
+              f"{peak} resident streams")
     if any(r.truncated for r in reqs):
         print(f"[serve] {sum(r.truncated for r in reqs)} requests truncated "
               f"at max_len={args.max_len}")

@@ -117,7 +117,7 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA / MQA, contiguous KV cache)
+# Attention (GQA / MQA, contiguous or paged KV cache)
 # ---------------------------------------------------------------------------
 
 
@@ -208,6 +208,35 @@ def _block_cached_attention(
         q, ck, cv, q_offset=lens, kv_len=lens + n_new, causal=True)
 
 
+def _paged_block_attention(
+    q: torch.Tensor,     # (B, S, H, D) query block
+    kst: Params,         # paged K/V stores ({"pages", ...}), rows written
+    vst: Params,
+    table: torch.Tensor,  # (B, max_pages) page table
+    spec,                 # serving.paging.PagingSpec
+    *,
+    lens: torch.Tensor,   # (B,) tokens in cache before this block
+    n_new: torch.Tensor,  # (B,) valid tokens written by this block
+) -> torch.Tensor:
+    """Causal block attention against a paged cache.  fp pages go through
+    the paged flash kernel, which reads the arena through the table with
+    no gather.  int8 pages are gathered and dequantised to q's dtype
+    (``paging.read_rows``) and go through the cached flash kernel: the
+    JAX package runs its masked ``dot_attention`` there on every backend,
+    which is the same function."""
+    from ..serving import paging as PG
+
+    kv_len = lens + n_new
+    if not spec.int8:
+        return ops.flash_attention_paged(
+            q, kst["pages"], vst["pages"], table, q_offset=lens,
+            kv_len=kv_len)
+    vk = PG.read_rows(kst, table, spec, q.dtype)
+    vv = PG.read_rows(vst, table, spec, q.dtype)
+    return ops.flash_attention_cached(q, vk, vv, q_offset=lens,
+                                      kv_len=kv_len, causal=True)
+
+
 def attention_apply(
     p: Params,
     x: torch.Tensor,
@@ -220,11 +249,13 @@ def attention_apply(
     delta: Optional[Params] = None,
     head_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Multi-head attention with GQA/MQA, RoPE, a contiguous KV cache and
-    an optional channel delta over the query heads ``head_idx``.
+    """Multi-head attention with GQA/MQA, RoPE, a contiguous or paged KV
+    cache and an optional channel delta over the query heads ``head_idx``.
 
-    Returns (output, updated_cache).  cache = {"k": (B, S_max, Hkv, Dh),
-    "v": ..., "len": (B,)}; k/v are written in place and the returned
+    Returns (output, updated_cache).  A contiguous cache is {"k": (B,
+    S_max, Hkv, Dh), "v": ..., "len": (B,)}; a paged one is {"k": store,
+    "v": store, "page_table": (B, max_pages), "len": (B,)} with the stores
+    of ``serving.paging``.  Rows are written in place and the returned
     cache holds the same tensors with the new lengths.  ``valid`` (B, S)
     switches the cache path into block-prefill mode: each slot writes its
     left-aligned valid tokens at its own cursor and attends causally from
@@ -251,6 +282,29 @@ def attention_apply(
     if cache is None:
         new_cache = None
         out = dot_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    elif "page_table" in cache:
+        # paged cache: write rows through the page table in place, attend
+        # on the pages (block prefill) or on their gathered view (decode)
+        from ..serving import paging as PG
+
+        spec = PG.spec_from(cache)
+        table, lens = cache["page_table"], cache["len"]
+        vmask = (valid if valid is not None
+                 else torch.ones((b, s), dtype=torch.bool, device=x.device))
+        n_new = vmask.sum(dim=1, dtype=torch.int32)
+        kst = PG.write_rows(cache["k"], table, spec, lens, k, vmask)
+        vst = PG.write_rows(cache["v"], table, spec, lens, v, vmask)
+        new_cache = {"k": kst, "v": vst, "page_table": table,
+                     "len": lens + n_new}
+        if valid is not None:
+            out = _paged_block_attention(q, kst, vst, table, spec,
+                                         lens=lens, n_new=n_new)
+        else:
+            rdt = q.dtype if spec.int8 else kst["pages"].dtype
+            vk = PG.read_rows(kst, table, spec, rdt)
+            vv = PG.read_rows(vst, table, spec, rdt)
+            out = dot_attention(q, vk, vv, causal=False,
+                                kv_len=torch.clamp(lens + s, max=spec.cap))
     else:
         ck, cv, lens = cache["k"], cache["v"], cache["len"]
         s_max = ck.shape[1]

@@ -18,7 +18,7 @@ Modes of :func:`forward_hidden`, as in the JAX package:
   inner sum ``u_{n,o} = Σ_d a_nd·g_nd``.
 - **serve** (``caches``): ``decode_step`` (one token per slot) and
   ``prefill_block`` (a block of prompt tokens per slot at its own cache
-  cursor), on contiguous caches updated in place.
+  cursor), on contiguous or paged caches updated in place.
 
 MoE, MLA, SSM, encoder-decoder and VLM families and the remat option
 arrive with later slices (ROADMAP queue 1, item 9).
@@ -354,28 +354,48 @@ def pooled_features(cfg: ArchConfig, params: Params,
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
-                device: DeviceLike = "cuda") -> Dict[str, Any]:
-    """Contiguous decode caches for a slot batch, in the JAX package's
-    layout: ``caches["g{i}"]["attn"] = {"k", "v": (L, B, S_max, Hkv, Dh),
-    "len": (L, B) int32}``."""
+                paging=None, device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """Decode caches for a slot batch, in the JAX package's layout.
+
+    Contiguous: ``caches["g{i}"]["attn"] = {"k", "v": (L, B, S_max, Hkv,
+    Dh), "len": (L, B) int32}``.  Paged (``paging``, a
+    ``serving.paging.PagingSpec``; built from the config's knobs when
+    omitted and ``cfg.kv_paging`` is set): ``"k"``/``"v"`` are page stores
+    ``{"pages": (L, n_pages, page_size, Hkv, Dh)[, "scale"]}`` and
+    ``"page_table"`` is a broadcast view ``(L, B, max_pages)`` of one
+    table, all -1."""
+    from ..serving import paging as PG  # lazily: serving imports this module
+
     check_supported(cfg)
-    if cfg.kv_paging:
-        raise NotImplementedError(
-            "paged KV caches arrive with ROADMAP queue 1, item 12")
+    if paging is None and cfg.kv_paging:
+        paging = PG.PagingSpec.build(max_len, page_size=cfg.kv_page_size,
+                                     slots=batch, int8=cfg.kv_int8)
     if cfg.sliding_window and cfg.sliding_window <= max_len:
         raise NotImplementedError(
             "rolling sliding-window caches arrive with ROADMAP queue 1, "
             "item 11.1")
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    feat = (cfg.n_kv_heads, cfg.head_dim)
     caches: Dict[str, Any] = {}
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
         n = len(ids)
+        lens = torch.zeros((n, batch), dtype=torch.int32, device=dev)
+        if paging is not None:
+            table = torch.full((batch, paging.max_pages), -1,
+                               dtype=torch.int32, device=dev)
+            caches[f"g{gi}"] = {"attn": {
+                "k": PG.store_init(paging, feat, dtype, dev, lead=(n,)),
+                "v": PG.store_init(paging, feat, dtype, dev, lead=(n,)),
+                "page_table": table[None].expand(n, *table.shape),
+                "len": lens,
+            }}
+            continue
+        shape = (n, batch, max_len) + feat
         caches[f"g{gi}"] = {"attn": {
-            "k": torch.zeros((n,) + shape, dtype=dtype, device=dev),
-            "v": torch.zeros((n,) + shape, dtype=dtype, device=dev),
-            "len": torch.zeros((n, batch), dtype=torch.int32, device=dev),
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "len": lens,
         }}
     return caches
 
@@ -384,9 +404,10 @@ def reset_slot_state(caches: Dict[str, Any],
                      mask: torch.Tensor) -> Dict[str, Any]:
     """Reset masked slots to a clean length-0 cache, in place.
 
-    ``mask`` is ``(B,)`` bool over the slot axis.  Only the lengths zero:
-    attention masks K/V reads by ``kv_len``, so stale rows beyond the
-    reset length are never attended to."""
+    ``mask`` is ``(B,)`` bool over the slot axis.  Only the lengths zero,
+    for contiguous and paged caches alike: attention masks K/V reads by
+    ``kv_len``, so stale rows beyond the reset length (or in a recycled
+    page) are never attended to."""
     for g in caches.values():
         g["attn"]["len"].masked_fill_(mask, 0)
     return caches

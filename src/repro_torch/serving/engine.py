@@ -1,18 +1,33 @@
 """Serving engine: continuous batching over per-slot KV caches, the port of
-``repro.serving.engine`` for the serving slice.
+``repro.serving.engine`` for the serving slices.
 
 Per-slot request state (feed buffer, cursor, position, last token,
-remaining ``max_new`` budget, KV budget, deadline, active flag) lives in
-fixed-shape device tensors (:class:`SlotState`), and a chunk of ticks runs
-the JAX package's fused tick body: free slots admit from a device-side
-:class:`PendingBuffer` in FIFO order, one forward runs — a
-``prefill_block`` of up to ``prefill_block`` prompt tokens per prefilling
-slot while any slot is still prefilling, else a single-token
+remaining ``max_new`` budget, KV budget, pages held, deadline, active
+flag) lives in fixed-shape device tensors (:class:`SlotState`), and a
+chunk of ticks runs the JAX package's fused tick body: free slots admit
+from a device-side :class:`PendingBuffer` in FIFO order, one forward runs
+— a ``prefill_block`` of up to ``prefill_block`` prompt tokens per
+prefilling slot while any slot is still prefilling, else a single-token
 ``decode_step`` — and the lifecycle advances (greedy pick, emits, budgets,
 truncation, deadlines and the non-finite ``numerics`` guard), evicting
 finished slots so the next tick re-admits into them.  Generating slots
 pause during block ticks, so every generated token comes from the
 single-token decode program whatever the block size.
+
+**Paged KV cache** (``kv_paging=True``, ``serving/paging.py``): slots draw
+pages from one pool instead of owning a ``max_len`` stripe.  Admission is
+priced in pages (the cumsum of demand against the free count, FIFO with
+head-of-line blocking) and reserves on the device; termination releases.
+Under ``reserve="asyougo"`` (the default) admission reserves the prompt's
+pages only and a generating slot claims its next page in the tick
+(oldest request first while the free-list lasts).  A slot that gets no
+page stalls: the tick goes through the block program with the stalled
+slots paused, and the youngest resident is preempted (pages released,
+slot freed).  The host requeues it with its prompt plus generated prefix
+for a recompute swap, so a resumed stream equals the unpreempted one;
+``preempt_budget`` bounds the requeues (outcome ``preempted`` past it),
+and a resident-tick ledger carries a deadline across preemptions.  All
+of it runs on the device: paging adds no host read.
 
 Host syncs: JAX branches and loops on the device (``lax.cond``,
 ``lax.while_loop``); eager PyTorch has no sync-free counterpart.  So each
@@ -22,7 +37,7 @@ read goes through ``core.adapt._fetch``, so ``last_run_report
 ["host_syncs"]`` counts them all.  One sync per chunk is ROADMAP queue 1,
 item 11.2.
 
-Paging, sampling, the eager loop, faults, backfill, encoder runs and
+Sampling, the eager loop, faults, backfill, encoder runs and
 personalisation arrive with later slices; their knobs raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
@@ -40,6 +55,7 @@ from ..core import adapt as _telemetry
 from ..models import transformer as T
 from ..models.api import ArchConfig
 from ..utils import DeviceLike, resolve_device
+from . import paging as PG
 
 # structured terminal outcomes, emitted through the per-tick event rows
 # (int32 codes) and surfaced as Request.outcome strings; the codes are the
@@ -48,11 +64,14 @@ OUTCOME_NONE = 0        # slot still running
 OUTCOME_DONE = 1        # reached max_new
 OUTCOME_TRUNCATED = 2   # evicted by its KV budget with max_new unmet
 OUTCOME_EXPIRED = 3     # deadline_ticks resident-tick budget exhausted
+OUTCOME_REQUEUED = 4    # preempted with retry budget left (not terminal)
+OUTCOME_PREEMPTED = 5   # preempted with no retry budget left (terminal)
 OUTCOME_NUMERICS = 6    # non-finite logits on an emitting row
 
 OUTCOME_NAMES = {
     OUTCOME_DONE: "done", OUTCOME_TRUNCATED: "truncated",
-    OUTCOME_EXPIRED: "expired", OUTCOME_NUMERICS: "numerics",
+    OUTCOME_EXPIRED: "expired", OUTCOME_PREEMPTED: "preempted",
+    OUTCOME_NUMERICS: "numerics",
 }
 
 # ttl sentinel for requests without a deadline: never reaches zero
@@ -66,17 +85,23 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     max_new: int
     # per-request KV budget (prompt + generated tokens); None = the
-    # engine-wide max_len
+    # engine-wide max_len.  With paging, admission reserves the prompt's
+    # pages (reserve='asyougo') or ceil(max_len / page_size) ('worstcase')
     max_len: Optional[int] = None
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     # evicted by its KV-budget cutoff before reaching max_new tokens
     truncated: bool = False
-    # deadline in resident engine ticks (None = engine default / none)
+    # deadline in resident engine ticks (None = engine default / none);
+    # the budget survives preemption
     deadline_ticks: Optional[int] = None
-    # terminal outcome: done | truncated | expired | numerics | rejected;
-    # None while in flight
+    # preempt-and-requeue retries allowed (None = engine default)
+    preempt_budget: Optional[int] = None
+    # terminal outcome: done | truncated | expired | preempted | numerics
+    # | rejected; None while in flight
     outcome: Optional[str] = None
+    # times this stream was preempted and requeued
+    preempts: int = 0
 
 
 class SubmitResult(NamedTuple):
@@ -90,7 +115,7 @@ class SlotState(NamedTuple):
     """Per-slot request lifecycle state, device-resident."""
 
     prompt: torch.Tensor      # (slots, max_len) int32 feed buffer
-    prompt_len: torch.Tensor  # (slots,) int32 feed length
+    prompt_len: torch.Tensor  # (slots,) int32 feed length (prompt + resume)
     cursor: torch.Tensor      # (slots,) int32; >= prompt_len => generating
     pos: torch.Tensor         # (slots,) int32 absolute decode position
     last_tok: torch.Tensor    # (slots,) int32 feedback token while generating
@@ -98,7 +123,9 @@ class SlotState(NamedTuple):
     budget: torch.Tensor      # (slots,) int32 per-request KV budget
     active: torch.Tensor      # (slots,) bool
     rid: torch.Tensor         # (slots,) int32 engine request id; -1 free
+    pages: torch.Tensor       # (slots,) int32 pages held (as-you-go growth)
     ttl: torch.Tensor         # (slots,) int32 resident ticks until deadline
+    preempt_left: torch.Tensor  # (slots,) int32 requeues left
 
 
 class PendingBuffer(NamedTuple):
@@ -106,13 +133,31 @@ class PendingBuffer(NamedTuple):
     cursor (``head``) is carried beside it through a chunk, so the buffer
     itself is never modified and can be reused while nothing is admitted."""
 
-    prompt: torch.Tensor   # (P, max_len) int32
+    prompt: torch.Tensor   # (P, max_len) int32 feed (prompt + resumed prefix)
     length: torch.Tensor   # (P,) int32
-    max_new: torch.Tensor  # (P,) int32
+    max_new: torch.Tensor  # (P,) int32 emits still owed
     budget: torch.Tensor   # (P,) int32 per-request KV budget
+    n_pages: torch.Tensor  # (P,) int32 admission page demand (0 unpaged)
     rid: torch.Tensor      # (P,) int32
-    ttl: torch.Tensor      # (P,) int32 deadline in resident ticks
+    ttl: torch.Tensor      # (P,) int32 remaining deadline (resident ticks)
+    preempt_left: torch.Tensor  # (P,) int32 requeues left
     count: torch.Tensor    # () int32 valid entries
+
+
+class TickPlan(NamedTuple):
+    """One tick's admission, page growth and preemption, computed on the
+    device before the tick's flag read and committed only if it runs."""
+
+    state: SlotState
+    pool: Optional[PG.PagePool]
+    take: torch.Tensor         # (slots,) bool admitted this tick
+    n_admit: torch.Tensor      # () int32
+    head: torch.Tensor         # () int32 next pending entry
+    rid_row: torch.Tensor      # (slots,) int32 rids before preemption
+    active_row: torch.Tensor   # (slots,) bool residents before preemption
+    pre_requeue: torch.Tensor  # (slots,) bool preempted, requeued
+    pre_final: torch.Tensor    # (slots,) bool preempted, terminal
+    flags: torch.Tensor        # (2,) bool [stop, block]
 
 
 def _later(knob: str, item: str, what: str) -> NotImplementedError:
@@ -141,6 +186,7 @@ class ServeEngine:
         page_budget: Optional[int] = None,
         reserve: Optional[str] = None,
         deadline_ticks: Optional[int] = None,
+        preempt_budget: int = 4,
         queue_limit: Optional[int] = None,
         faults: Optional[Any] = None,
         personalise: Optional[Any] = None,
@@ -152,14 +198,6 @@ class ServeEngine:
         if temperature > 0 or top_k:
             raise _later("temperature", "11.1",
                          "sampled decoding (temperature / top-k)")
-        paging_knobs = {"kv_paging": kv_paging, "kv_page_size": kv_page_size,
-                        "kv_int8": kv_int8, "page_budget": page_budget,
-                        "reserve": reserve}
-        for knob, val in paging_knobs.items():
-            if val:
-                raise _later(knob, "12", "the paged KV cache")
-        if cfg.kv_paging or cfg.kv_int8:
-            raise _later("kv_paging", "12", "the paged KV cache")
         if faults is not None:
             raise _later("faults", "13", "fault injection")
         if admit_backfill is not None:
@@ -180,6 +218,33 @@ class ServeEngine:
         self.chunk = chunk
         self.deadline_ticks = deadline_ticks
         self.queue_limit = queue_limit
+        self.preempt_budget = int(preempt_budget)
+        if self.preempt_budget < 0:
+            raise ValueError(
+                f"preempt_budget must be >= 0, got {preempt_budget}")
+        # paged KV cache: knobs default from the arch config; page_budget
+        # (pages per layer arena) defaults to the fixed-stripe capacity
+        # slots * ceil(max_len / page_size)
+        paging_on = cfg.kv_paging if kv_paging is None else bool(kv_paging)
+        self.spec: Optional[PG.PagingSpec] = None
+        self.pool: Optional[PG.PagePool] = None
+        if paging_on:
+            self.spec = PG.PagingSpec.build(
+                max_len,
+                page_size=int(cfg.kv_page_size if kv_page_size is None
+                              else kv_page_size),
+                slots=slots, n_pages=page_budget,
+                int8=bool(cfg.kv_int8 if kv_int8 is None else kv_int8))
+            self.pool = PG.make_pool(self.spec, slots, self.device)
+        # reservation discipline: 'asyougo' admits on the prompt's pages
+        # and grows page by page, preempting on exhaustion; 'worstcase'
+        # pins pages_for(max_len) at admission
+        reserve = cfg.kv_reserve if reserve is None else reserve
+        if reserve not in ("asyougo", "worstcase"):
+            raise ValueError(
+                f"reserve must be 'asyougo' or 'worstcase', got {reserve!r}")
+        self.reserve = reserve
+        self.rayg = self.spec is not None and reserve == "asyougo"
         # prompt tokens ingested per prefilling slot per tick; 1 = token by
         # token, the arch default otherwise
         self.prefill_block = int(
@@ -194,7 +259,8 @@ class ServeEngine:
             raise ValueError(
                 f"chunk must be >= 1, got {chunk}: a zero-length chunk makes "
                 "no progress and the run loop would spin forever")
-        self.caches = T.init_caches(cfg, slots, max_len, device=self.device)
+        self.caches = T.init_caches(cfg, slots, max_len, paging=self.spec,
+                                    device=self.device)
         self.queue: Deque[Request] = collections.deque()
         self.ticks = 0  # lifetime tick count (stat, never a per-call budget)
         self.last_run_report: Dict[str, Any] = {}
@@ -208,6 +274,12 @@ class ServeEngine:
         self._by_rid: Dict[int, Request] = {}
         self._live: set = set()
         self._next_rid = 0
+        # preempted streams awaiting restage (in preemption order) and the
+        # per-rid resident-tick ledger that carries deadline balances
+        # across preemptions (counted from the event rows)
+        self._requeue: Deque[Tuple[int, Request]] = collections.deque()
+        self._resident: Dict[int, int] = {}
+        # per-run outcome tally (terminal outcomes plus "requeued" events)
         self._tally: Dict[str, int] = {}
 
     # ------------------------------------------------------------------
@@ -240,10 +312,16 @@ class ServeEngine:
                 f"{budget - 2})")
         if req.max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {req.max_new}")
+        if self.spec is not None:
+            need = self.spec.pages_for(budget)
+            if need > self.spec.n_pages:
+                raise ValueError(
+                    f"request needs {need} pages but the pool holds only "
+                    f"{self.spec.n_pages}: it could never be admitted")
 
     def backlog_size(self) -> int:
-        """Un-admitted host state: queued + staged."""
-        return len(self.queue) + len(self._staged)
+        """Un-admitted host state: queued + staged + awaiting restage."""
+        return len(self.queue) + len(self._staged) + len(self._requeue)
 
     def submit(self, req: Request) -> SubmitResult:
         """Enqueue one request.  A malformed request raises; a full queue
@@ -262,6 +340,28 @@ class ServeEngine:
              else req.deadline_ticks)
         return _NO_DEADLINE if d is None else int(d)
 
+    def _preempt_left(self, req: Request) -> int:
+        pb = (self.preempt_budget if req.preempt_budget is None
+              else int(req.preempt_budget))
+        return max(pb - req.preempts, 0)
+
+    def _feed(self, req: Request) -> np.ndarray:
+        """The tokens a (re)admission prefills: the prompt plus any
+        already-generated prefix (the recompute swap), so positions and
+        cache rows realign with the unpreempted run."""
+        prompt = np.asarray(req.prompt, np.int32)
+        if not req.out:
+            return prompt
+        return np.concatenate([prompt, np.asarray(req.out, np.int32)])
+
+    def _admit_pages(self, feed_len: int, budget: int) -> int:
+        """Pages reserved at admission: the feed's own demand under
+        reserve-as-you-go (growth covers generation), the whole KV budget
+        under worstcase."""
+        if self.spec is None:
+            return 0
+        return int(self.spec.pages_for(feed_len if self.rayg else budget))
+
     # ------------------------------------------------------------------
     # The tick body
     # ------------------------------------------------------------------
@@ -276,7 +376,8 @@ class ServeEngine:
             cursor=self._i32(s), pos=self._i32(s), last_tok=self._i32(s),
             remaining=self._i32(s), budget=self._i32(s),
             active=torch.zeros(s, dtype=torch.bool, device=self.device),
-            rid=self._i32(s) - 1, ttl=self._i32(s))
+            rid=self._i32(s) - 1, pages=self._i32(s), ttl=self._i32(s),
+            preempt_left=self._i32(s))
 
     def _make_pending(self) -> PendingBuffer:
         # rebuilt (and uploaded) only when the staged set changed
@@ -284,47 +385,68 @@ class ServeEngine:
             return self._pending_cache
         P, maxp = self.pending_size, self.max_len
         prompt = np.zeros((P, maxp), np.int32)
-        length = np.zeros((P,), np.int32)
-        max_new = np.zeros((P,), np.int32)
-        budget = np.zeros((P,), np.int32)
+        ints = {k: np.zeros((P,), np.int32) for k in (
+            "length", "max_new", "budget", "n_pages", "ttl", "preempt_left")}
         rid = np.full((P,), -1, np.int32)
-        ttl = np.zeros((P,), np.int32)
         for j, (r, req) in enumerate(self._staged):
-            feed = np.asarray(req.prompt, np.int32)
+            # a restaged (preempted) entry re-prefills its whole history and
+            # owes only the remaining emits; a fresh one is the degenerate
+            # case of that
+            feed = self._feed(req)
             prompt[j, :len(feed)] = feed
-            length[j] = len(feed)
-            max_new[j] = req.max_new
-            budget[j] = self.request_budget(req)
+            ints["length"][j] = len(feed)
+            ints["max_new"][j] = req.max_new - len(req.out)
+            ints["budget"][j] = self.request_budget(req)
+            ints["n_pages"][j] = self._admit_pages(len(feed),
+                                                   ints["budget"][j])
             rid[j] = r
-            ttl[j] = min(self._deadline(req), _NO_DEADLINE)
+            # the deadline balance survives preemption: the deadline minus
+            # the resident ticks already spent under this rid
+            ints["ttl"][j] = min(self._deadline(req)
+                                 - self._resident.get(r, 0), _NO_DEADLINE)
+            ints["preempt_left"][j] = self._preempt_left(req)
         dev = self.device
+        up = (lambda a: torch.from_numpy(a).to(dev))
         self._pending_cache = PendingBuffer(
-            *(torch.from_numpy(a).to(dev)
-              for a in (prompt, length, max_new, budget, rid, ttl)),
+            prompt=up(prompt), rid=up(rid),
+            **{k: up(a) for k, a in ints.items()},
             count=torch.tensor(len(self._staged), dtype=torch.int32,
                                device=dev))
         self._pending_dirty = False
         return self._pending_cache
 
-    def _admit(self, st: SlotState, pend: PendingBuffer, head: torch.Tensor,
-               backlog: bool):
-        """Free slots claim pending entries in FIFO order.  Functional: the
-        caller commits the result only if the tick runs.  Also returns the
-        tick's flag tensor [stop, block]: ``stop`` is the chunk loop's exit
-        test on the state *before* admission (pending drained and either
-        no slot active, or a free slot while the host holds more queued
-        work); ``block`` chooses the prefill-block forward."""
-        P = self.pending_size
+    def _plan(self, st: SlotState, pend: PendingBuffer, head: torch.Tensor,
+              pool: Optional[PG.PagePool], backlog: bool) -> TickPlan:
+        """Admission, page growth and preemption for one tick, on the
+        device and functional: the caller commits the plan only if the
+        tick runs.  Its ``flags`` are the tick's one host read, [stop,
+        block]: ``stop`` is the chunk loop's exit test on the state
+        *before* admission (pending drained and either no slot active, or a
+        free slot while the host holds more queued work); ``block`` chooses
+        the block-prefill forward (some slot prefills, or a slot stalled
+        for want of a page)."""
+        P, spec = self.pending_size, self.spec
         free = ~st.active
         rank = torch.cumsum(free.to(torch.int32), 0) - 1
-        take = free & (head + rank < pend.count)
+        fifo = free & (head + rank < pend.count)
         src = (head + rank).clamp(0, P - 1).long()
+        if spec is not None:
+            # a candidate is admitted only if the demand up to and
+            # including it fits the free-list: every request needs >= 1
+            # page, so admission stays FIFO with head-of-line blocking
+            need = torch.where(fifo, pend.n_pages[src], 0)
+            take = fifo & (torch.cumsum(need, 0) <= PG.free_page_count(pool))
+            pool = PG.reserve(pool, need, take)
+        else:
+            take = fifo
+        stop = ((head >= pend.count)
+                & (~st.active.any() | (free.any() & backlog)))
 
         def sel(new, old):
             return torch.where(take, new, old)
 
         zero = torch.zeros_like(st.cursor)
-        new = SlotState(
+        st = SlotState(
             prompt=torch.where(take[:, None], pend.prompt[src], st.prompt),
             prompt_len=sel(pend.length[src], st.prompt_len),
             cursor=sel(zero, st.cursor), pos=sel(zero, st.pos),
@@ -332,17 +454,53 @@ class ServeEngine:
             remaining=sel(pend.max_new[src], st.remaining),
             budget=sel(pend.budget[src], st.budget),
             active=st.active | take,
-            rid=sel(pend.rid[src], st.rid), ttl=sel(pend.ttl[src], st.ttl))
+            rid=sel(pend.rid[src], st.rid),
+            pages=sel(pend.n_pages[src], st.pages),
+            ttl=sel(pend.ttl[src], st.ttl),
+            preempt_left=sel(pend.preempt_left[src], st.preempt_left))
         n_admit = take.sum(dtype=torch.int32)
-        drained = head >= pend.count
-        stop = drained & (~st.active.any() | (free.any() & backlog))
-        prefilling = new.active & (new.cursor < new.prompt_len)
-        block = prefilling.any() & (self.prefill_block > 1)
-        return new, take, n_admit, head + n_admit, torch.stack([stop, block])
+        # event snapshots: a slot preempted this tick still reports its rid
+        rid_row, active_row = st.rid, st.active
+        prefilling = st.active & (st.cursor < st.prompt_len)
+        pre_requeue = pre_final = torch.zeros_like(st.active)
+        stalled = torch.zeros_like(st.active)
+        if self.rayg:
+            # a generating slot crossing a page boundary claims its next
+            # page; grants go oldest rid first while the free-list lasts
+            grow = (st.active & ~prefilling
+                    & (spec.pages_for(st.pos + 1) > st.pages))
+            prio = torch.where(grow, st.rid, torch.iinfo(torch.int32).max)
+            before = (prio[None, :] < prio[:, None]).sum(
+                dim=1, dtype=torch.int32)
+            granted = grow & (before < PG.free_page_count(pool))
+            pool = PG.extend(pool, granted.to(torch.int32), granted, st.pages)
+            st = st._replace(pages=st.pages + granted.to(torch.int32))
+            stalled = grow & ~granted
+            # pool exhaustion preempts the youngest resident: its pages go
+            # back, the slot frees, and the host requeues it (or ends it
+            # 'preempted' once its retry budget is spent)
+            vrid = torch.where(st.active, st.rid, -1)
+            youngest = ((torch.arange(self.n_slots, device=self.device)
+                         == torch.argmax(vrid)) & st.active)
+            victims = stalled.any() & youngest
+            pre_final = victims & (st.preempt_left <= 0)
+            pre_requeue = victims & ~pre_final
+            pool = PG.release(pool, victims)
+            st = st._replace(active=st.active & ~victims,
+                             rid=torch.where(victims, -1, st.rid),
+                             pages=torch.where(victims, 0, st.pages))
+            stalled = stalled & st.active
+            prefilling = prefilling & st.active
+        block = ((prefilling.any() & (self.prefill_block > 1))
+                 | stalled.any())
+        return TickPlan(st, pool, take, n_admit, head + n_admit, rid_row,
+                        active_row, pre_requeue, pre_final,
+                        torch.stack([stop, block]))
 
     def _forward(self, st: SlotState, prefilling: torch.Tensor, block: bool):
         """One forward over every slot: (last logits (slots, vocab), tokens
-        consumed per slot)."""
+        consumed per slot).  A block tick pauses every slot that is not
+        prefilling (all-False rows advance nothing)."""
         cfg, params, maxp = self.cfg, self.params, self.max_len
         if block:
             B = self.prefill_block
@@ -366,8 +524,10 @@ class ServeEngine:
             cfg, params, tok[:, None].long(), self.caches, st.pos)
         return logits[:, 0], st.active.to(torch.int32)
 
-    def _advance(self, st: SlotState, n_admit: torch.Tensor, block: bool):
-        """Forward plus lifecycle advance.  Returns (state, event row)."""
+    def _advance(self, plan: TickPlan, block: bool):
+        """Forward plus lifecycle advance.  Returns (state, pool, event
+        row)."""
+        st, pool = plan.state, plan.pool
         prefilling = st.active & (st.cursor < st.prompt_len)
         logits, n_tok = self._forward(st, prefilling, block)
         cursor = torch.where(prefilling, st.cursor + n_tok, st.cursor)
@@ -384,7 +544,9 @@ class ServeEngine:
         remaining = st.remaining - good_emit.to(torch.int32)
         done = st.active & ~bad & ((remaining <= 0) | (pos >= st.budget - 1))
         trunc = done & (remaining > 0)
-        ttl = st.ttl - st.active.to(torch.int32)
+        # the deadline counts resident ticks, this tick's preempted slot's
+        # included (the host ledger counts the same event rows)
+        ttl = st.ttl - plan.active_row.to(torch.int32)
         expired = st.active & ~bad & ~done & (ttl <= 0)
         term = done | bad | expired
         outcome = torch.zeros_like(st.cursor)
@@ -392,27 +554,41 @@ class ServeEngine:
         outcome = torch.where(trunc, OUTCOME_TRUNCATED, outcome)
         outcome = torch.where(expired, OUTCOME_EXPIRED, outcome)
         outcome = torch.where(bad, OUTCOME_NUMERICS, outcome)
+        outcome = torch.where(plan.pre_requeue, OUTCOME_REQUEUED, outcome)
+        outcome = torch.where(plan.pre_final, OUTCOME_PREEMPTED, outcome)
         row = torch.cat([
-            st.rid, torch.where(good_emit, next_tok, -1), outcome,
-            st.active.any().to(torch.int32)[None], n_admit[None]])
+            plan.rid_row, torch.where(good_emit, next_tok, -1), outcome,
+            plan.active_row.any().to(torch.int32)[None],
+            plan.n_admit[None]])
         st = st._replace(
             cursor=cursor, pos=pos,
             last_tok=torch.where(good_emit, next_tok, st.last_tok),
             remaining=remaining, ttl=ttl, active=st.active & ~term,
-            rid=torch.where(term, -1, st.rid))
-        return st, row
+            rid=torch.where(term, -1, st.rid),
+            pages=torch.where(term, 0, st.pages))
+        if pool is not None:
+            # finished slots release their pages and their table rows go
+            # unmapped, so no write of theirs can land in a recycled page
+            pool = PG.release(pool, term)
+            PG.set_page_table(self.caches, pool.table)
+        return st, pool, row
 
     # ------------------------------------------------------------------
     # Chunks: stage -> tick loop -> one fetch of the event rows
     # ------------------------------------------------------------------
 
     def has_work(self) -> bool:
-        """Anything queued, staged or resident?"""
-        return bool(self.queue or self._staged or self._live)
+        """Anything queued, staged, resident or awaiting requeue?"""
+        return bool(self.queue or self._staged or self._live
+                    or self._requeue)
 
     def _dispatch(self, budget: int) -> List[torch.Tensor]:
         """Stage queued work and run up to ``budget`` ticks; returns the
         executed ticks' event rows (still on the device)."""
+        # preempted streams restage first, in preemption order
+        while self._requeue and len(self._staged) < self.pending_size:
+            self._staged.appendleft(self._requeue.pop())
+            self._pending_dirty = True
         while self.queue and len(self._staged) < self.pending_size:
             req = self.queue.popleft()
             rid = self._next_rid
@@ -420,25 +596,28 @@ class ServeEngine:
             self._by_rid[rid] = req
             self._staged.append((rid, req))
             self._pending_dirty = True
-        # backlog: queued work beyond the pending buffer; the tick loop
+        # backlog: host work beyond the pending buffer; the tick loop
         # returns early if the buffer drains while a slot is free, so the
         # freed slot refills from the host instead of idling out the chunk
-        backlog = bool(self.queue)
+        backlog = bool(self.queue or self._requeue)
         pend = self._make_pending()
         head = torch.zeros((), dtype=torch.int32, device=self.device)
-        st = self._state
+        st, pool = self._state, self.pool
         rows: List[torch.Tensor] = []
         while len(rows) < budget:
-            new, take, n_admit, new_head, flags = self._admit(
-                st, pend, head, backlog)
-            stop, block = _telemetry._fetch(flags)  # the tick's one sync
+            plan = self._plan(st, pend, head, pool, backlog)
+            stop, block = _telemetry._fetch(plan.flags)  # the tick's one sync
             if stop:
                 break
-            st, head = new, new_head
-            T.reset_slot_state(self.caches, take)
-            st, row = self._advance(st, n_admit, bool(block))
+            head = plan.head
+            if pool is not None:
+                # the table the forward reads is this tick's, after its
+                # reserve, growth and preemption
+                PG.set_page_table(self.caches, plan.pool.table)
+            T.reset_slot_state(self.caches, plan.take)
+            st, pool, row = self._advance(plan, bool(block))
             rows.append(row)
-        self._state = st
+        self._state, self.pool = st, pool
         return rows
 
     def _drain(self, rows: List[torch.Tensor], fr: Dict[str, Any]) -> None:
@@ -454,6 +633,11 @@ class ServeEngine:
             rid, _req = self._staged.popleft()
             self._live.add(rid)
             self._pending_dirty = True
+        # residency ledger for deadlines: each rid cell is one resident
+        # tick, preemption and eviction ticks included
+        res_rids, res_counts = np.unique(rids[rids >= 0], return_counts=True)
+        for r, c in zip(res_rids, res_counts):
+            self._resident[int(r)] = self._resident.get(int(r), 0) + int(c)
         # np.nonzero walks ticks row-major, so per-request appends stay in
         # generation order; terminal cells coincide with their last emit
         for t, i in zip(*np.nonzero(toks >= 0)):
@@ -461,6 +645,14 @@ class ServeEngine:
         for t, i in zip(*np.nonzero(outs > 0)):
             rid = int(rids[t, i])
             code = int(outs[t, i])
+            if code == OUTCOME_REQUEUED:
+                # back to the host, restaged at the top of the next chunk
+                req = self._by_rid[rid]
+                req.preempts += 1
+                self._live.discard(rid)
+                self._requeue.append((rid, req))
+                self._tally["requeued"] = self._tally.get("requeued", 0) + 1
+                continue
             req = self._by_rid.pop(rid)
             req.outcome = OUTCOME_NAMES[code]
             if code in (OUTCOME_DONE, OUTCOME_TRUNCATED):
@@ -468,6 +660,7 @@ class ServeEngine:
                 req.truncated = code == OUTCOME_TRUNCATED
             self._tally[req.outcome] = self._tally.get(req.outcome, 0) + 1
             self._live.discard(rid)
+            self._resident.pop(rid, None)
         used = int(act.sum())
         fr["used"] += used
         self.ticks += used
@@ -508,13 +701,46 @@ class ServeEngine:
 
     def memory_report(self) -> Dict[str, Any]:
         """KV-cache memory accounting from host bookkeeping (no sync).
-        Contiguous stripes: every slot pins a full-length share whether or
-        not it is occupied."""
-        total = sum(t.numel() * t.element_size()
-                    for g in self.caches.values() for t in g["attn"].values())
-        return {"kv_paging": False, "kv_cache_bytes": int(total),
-                "resident_streams": len(self._live),
-                "kv_bytes_per_stream": int(total) // self.n_slots}
+
+        Contiguous stripes: every slot pins a full-length share whether
+        or not it is occupied.  Paged: under ``worstcase`` a resident
+        holds ``pages_for(budget)`` pages; under ``asyougo`` residents are
+        estimated from their drained history (``pages_for(len(prompt) +
+        len(out))``), exact at chunk boundaries to within the one page a
+        stream claims on its next boundary crossing."""
+        total, arena = PG.cache_bytes(self.caches)
+        live = [self._by_rid[r] for r in self._live if r in self._by_rid]
+        rep: Dict[str, Any] = {
+            "kv_paging": self.spec is not None,
+            "kv_cache_bytes": int(total),
+            "resident_streams": len(live),
+        }
+        spec = self.spec
+        if spec is None:
+            rep["kv_bytes_per_stream"] = int(total) // self.n_slots
+            return rep
+        if self.rayg:
+            in_use = sum(int(spec.pages_for(len(r.prompt) + len(r.out)))
+                         for r in live)
+        else:
+            in_use = sum(int(spec.pages_for(self.request_budget(r)))
+                         for r in live)
+        page_bytes = int(arena) // spec.n_pages  # all layers, one page
+        rep.update({
+            "kv_int8": spec.int8,
+            "page_size": spec.page_size,
+            "n_pages": spec.n_pages,
+            "pages_in_use": in_use,
+            "pages_free": spec.n_pages - in_use,
+            "page_utilisation": in_use / spec.n_pages,
+            "page_bytes": page_bytes,
+            # bytes pinned per resident stream; an empty engine reports
+            # the worst-case single-request cost
+            "kv_bytes_per_stream": (
+                in_use * page_bytes // len(live) if live
+                else spec.max_pages * page_bytes),
+        })
+        return rep
 
     # ------------------------------------------------------------------
     # Driver

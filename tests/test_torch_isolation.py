@@ -1,14 +1,15 @@
 """The port installs on a machine that has only torch: nothing under
-``src/repro_torch`` and nothing in ``chip_smoke.py`` imports ``jax`` or
-the JAX package ``repro``."""
+``src/repro_torch``, in ``benchmarks_torch/`` or in ``chip_smoke.py``
+imports ``jax`` or the JAX package ``repro``."""
 import ast
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "benchmarks_torch").glob("*.py"))
+         + [ROOT / "chip_smoke.py"])
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -25,7 +26,8 @@ def imported_roots(path):
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"engine.py", "layers.py", "ops.py", "chip_smoke.py",
-            "fisher.py", "session.py"} <= names
+            "fisher.py", "session.py", "flash_paged.py", "paging.py",
+            "serve_profile.py", "adapt_profile.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

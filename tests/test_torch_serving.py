@@ -183,8 +183,7 @@ def test_submit_validates_and_sheds(ref):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_paging=True), dict(kv_int8=True), dict(reserve="worstcase"),
-    dict(page_budget=8), dict(faults=object()), dict(personalise=object()),
+    dict(faults=object()), dict(personalise=object()),
     dict(admit_backfill=1), dict(temperature=0.7), dict(top_k=5),
     dict(fused=False),
 ])
@@ -201,7 +200,13 @@ def test_serve_driver_runs_and_refuses_later_flags(capsys):
                 "--max-new", "3", "--slots", "2"])
     text = capsys.readouterr().out
     assert "3 requests, 9 new tokens" in text and "done=3" in text
-    with pytest.raises(SystemExit, match="item 12"):
-        serve.main(["--device", "cpu", "--paging"])
+    serve.main(["--preset", "smoke", "--device", "cpu", "--requests", "6",
+                "--max-new", "8", "--slots", "3", "--max-len", "32",
+                "--paging", "--page-size", "8", "--pressure", "0.5"])
+    text = capsys.readouterr().out
+    assert "pressure 0.5x: 6 pages" in text and "done=6" in text
+    assert "[serve] paged KV:" in text
+    with pytest.raises(SystemExit, match="item 13"):
+        serve.main(["--device", "cpu", "--inject", "nan:3:2"])
     with pytest.raises(SystemExit, match="item 11.1"):
         serve.main(["--device", "cpu", "--temperature", "0.8"])

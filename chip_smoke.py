@@ -15,14 +15,19 @@ exits non-zero:
    3e-2; paged flash: the same tolerances at page sizes 1, 5 and 16, NaN
    in every page row no query can see, and exactly the cached kernel's
    output on the same rows laid out contiguously; Fisher: f32 at 1e-5,
-   bf16 inputs at 2e-2, masked rows holding NaN), then its median time
-   beside its bound, the plain version's time and one PyTorch library
-   call's time (a yardstick the port never calls);
+   bf16 inputs at 2e-2, masked rows holding NaN; grad_quant: codes, scale
+   and residual exactly equal, f32 and bf16 g, a ragged multi-block size,
+   ties, zeros and a NaN, and the tree compressor with no host read), then
+   its median time beside its bound, the plain version's time and one
+   PyTorch library call's time where one computes the same function (a
+   yardstick the port never calls);
 4. small-input checks on qwen2-smoke in f32, card against the plain path
    on the CPU: the serving engine's greedy streams (contiguous, paged, and
    paged under half the page budget with at least one requeue), and
    TinyTrain's adaptation (the same policy, losses within 1e-4, the same
-   streams from the engine with the deltas folded in);
+   streams from the engine with the deltas folded in), and two users'
+   deltas served per slot through the personalisation arena (the same
+   streams as on the CPU and as each user's folded engine on the card);
 5. serve: qwen2-1.5b at its published width in bf16 (random weights from
    a seeded generator), 8 requests through ``ServeEngine``; every request
    must end ``done`` with 16 tokens, and the cached flash kernel's launch
@@ -49,10 +54,20 @@ exits non-zero:
    and MLP units here), then
    ``fold_into`` a ``ServeEngine`` and 10 requests; finite losses that
    fall, two host transfers, two Fisher launches (one per tap group), the
-   flash kernel launched, every request ``done``.
+   flash kernel launched, every request ``done``;
+10. personalise, on phase 6's session, weights and policy: a
+   ``ServeEngine(slots=8, max_len=128, chunk=16, personalise=policy)``
+   serves 16 requests of 4-23 prompt tokens and 16 new tokens for 4 users
+   (``uid = i % 4``) through ``Personaliser(iters=8, seq=32).run_online``:
+   between chunks the users with two finished streams adapt together
+   (``adapt_many``), their deltas go through the int8 error-feedback
+   exchange (the grad_quant kernel) and hot-swap into their slots; every
+   request ``done``, at least one refresh, grad_quant launched once per
+   leaf of every refreshed delta set, a payload ratio above 3.9, the
+   cached flash kernel launched a positive multiple of 28 times.
 
 Phases 7 to 9 run right after phase 5, on its weights.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 9) and read
+counts are set to 0 just before each main path (phases 5 to 10) and read
 just after.  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -90,6 +105,9 @@ DEFAULT_PAGES = 256   # the default budget: 8 slots x ceil(512 / 16)
 PRESSURE = dict(pages=128, lo=160, hi=321, max_new=48, seed=3)
 # the adaptation slice: examples/serve_batched.py at qwen2-1.5b's width
 ADAPT = dict(batch_size=48, seq=64, max_way=8, task_way=5, pad=48, iters=10)
+# phase 10: the personalised serve and its online refresh loop
+PERSONALISE = dict(slots=8, max_len=128, chunk=16, requests=16, users=4,
+                   max_new=16, iters=8, seq=32)
 
 
 def fail(msg: str) -> None:
@@ -206,13 +224,19 @@ def main() -> int:
     from repro_torch import api, configs
     from repro_torch.kernels import build, flash_attention, flash_paged, ops
     from repro_torch.kernels import fisher as fisher_kernel
+    from repro_torch.kernels import grad_quant as gq_kernel
     from repro_torch.kernels.ref import (
         fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
-        flash_attention_paged_ref,
+        flash_attention_paged_ref, grad_quant_ref,
     )
+    from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
     from repro_torch.models import transformer as T
-    from repro_torch.serving import Request, ServeEngine
-    from repro_torch.utils import tree_map
+    from repro_torch.models.overlay import fold_deltas
+    from repro_torch.optim import compress
+    from repro_torch.serving import (
+        DeltaSet, Personaliser, Request, ServeEngine,
+    )
+    from repro_torch.utils import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -523,6 +547,116 @@ def main() -> int:
               "bound_by": f_bound_by, "max_abs_err": f_worst}
     del gs
 
+    # -- grad_quant kernel: exact parity with its plain version ---------------
+    # the kernel's largest leaf on phase 10's path: an MLP unit's w_gate
+    # delta, d_model x half of d_ff (the scaled edge-lm profile keeps half
+    # of each unit's channels; phase 10 checks it against its policy)
+    GQ_LEAF = (cfg.d_model, cfg.d_ff // 2)
+    # a ragged multi-block size, the main path's largest leaf, ties (absmax
+    # 127 makes the scale exactly 1, so k + 0.5 rounds half to even), zeros
+    # and a NaN; codes, scale and residual must be equal, not close
+    def gq_case(n, dtype, kind):
+        if kind == "ties":
+            g = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, 3.25],
+                             device=dev)
+            return g.to(dtype), torch.zeros(g.shape, device=dev)
+        g = torch.randn(n, generator=gen, device=dev)
+        err = 0.01 * torch.randn(n, generator=gen, device=dev)
+        if kind == "zeros":
+            g, err = torch.zeros_like(g), torch.zeros_like(err)
+        if kind == "nan":
+            g[n // 3] = float("nan")
+        return g.to(dtype), err
+
+    gq_cases = [(1, "normal"), (5000, "normal"), (6151, "normal"),
+                (1_000_003, "normal"), (GQ_LEAF[0] * GQ_LEAF[1], "normal"),
+                (8, "ties"), (4099, "zeros"), (4099, "nan")]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for n, kind in gq_cases:
+            g, err = gq_case(n, dtype, kind)
+            got = ops.grad_quant(g, err)
+            want = grad_quant_ref(g, err)
+            torch.cuda.synchronize()
+            same = all(a.dtype == b.dtype and a.shape == b.shape
+                       and torch.equal(torch.nan_to_num(a.float(), nan=7.0),
+                                       torch.nan_to_num(b.float(), nan=7.0))
+                       and torch.equal(a.isnan(), b.isnan())
+                       for a, b in zip(got, want))
+            print(f"[parity] grad_quant {dname} n={n} {kind}: codes, scale "
+                  f"and residual {'equal' if same else 'DIFFERENT'} (gate: "
+                  f"equal); scale {got[1].item():.6g}", flush=True)
+            if not same:
+                fail(f"grad_quant {dname} n={n} {kind} differs from its "
+                     "plain version")
+            if kind == "ties" and got[0].tolist() != [127, 0, 2, 2, 0, -2,
+                                                      126, 3]:
+                fail(f"grad_quant ties rounded {got[0].tolist()}")
+    # the tree compressor launches once per leaf and reads nothing back
+    tree = {"L0": {"mlp": {
+        "w_up": torch.randn(GQ_LEAF, generator=gen, device=dev).bfloat16(),
+        "w_down": torch.randn(GQ_LEAF[::-1], generator=gen,
+                              device=dev).bfloat16()}}}
+    ef = compress.ef_state_init(tree)
+    before = ops.grad_quant.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q_t, s_t, ef = compress.int8_compress(tree, ef)
+        compress.int8_decompress(q_t, s_t, torch.bfloat16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[parity] int8_compress of a 2-leaf tree on the card: "
+          f"{ops.grad_quant.launches - before} grad_quant launches, no "
+          "synchronising call (sync debug mode 'error')", flush=True)
+    if ops.grad_quant.launches - before != 2:
+        fail("int8_compress did not launch grad_quant once per leaf")
+
+    # time at the largest leaf: bf16 g and a float32 residual, cycling 4
+    # buffers (4 x 41 MB > the 50 MB L2), the kernel through its C entry
+    n_gq = GQ_LEAF[0] * GQ_LEAF[1]
+    gbufs = [(torch.randn(n_gq, generator=gen, device=dev).bfloat16(),
+              0.01 * torch.randn(n_gq, generator=gen, device=dev))
+             for _ in range(4)]
+    q_out = torch.empty(n_gq, dtype=torch.int8, device=dev)
+    e_out = torch.empty(n_gq, device=dev)
+    scratch = torch.empty(2, device=dev)
+    gq_entry = gq_kernel._entry()
+    it["i"] = 0
+
+    def next_gq():
+        i = it["i"] = (it["i"] + 1) % len(gbufs)
+        return gbufs[i]
+
+    def run_gq():
+        g, e = next_gq()
+        rc = gq_entry(g.data_ptr(), e.data_ptr(), q_out.data_ptr(),
+                      e_out.data_ptr(), scratch.data_ptr(), n_gq, 1, stream)
+        if rc:
+            fail(f"grad_quant_fwd returned cudaError {rc}")
+
+    def run_gq_plain():
+        grad_quant_ref(*next_gq())
+
+    gq_ms = time_ms(run_gq, 40)
+    gq_plain_ms = time_ms(run_gq_plain, 10)
+    # each input read once and each output written once: g (bf16), err,
+    # q (int8), new_err and the scale; add, abs, max, divide, round,
+    # clip, multiply, subtract per element
+    gq_bytes = n_gq * (2 + 4 + 1 + 4) + 4
+    gq_ops = 8 * n_gq
+    t_bytes, t_ops = gq_bytes / HBM_BYTES_PER_S, gq_ops / PEAK_OPS["float32"]
+    gq_bound_ms = 1e3 * max(t_bytes, t_ops)
+    gq_bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[time] grad_quant bf16 g, f32 err, {GQ_LEAF[0]}x{GQ_LEAF[1]} = "
+          f"{n_gq} elements: kernel {gq_ms:.4f} ms, bound {gq_bound_ms:.5f} "
+          f"ms ({gq_bound_by}: {gq_bytes} B, {gq_ops} ops), plain "
+          f"{gq_plain_ms:.4f} ms, no single library call", flush=True)
+    gquant = {"ms": gq_ms, "plain_ms": gq_plain_ms, "library_ms": None,
+              "bound_ms": gq_bound_ms, "bound_by": gq_bound_by,
+              "max_abs_err": 0.0}
+    del gbufs, tree, ef, q_t, s_t
+
     # -- small-input check: kernel path on the card vs plain path on the CPU
     small = configs.get_reduced("qwen2-1.5b")
     sp_cpu = T.init_params(small, torch.Generator().manual_seed(0),
@@ -608,6 +742,59 @@ def main() -> int:
         fail(f"losses differ: {a_cpu.losses} vs {a_gpu.losses}")
     if s_cpu != s_gpu:
         fail(f"folded streams differ: cpu {s_cpu} cuda {s_gpu}")
+
+    # personalisation on qwen2-smoke: two users' deltas resident at once in
+    # the per-slot arena, card against CPU and against each user's folded
+    # engine on the card (block 1 and 8, contiguous and paged)
+    spol = SparseUpdatePolicy(horizon=0, units=(
+        SelectedUnit(1, "attn", (0, small.n_heads - 1)),
+        SelectedUnit(2, "mlp", (0, 7, small.d_ff - 1))))
+    dgen = torch.Generator().manual_seed(7)
+    udeltas = {u: tree_map(lambda z: 0.5 * torch.randn(
+        z.shape, generator=dgen), sbb.init_deltas(spol, "cpu"))
+        for u in (0, 1)}
+    pers_streams = {}
+    for mode, kw in (("block8", {}), ("block1", dict(prefill_block=1)),
+                     ("paged", dict(kv_paging=True, kv_page_size=8))):
+        for where, params in (("cpu", sp_cpu), ("cuda", sp_gpu)):
+            kw_all = dict(slots=3, max_len=48, chunk=4, device=where, **kw)
+            eng = ServeEngine(small, params, personalise=spol, **kw_all)
+            on = params["embed"].device
+            for u, d in udeltas.items():
+                eng.swap_deltas(u, DeltaSet.from_policy(
+                    spol, tree_map(lambda t: t.to(on), d)))
+            reqs = [Request(uid=i % 2, prompt=p, max_new=6)
+                    for i, p in enumerate(prompts)]
+            eng.run(reqs)
+            pers_streams[(mode, where)] = [(r.out, r.outcome) for r in reqs]
+            if where == "cuda":
+                folded = {}
+                for u, d in udeltas.items():
+                    fe = ServeEngine(small, fold_deltas(
+                        small, params, tree_map(lambda t: t.to(on), d),
+                        spol), **kw_all)
+                    rr = [Request(uid=i % 2, prompt=p, max_new=6)
+                          for i, p in enumerate(prompts)]
+                    fe.run(rr)
+                    folded[u] = [(r.out, r.outcome) for r in rr]
+                pers_streams[(mode, "folded")] = [
+                    folded[i % 2][i] for i in range(len(prompts))]
+        same_cpu = pers_streams[(mode, "cpu")] == pers_streams[(mode, "cuda")]
+        same_fold = (pers_streams[(mode, "folded")]
+                     == pers_streams[(mode, "cuda")])
+        print(f"[check] qwen2-smoke f32 personalised ({mode}, 2 users, "
+              f"{spol.describe()}): card vs CPU "
+              f"{'identical' if same_cpu else 'DIFFERENT'}, card overlay vs "
+              f"card folded engines {'identical' if same_fold else 'DIFFERENT'}"
+              f" over {len(prompts)} requests", flush=True)
+        if not same_cpu:
+            fail(f"personalised streams differ, card vs CPU ({mode}): "
+                 f"{pers_streams[(mode, 'cpu')]} vs "
+                 f"{pers_streams[(mode, 'cuda')]}")
+        if not same_fold:
+            fail(f"personalised streams differ from the folded engines on "
+                 f"the card ({mode}): {pers_streams[(mode, 'cuda')]} vs "
+                 f"{pers_streams[(mode, 'folded')]}")
 
     # -- serve: qwen2-1.5b at full width -----------------------------------
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -847,6 +1034,77 @@ def main() -> int:
     if adapt_flash_launches <= 0 or adapt_flash_launches % nl:
         fail(f"the folded engine launched flash_cached "
              f"{adapt_flash_launches} times")
+    del eng
+
+    # -- personalise: per-slot deltas and the online refresh loop -----------
+    P = PERSONALISE
+    eng = ServeEngine(cfg, session.params, slots=P["slots"],
+                      max_len=P["max_len"], chunk=P["chunk"],
+                      personalise=pol)
+    eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
+                     max_new=2)])
+    pers = Personaliser(session, eng, pol, profile=profile,
+                        iters=P["iters"], seq=P["seq"])
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i % P["users"], prompt=rng.integers(
+        0, cfg.vocab, size=int(rng.integers(4, 24))).astype(np.int32),
+        max_new=P["max_new"]) for i in range(P["requests"])]
+    leaves = tree_leaves(session.backbone.init_deltas(pol, dev))
+    leaves_per_user = len(leaves)
+    largest = max(t.numel() for t in leaves)
+    if largest != GQ_LEAF[0] * GQ_LEAF[1]:
+        fail(f"phase 10's largest delta leaf has {largest} elements; "
+             f"grad_quant was timed at {GQ_LEAF}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.grad_quant.launches = ops.flash_attention_cached.launches = 0
+    t0 = time.perf_counter()
+    online = pers.run_online(reqs)
+    torch.cuda.synchronize()
+    pers_wall = time.perf_counter() - t0
+    gq_launches = ops.grad_quant.launches
+    pers_flash_launches = ops.flash_attention_cached.launches
+    pers_peak = torch.cuda.max_memory_allocated()
+    mem = eng.memory_report()
+    refreshes = online["refreshes"]
+    refreshed = sum(len(r["users"]) for r in refreshes)
+    new_tokens = sum(len(r.out) for r in reqs)
+    adapt_s = sum(r["adapt_seconds"] for r in refreshes)
+    swap_s = sum(r["swap_seconds"] for r in refreshes)
+    print(f"[personalise] qwen2-1.5b bf16 full width, {P['slots']} slots, "
+          f"max_len {P['max_len']}, chunk {P['chunk']}, {P['users']} users, "
+          f"policy {len(pol.units)} units ({leaves_per_user} delta leaves a "
+          f"user, the largest {largest} elements, grad_quant's timing "
+          f"shape): {len(reqs)} requests, {new_tokens} new tokens in "
+          f"{pers_wall:.3f} s = {new_tokens / pers_wall:.2f} tok/s with "
+          f"refreshes (wall less adapt and swap {pers_wall - adapt_s - swap_s:.3f}"
+          f" s), "
+          f"{online['rounds']} rounds, {online['ticks']} ticks, "
+          f"{online['host_syncs']} host syncs; peak device memory "
+          f"{pers_peak} B, delta arena {mem['delta_arena_bytes']} B "
+          f"({mem['delta_bytes_per_stream']} B a slot; a folded copy "
+          f"{mem['params_bytes_folded_copy']} B); grad_quant launches "
+          f"{gq_launches}, flash_cached launches {pers_flash_launches}",
+          flush=True)
+    for r in refreshes:
+        print(f"[personalise] refresh {r['round']}: users {r['users']} "
+              f"(deferred {r['deferred_users']}), adapt_seconds "
+              f"{r['adapt_seconds']:.4f}, swap_seconds {r['swap_seconds']:.6f}"
+              f", resident rows swapped {r['resident_rows_swapped']}, wire "
+              f"{r['payload_bytes_wire']} B vs f32 {r['payload_bytes_f32']} B"
+              f" = {r['payload_ratio']:.4f}x", flush=True)
+    all_done(reqs, P["max_new"], "personalise")
+    if not refreshes:
+        fail("the personalised serve refreshed no user")
+    if gq_launches <= 0 or gq_launches != refreshed * leaves_per_user:
+        fail(f"grad_quant launched {gq_launches} times for {refreshed} "
+             f"refreshed users of {leaves_per_user} leaves each")
+    if min(r["payload_ratio"] for r in refreshes) <= 3.9:
+        fail(f"payload ratio {[r['payload_ratio'] for r in refreshes]} not "
+             "above 3.9")
+    if pers_flash_launches <= 0 or pers_flash_launches % nl:
+        fail(f"the personalised serve launched flash_cached "
+             f"{pers_flash_launches} times")
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -854,7 +1112,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_cached.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
-        "launches": launches + int8_launches + adapt_flash_launches,
+        "launches": (launches + int8_launches + adapt_flash_launches
+                     + pers_flash_launches),
         **flash,
     }, {
         "name": "flash_attention_paged",
@@ -870,6 +1129,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/fisher.py:66",
         "launches": fisher_launches,
         **fisher,
+    }, {
+        "name": "grad_quant",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/grad_quant.cu",
+        "replaces": "src/repro/kernels/grad_quant.py:57",
+        "launches": gq_launches,
+        **gquant,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

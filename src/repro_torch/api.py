@@ -15,6 +15,13 @@
     adaptation.fold_into(eng)
     eng.run([api.Request(uid=0, prompt=prompt, max_new=12)])
 
+Online personalisation serves many users from one copy of the weights and
+refreshes each user's deltas from their own finished streams:
+
+    eng = api.ServeEngine(bb.cfg, session.params, personalise=adaptation.policy)
+    pers = api.Personaliser(session, eng, adaptation.policy, profile=profile)
+    pers.run_online(requests)
+
 Backbones are a string-keyed registry of the LM configurations (dense
 family; the edge CNNs arrive with their slice).  Entry points run on the
 card unless the caller passes ``device="cpu"``.
@@ -36,7 +43,9 @@ from .core.session import (  # noqa: F401  (façade re-exports)
     Task, TinyTrainSession, criteria, device_profile, register_profile,
 )
 from .models.api import ArchConfig
-from .serving import Request, ServeEngine, SubmitResult  # noqa: F401
+from .serving import (  # noqa: F401
+    DeltaSet, Personaliser, Request, ServeEngine, SubmitResult,
+)
 
 __all__ = [
     "Adaptation", "DeviceProfile", "Task", "TinyTrainSession",
@@ -44,7 +53,8 @@ __all__ = [
     "STM32F746", "RPI_ZERO", "JETSON_NANO", "criteria",
     "ArchConfig", "Backbone", "backbone", "backbones", "register_backbone",
     "sample_lm_task", "plan_sparse_update",
-    "Request", "ServeEngine", "SubmitResult", "Budget", "configs",
+    "Request", "ServeEngine", "SubmitResult", "DeltaSet", "Personaliser",
+    "Budget", "configs",
 ]
 
 _BACKBONES: Dict[str, Callable[..., Backbone]] = {}

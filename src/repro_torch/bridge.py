@@ -5,9 +5,11 @@ reproduce, so parity runs load the reference's own weights.  The caller
 converts a JAX tree to numpy (``jax.tree_util.tree_map(np.asarray,
 tree)``); this module turns that numpy tree into tensors, keeping the
 ``stacks/g{i}`` grouping and the ``(d_in, d_out)`` layout so ``x @ W``
-matches leaf for leaf.  Delta packs (``{"L{i}": {kind: {weight: ...}}}``)
-and optimiser states (``{"step", "m", "v"}``) cross the same way in both
-directions, so tests compare them leaf for leaf.  Paged KV stores cross
+matches leaf for leaf.  Delta packs (``{"L{i}": {kind: {weight: ...}}}``),
+optimiser states (``{"step", "m", "v"}``) and the error-feedback
+compressor's trees (int8 codes, 0-d float32 scales, float32 residuals)
+cross the same way in both directions, so tests compare them leaf for
+leaf.  Paged KV stores cross
 with :func:`page_store_from_numpy`, which keeps the port's arena layout.
 """
 from __future__ import annotations

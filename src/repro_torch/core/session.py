@@ -8,21 +8,25 @@
 - :class:`Adaptation`: the result: accuracy, memory accounting and
   deployment (``fold_into``).
 
-``adapt_many``, ``baseline``, ``score_stream`` and the static-channel
-criteria (``random``, ``l2norm``) raise ``NotImplementedError`` naming
-their ROADMAP item.
+``TinyTrainSession.adapt_many`` fine-tunes a fleet of tasks under one
+given policy (``policy_override``), one program and one host fetch per
+(bucket, policy structure) group; its criterion route (a probe per task),
+``mesh=`` and ``hosts=``, ``baseline``, ``score_stream`` and the
+static-channel criteria (``random``, ``l2norm``) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..optim import Optimizer, adam
-from ..utils import DeviceLike, resolve_device
-from .adapt import AdaptResult, _fetch_scalar, adapt_task
+from ..utils import DeviceLike, resolve_device, tree_map
+from .adapt import AdaptResult, _fetch, _fetch_scalar, adapt_task
 from .backbones import Backbone
 from .criterion import Budget
 from .policy import SparseUpdatePolicy
@@ -197,6 +201,74 @@ def _tensors(tree: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             for k, v in tree.items()}
 
 
+def _stack_trees(trees: List[Any]) -> Any:
+    """Stack a list of identically shaped numpy trees along a new task
+    axis."""
+    return tree_map(lambda *xs: np.stack(xs), *trees)
+
+
+def _tree_shape_key(tree: Dict[str, np.ndarray]) -> Tuple:
+    return tuple((k, np.shape(tree[k]), str(np.asarray(tree[k]).dtype))
+                 for k in sorted(tree))
+
+
+def _episode_shape_key(sup: Dict[str, np.ndarray],
+                       pq: Dict[str, np.ndarray]) -> Tuple:
+    """Episodes stack iff their (support, pseudo-query) trees match
+    exactly; with bucketing the key is computed on the padded episodes, so
+    any way/shot mix inside one bucket shares it."""
+    return (_tree_shape_key(sup), _tree_shape_key(pq))
+
+
+def _group_indices(keys: List[Any]) -> Dict[Any, List[int]]:
+    groups: Dict[Any, List[int]] = {}
+    for i, k in enumerate(keys):
+        groups.setdefault(k, []).append(i)
+    return groups
+
+
+# Bucketed episode padding: heterogeneous way/shot traffic pads up to a
+# few canonical row counts (the next power of two, floored), so a fleet of
+# arbitrary episode sizes runs O(#buckets) programs.  Padded rows carry
+# label -1, which the episode loss and accuracy treat as invisible.
+_MIN_BUCKET_ROWS = 8
+
+
+def _bucket_rows(n: int, floor: int = _MIN_BUCKET_ROWS) -> int:
+    """Canonical bucket size: the next power of two >= n (>= floor)."""
+    b = max(int(floor), 1)
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_episode_rows(ep: Dict[str, np.ndarray], rows: int
+                      ) -> Dict[str, np.ndarray]:
+    """Pad every episode leaf to ``rows`` along axis 0: labels with -1,
+    data with zeros."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in ep.items():
+        v = np.asarray(v)
+        n = v.shape[0]
+        if n > rows:
+            raise ValueError(
+                f"episode leaf {k!r} has {n} rows > bucket {rows}")
+        width = [(0, rows - n)] + [(0, 0)] * (v.ndim - 1)
+        out[k] = np.pad(v, width,
+                        constant_values=-1 if k == "episode_labels" else 0)
+    return out
+
+
+def _bucket_episode(task: "Task") -> Tuple[Any, Any]:
+    """(support, pseudo_query) of a task, padded to one shared bucket (both
+    sets to the same row count)."""
+    rows = max(np.shape(v)[0] for tree in (task.support, task.pseudo_query)
+               for v in tree.values())
+    target = _bucket_rows(rows)
+    return (_pad_episode_rows(task.support, target),
+            _pad_episode_rows(task.pseudo_query, target))
+
+
 # ---------------------------------------------------------------------------
 # Adaptation result
 # ---------------------------------------------------------------------------
@@ -313,6 +385,7 @@ class TinyTrainSession:
         self.optimizer = optimizer or adam(lr)
         self.max_way = max_way
         self.step_cache = EpisodeStepCache(backbone, self.optimizer, max_way)
+        self.last_fleet_report: Dict[str, Any] = {}
 
     def _on(self, tree: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return _tensors(tree, self.device)
@@ -366,8 +439,93 @@ class TinyTrainSession:
         return _fetch_scalar(ev(self.params, None, self._on(task.support),
                                 self._on(task.query), None))
 
-    def adapt_many(self, *args, **kwargs):
-        raise _later("TinyTrainSession.adapt_many (fleet adaptation)", "8")
+    def adapt_many(
+        self,
+        tasks: List[Task],
+        profile: Union[DeviceProfile, Budget, str],
+        *,
+        criterion: str = "tinytrain",
+        iters: int = 40,
+        shard_channels: int = 1,
+        policy_override: Optional[SparseUpdatePolicy] = None,
+        bucket: bool = True,
+        mesh: Optional[Any] = None,
+        hosts: Optional[int] = None,
+    ) -> List[Adaptation]:
+        """Fleet adaptation under one policy: N tasks in one fine-tune
+        program per (bucket, policy structure) group.
+
+        The episodes and channel indices of a group are stacked along a
+        task axis and fine-tuned together (``vmap_scan_steps``) while the
+        frozen weights broadcast; one host fetch per group brings back its
+        losses and skip counts, and the deltas stay on the device.  Returns
+        one :class:`Adaptation` per task, in input order, each with
+        ``host_transfers`` of ``1/len(group)``.  ``bucket=True`` pads each
+        task's rows to the next power of two, so any way/shot mix inside a
+        bucket shares a group; padded rows carry label -1 and change no
+        result.  A summary of the grouping is kept in
+        ``self.last_fleet_report``.
+
+        ``policy_override`` is required here (the personalisation path
+        always passes one); the criterion route (a Fisher probe per task)
+        is ROADMAP queue 1, item 8, and ``mesh=``/``hosts=`` item 16."""
+        if mesh is not None or hosts not in (None, 1):
+            raise _later("adapt_many(mesh=..., hosts=...) (sharded fleet "
+                         "adaptation)", "16")
+        if policy_override is None:
+            raise _later("adapt_many's criterion route (one Fisher probe "
+                         "per task, probe_fisher_batch)", "8")
+        if not tasks:
+            return []
+        for t in tasks:
+            self._check_task(t)
+        if isinstance(profile, str):
+            profile = device_profile(profile)
+        budget = _as_budget(profile)
+        prof = profile if isinstance(profile, DeviceProfile) else None
+        method = (f"override:"
+                  f"{(policy_override.meta or {}).get('source', 'policy')}")
+        policies = [policy_override] * len(tasks)
+        eps = [_bucket_episode(t) if bucket else (t.support, t.pseudo_query)
+               for t in tasks]
+        keys = [_episode_shape_key(sup, pq) for sup, pq in eps]
+        cache = self.step_cache
+        out: List[Optional[Adaptation]] = [None] * len(tasks)
+        run_groups = _group_indices(
+            [(k, cache._key(p)) for k, p in zip(keys, policies)])
+        compiles_before = cache.fleet_scan_compiles()
+        for idxs in run_groups.values():
+            sup = self._on(_stack_trees([eps[i][0] for i in idxs]))
+            pq = self._on(_stack_trees([eps[i][1] for i in idxs]))
+            ci = tree_map(lambda *xs: torch.stack(xs), *[
+                cache.chan_idx_arrays(policies[i], self.device) for i in idxs])
+            run = cache.vmap_scan_steps(policies[idxs[0]], iters)
+            t0 = time.perf_counter()
+            d_stack, _, loss_stack, skip_stack = run(self.params, sup, pq, ci)
+            # the group's one blocking fetch; the deltas stay on the device
+            losses, skips = _fetch((loss_stack, skip_stack))
+            dt = (time.perf_counter() - t0) / len(idxs)
+            for j, i in enumerate(idxs):
+                res = AdaptResult(
+                    deltas=tree_map(lambda x, _j=j: x[_j], d_stack),
+                    policy=policies[i], fisher_seconds=0.0, train_seconds=dt,
+                    losses=[float(x) for x in losses[j]],
+                    host_transfers=1.0 / len(idxs),
+                    skipped_steps=int(np.sum(skips[j])))
+                out[i] = self._wrap(method, tasks[i], prof, res,
+                                    budget=budget)
+        self.last_fleet_report = {
+            "tasks": len(tasks),
+            "bucketed": bucket,
+            "buckets": len(set(keys)),
+            "policy_structures": len({cache._key(p) for p in policies}),
+            "groups": len(run_groups),
+            "scan_compiles": cache.fleet_scan_compiles() - compiles_before,
+            "mesh_axes": None,
+            "hosts": 1,
+            "ingestion": "local",
+        }
+        return out
 
     def baseline(self, *args, **kwargs):
         raise _later("TinyTrainSession.baseline (the baseline zoo)", "8")

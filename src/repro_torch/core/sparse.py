@@ -13,6 +13,14 @@ so a later change can capture the loop as a CUDA graph.  Where the JAX
 package jit-compiles and caches one step per policy structure, PyTorch runs
 eagerly: :class:`EpisodeStepCache` keeps the JAX package's surface (it
 hands out step callables) with nothing to cache.
+
+The fleet fine-tune (:meth:`EpisodeStepCache.vmap_scan_steps`) runs T
+tasks of one policy structure as one program: ``torch.func.vmap`` over a
+leading task axis of the episodes and channel indices, the frozen weights
+broadcast, gradients from ``torch.func.grad_and_value`` (``autograd.grad``
+cannot run under ``vmap``).  Each task's loss, guard and update see only
+its own rows, so a task's deltas and skip count are what it would get
+alone.
 """
 from __future__ import annotations
 
@@ -50,10 +58,18 @@ def _value_and_grad(loss_fn: Callable[..., torch.Tensor], x: Any, *ctx):
     return loss.detach(), tree_map(lambda _: next(grads), x)
 
 
+def _func_value_and_grad(loss_fn: Callable[..., torch.Tensor], x: Any, *ctx):
+    """:func:`_value_and_grad` through ``torch.func``, which ``vmap`` can
+    wrap."""
+    grads, loss = torch.func.grad_and_value(loss_fn)(x, *ctx)
+    return loss, grads
+
+
 def _guarded_step(loss_fn, optimizer: Optimizer, x, st, ctx,
-                  inject: Optional[torch.Tensor] = None):
+                  inject: Optional[torch.Tensor] = None,
+                  value_and_grad: Callable = _value_and_grad):
     """One guarded update: (x, st, loss, ok), all on the device."""
-    loss, grads = _value_and_grad(loss_fn, x, *ctx)
+    loss, grads = value_and_grad(loss_fn, x, *ctx)
     if inject is not None:
         loss = torch.where(inject, torch.full_like(loss, float("nan")), loss)
     ok = _finite_step(loss, grads)
@@ -106,6 +122,24 @@ class EpisodeStepCache:
         self.backbone = backbone
         self.optimizer = optimizer
         self.max_way = max_way
+        # fleet programs by (policy structure, iters), and the (task count,
+        # episode shapes) variants each has run: what the JAX package
+        # compiles once each
+        self._vscans: Dict[Tuple, Callable] = {}
+        self._fleet_variants: set = set()
+
+    @staticmethod
+    def _key(policy: SparseUpdatePolicy) -> Tuple:
+        """The policy's structure: what fixes a step's shapes (the channel
+        choices themselves are arguments)."""
+        return (policy.horizon,
+                tuple((u.layer, u.kind, u.n_channels) for u in policy.units))
+
+    def fleet_scan_compiles(self) -> int:
+        """Distinct fleet programs run: (policy structure, iters, task count,
+        episode shapes) variants, the quantity the JAX package's
+        O(#buckets x #structures) compile contract bounds."""
+        return len(self._fleet_variants)
 
     def probe_fisher(self):
         """pf(params, support, query, taps, n) -> {(layer, kind): Δ_o}: the
@@ -166,6 +200,42 @@ class EpisodeStepCache:
             return loop(deltas, opt_state, params, support, query, chan_idx)
 
         return run
+
+    def vmap_scan_steps(self, policy: SparseUpdatePolicy, iters: int):
+        """Fleet variant of :meth:`scan_steps`: run(params, supports,
+        queries, chan_idxs) -> (deltas, opt_state, losses, skipped), the
+        episodes and channel indices carrying a leading task axis and every
+        result task-stacked.  The zero deltas and the optimiser state are
+        made inside, so T same-structure tasks fine-tune in one call with
+        no per-task set-up.  Episodes may be bucket-padded: rows labelled -1
+        drop out of the loss, so padding changes no result."""
+        key = (self._key(policy), int(iters))
+        if key not in self._vscans:
+            f, opt, n = self._loss(policy), self.optimizer, int(iters)
+            init_deltas = self.backbone.init_deltas
+
+            def run_from_zero(params, support, query, chan_idx):
+                d = init_deltas(policy, support["episode_labels"].device)
+                st = opt.init(d)
+                losses, skipped = [], []
+                for _ in range(n):
+                    d, st, loss, ok = _guarded_step(
+                        f, opt, d, st, (params, support, query, chan_idx),
+                        value_and_grad=_func_value_and_grad)
+                    losses.append(loss.float())
+                    skipped.append(~ok)
+                return d, st, torch.stack(losses), torch.stack(skipped)
+
+            fleet = torch.func.vmap(run_from_zero, in_dims=(None, 0, 0, 0))
+
+            def run(params, support, query, chan_idx, _key=key):
+                self._fleet_variants.add((_key, tuple(
+                    (tuple(t.shape), str(t.dtype))
+                    for t in tree_leaves((support, query)))))
+                return fleet(params, support, query, chan_idx)
+
+            self._vscans[key] = run
+        return self._vscans[key]
 
     def evaluate(self, policy: Optional[SparseUpdatePolicy]):
         """ev(params, deltas, support, query, chan_idx) -> accuracy tensor;

@@ -13,9 +13,10 @@ import torch
 from .fisher import fisher_cuda
 from .flash_attention import flash_attention_cached_cuda
 from .flash_paged import flash_attention_paged_cuda
+from .grad_quant import grad_quant_cuda
 from .ref import (
     fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
-    flash_attention_paged_ref,
+    flash_attention_paged_ref, grad_quant_ref,
 )
 
 
@@ -113,3 +114,18 @@ def flash_attention_paged(q, k_pages, v_pages, page_table, *, q_offset,
 
 
 flash_attention_paged.launches = 0
+
+
+def grad_quant(g, err):
+    """Int8 error-feedback quantisation of one tensor: (q int8, scale 0-d
+    float32, new_err float32), ``scale = max|g + err|/127 + 1e-12`` (see
+    ``ref.grad_quant_ref``).  On the card the scale stays on the device:
+    nothing here reads it."""
+    if not _on_card(g):
+        return grad_quant_ref(g, err)
+    out = grad_quant_cuda(g.contiguous(), err.contiguous())
+    grad_quant.launches += 1
+    return out
+
+
+grad_quant.launches = 0

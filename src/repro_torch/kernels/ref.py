@@ -144,3 +144,19 @@ def flash_attention_paged_ref(
     row_ok = (table >= 0).repeat_interleave(ps, dim=1)        # (B, cap)
     return _attend_rows(q, k, v, q_offset=q_offset, kv_len=kv_len,
                         causal=True, window=0, row_ok=row_ok)
+
+
+def grad_quant_ref(g: torch.Tensor, err: torch.Tensor):
+    """Int8 error-feedback quantisation of one tensor, in float32: (q int8,
+    scale 0-d float32, new_err float32), all on g's device.
+
+    ``scale = max|g32|/127 + 1e-12`` with ``g32 = float(g) + err``, ``q =
+    clip(round(g32/scale), -127, 127)`` (round half to even) and ``new_err
+    = g32 - q·scale``.  Both divisions divide by a tensor: on the card,
+    PyTorch turns a division by a Python number into a multiplication by
+    its reciprocal, which can round differently from the kernel's and the
+    JAX package's division."""
+    g32 = g.float() + err
+    scale = g32.abs().amax() / torch.full((), 127.0, device=g.device) + 1e-12
+    q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
+    return q, scale, g32 - q.float() * scale

@@ -17,6 +17,16 @@ task (Fisher probe, Eq. 3 selection, sparse fine-tune) under the device
 profile ``--profile`` and folds the deltas into the engine before serving,
 as ``examples/serve_batched.py`` does.
 
+With ``--personalise``, one probe adaptation fixes the policy, the engine
+keeps a per-slot delta arena, requests spread over ``--users`` users, and
+between chunks every user with enough finished streams is adapted on them
+(``adapt_many``), sent through the int8 error-feedback compressor and
+hot-swapped into their resident slots (at most ``--refresh-cap`` users per
+window):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke \
+        --device cpu --personalise --users 4
+
 Runs on the card unless ``--device cpu``.  Weights are random, from a
 seeded ``torch.Generator``.  The flags of ``repro.launch.serve`` that
 belong to later slices of the port are accepted by name and refused with
@@ -41,8 +51,6 @@ LATER_FLAGS = {
     "--temperature": (True, "11.1"), "--top-k": (True, "11.1"),
     "--eager": (False, "11.1"),
     "--inject": (True, "13"),
-    "--personalise": (False, "15"), "--users": (True, "15"),
-    "--refresh-cap": (True, "15"),
     "--fleet": (True, "16"),
 }
 
@@ -93,8 +101,21 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="TinyTrain-adapt to a synthetic task, fold, serve")
     ap.add_argument("--adapt-iters", type=int, default=10)
     ap.add_argument("--profile", default="jetson-nano",
-                    help="device profile preset used with --adapt "
-                         f"({', '.join(sorted(api.PROFILES))})")
+                    help="device profile preset used with --adapt and "
+                         f"--personalise ({', '.join(sorted(api.PROFILES))})")
+    ap.add_argument("--personalise", action="store_true",
+                    help="per-slot delta arena + online refresh: requests "
+                         "are spread over --users users, finished streams "
+                         "feed an adapt_many pass between chunks and the "
+                         "refreshed delta sets hot-swap in without draining "
+                         "(int8 error-feedback exchange)")
+    ap.add_argument("--users", type=int, default=4,
+                    help="distinct users sharing the engine with "
+                         "--personalise (uid = request index mod users)")
+    ap.add_argument("--refresh-cap", type=int, default=None,
+                    help="with --personalise: most users refreshed per "
+                         "between-chunks window, ranked by stale-delta age "
+                         "x banked streams (default: every eligible user)")
     for flag, (takes_value, _) in LATER_FLAGS.items():
         kind = {} if takes_value else {"action": "store_const", "const": True}
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kind)
@@ -116,14 +137,34 @@ def main(argv: Optional[List[str]] = None) -> None:
         page_budget = max(1, int(stripe * args.pressure))
         print(f"[serve] pressure {args.pressure}x: {page_budget} pages "
               f"(fixed-stripe capacity {stripe})")
+    rng = np.random.default_rng(args.seed)
+    session = policy = None
+    if args.personalise:
+        # one probe adaptation fixes the shared delta structure: every
+        # user's refresh runs under policy_override=policy, so arena rows
+        # keep the template's shapes across hot swaps
+        bb = api.backbone(args.arch, preset=args.preset, batch_size=48,
+                          seq=64)
+        session = api.TinyTrainSession(bb, params, max_way=8)
+        profile = api.device_profile(args.profile)
+        probe = session.adapt(api.sample_lm_task(rng, cfg.vocab, seq=64,
+                                                 max_way=5),
+                              profile, iters=1)
+        if probe.policy.n_units == 0:
+            print(f"[serve] WARNING: {profile.name} budget selected no "
+                  "units; --personalise disabled, serving base weights")
+        else:
+            policy = probe.policy
+            print(f"[serve] personalising {args.users} users under "
+                  f"{profile.name}: {policy.describe()}")
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                       chunk=args.chunk, prefill_block=args.prefill_block,
                       kv_paging=paging or None, kv_page_size=args.page_size,
                       kv_int8=args.kv_int8 or None, page_budget=page_budget,
                       reserve=args.reserve,
                       deadline_ticks=args.deadline_ticks,
-                      queue_limit=args.queue_limit, device=device)
-    rng = np.random.default_rng(args.seed)
+                      queue_limit=args.queue_limit, personalise=policy,
+                      device=device)
     if args.adapt:
         bb = api.backbone(args.arch, preset=args.preset, batch_size=48,
                           seq=64)
@@ -138,15 +179,32 @@ def main(argv: Optional[List[str]] = None) -> None:
             adaptation.fold_into(eng)
             print(f"[serve] adapted under {profile.name}: "
                   f"{adaptation.describe()}")
-    reqs = [Request(uid=i,
+    reqs = [Request(uid=i % args.users if policy is not None else i,
                     prompt=rng.integers(0, cfg.vocab,
                                         size=int(rng.integers(4, 24))
                                         ).astype(np.int32),
                     max_new=args.max_new)
             for i in range(args.requests)]
     t0 = time.perf_counter()
-    eng.run(reqs)
-    dt = time.perf_counter() - t0
+    if policy is not None:
+        pers = api.Personaliser(session, eng, policy, profile=args.profile,
+                                iters=args.adapt_iters,
+                                refresh_cap=args.refresh_cap)
+        online = pers.run_online(reqs)
+        dt = time.perf_counter() - t0
+        for ref in online["refreshes"]:
+            deferred = (f", {len(ref['deferred_users'])} deferred"
+                        if ref["deferred_users"] else "")
+            print(f"[serve] refresh {ref['round']}: users {ref['users']}"
+                  f"{deferred}, {ref['resident_rows_swapped']} resident rows "
+                  f"swapped, wire {ref['payload_bytes_wire']} B vs f32 "
+                  f"{ref['payload_bytes_f32']} B "
+                  f"({ref['payload_ratio']:.1f}x), adapt "
+                  f"{ref['adapt_seconds']:.2f}s, swap "
+                  f"{1000 * ref['swap_seconds']:.1f}ms")
+    else:
+        eng.run(reqs)
+        dt = time.perf_counter() - t0
     rep = eng.last_run_report
     toks = sum(len(r.out) for r in reqs)
     prompt_toks = sum(len(r.prompt) for r in reqs)

@@ -7,8 +7,10 @@ weights are ``(d_in, d_out)`` so ``x @ W`` matches.  ``mlp_apply`` and
 selected channel indices, as a tensor): the MLP's over d_ff neurons
 (``w_gate``/``w_up`` ``(D, K)``, ``w_down`` ``(K, D)``), attention's over
 query heads (``wq`` ``(D, K·Dh)``, ``wo`` ``(K·Dh, D)``), with the column
-math in ``models.overlay``.  MLA, MoE and cross-attention arrive with
-later slices.
+math in ``models.overlay``.  The projections a serving overlay can
+replace (``wq``, ``wo`` and the MLP's) go through :func:`bmm`, which also
+takes per-slot weights.  MLA, MoE and cross-attention arrive with later
+slices.
 
 KV caches are updated **in place**: a per-layer cache holds views into the
 layer-stacked cache tensors, and the scatter writes land there, so a
@@ -84,6 +86,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(dt)
 
 
+def bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, or a product per slot when ``w`` carries a leading slot
+    axis ``(B, d, f)`` (the serving engine's per-slot delta overlay): row b
+    of ``x`` (B, ..., d) against its own weight matrix."""
+    if w.dim() == 2:
+        return x @ w
+    b = x.shape[0]
+    y = torch.bmm(x.reshape(b, -1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeGLU / plain GELU)
 # ---------------------------------------------------------------------------
@@ -99,18 +112,18 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str,
               delta: Optional[Params] = None,
               idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     if act in ("swiglu", "geglu"):
-        g = x @ p["w_gate"]
-        u = x @ p["w_up"]
+        g = bmm(x, p["w_gate"])
+        u = bmm(x, p["w_up"])
         if delta is not None:
             g = OV.delta_out_cols(g, x, delta["w_gate"], idx)
             u = OV.delta_out_cols(u, x, delta["w_up"], idx)
         h = _act(act, g) * u
     else:
-        h = x @ p["w_up"]
+        h = bmm(x, p["w_up"])
         if delta is not None:
             h = OV.delta_out_cols(h, x, delta["w_up"], idx)
         h = _act(act, h)
-    y = h @ p["w_down"]
+    y = bmm(h, p["w_down"])
     if delta is not None:
         y = OV.delta_in_rows(y, h, delta["w_down"], idx)
     return y
@@ -264,7 +277,7 @@ def attention_apply(
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    q = x @ p["wq"]
+    q = bmm(x, p["wq"])
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
@@ -336,7 +349,7 @@ def attention_apply(
             out = dot_attention(q, ck, cv, causal=False, kv_len=kv_len)
 
     out_flat = out.reshape(b, s, h * dh)
-    y = out_flat @ p["wo"]
+    y = bmm(out_flat, p["wo"])
     if delta is not None:
         y = OV.delta_in_rows(y, out_flat, delta["wo"], cols)
     return y, new_cache

@@ -10,9 +10,14 @@ adds the delta into a serving copy of the weights.
 Per edited weight, ``mode`` says what the selected channels index:
 ``"out"`` output columns (``ΔW`` is ``(D, K)``, added at ``W[:, cols]``),
 ``"in"`` input rows (``ΔW`` is ``(K, D)``, added at ``W[cols, :]``).  An
-attention head expands to its ``head_dim`` contiguous columns.  The MLA,
-MoE, SSM and cross-attention kinds, and the per-slot serving overlay,
-arrive with ROADMAP queue 1, items 9 and 15.
+attention head expands to its ``head_dim`` contiguous columns.
+
+The serving engine's per-slot overlay (:func:`slot_params`) gives every
+slot its own effective weights ``W ⊕ scatter(ΔW_b, idx_b)`` through the
+same scatter-add as :func:`fold_deltas` (:func:`_add_at`), so a slot
+serving a user's deltas computes with exactly the weights a folded copy
+holds.  The MLA, MoE, SSM and cross-attention kinds arrive with ROADMAP
+queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -26,9 +31,10 @@ Params = Dict[str, Any]
 
 def head_cols(idx: torch.Tensor, head_dim: int) -> torch.Tensor:
     """Head indices -> flat column indices: head h -> its ``head_dim``
-    contiguous columns."""
-    return (idx[:, None] * head_dim
-            + torch.arange(head_dim, device=idx.device)[None, :]).reshape(-1)
+    contiguous columns.  Leading axes of ``idx`` (a slot axis) are kept."""
+    cols = (idx[..., :, None] * head_dim
+            + torch.arange(head_dim, device=idx.device))
+    return cols.reshape(*idx.shape[:-1], -1)
 
 
 def delta_out_cols(y: torch.Tensor, x: torch.Tensor, dw: torch.Tensor,
@@ -60,6 +66,20 @@ def _edits(kind: str):
         raise NotImplementedError(
             f"unit kind {kind!r}: only the dense kinds {sorted(EDITS)} are "
             "ported; the others arrive with ROADMAP queue 1, item 9") from None
+
+
+def _add_at(w: torch.Tensor, dw: torch.Tensor, cols: torch.Tensor,
+            mode: str) -> None:
+    """``w[b] ⊕= scatter(dw[b], cols[b])`` for every b of the leading axis,
+    in place and in ``w``'s dtype: ``"out"`` adds dw (N, D, K) at columns,
+    ``"in"`` adds dw (N, K, D) at rows.  The one scatter-add of the fold
+    and the per-slot overlay."""
+    b = torch.arange(w.shape[0], device=w.device)[:, None]
+    dw = dw.to(w.dtype)
+    if mode == "out":
+        w[b, :, cols] = w[b, :, cols] + dw.transpose(1, 2)
+    else:
+        w[b, cols, :] = w[b, cols, :] + dw
 
 
 def delta_init(cfg, layer_id: int, kind: str, n_channels: int,
@@ -109,9 +129,30 @@ def fold_deltas(cfg, params: Any, deltas: Any, policy) -> Any:
             idx = torch.as_tensor(np.asarray(u.channels, np.int64),
                                   device=w.device)
             cols = head_cols(idx, cfg.head_dim) if heads else idx
-            dw = d[name].to(device=w.device, dtype=w.dtype)
-            if mode == "out":
-                w[j].index_add_(1, cols, dw)
-            else:
-                w[j].index_add_(0, cols, dw)
+            _add_at(w[j:j + 1], d[name].to(w.device)[None], cols[None], mode)
+    return out
+
+
+def slot_params(cfg, kind: str, params: Params, d_stack: Params,
+                idx_stack: torch.Tensor) -> Params:
+    """Per-slot effective weights for one layer (the serving overlay; the
+    port of ``UnitOverlay.slot_weights`` behind ``slot_params``).
+
+    ``params`` is the layer's parameter dict for the unit's kind (no stack
+    axis), ``d_stack`` the slot-stacked delta pack ((B, ...) leaves) and
+    ``idx_stack`` the slot-stacked channel indices (B, K).  Returns a copy
+    of ``params`` in which every edited weight gains a leading slot axis:
+    ``W_eff[b] = W ⊕ scatter(ΔW_b, cols(idx_b))``, the scatter-add
+    :func:`fold_deltas` performs.  A zero row gives ``W`` itself."""
+    _, edits = _edits(kind)
+    out = dict(params)
+    idx = idx_stack.long()
+    for name, mode, heads in edits:
+        if name not in d_stack:
+            continue
+        w = params[name]
+        w_eff = w.expand(idx.shape[0], *w.shape).clone()
+        cols = head_cols(idx, cfg.head_dim) if heads else idx
+        _add_at(w_eff, d_stack[name], cols, mode)
+        out[name] = w_eff
     return out

@@ -18,7 +18,10 @@ Modes of :func:`forward_hidden`, as in the JAX package:
   inner sum ``u_{n,o} = Σ_d a_nd·g_nd``.
 - **serve** (``caches``): ``decode_step`` (one token per slot) and
   ``prefill_block`` (a block of prompt tokens per slot at its own cache
-  cursor), on contiguous or paged caches updated in place.
+  cursor), on contiguous or paged caches updated in place.  With an
+  ``overlay`` (the serving engine's per-slot delta arena) the selected
+  layers run on per-slot effective weights, so every slot serves its own
+  user's deltas from one shared copy of the base weights.
 
 MoE, MLA, SSM, encoder-decoder and VLM families and the remat option
 arrive with later slices (ROADMAP queue 1, item 9).
@@ -35,6 +38,7 @@ import torch
 
 from ..utils import DeviceLike, resolve_device, tree_map
 from . import layers as L
+from . import overlay as OV
 from .api import ArchConfig
 
 Params = Dict[str, Any]
@@ -181,6 +185,7 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  deltas: Optional[Dict[str, Params]] = None,
                  chan_idx: Optional[Dict[str, torch.Tensor]] = None,
                  taps: Optional[Dict[str, torch.Tensor]] = None,
+                 overlay: Optional[Dict[str, Tuple[Any, Any]]] = None,
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
     """One decoder layer (attention + MLP).  Returns (x, new_cache).
 
@@ -188,12 +193,25 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
     indices by unit kind; ``taps`` its (B, C) probe taps by group
     (``mixer``, ``ffn``).  The taps are cast to the activation's dtype: the
     same ones either way, and in bf16 it keeps the residual stream in bf16
-    where the JAX package's float32 mixer tap promotes it to float32."""
+    where the JAX package's float32 mixer tap promotes it to float32.
+
+    ``overlay`` maps this layer's unit kinds to slot-stacked ``(delta_pack,
+    channel_idx)`` pairs: the affected weights become per-slot effective
+    weights ``W ⊕ scatter(ΔW_b, idx_b)`` (the serving path; ``deltas`` and
+    ``chan_idx`` are the adaptation path, and the two are not combined)."""
     deltas = deltas or {}
     chan_idx = chan_idx or {}
     taps = taps or {}
+    ov = overlay or {}
+
+    def eff(kind: str) -> Params:
+        if kind in ov:
+            d_stk, i_stk = ov[kind]
+            return OV.slot_params(cfg, kind, p[kind], d_stk, i_stk)
+        return p[kind]
+
     h = L.apply_norm(cfg.norm, p["norm1"], x)
-    y, c = L.attention_apply(p["attn"], h, cfg, positions=positions,
+    y, c = L.attention_apply(eff("attn"), h, cfg, positions=positions,
                              cache=cache["attn"] if cache else None,
                              valid=valid, delta=deltas.get("attn"),
                              head_idx=chan_idx.get("attn"))
@@ -207,7 +225,7 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
     if "ffn" in taps:
         x = x + _mlp_tapped(p["mlp"], h, cfg.act, taps["ffn"])
     else:
-        x = x + L.mlp_apply(p["mlp"], h, cfg.act, delta=deltas.get("mlp"),
+        x = x + L.mlp_apply(eff("mlp"), h, cfg.act, delta=deltas.get("mlp"),
                             idx=chan_idx.get("mlp"))
     return x, ({"attn": c} if cache is not None else None)
 
@@ -245,6 +263,7 @@ def forward_hidden(
     plan=None,  # core.policy.SparseUpdatePolicy
     taps: Optional[Dict[str, Any]] = None,
     chan_idx: Optional[Dict[int, Dict[str, torch.Tensor]]] = None,
+    overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the decoder stacks and the final norm.
 
@@ -257,7 +276,10 @@ def forward_hidden(
     With ``caches`` every layer reads and writes its cache in place and
     the same cache tree is returned with new lengths.  ``seq_valid``
     (B, S) enables block-prefill mode (per-slot writes at each slot's own
-    cursor, ragged tails masked)."""
+    cursor, ragged tails masked).  ``overlay`` ({layer: {kind:
+    (delta_pack, channel_idx)}}, slot-stacked leaves) gives those layers
+    per-slot effective weights: the serving engine's personalisation path,
+    which passes its policy as ``plan`` with no ``deltas``."""
     if plan is not None and (plan.meta or {}).get("remat"):
         raise NotImplementedError(
             "rematerialised backprop spans (policy meta 'remat') arrive "
@@ -274,8 +296,8 @@ def forward_hidden(
                         if g_caches is not None else None)
             tap = {k: v[j] for k, v in g_taps.items()} if g_taps else None
             d = ci = None
-            if lid in selected:
-                d = (deltas or {}).get(f"L{lid}")
+            if lid in selected and deltas is not None:
+                d = deltas.get(f"L{lid}")
                 ci = _layer_chan_idx(plan, chan_idx, lid, x.device)
             # below the backprop horizon: forward only, nothing saved
             frozen = (torch.no_grad() if plan is not None and lid < horizon
@@ -283,7 +305,8 @@ def forward_hidden(
             with frozen:
                 x, nc = _apply_block(cfg, lp, x, positions, lid,
                                      cache=cache_in, valid=seq_valid,
-                                     deltas=d, chan_idx=ci, taps=tap)
+                                     deltas=d, chan_idx=ci, taps=tap,
+                                     overlay=(overlay or {}).get(lid))
             if g_caches is not None:
                 g_caches["attn"]["len"][j] = nc["attn"]["len"]
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
@@ -419,13 +442,18 @@ def decode_step(
     tokens: torch.Tensor,  # (B, 1)
     caches: Dict[str, Any],
     pos: torch.Tensor,     # () shared or (B,) per-slot positions
+    *,
+    overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
+    plan=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: new token -> logits (B, 1, vocab), caches updated
-    in place."""
+    in place.  ``overlay`` + ``plan`` decode each slot against its own
+    delta set (see :func:`forward_hidden`)."""
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=tokens.device)
     positions = pos[:, None] if pos.dim() else pos.expand(tokens.shape)
-    h, caches = forward_hidden(cfg, params, x, positions, caches=caches)
+    h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
+                               overlay=overlay, plan=plan)
     return unembed(cfg, params, h), caches
 
 
@@ -436,6 +464,9 @@ def prefill_block(
     caches: Dict[str, Any],
     pos: torch.Tensor,     # (B,) absolute position of tokens[:, 0]
     valid: Optional[torch.Tensor] = None,  # (B, S) bool; None = all valid
+    *,
+    overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
+    plan=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Sequence-mode prompt ingestion: a whole (B, S) block per call.
 
@@ -452,5 +483,5 @@ def prefill_block(
         valid = torch.ones(tokens.shape, dtype=torch.bool,
                            device=tokens.device)
     h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
-                               seq_valid=valid)
+                               seq_valid=valid, overlay=overlay, plan=plan)
     return unembed(cfg, params, h), caches

@@ -1,22 +1,65 @@
-"""Per-row int8 packing: the port of ``repro.optim.compress``'s
-``rowwise_quant`` and ``rowwise_dequant``.
+"""Int8 packing: the port of ``repro.optim.compress``.
 
-The pack side of the paged int8 KV store (``serving/paging.py``): a row
-is one token's head×dim block, and its own absmax scale keeps incremental
-cache appends exact (a page never needs requantising).  The arithmetic is
-the JAX package's, step for step in float32: ``scale = absmax/127 +
-1e-12``, ``q = clip(round(x / scale), -127, 127)``.  ``torch.round`` and
-``jnp.round`` both round half to even, so the codes come out equal, not
-merely close.
+Two users.  **Error feedback** (``int8_compress``/``int8_decompress`` and
+the state ``ef_state_init``): the personalisation path ships every
+refreshed delta set as int8 codes and one float32 scale per tensor, 4x
+fewer bytes than float32, and carries the quantisation residual per user
+into the next round, so the exchange stays unbiased over rounds.  A leaf
+on the card goes through the hand-written grad_quant kernel
+(``kernels.ops.grad_quant``, two launches, no host read of the scale); a
+leaf on the CPU through its plain version.  **Per-row packing**
+(``rowwise_quant``/``rowwise_dequant``): the pack side of the paged int8
+KV store (``serving/paging.py``), where a row is one token's head×dim
+block and its own absmax scale keeps incremental cache appends exact.
 
-The error-feedback compressor (``int8_compress``/``int8_decompress`` and
-its state) arrives with ROADMAP queue 1, item 15.
+The arithmetic is the JAX package's, step for step in float32: ``scale =
+absmax/127 + 1e-12``, ``q = clip(round(x / scale), -127, 127)``.
+``torch.round`` and ``jnp.round`` both round half to even, so the codes
+come out equal, not merely close.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
+
+from ..kernels import ops
+from ..utils import tree_leaves, tree_map
+
+PyTree = Any
+
+
+def _quant_one(g: torch.Tensor, err: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One leaf: (q int8, scale 0-d float32, new_err float32)."""
+    return ops.grad_quant(g, err)
+
+
+def int8_compress(grads: PyTree, ef: PyTree
+                  ) -> Tuple[PyTree, PyTree, PyTree]:
+    """Returns (int8 tree, scale tree, new error-feedback tree), each with
+    the structure of ``grads``; ``ef`` is the float32 residual tree of the
+    previous round (``ef_state_init`` for the first)."""
+    # each leaf becomes a (q, scale, new_err) tuple: flattened, they come
+    # out in leaf order three at a time
+    flat = tree_leaves(tree_map(_quant_one, grads, ef))
+
+    def unflatten(leaves):
+        it = iter(leaves)
+        return tree_map(lambda _: next(it), grads)
+
+    return tuple(unflatten(flat[i::3]) for i in range(3))
+
+
+def int8_decompress(q: PyTree, scales: PyTree,
+                    dtype: torch.dtype = torch.float32) -> PyTree:
+    return tree_map(lambda qi, si: (qi.float() * si).to(dtype), q, scales)
+
+
+def ef_state_init(params: PyTree) -> PyTree:
+    """A zero float32 residual per leaf of ``params``."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
 
 
 def rowwise_quant(x: torch.Tensor, n_feature_axes: int = 1,

@@ -37,9 +37,23 @@ read goes through ``core.adapt._fetch``, so ``last_run_report
 ["host_syncs"]`` counts them all.  One sync per chunk is ROADMAP queue 1,
 item 11.2.
 
-Sampling, the eager loop, faults, backfill, encoder runs and
-personalisation arrive with later slices; their knobs raise
-``NotImplementedError`` naming the ROADMAP item.
+**Online personalisation** (``personalise=SparseUpdatePolicy``): instead
+of one folded parameter copy per user, the engine keeps a per-slot delta
+arena, ``{layer: {kind: (delta_pack, channel_idx)}}`` with a leading slot
+axis, that the forward applies as per-slot effective weights
+(``models.overlay.slot_params``) on the policy's layers.  A zero row is
+the base model, so an unknown user serves unpersonalised.  A request
+takes its user's registered :class:`DeltaSet` at first staging and keeps
+it through preemption and requeue; admission parks it in the slot's
+arena row inside the tick.  :meth:`ServeEngine.swap_deltas` registers a
+user's refreshed deltas and rewrites that user's resident rows between
+chunks with one masked select: no drain, no host read.  A request that
+carries deltas to an engine without a policy is rejected with the typed
+reason ``unexpected_delta_set``.
+
+Sampling, the eager loop, faults, backfill and encoder runs arrive with
+later slices; their knobs raise ``NotImplementedError`` naming the ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -52,9 +66,10 @@ import numpy as np
 import torch
 
 from ..core import adapt as _telemetry
+from ..models import overlay as OV
 from ..models import transformer as T
 from ..models.api import ArchConfig
-from ..utils import DeviceLike, resolve_device
+from ..utils import DeviceLike, resolve_device, tree_leaves, tree_map
 from . import paging as PG
 
 # structured terminal outcomes, emitted through the per-tick event rows
@@ -80,6 +95,42 @@ _NO_DEADLINE = 1 << 30
 
 
 @dataclasses.dataclass
+class DeltaSet:
+    """One user's adapted deltas in serving form.
+
+    ``deltas`` is the adaptation-side delta tree (``{"L{layer}": {kind:
+    {weight: tensor}}}``, what ``TinyTrainSession.adapt`` returns) and
+    ``channels`` the per-unit selected channel indices in the same nesting.
+    :meth:`from_policy` builds ``channels`` from the policy that produced
+    the deltas.  Leaves stay tensors wherever they lie (numpy leaves become
+    CPU tensors), so building a set and staging it never read the device;
+    the engine moves them to its own device."""
+
+    deltas: Dict[str, Dict[str, Any]]
+    channels: Dict[str, Dict[str, Any]]
+
+    def __post_init__(self):
+        self.deltas = {
+            lk: {k: {n: v.detach() if isinstance(v, torch.Tensor)
+                     else torch.as_tensor(np.asarray(v))
+                     for n, v in pack.items()}
+                 for k, pack in kinds.items()}
+            for lk, kinds in self.deltas.items()}
+        self.channels = {
+            lk: {k: torch.as_tensor(np.asarray(v, np.int64))
+                 for k, v in kinds.items()}
+            for lk, kinds in self.channels.items()}
+
+    @classmethod
+    def from_policy(cls, policy, deltas) -> "DeltaSet":
+        ch: Dict[str, Dict[str, np.ndarray]] = {}
+        for u in policy.units:
+            ch.setdefault(f"L{u.layer}", {})[u.kind] = np.asarray(
+                u.channels, np.int64)
+        return cls(deltas=deltas, channels=ch)
+
+
+@dataclasses.dataclass
 class Request:
     uid: int
     prompt: np.ndarray  # (S,) int32
@@ -102,13 +153,23 @@ class Request:
     outcome: Optional[str] = None
     # times this stream was preempted and requeued
     preempts: int = 0
+    # this user's deltas for the per-slot overlay (engines built with
+    # ``personalise=``); None = attached from the per-user registry at
+    # first staging (zeros, the base model, for unknown users), then kept
+    # so preempt/requeue re-attaches the same set.  Rejected on engines
+    # without personalisation
+    delta_set: Optional[DeltaSet] = None
+
+    @property
+    def terminal(self) -> bool:
+        return self.outcome is not None
 
 
 class SubmitResult(NamedTuple):
     """Typed admission verdict from :meth:`ServeEngine.submit`."""
 
     accepted: bool
-    reason: str  # "ok" | "queue_full"
+    reason: str  # "ok" | "queue_full" | "unexpected_delta_set"
 
 
 class SlotState(NamedTuple):
@@ -141,6 +202,10 @@ class PendingBuffer(NamedTuple):
     rid: torch.Tensor      # (P,) int32
     ttl: torch.Tensor      # (P,) int32 remaining deadline (resident ticks)
     preempt_left: torch.Tensor  # (P,) int32 requeues left
+    # staged per-request deltas, {layer: {kind: (pack, idx)}} with leaves
+    # stacked along a leading axis of max(count, 1) entries ({} without a
+    # personalise policy)
+    delta: Any
     count: torch.Tensor    # () int32 valid entries
 
 
@@ -151,6 +216,7 @@ class TickPlan(NamedTuple):
     state: SlotState
     pool: Optional[PG.PagePool]
     take: torch.Tensor         # (slots,) bool admitted this tick
+    src: torch.Tensor          # (slots,) pending entry each slot admits
     n_admit: torch.Tensor      # () int32
     head: torch.Tensor         # () int32 next pending entry
     rid_row: torch.Tensor      # (slots,) int32 rids before preemption
@@ -202,8 +268,6 @@ class ServeEngine:
             raise _later("faults", "13", "fault injection")
         if admit_backfill is not None:
             raise _later("admit_backfill", "13", "page-demand backfill")
-        if personalise is not None:
-            raise _later("personalise", "15", "per-slot personalisation")
         T.check_supported(cfg)
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
@@ -281,6 +345,26 @@ class ServeEngine:
         self._resident: Dict[int, int] = {}
         # per-run outcome tally (terminal outcomes plus "requeued" events)
         self._tally: Dict[str, int] = {}
+        # online personalisation: one zero (pack, idx) template per policy
+        # unit fixes the shapes; the arena stacks it along a slot axis and
+        # is what the forward applies.  The per-user registry feeds
+        # Request.delta_set at first staging, and the per-slot rids of the
+        # last executed tick (from the fetched event rows) say which rows a
+        # swap rewrites
+        self.personalise = personalise
+        self._delta_tmpl: Dict[int, Dict[str, Tuple[Any, Any]]] = {}
+        if personalise is not None:
+            dtype = T.torch_dtype(cfg)
+            for u in personalise.units:
+                self._delta_tmpl.setdefault(u.layer, {})[u.kind] = (
+                    OV.delta_init(cfg, u.layer, u.kind, u.n_channels, dtype,
+                                  self.device),
+                    torch.zeros((u.n_channels,), dtype=torch.int64,
+                                device=self.device))
+        self._arena: Any = tree_map(
+            lambda z: z.expand(slots, *z.shape).clone(), self._delta_tmpl)
+        self._user_deltas: Dict[int, DeltaSet] = {}
+        self._slot_rids = np.full((slots,), -1, np.int32)
 
     # ------------------------------------------------------------------
     # Submission
@@ -312,6 +396,8 @@ class ServeEngine:
                 f"{budget - 2})")
         if req.max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {req.max_new}")
+        if req.delta_set is not None and self.personalise is not None:
+            self._delta_rows(req.delta_set)  # shape/structure check
         if self.spec is not None:
             need = self.spec.pages_for(budget)
             if need > self.spec.n_pages:
@@ -323,11 +409,23 @@ class ServeEngine:
         """Un-admitted host state: queued + staged + awaiting restage."""
         return len(self.queue) + len(self._staged) + len(self._requeue)
 
+    def _reject_reason(self, req: Request) -> Optional[str]:
+        """A request the engine must not serve as it is: deltas for an
+        engine with no arena to park them in would be silently dropped."""
+        if self.personalise is None and req.delta_set is not None:
+            return "unexpected_delta_set"
+        return None
+
     def submit(self, req: Request) -> SubmitResult:
         """Enqueue one request.  A malformed request raises; a full queue
-        (``queue_limit``) returns a typed rejection and marks the request
+        (``queue_limit``) or deltas sent to an engine without
+        personalisation return a typed rejection and mark the request
         ``outcome='rejected'``."""
         self._validate(req)
+        reason = self._reject_reason(req)
+        if reason is not None:
+            req.outcome = "rejected"
+            return SubmitResult(False, reason)
         if (self.queue_limit is not None
                 and self.backlog_size() >= self.queue_limit):
             req.outcome = "rejected"
@@ -353,6 +451,60 @@ class ServeEngine:
         if not req.out:
             return prompt
         return np.concatenate([prompt, np.asarray(req.out, np.int32)])
+
+    def _attach_delta(self, req: Request) -> None:
+        """First-staging attach: a request without an explicit set takes its
+        user's registered one (None for unknown users: the zero row, the
+        base model) and keeps it for its lifetime, so preempt/requeue
+        re-attaches the same deltas."""
+        if self.personalise is not None and req.delta_set is None:
+            req.delta_set = self._user_deltas.get(req.uid)
+
+    def _delta_rows(self, ds: Optional[DeltaSet]):
+        """One request's arena row: ``{layer: {kind: (pack, idx)}}`` on the
+        engine's device in the template's exact shapes (the zero template
+        when ``ds`` is None).  Raises ``ValueError`` on a set that does not
+        match the personalise policy's structure: a caller bug, not load."""
+        if ds is None:
+            return self._delta_tmpl
+        out: Dict[int, Dict[str, Tuple[Any, Any]]] = {}
+        for lid, kinds in self._delta_tmpl.items():
+            out[lid] = {}
+            for kind, (pack0, idx0) in kinds.items():
+                try:
+                    pack = ds.deltas[f"L{lid}"][kind]
+                    idx = ds.channels[f"L{lid}"][kind]
+                except KeyError:
+                    raise ValueError(
+                        f"delta_set missing unit L{lid}.{kind} required "
+                        "by the engine's personalise policy") from None
+                if idx.shape != idx0.shape:
+                    raise ValueError(
+                        f"delta_set L{lid}.{kind} selects {idx.shape[0]} "
+                        f"channels; the policy expects {idx0.shape[0]}")
+                row = {}
+                for name, z in pack0.items():
+                    if name not in pack:
+                        raise ValueError(
+                            f"delta_set L{lid}.{kind} missing delta "
+                            f"{name!r}")
+                    v = pack[name]
+                    if v.shape != z.shape:
+                        raise ValueError(
+                            f"delta_set L{lid}.{kind}.{name} has shape "
+                            f"{tuple(v.shape)}; the policy expects "
+                            f"{tuple(z.shape)}")
+                    row[name] = v.to(device=self.device, dtype=z.dtype)
+                out[lid][kind] = (row, idx.to(self.device))
+        return out
+
+    def _fwd_kwargs(self) -> Dict[str, Any]:
+        """Forward kwargs of both tick kinds: under personalisation the
+        arena is the per-slot overlay and the policy names its layers;
+        without a policy, none."""
+        if self.personalise is None:
+            return {}
+        return {"overlay": self._arena, "plan": self.personalise}
 
     def _admit_pages(self, feed_len: int, budget: int) -> int:
         """Pages reserved at admission: the feed's own demand under
@@ -407,8 +559,16 @@ class ServeEngine:
             ints["preempt_left"][j] = self._preempt_left(req)
         dev = self.device
         up = (lambda a: torch.from_numpy(a).to(dev))
+        delta: Any = {}
+        if self.personalise is not None:
+            # each staged request's row (attached at first staging, the
+            # same set on every restage); only the staged entries are
+            # stacked, since a slot admits entry src < count
+            rows = [self._delta_rows(req.delta_set)
+                    for _, req in self._staged] or [self._delta_tmpl]
+            delta = tree_map(lambda *xs: torch.stack(xs), *rows)
         self._pending_cache = PendingBuffer(
-            prompt=up(prompt), rid=up(rid),
+            prompt=up(prompt), rid=up(rid), delta=delta,
             **{k: up(a) for k, a in ints.items()},
             count=torch.tensor(len(self._staged), dtype=torch.int32,
                                device=dev))
@@ -493,7 +653,7 @@ class ServeEngine:
             prefilling = prefilling & st.active
         block = ((prefilling.any() & (self.prefill_block > 1))
                  | stalled.any())
-        return TickPlan(st, pool, take, n_admit, head + n_admit, rid_row,
+        return TickPlan(st, pool, take, src, n_admit, head + n_admit, rid_row,
                         active_row, pre_requeue, pre_final,
                         torch.stack([stop, block]))
 
@@ -512,7 +672,8 @@ class ServeEngine:
             gidx = (st.cursor[:, None] + j).clamp(0, maxp - 1)
             toks = torch.where(valid, st.prompt.gather(1, gidx), 0)
             logits, self.caches = T.prefill_block(
-                cfg, params, toks.long(), self.caches, st.pos, valid)
+                cfg, params, toks.long(), self.caches, st.pos, valid,
+                **self._fwd_kwargs())
             last = (n_tok - 1).clamp(0, B - 1).long()
             idx = last[:, None, None].expand(-1, 1, logits.shape[-1])
             return logits.gather(1, idx)[:, 0], n_tok
@@ -521,7 +682,8 @@ class ServeEngine:
         tok = torch.where(st.active,
                           torch.where(prefilling, ptok, st.last_tok), 0)
         logits, self.caches = T.decode_step(
-            cfg, params, tok[:, None].long(), self.caches, st.pos)
+            cfg, params, tok[:, None].long(), self.caches, st.pos,
+            **self._fwd_kwargs())
         return logits[:, 0], st.active.to(torch.int32)
 
     def _advance(self, plan: TickPlan, block: bool):
@@ -593,6 +755,7 @@ class ServeEngine:
             req = self.queue.popleft()
             rid = self._next_rid
             self._next_rid += 1
+            self._attach_delta(req)
             self._by_rid[rid] = req
             self._staged.append((rid, req))
             self._pending_dirty = True
@@ -615,6 +778,18 @@ class ServeEngine:
                 # reserve, growth and preemption
                 PG.set_page_table(self.caches, plan.pool.table)
             T.reset_slot_state(self.caches, plan.take)
+            if self.personalise is not None:
+                # park each admitted request's staged deltas in its slot's
+                # arena row: a gather and a select per leaf, the whole
+                # per-tick cost of personalisation outside the forward
+                take = plan.take
+
+                def admit(a, q):
+                    m = take.reshape((self.n_slots,) + (1,) * (a.dim() - 1))
+                    return torch.where(
+                        m, q[plan.src.clamp(max=q.shape[0] - 1)], a)
+
+                self._arena = tree_map(admit, self._arena, pend.delta)
             st, pool, row = self._advance(plan, bool(block))
             rows.append(row)
         self._state, self.pool = st, pool
@@ -629,6 +804,10 @@ class ServeEngine:
         S = self.n_slots
         rids, toks, outs = ev[:, :S], ev[:, S:2 * S], ev[:, 2 * S:3 * S]
         act, n_admit = ev[:, 3 * S], ev[:, 3 * S + 1]
+        # per-slot occupancy at the last executed tick: the resident map
+        # swap_deltas targets between chunks (terminal rids resolve to no
+        # live request)
+        self._slot_rids = rids[-1].copy()
         for _ in range(int(n_admit.sum())):
             rid, _req = self._staged.popleft()
             self._live.add(rid)
@@ -696,6 +875,55 @@ class ServeEngine:
         }
 
     # ------------------------------------------------------------------
+    # Online personalisation: per-user registry + hot swap
+    # ------------------------------------------------------------------
+
+    def swap_deltas(self, uid: int, delta_set: Optional[DeltaSet]) -> int:
+        """Register user ``uid``'s deltas and hot-swap them in.
+
+        Updates the per-user registry (later requests of ``uid`` attach the
+        new set), the ``delta_set`` of every in-flight request of that user
+        (queued, staged, requeued and resident), and rewrites the user's
+        resident arena rows with one masked select per leaf: no drain and
+        no host read.  Call between chunks (``run()`` calls); resident
+        streams take the new deltas from their next tick, so only this
+        user's later tokens change.  ``delta_set=None`` reverts the user to
+        the base model.  Returns the number of resident slots swapped."""
+        if self.personalise is None:
+            raise RuntimeError(
+                "engine was built without personalise=: there is no delta "
+                "arena to swap into")
+        rows = self._delta_rows(delta_set)  # validates shape/structure
+        if delta_set is None:
+            self._user_deltas.pop(uid, None)
+        else:
+            self._user_deltas[uid] = delta_set
+        for _r, req in self._staged:
+            if req.uid == uid:
+                req.delta_set = delta_set
+                self._pending_dirty = True
+        for req in (*(r for _, r in self._requeue), *self.queue,
+                    *self._by_rid.values()):
+            if req.uid == uid:
+                req.delta_set = delta_set
+        mask = np.zeros(self.n_slots, bool)
+        for i, r in enumerate(self._slot_rids):
+            req = self._by_rid.get(int(r))
+            if req is not None and req.uid == uid and int(r) in self._live:
+                mask[i] = True
+        n = int(mask.sum())
+        if n:
+            # broadcast the user's row into every masked slot
+            m = torch.from_numpy(mask).to(self.device)
+
+            def one(a, v):
+                return torch.where(m.reshape((-1,) + (1,) * v.dim()),
+                                   v[None], a)
+
+            self._arena = tree_map(one, self._arena, rows)
+        return n
+
+    # ------------------------------------------------------------------
     # Observability
     # ------------------------------------------------------------------
 
@@ -715,6 +943,15 @@ class ServeEngine:
             "kv_cache_bytes": int(total),
             "resident_streams": len(live),
         }
+        if self.personalise is not None:
+            # the arena rows are the only per-user parameter state (the base
+            # weights are shared), against a folded copy per user
+            arena_b = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(self._arena))
+            rep["delta_arena_bytes"] = arena_b
+            rep["delta_bytes_per_stream"] = arena_b // self.n_slots
+            rep["params_bytes_folded_copy"] = sum(
+                t.numel() * t.element_size() for t in tree_leaves(self.params))
         spec = self.spec
         if spec is None:
             rep["kv_bytes_per_stream"] = int(total) // self.n_slots
@@ -757,8 +994,10 @@ class ServeEngine:
         self._tally = {}
         for r in requests:
             # admission backpressure: overflow beyond queue_limit is shed
-            # with a typed terminal outcome, never silently dropped
-            if (self.queue_limit is not None
+            # with a typed terminal outcome, never silently dropped; so is a
+            # request whose deltas this engine could not serve
+            if self._reject_reason(r) is not None or (
+                    self.queue_limit is not None
                     and self.backlog_size() >= self.queue_limit):
                 r.outcome = "rejected"
                 self._tally["rejected"] = self._tally.get("rejected", 0) + 1

@@ -27,7 +27,8 @@ def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"engine.py", "layers.py", "ops.py", "chip_smoke.py",
             "fisher.py", "session.py", "flash_paged.py", "paging.py",
-            "serve_profile.py", "adapt_profile.py"} <= names
+            "serve_profile.py", "adapt_profile.py", "grad_quant.py",
+            "personalise.py", "compress.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -183,7 +183,7 @@ def test_submit_validates_and_sheds(ref):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(faults=object()), dict(personalise=object()),
+    dict(faults=object()), dict(temperature=0.7, top_k=5),
     dict(admit_backfill=1), dict(temperature=0.7), dict(top_k=5),
     dict(fused=False),
 ])

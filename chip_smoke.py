@@ -17,10 +17,14 @@ exits non-zero:
    output on the same rows laid out contiguously; Fisher: f32 at 1e-5,
    bf16 inputs at 2e-2, masked rows holding NaN; grad_quant: codes, scale
    and residual exactly equal, f32 and bf16 g, a ragged multi-block size,
-   ties, zeros and a NaN, and the tree compressor with no host read), then
-   its median time beside its bound, the plain version's time and one
-   PyTorch library call's time where one computes the same function (a
-   yardstick the port never calls);
+   ties, zeros and a NaN, and the tree compressor with no host read; SSD
+   scan: the forward kernel against the sequential oracle and the
+   backward kernel against autograd of the plain chunked body, f32 at 1e-4
+   and bf16 at 2e-2 of max(1, max |want|), at the mamba2 adapt shape, over
+   five tiles with an initial state, and at the chunk of 256), then its
+   median time beside its bound, the plain version's time and one PyTorch
+   library call's time where one computes the same function (a yardstick
+   the port never calls);
 4. small-input checks on qwen2-smoke in f32, card against the plain path
    on the CPU: the serving engine's greedy streams (contiguous, paged, and
    paged under half the page budget with at least one requeue), and
@@ -28,6 +32,9 @@ exits non-zero:
    streams from the engine with the deltas folded in), and two users'
    deltas served per slot through the personalisation arena (the same
    streams as on the CPU and as each user's folded engine on the card);
+   then TinyTrain on mamba2-smoke f32 through the SSD kernels, card
+   against the CPU: the same policy of SSD units, losses within 1e-4, the
+   same folded streams;
 5. serve: qwen2-1.5b at its published width in bf16 (random weights from
    a seeded generator), 8 requests through ``ServeEngine``; every request
    must end ``done`` with 16 tokens, and the cached flash kernel's launch
@@ -64,10 +71,20 @@ exits non-zero:
    exchange (the grad_quant kernel) and hot-swap into their slots; every
    request ``done``, at least one refresh, grad_quant launched once per
    leaf of every refreshed delta set, a payload ratio above 3.9, the
-   cached flash kernel launched a positive multiple of 28 times.
+   cached flash kernel launched a positive multiple of 28 times;
+11. mamba2: the twin of ``launch.serve --arch mamba2-1.3b --preset full
+   --adapt`` at mamba2-1.3b's published width and depth in bf16 (48
+   layers, d_model 2048, 64 SSD heads of 64, state 128; random weights
+   from a seeded generator): ``TinyTrainSession.adapt`` on phase 6's
+   episode shape under phase 6's profile (the SSD scan kernels forward
+   and backward, the Fisher kernel), ``fold_into`` a ``ServeEngine`` (4
+   slots, max_len 96) and 10 requests; finite losses, two host transfers,
+   one Fisher launch (one tap group), forward SSD launches a positive
+   multiple of 48, backward launches, SSD units selected, every request
+   ``done``.
 
 Phases 7 to 9 run right after phase 5, on its weights.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 10) and read
+counts are set to 0 just before each main path (phases 5 to 11) and read
 just after.  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -108,6 +125,11 @@ ADAPT = dict(batch_size=48, seq=64, max_way=8, task_way=5, pad=48, iters=10)
 # phase 10: the personalised serve and its online refresh loop
 PERSONALISE = dict(slots=8, max_len=128, chunk=16, requests=16, users=4,
                    max_new=16, iters=8, seq=32)
+# the SSD scan's main-path shape: mamba2-1.3b's cache-free forward over the
+# adapt episode (48 rows of 64 tokens, 64 heads of 64, state 128)
+SSD = dict(b=48, s=64, h=64, p=64, n=128, chunk=256)
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to max |want|
+SSD_TILE = 32  # csrc/ssd_scan.cu's tokens per tile
 
 
 def fail(msg: str) -> None:
@@ -202,6 +224,40 @@ def fill_pages(arena, x, table, rows):
     return arena
 
 
+def ssd_work(b, s, h, p, n, elt, backward, zero_init=True):
+    """(bytes, operations) of one SSD scan call at these dims, with no
+    final state asked for: each input read once and each output written
+    once (x, B and C of ``elt`` bytes, dt, a, y and the gradients float32,
+    dx/dB/dC back in x's dtype), and the multiply-adds the kernels' loops
+    do on this data (two operations each, tile by tile of 32 tokens; the
+    state terms skipped where the state is known to be zero or no output
+    needs it)."""
+    bshp, bsh, bsn = b * s * h * p, b * s * h, b * s * n
+    tiles = [min(SSD_TILE, s - t0) for t0 in range(0, s, SSD_TILE)]
+    pairs = SSD_TILE * (SSD_TILE + 1) // 2
+    if not backward:
+        nbytes = bshp * elt + 4 * bsh + 4 * h + 2 * bsn * elt + 4 * bshp
+        macs = 0
+        for t, rows in enumerate(tiles):
+            macs += pairs * n + p * rows * (rows + 1) // 2
+            macs += (0 if t == 0 and zero_init else rows * n * p)
+            macs += SSD_TILE * p * n if t < len(tiles) - 1 else 0
+        return nbytes, 2 * macs * b * h
+    nbytes = (4 * bshp + bshp * elt + 4 * bsh + 4 * h + 2 * bsn * elt
+              + bshp * elt + 4 * bsh + 2 * bsn * elt)
+    macs = 0
+    for t, rows in enumerate(tiles):
+        state_in = not (t == 0 and zero_init)
+        ds = t < len(tiles) - 1
+        macs += SSD_TILE * p * n if ds else 0                # recompute
+        macs += pairs * (n + p)                              # W and dy.u
+        macs += pairs * p + (SSD_TILE * p * n if ds else 0)  # du
+        macs += pairs * n + (SSD_TILE * p * n if state_in else 0)  # dC
+        macs += pairs * n + (SSD_TILE * p * n if ds else 0)  # dB
+        macs += SSD_TILE * p * n if t > 0 else 0             # dS
+    return nbytes, 2 * macs * b * h + 2 * bsn * h  # + the head sums
+
+
 def main() -> int:
     try:
         import torch
@@ -225,11 +281,13 @@ def main() -> int:
     from repro_torch.kernels import build, flash_attention, flash_paged, ops
     from repro_torch.kernels import fisher as fisher_kernel
     from repro_torch.kernels import grad_quant as gq_kernel
+    from repro_torch.kernels import ssd_scan as ssd_kernel
     from repro_torch.kernels.ref import (
         fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
-        flash_attention_paged_ref, grad_quant_ref,
+        flash_attention_paged_ref, grad_quant_ref, ssd_scan_ref,
     )
     from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
+    from repro_torch.models import ssm
     from repro_torch.models import transformer as T
     from repro_torch.models.overlay import fold_deltas
     from repro_torch.optim import compress
@@ -657,6 +715,148 @@ def main() -> int:
               "max_abs_err": 0.0}
     del gbufs, tree, ef, q_t, s_t
 
+    # -- SSD scan kernels: forward and backward against their plain versions
+    # forward against the sequential oracle, backward against autograd of
+    # the plain chunked body in float32 on the same (rounded) inputs; at
+    # the main path's shape, over several tiles with an initial state, and
+    # at the Pallas chunk of 256
+    def ssd_inputs(b, s, h, p, n, dtype, init=False):
+        x = (0.5 * torch.randn((b, s, h, p), generator=gen, device=dev)
+             ).to(dtype)
+        dt = F.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+        bm = (0.5 * torch.randn((b, s, n), generator=gen, device=dev)
+              ).to(dtype)
+        cm = (0.5 * torch.randn((b, s, n), generator=gen, device=dev)
+              ).to(dtype)
+        st = (0.5 * torch.randn((b, h, p, n), generator=gen, device=dev)
+              if init else None)
+        return x, dt, a, bm, cm, st
+
+    def rel_err(got, want, tol, what):
+        """Max abs error; fails unless finite and within ``tol`` of
+        max(1, max |want|)."""
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item()
+        e = err / max(1.0, want.abs().max().item())
+        if not (torch.isfinite(got).all().item() and e <= tol):
+            fail(f"{what}: error {e} (relative to max |want|) beyond {tol:g}")
+        return err
+
+    ssd_cases = [dict(SSD), dict(b=2, s=160, h=4, p=32, n=64, chunk=80,
+                                 init=True),
+                 dict(b=1, s=512, h=2, p=64, n=128, chunk=256)]
+    ssd_worst = ssd_bwd_worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = SSD_TOL[dname]
+        for case in ssd_cases:
+            chunk = case["chunk"]
+            dims = {k: case[k] for k in ("b", "s", "h", "p", "n")}
+            x, dt, a, bm, cm, st = ssd_inputs(**dims, dtype=dtype,
+                                              init=case.get("init", False))
+            y, fin = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                  init_state=st, out_dtype=torch.float32)
+            yr, sr = ssd_scan_ref(x.float(), dt, a, bm, cm, st)
+            e_fwd = max(rel_err(y, yr, 1e-4, f"ssd_scan y {dname} {case}"),
+                        rel_err(fin, sr, 1e-4, f"ssd_scan state {dname}"))
+            w = torch.randn(y.shape, generator=gen, device=dev)
+            leaves = [t.clone().requires_grad_() for t in (x, dt, bm, cm)]
+            y, _ = ssm.ssd_chunked(leaves[0], leaves[1], a, leaves[2],
+                                   leaves[3], chunk, st, need_state=False)
+            got = torch.autograd.grad((y * w).sum(), leaves)
+            refl = [t.float().clone().requires_grad_()
+                    for t in (x, dt, bm, cm)]
+            yp, _ = ssm.ssd_chunked_plain(refl[0], refl[1], a, refl[2],
+                                          refl[3], chunk, st)
+            want = torch.autograd.grad((yp * w).sum(), refl)
+            torch.cuda.synchronize()
+            e_bwd = max(rel_err(g, wv, tol, f"ssd_scan_bwd {name_} {dname} "
+                                f"{case}")
+                        for g, wv, name_ in zip(got, want, ("dx", "d(dt)",
+                                                            "dB", "dC")))
+            ssd_worst, ssd_bwd_worst = (max(ssd_worst, e_fwd),
+                                        max(ssd_bwd_worst, e_bwd))
+            print(f"[parity] ssd_scan {dname} {case}: forward max abs error "
+                  f"{e_fwd:.3g} (tol 1e-4 of max(1, max |y|)), backward (dx, "
+                  f"d(dt), dB, dC) {e_bwd:.3g} (tol {tol:g} of the same)",
+                  flush=True)
+    del x, dt, a, bm, cm, st, y, yp, yr, w, leaves, refl, got, want
+
+    # time at the main path's shape in bf16, two input sets cycled (each
+    # call moves 78 MB, above the 50 MB L2), the kernels through their C
+    # entries
+    b_, s_, h_, p_, n_ = (SSD[k] for k in ("b", "s", "h", "p", "n"))
+    sets = [ssd_inputs(b_, s_, h_, p_, n_, torch.bfloat16) for _ in range(2)]
+    dys = [torch.randn((b_, s_, h_, p_), generator=gen, device=dev)
+           for _ in range(2)]
+    y_out = torch.empty((b_, s_, h_, p_), device=dev)
+    dx_o, ddt_o = torch.empty_like(y_out), torch.empty((b_, s_, h_),
+                                                       device=dev)
+    parts = torch.empty((2, b_, h_, s_, n_), device=dev)
+    db_o, dc_o = (torch.empty((b_, s_, n_), device=dev) for _ in range(2))
+    nt_ = -(-s_ // SSD_TILE)
+    states = torch.empty((b_, h_, nt_, p_, n_), device=dev) if nt_ > 1 else None
+    fwd_entry, bwd_entry = ssd_kernel._entry(), ssd_kernel._bwd_entry()
+    it["i"] = 0
+
+    def next_set():
+        i = it["i"] = (it["i"] + 1) % len(sets)
+        return sets[i], dys[i]
+
+    def run_ssd():
+        (x, dt, a, bm, cm, _), _ = next_set()
+        rc = fwd_entry(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                       bm.data_ptr(), cm.data_ptr(), None, y_out.data_ptr(),
+                       None, b_, s_, h_, p_, n_, 1, stream)
+        if rc:
+            fail(f"ssd_scan_fwd returned cudaError {rc}")
+
+    def run_ssd_bwd():
+        (x, dt, a, bm, cm, _), dy = next_set()
+        rc = bwd_entry(dy.data_ptr(), x.data_ptr(), dt.data_ptr(),
+                       a.data_ptr(), bm.data_ptr(), cm.data_ptr(), None,
+                       None if states is None else states.data_ptr(),
+                       dx_o.data_ptr(), ddt_o.data_ptr(), parts[0].data_ptr(),
+                       parts[1].data_ptr(), db_o.data_ptr(), dc_o.data_ptr(),
+                       b_, s_, h_, p_, n_, 1, stream)
+        if rc:
+            fail(f"ssd_scan_bwd returned cudaError {rc}")
+
+    def run_ssd_plain():
+        (x, dt, a, bm, cm, _), _ = next_set()
+        ssd_scan_ref(x, dt, a, bm, cm)
+
+    def run_ssd_bwd_plain():
+        (x, dt, a, bm, cm, _), dy = next_set()
+        lv = [t.detach().requires_grad_() for t in (x, dt, bm, cm)]
+        y, _ = ssm.ssd_chunked_plain(lv[0], lv[1], a, lv[2], lv[3],
+                                     SSD["chunk"])
+        torch.autograd.grad(y, lv, dy)
+
+    ssd_ms = time_ms(run_ssd, 20)
+    ssd_bwd_ms = time_ms(run_ssd_bwd, 10)
+    ssd_plain_ms = time_ms(run_ssd_plain, 2)
+    ssd_bwd_plain_ms = time_ms(run_ssd_bwd_plain, 2)
+    ssd_rec = {}
+    for what, backward, ms, plain_ms, worst_ in (
+            ("forward", False, ssd_ms, ssd_plain_ms, ssd_worst),
+            ("backward", True, ssd_bwd_ms, ssd_bwd_plain_ms, ssd_bwd_worst)):
+        nbytes, nops = ssd_work(b_, s_, h_, p_, n_, 2, backward)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS["bfloat16"]
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        f32_ms = 1e3 * nops / PEAK_OPS["float32"]
+        print(f"[time] ssd_scan {what} bf16 B={b_} S={s_} H={h_} P={p_} "
+              f"N={n_}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {nbytes} B, {nops} ops; the same operations on "
+              f"float32 CUDA cores {f32_ms:.4f} ms), plain {plain_ms:.4f} ms"
+              f", no single library call", flush=True)
+        ssd_rec[what] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": worst_}
+    del sets, dys, y_out, dx_o, ddt_o, parts, db_o, dc_o, states
+
     # -- small-input check: kernel path on the card vs plain path on the CPU
     small = configs.get_reduced("qwen2-1.5b")
     sp_cpu = T.init_params(small, torch.Generator().manual_seed(0),
@@ -795,6 +995,57 @@ def main() -> int:
             fail(f"personalised streams differ from the folded engines on "
                  f"the card ({mode}): {pers_streams[(mode, 'cuda')]} vs "
                  f"{pers_streams[(mode, 'folded')]}")
+
+    # TinyTrain on mamba2-smoke: the SSD kernels (forward and backward)
+    # and the Fisher kernel on the card against the plain path on the CPU,
+    # same weights; the folded engines serve through the recurrence
+    msmall = configs.get_reduced("mamba2-1.3b")
+    mp_cpu = T.init_params(msmall, torch.Generator().manual_seed(0),
+                           device="cpu")
+    mp_gpu = tree_map(lambda t: t.to(dev), mp_cpu)
+    mbb = api.backbone("mamba2-1.3b", preset="smoke", batch_size=32, seq=16)
+    mtask = api.sample_lm_task(np.random.default_rng(0), msmall.vocab,
+                               seq=16, max_way=5, support_pad=32,
+                               query_pad=32)
+    mrng = np.random.default_rng(2)
+    mprompts = [mrng.integers(0, msmall.vocab, n).astype(np.int32)
+                for n in lens]
+    madapted = {}
+    ssd_before = (ops.ssd_scan.launches, ops.ssd_scan.bwd_launches)
+    for where, params in (("cpu", mp_cpu), ("cuda", mp_gpu)):
+        sess = api.TinyTrainSession(mbb, params, max_way=5)
+        ad = sess.adapt(mtask, api.JETSON_NANO, iters=4)
+        eng = ServeEngine(msmall, params, slots=3, max_len=48, chunk=4,
+                          device=where)
+        ad.fold_into(eng)
+        reqs = [Request(uid=i, prompt=p, max_new=6)
+                for i, p in enumerate(mprompts)]
+        eng.run(reqs)
+        madapted[where] = (ad, [(r.out, r.outcome) for r in reqs])
+    ssd_smoke = (ops.ssd_scan.launches - ssd_before[0],
+                 ops.ssd_scan.bwd_launches - ssd_before[1])
+    (a_cpu, s_cpu), (a_gpu, s_gpu) = madapted["cpu"], madapted["cuda"]
+    loss_err = max(abs(x - y) for x, y in zip(a_cpu.losses, a_gpu.losses))
+    print(f"[check] mamba2-smoke f32 TinyTrain, card vs CPU plain path: "
+          f"policy {'identical' if a_cpu.policy.units == a_gpu.policy.units else 'DIFFERENT'} "
+          f"({a_gpu.policy.describe()}), max loss diff {loss_err:.3g} "
+          f"(tol 1e-4), folded-engine streams "
+          f"{'identical' if s_cpu == s_gpu else 'DIFFERENT'}; ssd_scan "
+          f"launches {ssd_smoke[0]} forward, {ssd_smoke[1]} backward",
+          flush=True)
+    if a_cpu.policy.units != a_gpu.policy.units:
+        fail(f"mamba2 policies differ: {a_cpu.policy.describe()} vs "
+             f"{a_gpu.policy.describe()}")
+    if not {u.kind for u in a_gpu.policy.units} == {"ssm"}:
+        fail(f"mamba2-smoke selected no SSD unit: {a_gpu.policy.describe()}")
+    if not loss_err <= 1e-4:
+        fail(f"mamba2 losses differ: {a_cpu.losses} vs {a_gpu.losses}")
+    if s_cpu != s_gpu:
+        fail(f"mamba2 folded streams differ: cpu {s_cpu} cuda {s_gpu}")
+    if min(ssd_smoke) <= 0:
+        fail(f"the card's mamba2-smoke adapt launched the SSD kernels "
+             f"{ssd_smoke} times")
+    del mp_cpu, mp_gpu, madapted
 
     # -- serve: qwen2-1.5b at full width -----------------------------------
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -1106,6 +1357,90 @@ def main() -> int:
         fail(f"the personalised serve launched flash_cached "
              f"{pers_flash_launches} times")
 
+    del eng, pers, session, adaptation
+    torch.cuda.empty_cache()
+
+    # -- adapt mamba2: mamba2-1.3b at full width, adapt -> fold -> serve ----
+    # phase 6's episode shape and profile on the ssm family: the probe and
+    # the fine-tune run every SSD layer's scan through the forward kernel
+    # and back-propagate through the backward kernel; the folded engine
+    # serves through the recurrence (no SSD kernel)
+    mcfg = configs.get_config("mamba2-1.3b")
+    mnl = mcfg.n_layers
+    mbb = api.backbone("mamba2-1.3b", preset="full",
+                       batch_size=ADAPT["batch_size"], seq=ADAPT["seq"])
+    msession = api.TinyTrainSession(mbb, max_way=ADAPT["max_way"], seed=0)
+    mtask = api.sample_lm_task(np.random.default_rng(0), mcfg.vocab,
+                               seq=ADAPT["seq"], max_way=ADAPT["task_way"],
+                               support_pad=ADAPT["pad"],
+                               query_pad=ADAPT["pad"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.fisher_tapgrads.launches = ops.fisher.launches = 0
+    ops.ssd_scan.launches = ops.ssd_scan.bwd_launches = 0
+    t0 = time.perf_counter()
+    madapt = msession.adapt(mtask, profile, iters=ADAPT["iters"])
+    torch.cuda.synchronize()
+    madapt_wall = time.perf_counter() - t0
+    madapt_peak = torch.cuda.max_memory_allocated()
+    m_fisher = ops.fisher_tapgrads.launches + ops.fisher.launches
+    ssd_launches = ops.ssd_scan.launches
+    ssd_bwd_launches = ops.ssd_scan.bwd_launches
+    eng = ServeEngine(mcfg, msession.params, slots=4, max_len=96, chunk=16)
+    madapt.fold_into(eng)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, mcfg.vocab, size=int(rng.integers(4, 16))).astype(np.int32),
+        max_new=12) for i in range(10)]
+    ops.ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    mserve_wall = time.perf_counter() - t0
+    serve_ssd = ops.ssd_scan.launches
+    rep = eng.last_run_report
+    mpol = madapt.policy
+    mlosses = madapt.losses
+    new_tokens = sum(len(r.out) for r in reqs)
+    print(f"[mamba2] mamba2-1.3b bf16 full width ({mnl} layers, d_model "
+          f"{mcfg.d_model}, {mcfg.n_ssm_heads} SSD heads of "
+          f"{mcfg.ssm_head_dim}, state {mcfg.ssm_state}), {profile.name}, "
+          f"task {mtask.n_support} support rows of "
+          f"{len(mtask.support['episode_labels'])}: {mpol.describe()}",
+          flush=True)
+    print(f"[mamba2] fisher_seconds {madapt.fisher_seconds:.4f}, "
+          f"train_seconds {madapt.train_seconds:.4f} ({ADAPT['iters']} "
+          f"steps), adapt wall {madapt_wall:.4f} s, peak device memory "
+          f"{madapt_peak} B, host_transfers {madapt.host_transfers:g}, "
+          f"skipped {madapt.skipped_steps}, fisher launches {m_fisher}, "
+          f"ssd_scan launches {ssd_launches} forward, {ssd_bwd_launches} "
+          f"backward", flush=True)
+    print(f"[mamba2] losses {[round(x, 6) for x in mlosses]}", flush=True)
+    print(f"[mamba2] folded engine: {len(reqs)} requests, {new_tokens} new "
+          f"tokens in {mserve_wall:.3f} s = {new_tokens / mserve_wall:.2f} "
+          f"tok/s, {rep['ticks']} ticks, {rep['host_syncs']} host syncs, "
+          f"outcomes {rep['outcomes']}, recurrent state "
+          f"{rep['memory']['kv_cache_bytes']} B, ssd_scan launches "
+          f"{serve_ssd} (the serve runs the recurrence)", flush=True)
+    if not all(math.isfinite(x) for x in mlosses):
+        fail(f"mamba2 adaptation losses must be finite: {mlosses}")
+    if madapt.host_transfers != 2:
+        fail(f"the mamba2 adapt made {madapt.host_transfers} host transfers, "
+             "not 2")
+    if m_fisher != 1:
+        fail(f"the mamba2 probe launched the Fisher kernel {m_fisher} times, "
+             "not once (one tap group)")
+    if {u.kind for u in mpol.units} != {"ssm"}:
+        fail(f"the profile selected no SSD unit: {mpol.describe()}")
+    if ssd_launches <= 0 or ssd_launches % mnl:
+        fail(f"ssd_scan forward launches {ssd_launches} is not a positive "
+             f"multiple of n_layers = {mnl}")
+    if ssd_bwd_launches <= 0:
+        fail("the mamba2 adapt never launched the SSD backward kernel")
+    if not all(r.done and r.outcome == "done" for r in reqs):
+        fail(f"mamba2 folded-engine requests not done: "
+             f"{[(r.uid, r.outcome) for r in reqs]}")
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_cached",
@@ -1127,7 +1462,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/fisher.cu",
         "replaces": "src/repro/kernels/fisher.py:66",
-        "launches": fisher_launches,
+        "launches": fisher_launches + m_fisher,
         **fisher,
     }, {
         "name": "grad_quant",
@@ -1136,6 +1471,21 @@ def main() -> int:
         "replaces": "src/repro/kernels/grad_quant.py:57",
         "launches": gq_launches,
         **gquant,
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:22",
+        "launches": ssd_launches,
+        **ssd_rec["forward"],
+    }, {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "none: no TPU kernel (XLA autodiff of "
+                    "src/repro/models/ssm.py:78 ssd_chunked)",
+        "launches": ssd_bwd_launches,
+        **ssd_rec["backward"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

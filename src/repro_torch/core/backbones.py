@@ -1,11 +1,14 @@
-"""Backbone adapters: the port of ``repro.core.backbones`` for the dense LM
-family.
+"""Backbone adapters: the port of ``repro.core.backbones`` for the dense
+and ssm LM families.
 
 A :class:`Backbone` bundles what the sparse-update engine needs from a
 model family: unit costs (the Eq. 3 denominators), Fisher tap
 construction, tap-gradient -> Fisher reduction, delta initialisation and
-the feature/loss closures.  The edge-CNN backbone arrives with its slice;
-the MoE, SSM, hybrid and encoder-decoder LMs with ROADMAP queue 1, item 9.
+the feature/loss closures.  A layer group has a ``mixer`` tap group
+(attention or SSD heads) and, where its layers have an MLP, an ``ffn``
+group (d_ff neurons); mamba2's layers have none.  The edge-CNN backbone
+arrives with its slice; the MoE, hybrid and encoder-decoder LMs with
+ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -50,10 +53,15 @@ class Backbone:
 
 
 def _lm_group_kinds(cfg: ArchConfig, gi: int) -> Tuple[str, str, int, int]:
-    """(mixer_kind, ffn_kind, mixer_channels, ffn_channels) of group gi."""
+    """(mixer_kind, ffn_kind, mixer_channels, ffn_channels) of group gi;
+    ffn_kind "none" (and 0 channels) for layers with no FFN."""
     T.check_supported(cfg)
     lid = T.stack_groups(cfg)[gi][1][0]
-    return "attn", T.ffn_kind(cfg, lid), cfg.n_heads, cfg.d_ff
+    fk = T.ffn_kind(cfg, lid)
+    fc = cfg.d_ff if fk == "mlp" else 0
+    if T.block_kind(cfg, lid) == "ssm":
+        return "ssm", fk, cfg.n_ssm_heads, fc
+    return "attn", fk, cfg.n_heads, fc
 
 
 def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
@@ -74,10 +82,12 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
     def make_taps(n: int, device: DeviceLike):
         taps = {}
         for gi, (_, ids) in enumerate(groups):
-            _, _, mc, fc = _lm_group_kinds(cfg, gi)
+            _, fk, mc, fc = _lm_group_kinds(cfg, gi)
             taps[f"g{gi}"] = {
-                "mixer": torch.ones((len(ids), n, mc), device=device),
-                "ffn": torch.ones((len(ids), n, fc), device=device)}
+                "mixer": torch.ones((len(ids), n, mc), device=device)}
+            if fk != "none":
+                taps[f"g{gi}"]["ffn"] = torch.ones((len(ids), n, fc),
+                                                   device=device)
         return taps
 
     def _per_unit(reduce_one, tg) -> Dict[Tuple[int, str], Any]:
@@ -85,6 +95,8 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
         for gi, (_, ids) in enumerate(groups):
             mk, fk, _, _ = _lm_group_kinds(cfg, gi)
             for tap, kind in (("mixer", mk), ("ffn", fk)):
+                if kind == "none":
+                    continue
                 d = reduce_one(tg[f"g{gi}"][tap])  # (L, C)
                 for j, lid in enumerate(ids):
                     chans[(lid, kind)] = d[j]

@@ -475,6 +475,10 @@ class TinyTrainSession:
         if policy_override is None:
             raise _later("adapt_many's criterion route (one Fisher probe "
                          "per task, probe_fisher_batch)", "8")
+        if (getattr(self.backbone.cfg, "family", None) == "ssm"
+                and self.device.type != "cpu"):
+            raise _later("adapt_many of the ssm family on the card (the SSD "
+                         "kernels under torch.func.vmap)", "15.2")
         if not tasks:
             return []
         for t in tasks:

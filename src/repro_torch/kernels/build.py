@@ -24,7 +24,7 @@ from typing import Dict, List, Tuple
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-SOURCES = ("flash_cached", "fisher", "flash_paged", "grad_quant")
+SOURCES = ("flash_cached", "fisher", "flash_paged", "grad_quant", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,7 +4,8 @@ A tensor on the CPU runs the kernel's plain PyTorch version; a tensor on a
 card launches the hand-written kernel and never the plain version (the
 kernel wrapper raises on what it does not take).  Each entry counts its
 kernel launches in a plain integer attribute, ``<entry>.launches``, so a
-run can show that its main path went through the kernel.
+run can show that its main path went through the kernel (``ssd_scan``
+also counts its backward's in ``ssd_scan.bwd_launches``).
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ from .flash_paged import flash_attention_paged_cuda
 from .grad_quant import grad_quant_cuda
 from .ref import (
     fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
-    flash_attention_paged_ref, grad_quant_ref,
+    flash_attention_paged_ref, grad_quant_ref, ssd_scan_ref,
 )
+from .ssd_scan import SSDScanFn
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -129,3 +131,33 @@ def grad_quant(g, err):
 
 
 grad_quant.launches = 0
+
+
+def ssd_scan(x, dt, a, bmat, cmat, *, chunk=256, init_state=None,
+             want_state=True, out_dtype=None):
+    """Mamba2 SSD scan: (y (B, S, H, P), final state (B, H, P, N) float32,
+    or None when not ``want_state`` on the card), the recurrence ``S_t =
+    exp(dt_t·a) S_{t-1} + (x_t·dt_t) ⊗ B_t``, ``y_t = S_t C_t`` from
+    ``init_state`` (zeros when None).  y comes in ``out_dtype``, by default
+    x's dtype as ``ssd_scan_pallas`` returns it.  ``S % min(chunk, S)``
+    must be 0, as ``ssd_chunked`` asserts.  On the card the forward and,
+    under autograd, the backward are the hand-written kernels
+    (:class:`~.ssd_scan.SSDScanFn`); gradients reach x, dt, B and C."""
+    out_dtype = out_dtype or x.dtype
+    if not _on_card(x):
+        q = min(int(chunk), x.shape[1])
+        if q < 1 or x.shape[1] % q:
+            raise ValueError(f"sequence length {x.shape[1]} is not a multiple "
+                             f"of the chunk {q}")
+        y, st = ssd_scan_ref(x.float(), dt, a, bmat, cmat, init_state)
+        return y.to(out_dtype), st
+    y, st = SSDScanFn.apply(
+        x.contiguous(), dt.contiguous(), a.contiguous(), bmat.contiguous(),
+        cmat.contiguous(), None if init_state is None
+        else init_state.float().contiguous(), int(chunk), bool(want_state))
+    ssd_scan.launches += 1
+    return y.to(out_dtype), st
+
+
+ssd_scan.launches = 0
+ssd_scan.bwd_launches = 0

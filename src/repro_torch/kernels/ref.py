@@ -160,3 +160,30 @@ def grad_quant_ref(g: torch.Tensor, err: torch.Tensor):
     scale = g32.abs().amax() / torch.full((), 127.0, device=g.device) + 1e-12
     q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
     return q, scale, g32 - q.float() * scale
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,          # (B, S, H, P)
+    dt: torch.Tensor,         # (B, S, H)
+    a: torch.Tensor,          # (H,)
+    bmat: torch.Tensor,       # (B, S, N)
+    cmat: torch.Tensor,       # (B, S, N)
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+):
+    """Sequential SSD recurrence, the JAX package's oracle in float32:
+    ``S_t = exp(dt_t·a) S_{t-1} + (x_t·dt_t) ⊗ B_t`` and ``y_t = S_t C_t``
+    token by token from ``init_state`` (zeros when None).  Returns (y in
+    x's dtype, final state float32), as ``ssd_scan_pallas`` does."""
+    bsz, s, h, p = x.shape
+    n = bmat.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    bf, cf, af = bmat.float(), cmat.float(), a.float()
+    st = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+          if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        dta = torch.exp(dtf[:, t] * af[None, :])                    # (B, H)
+        st = st * dta[:, :, None, None] + torch.einsum(
+            "bn,bhp->bhpn", bf[:, t], xf[:, t] * dtf[:, t, :, None])
+        ys.append(torch.einsum("bhpn,bn->bhp", st, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), st

@@ -15,7 +15,12 @@ stores the pages in int8 with per-token scales:
 With ``--adapt``, first runs TinyTrain through the façade on a synthetic
 task (Fisher probe, Eq. 3 selection, sparse fine-tune) under the device
 profile ``--profile`` and folds the deltas into the engine before serving,
-as ``examples/serve_batched.py`` does.
+as ``examples/serve_batched.py`` does.  The ssm family (mamba2) runs it
+through the SSD scan kernels; its paged, int8 and personalised serves
+arrive with later slices:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --preset full --adapt
 
 With ``--personalise``, one probe adaptation fixes the policy, the engine
 keeps a per-slot delta arena, requests spread over ``--users`` users, and
@@ -126,6 +131,15 @@ def main(argv: Optional[List[str]] = None) -> None:
                              f"it arrives with ROADMAP queue 1, item {item}")
 
     cfg = configs.preset_config(args.arch, args.preset)
+    if cfg.family == "ssm":
+        for flag, on, item in (
+                ("--paging", args.paging or args.pressure is not None, "12.2"),
+                ("--kv-int8", args.kv_int8, "12.2"),
+                ("--personalise", args.personalise, "15.2")):
+            if on:
+                raise SystemExit(f"[serve] {flag} is not in the port for the "
+                                 f"ssm family ({args.arch}) yet: it arrives "
+                                 f"with ROADMAP queue 1, item {item}")
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
@@ -228,6 +242,11 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"{mem['page_bytes']} B/page), peak {peak} resident streams, "
               f"worst-case {mem['kv_bytes_per_stream'] / 2**10:.1f} "
               "KiB/stream")
+    elif cfg.family == "ssm":
+        print(f"[serve] recurrent state (conv windows and SSD states): "
+              f"{mem['kv_cache_bytes'] / 2**20:.2f} MiB across {args.slots} "
+              f"slots ({mem['kv_bytes_per_stream'] / 2**10:.1f} KiB/stream), "
+              f"peak {peak} resident streams")
     else:
         print(f"[serve] fixed-stripe KV: {mem['kv_cache_bytes'] / 2**20:.2f} "
               f"MiB across {args.slots} slots "

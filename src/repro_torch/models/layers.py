@@ -324,7 +324,7 @@ def attention_apply(
         if cfg.sliding_window > 0 and s_max == cfg.sliding_window:
             raise NotImplementedError(
                 "rolling sliding-window caches arrive with a later slice "
-                "(ROADMAP queue 1, item 13)")
+                "(ROADMAP queue 1, item 11.1)")
         if valid is not None:
             # block prefill: per-slot scatter of the valid rows only (the
             # serving engine's submit() validation guarantees they fit)

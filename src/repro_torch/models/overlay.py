@@ -10,18 +10,20 @@ adds the delta into a serving copy of the weights.
 Per edited weight, ``mode`` says what the selected channels index:
 ``"out"`` output columns (``ΔW`` is ``(D, K)``, added at ``W[:, cols]``),
 ``"in"`` input rows (``ΔW`` is ``(K, D)``, added at ``W[cols, :]``).  An
-attention head expands to its ``head_dim`` contiguous columns.
+attention head expands to its ``head_dim`` contiguous columns, an SSD head
+to its ``ssm_head_dim``.
 
 The serving engine's per-slot overlay (:func:`slot_params`) gives every
 slot its own effective weights ``W ⊕ scatter(ΔW_b, idx_b)`` through the
 same scatter-add as :func:`fold_deltas` (:func:`_add_at`), so a slot
 serving a user's deltas computes with exactly the weights a folded copy
-holds.  The MLA, MoE, SSM and cross-attention kinds arrive with ROADMAP
-queue 1, item 9.
+holds.  The SSD kind (``"ssm"``) folds but has no per-slot overlay yet
+(ROADMAP queue 1, item 15.2); the MLA, MoE and cross-attention kinds arrive
+with item 9.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +58,19 @@ EDITS: Dict[str, Tuple[str, Tuple[Tuple[str, str, bool], ...]]] = {
     "attn": ("attn", (("wq", "out", True), ("wo", "in", True))),
     "mlp": ("mlp", (("w_gate", "out", False), ("w_up", "out", False),
                     ("w_down", "in", False))),
+    "ssm": ("ssm", (("w_z", "out", True), ("w_x", "out", True),
+                    ("w_out", "in", True))),
 }
+
+# kind -> delta_init(cfg, layer_id, n_channels, dtype, device), for kinds
+# whose shapes live in their model module (registered there at import)
+_DELTA_INITS: Dict[str, Callable[..., Params]] = {}
+
+
+def set_delta_init(kind: str, fn: Callable[..., Params]) -> None:
+    """Attach a zero-delta builder to a unit kind (the model modules call
+    this at import, as in the JAX package)."""
+    _DELTA_INITS[kind] = fn
 
 
 def _edits(kind: str):
@@ -86,6 +100,8 @@ def delta_init(cfg, layer_id: int, kind: str, n_channels: int,
                dtype: torch.dtype, device) -> Params:
     """Zero delta pack for one selected unit."""
     _edits(kind)
+    if kind in _DELTA_INITS:
+        return _DELTA_INITS[kind](cfg, layer_id, n_channels, dtype, device)
 
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -128,7 +144,8 @@ def fold_deltas(cfg, params: Any, deltas: Any, policy) -> Any:
             w = sub[name]
             idx = torch.as_tensor(np.asarray(u.channels, np.int64),
                                   device=w.device)
-            cols = head_cols(idx, cfg.head_dim) if heads else idx
+            hd = cfg.ssm_head_dim if u.kind == "ssm" else cfg.head_dim
+            cols = head_cols(idx, hd) if heads else idx
             _add_at(w[j:j + 1], d[name].to(w.device)[None], cols[None], mode)
     return out
 
@@ -144,6 +161,10 @@ def slot_params(cfg, kind: str, params: Params, d_stack: Params,
     of ``params`` in which every edited weight gains a leading slot axis:
     ``W_eff[b] = W ⊕ scatter(ΔW_b, cols(idx_b))``, the scatter-add
     :func:`fold_deltas` performs.  A zero row gives ``W`` itself."""
+    if kind == "ssm":
+        raise NotImplementedError(
+            "the per-slot delta overlay of SSD heads arrives with ROADMAP "
+            "queue 1, item 15.2 (online personalisation of the ssm family)")
     _, edits = _edits(kind)
     out = dict(params)
     idx = idx_stack.long()

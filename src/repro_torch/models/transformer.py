@@ -1,4 +1,5 @@
-"""The dense decoder LM: the port of ``repro.models.transformer``.
+"""The decoder LM (dense and ssm families): the port of
+``repro.models.transformer``.
 
 Parameters are nested dicts of tensors in the JAX package's layout: layers
 of one homogeneous group are stacked along a leading ``L`` dim under
@@ -23,8 +24,11 @@ Modes of :func:`forward_hidden`, as in the JAX package:
   layers run on per-slot effective weights, so every slot serves its own
   user's deltas from one shared copy of the base weights.
 
-MoE, MLA, SSM, encoder-decoder and VLM families and the remat option
-arrive with later slices (ROADMAP queue 1, item 9).
+The ssm family (mamba2) stacks ``models.ssm`` blocks with no FFN: its
+selectable unit is the SSD block, channels its SSD heads, and its cache
+per slot is a conv window and a (H, P, N) state.  MoE, MLA, hybrid,
+encoder-decoder and VLM families and the remat option arrive with later
+slices (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 from ..utils import DeviceLike, resolve_device, tree_map
 from . import layers as L
 from . import overlay as OV
+from . import ssm as S
 from .api import ArchConfig
 
 Params = Dict[str, Any]
@@ -68,7 +73,7 @@ class UnitDesc:
     """One selectable unit: (layer, kind) with its channel axis size."""
 
     layer: int
-    kind: str  # mlp | attn
+    kind: str  # mlp | attn | ssm
     n_channels: int
     n_params: int
     macs_per_token: int
@@ -80,11 +85,17 @@ def unit_descs(cfg: ArchConfig) -> List[UnitDesc]:
     out: List[UnitDesc] = []
     d = cfg.d_model
     for i in range(cfg.n_layers):
-        np_ = d * (cfg.q_dim * 2 + cfg.kv_dim * 2)
-        out.append(UnitDesc(i, "attn", cfg.n_heads, np_, np_))
-        mult = 3 if cfg.act in ("swiglu", "geglu") else 2
-        np_ = mult * d * cfg.d_ff
-        out.append(UnitDesc(i, "mlp", cfg.d_ff, np_, np_))
+        if block_kind(cfg, i) == "ssm":
+            di, n = cfg.d_inner, cfg.ssm_state
+            np_ = d * (2 * di + 2 * n + cfg.n_ssm_heads) + di * d
+            out.append(UnitDesc(i, "ssm", cfg.n_ssm_heads, np_, np_))
+        else:
+            np_ = d * (cfg.q_dim * 2 + cfg.kv_dim * 2)
+            out.append(UnitDesc(i, "attn", cfg.n_heads, np_, np_))
+        if ffn_kind(cfg, i) == "mlp":
+            mult = 3 if cfg.act in ("swiglu", "geglu") else 2
+            np_ = mult * d * cfg.d_ff
+            out.append(UnitDesc(i, "mlp", cfg.d_ff, np_, np_))
     return out
 
 
@@ -108,9 +119,13 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} serving arrives with ROADMAP queue 1, "
             "item 14 (encoder-decoder and multimodal serving)")
-    if cfg.family != "dense" or cfg.mla or cfg.n_experts:
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family runs in this slice; "
+            f"{cfg.name}: hybrid layers (zamba2's shared attention block) "
+            "arrive with ROADMAP queue 1, item 9 (the LM model stack)")
+    if cfg.family not in ("dense", "ssm") or cfg.mla or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense and ssm families run in the port; "
             f"{cfg.family} layers arrive with ROADMAP queue 1, item 9 "
             "(the LM model stack)")
 
@@ -155,6 +170,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                  "stacks": {}}
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
         n = len(ids)
+        if block_kind(cfg, ids[0]) == "ssm":
+            p["stacks"][f"g{gi}"] = {
+                "norm1": norm(n),
+                "ssm": S.ssd_init(cfg, generator, dtype=dtype, device=dev,
+                                  lead=(n,))}
+            continue
         attn = {"wq": dense(n, d, cfg.q_dim), "wk": dense(n, d, cfg.kv_dim),
                 "wv": dense(n, d, cfg.kv_dim), "wo": dense(n, cfg.q_dim, d)}
         if cfg.qkv_bias:
@@ -187,11 +208,13 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  taps: Optional[Dict[str, torch.Tensor]] = None,
                  overlay: Optional[Dict[str, Tuple[Any, Any]]] = None,
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One decoder layer (attention + MLP).  Returns (x, new_cache).
+    """One decoder layer (attention + MLP, or an SSD block alone).
+    Returns (x, new_cache).
 
     ``deltas``/``chan_idx`` are this layer's delta packs and channel
     indices by unit kind; ``taps`` its (B, C) probe taps by group
-    (``mixer``, ``ffn``).  The taps are cast to the activation's dtype: the
+    (``mixer``, ``ffn``; the mixer tap's channels are attention or SSD
+    heads).  The taps are cast to the activation's dtype: the
     same ones either way, and in bf16 it keeps the residual stream in bf16
     where the JAX package's float32 mixer tap promotes it to float32.
 
@@ -211,23 +234,33 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
         return p[kind]
 
     h = L.apply_norm(cfg.norm, p["norm1"], x)
-    y, c = L.attention_apply(eff("attn"), h, cfg, positions=positions,
-                             cache=cache["attn"] if cache else None,
-                             valid=valid, delta=deltas.get("attn"),
-                             head_idx=chan_idx.get("attn"))
+    mk = block_kind(cfg, layer)
+    if mk == "ssm":
+        y, c = S.ssd_apply(eff("ssm"), h, cfg,
+                           cache=cache["ssm"] if cache else None,
+                           valid=valid, delta=deltas.get("ssm"),
+                           head_idx=chan_idx.get("ssm"))
+    else:
+        y, c = L.attention_apply(eff("attn"), h, cfg, positions=positions,
+                                 cache=cache["attn"] if cache else None,
+                                 valid=valid, delta=deltas.get("attn"),
+                                 head_idx=chan_idx.get("attn"))
     if "mixer" in taps:
         # tap over per-head chunks of the output: scale (B, n_heads)
         tap = taps["mixer"]
         yb = y.reshape(y.shape[0], y.shape[1], tap.shape[-1], -1)
         y = (yb * tap[:, None, :, None].to(y.dtype)).reshape(y.shape)
     x = x + y
+    new_cache = {mk: c} if cache is not None else None
+    if ffn_kind(cfg, layer) == "none":
+        return x, new_cache
     h = L.apply_norm(cfg.norm, p["norm2"], x)
     if "ffn" in taps:
         x = x + _mlp_tapped(p["mlp"], h, cfg.act, taps["ffn"])
     else:
         x = x + L.mlp_apply(eff("mlp"), h, cfg.act, delta=deltas.get("mlp"),
                             idx=chan_idx.get("mlp"))
-    return x, ({"attn": c} if cache is not None else None)
+    return x, new_cache
 
 
 def _mlp_tapped(p: Params, x: torch.Tensor, act: str,
@@ -308,7 +341,12 @@ def forward_hidden(
                                      deltas=d, chan_idx=ci, taps=tap,
                                      overlay=(overlay or {}).get(lid))
             if g_caches is not None:
-                g_caches["attn"]["len"][j] = nc["attn"]["len"]
+                # attention writes its K/V in place; the SSD block returns
+                # a new conv window and state
+                mk = block_kind(cfg, lid)
+                keys = ("conv", "ssm", "len") if mk == "ssm" else ("len",)
+                for key in keys:
+                    g_caches[mk][key][j] = nc[mk][key]
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return x, caches
 
@@ -386,10 +424,16 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     omitted and ``cfg.kv_paging`` is set): ``"k"``/``"v"`` are page stores
     ``{"pages": (L, n_pages, page_size, Hkv, Dh)[, "scale"]}`` and
     ``"page_table"`` is a broadcast view ``(L, B, max_pages)`` of one
-    table, all -1."""
+    table, all -1.  An SSD layer group holds ``caches["g{i}"]["ssm"] =
+    {"conv": (L, B, d_conv-1, d_inner + 2N), "ssm": (L, B, H, P, N),
+    "len": (L, B) int32}`` (the ssm family has no paged cache yet)."""
     from ..serving import paging as PG  # lazily: serving imports this module
 
     check_supported(cfg)
+    if cfg.family == "ssm" and (paging is not None or cfg.kv_paging):
+        raise NotImplementedError(
+            "paged caches for the ssm family arrive with ROADMAP queue 1, "
+            "item 12.2")
     if paging is None and cfg.kv_paging:
         paging = PG.PagingSpec.build(max_len, page_size=cfg.kv_page_size,
                                      slots=batch, int8=cfg.kv_int8)
@@ -404,6 +448,16 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
         n = len(ids)
         lens = torch.zeros((n, batch), dtype=torch.int32, device=dev)
+        if block_kind(cfg, ids[0]) == "ssm":
+            conv = (n, batch, cfg.d_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
+            state = (n, batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state)
+            caches[f"g{gi}"] = {"ssm": {
+                "conv": torch.zeros(conv, dtype=dtype, device=dev),
+                "ssm": torch.zeros(state, dtype=dtype, device=dev),
+                "len": lens,
+            }}
+            continue
         if paging is not None:
             table = torch.full((batch, paging.max_pages), -1,
                                dtype=torch.int32, device=dev)
@@ -427,12 +481,21 @@ def reset_slot_state(caches: Dict[str, Any],
                      mask: torch.Tensor) -> Dict[str, Any]:
     """Reset masked slots to a clean length-0 cache, in place.
 
-    ``mask`` is ``(B,)`` bool over the slot axis.  Only the lengths zero,
-    for contiguous and paged caches alike: attention masks K/V reads by
-    ``kv_len``, so stale rows beyond the reset length (or in a recycled
-    page) are never attended to."""
+    ``mask`` is ``(B,)`` bool over the slot axis.  For attention only the
+    lengths zero, for contiguous and paged caches alike: attention masks
+    K/V reads by ``kv_len``, so stale rows beyond the reset length (or in
+    a recycled page) are never attended to.  An SSD layer's conv window
+    and state feed forward with no length mask, so they zero outright,
+    with a fill rather than a multiply by 0: a NaN left by a ``numerics``
+    stream does not survive into the slot's next occupant."""
     for g in caches.values():
-        g["attn"]["len"].masked_fill_(mask, 0)
+        for kind, c in g.items():
+            c["len"].masked_fill_(mask, 0)
+            if kind == "ssm":
+                for key in ("conv", "ssm"):
+                    t = c[key]  # (L, B, ...): the slot axis is 1
+                    t.masked_fill_(mask.reshape((1, -1) + (1,) * (t.dim() - 2)),
+                                   0)
     return caches
 
 

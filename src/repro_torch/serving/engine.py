@@ -51,6 +51,12 @@ chunks with one masked select: no drain, no host read.  A request that
 carries deltas to an engine without a policy is rejected with the typed
 reason ``unexpected_delta_set``.
 
+**The ssm family** (mamba2) serves from per-slot recurrent state (a conv
+window and a (H, P, N) SSD state per layer) that admission zeroes; both
+its block prefill and its decode are the sequential recurrence, so its
+serve launches no SSD kernel.  Paging and personalisation of that family
+arrive with ROADMAP items 12.2 and 15.2.
+
 Sampling, the eager loop, faults, backfill and encoder runs arrive with
 later slices; their knobs raise ``NotImplementedError`` naming the ROADMAP
 item.
@@ -290,6 +296,12 @@ class ServeEngine:
         # (pages per layer arena) defaults to the fixed-stripe capacity
         # slots * ceil(max_len / page_size)
         paging_on = cfg.kv_paging if kv_paging is None else bool(kv_paging)
+        if cfg.family == "ssm" and paging_on:
+            raise _later("kv_paging", "12.2", "a paged cache for the ssm "
+                         "family (its per-slot state is fixed-size)")
+        if cfg.family == "ssm" and personalise is not None:
+            raise _later("personalise", "15.2", "the per-slot delta overlay "
+                         "of the ssm family")
         self.spec: Optional[PG.PagingSpec] = None
         self.pool: Optional[PG.PagePool] = None
         if paging_on:

@@ -28,7 +28,8 @@ def test_scan_covers_the_package():
     assert {"engine.py", "layers.py", "ops.py", "chip_smoke.py",
             "fisher.py", "session.py", "flash_paged.py", "paging.py",
             "serve_profile.py", "adapt_profile.py", "grad_quant.py",
-            "personalise.py", "compress.py"} <= names
+            "personalise.py", "compress.py", "ssm.py",
+            "ssd_scan.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

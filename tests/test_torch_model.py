@@ -198,7 +198,7 @@ def test_default_device_raises_without_cuda(model):
             call()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b",
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-1.2b",
                                   "whisper-base", "deepseek-v3-671b"])
 def test_families_of_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

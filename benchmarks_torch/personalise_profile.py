@@ -120,13 +120,15 @@ def main() -> int:
     tick_s = collections.defaultdict(list)
     advance = E.ServeEngine._advance
 
-    def timed_advance(self, plan, block):
+    def timed_advance(self, plan):
         t0 = time.perf_counter()
-        out = advance(self, plan, block)
+        out = advance(self, plan)
         torch.cuda.synchronize()
         kind = ("pers " if self.personalise is not None else "plain ")
-        tick_s[kind + ("block" if block else "decode")].append(
-            time.perf_counter() - t0)
+        # the tick's kind, read only after the synchronise above
+        kind += ("dead" if not bool(plan.live)
+                 else "block" if bool(plan.block) else "decode")
+        tick_s[kind].append(time.perf_counter() - t0)
         return out
 
     engines = {}

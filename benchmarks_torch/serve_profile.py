@@ -4,26 +4,36 @@
 chunk 32, prefill_block 8, 8 requests of 32-256 prompt tokens and 16 new
 tokens each, weights and prompts from seed 0), broken down three ways:
 
-- wall time of the run, and host time blocked in the engine's per-tick
-  flag reads and per-chunk event fetches (``core.adapt._fetch``);
-- wall time per tick kind (block prefill vs single-token decode);
-- ``torch.profiler``: device time by kernel, and the device's busy share of
-  the profiled window.
+- wall time of ``--repeats`` runs of the same requests, each with its
+  ticks, ticks issued, chunks and host syncs, and host time blocked in the
+  engine's per-chunk event fetches (``core.adapt._fetch``);
+- wall time per tick kind (block prefill, single-token decode, and dead:
+  issued after its chunk's exit), each tick synchronised;
+- ``torch.profiler``: device time by kernel, launches per tick, and the
+  device's busy share of the profiled window.
 
     python3 benchmarks_torch/serve_profile.py [--trace DIR]
-        [--paging] [--page-budget N] [--kv-int8]
+        [--paging] [--page-budget N] [--kv-int8] [--arch mamba2-1.3b]
+        [--repeats N] [--issue-masked]
 
 ``--paging`` serves the same requests from the paged KV cache (page size
 16, the default budget of 256 pages unless ``--page-budget``; ``--kv-int8``
-stores the pages in int8), phase 7 of ``chip_smoke.py``.  Needs one
-NVIDIA card.  The profiled run is a second run of the same
-requests; the unprofiled run gives the wall times.
+stores the pages in int8), phase 7 of ``chip_smoke.py``.  ``--arch
+mamba2-1.3b`` serves phase 11's shape instead (4 slots, max_len 96, chunk
+16, 10 requests of 4-15 prompt tokens and 12 new ones) from random
+weights.  ``--issue-masked`` turns the engine's skip of work it knows to
+be masked off (every tick of a chunk's budget and both forward programs
+a tick: the predicated path alone).  Needs one NVIDIA card.  The profiled run is a last run
+of the same requests; the unprofiled runs give the wall times.  The
+script runs against any checkout of the port: point it at another tree by
+copying it into that tree's ``benchmarks_torch/``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import os
+import statistics
 import sys
 import time
 
@@ -32,6 +42,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def requests(cfg, Request, np):
     rng = np.random.default_rng(0)
+    if cfg.family == "ssm":  # chip_smoke.py phase 11's folded serve
+        return [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab, size=int(rng.integers(4, 16))).astype(np.int32),
+            max_new=12) for i in range(10)]
     return [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
                     max_new=16)
@@ -50,6 +64,13 @@ def main() -> int:
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 pages with per-token scales (implies "
                          "--paging)")
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    choices=("qwen2-1.5b", "mamba2-1.3b"))
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="unprofiled runs of the requests (walls)")
+    ap.add_argument("--issue-masked", action="store_true",
+                    help="issue every tick of a chunk's budget and both "
+                         "forward programs a tick (no skip of masked work)")
     args = ap.parse_args()
     paged = args.paging or args.kv_int8 or args.page_budget is not None
     import numpy as np
@@ -65,11 +86,15 @@ def main() -> int:
     from repro_torch.serving import Request, ServeEngine
     from repro_torch.serving import engine as E
 
-    cfg = configs.get_config("qwen2-1.5b")
+    cfg = configs.get_config(args.arch)
     params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     kw = (dict(kv_paging=True, page_budget=args.page_budget,
                kv_int8=args.kv_int8 or None) if paged else {})
-    eng = ServeEngine(cfg, params, slots=8, max_len=512, chunk=32, **kw)
+    kw.update(dict(slots=4, max_len=96, chunk=16) if cfg.family == "ssm"
+              else dict(slots=8, max_len=512, chunk=32))
+    if args.issue_masked:
+        kw["skip_masked"] = False
+    eng = ServeEngine(cfg, params, **kw)
     eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32), max_new=2)])
 
     # host time blocked in reads, and wall time per tick kind
@@ -86,28 +111,47 @@ def main() -> int:
     tick_s = collections.defaultdict(list)
     advance = E.ServeEngine._advance
 
-    def timed_advance(self, plan, block):
+    def timed_advance(self, plan, *rest):
         t0 = time.perf_counter()
-        out = advance(self, plan, block)
+        out = advance(self, plan, *rest)
         torch.cuda.synchronize()
-        tick_s["block" if block else "decode"].append(time.perf_counter() - t0)
+        if rest and isinstance(rest[0], bool):
+            # an engine that reads a flag per tick passes the tick kind in
+            kind = "block" if rest[0] else "decode"
+        else:  # read only after the synchronise above
+            kind = ("dead" if not bool(plan.live)
+                    else "block" if bool(plan.block) else "decode")
+        tick_s[kind].append(time.perf_counter() - t0)
         return out
 
-    adapt._fetch = timed_fetch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run(requests(cfg, Request, np))
-    wall = time.perf_counter() - t0
-    adapt._fetch = fetch
-    rep = eng.last_run_report
-    mem = rep["memory"]
-    layout = (f"paged KV, {mem['n_pages']} pages of {mem['page_size']} rows"
-              f"{', int8' if mem['kv_int8'] else ''}" if mem["kv_paging"]
-              else "contiguous KV")
-    print(f"[run] {layout}: wall {wall:.4f} s, {rep['ticks']} ticks, "
-          f"{rep['new_tokens']} new tokens, {rep['host_syncs']} host syncs, "
-          f"outcomes {rep['outcomes']}, host blocked in _fetch "
-          f"{fetch_s[0]:.4f} s")
+    walls = []
+    for _ in range(max(1, args.repeats)):
+        fetch_s[0] = 0.0
+        adapt._fetch = timed_fetch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(requests(cfg, Request, np))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        adapt._fetch = fetch
+        walls.append(wall)
+        rep = eng.last_run_report
+        mem = rep["memory"]
+        layout = (f"paged KV, {mem['n_pages']} pages of {mem['page_size']} "
+                  f"rows{', int8' if mem['kv_int8'] else ''}"
+                  if mem["kv_paging"] else
+                  "recurrent state" if cfg.family == "ssm" else "contiguous KV")
+        print(f"[run] {cfg.name} {layout}: wall {wall:.4f} s = "
+              f"{rep['new_tokens'] / wall:.2f} tok/s, {rep['ticks']} ticks, "
+              f"{rep.get('ticks_issued', rep['ticks_dispatched'])} ticks "
+              f"and {rep.get('forwards_issued', '-')} forward programs "
+              f"issued, {rep['chunks']} chunks, {rep['new_tokens']} new "
+              f"tokens, {rep['host_syncs']} host syncs, outcomes "
+              f"{rep['outcomes']}, host blocked in _fetch {fetch_s[0]:.4f} s",
+              flush=True)
+    wall = statistics.median(walls)
+    print(f"[walls] {', '.join(f'{w:.4f}' for w in walls)} s; median "
+          f"{wall:.4f} s")
 
     E.ServeEngine._advance = timed_advance
     eng.run(requests(cfg, Request, np))
@@ -137,9 +181,11 @@ def main() -> int:
     print(f"[profile] profiled wall {pwall:.4f} s; device busy "
           f"{busy_us / 1e6:.4f} s over {len(spans)} device events = "
           f"{100 * busy_us / 1e6 / pwall:.1f}% of the profiled wall and "
-          f"{100 * busy_us / 1e6 / wall:.1f}% of the unprofiled wall; "
+          f"{100 * busy_us / 1e6 / wall:.1f}% of the median unprofiled wall; "
           f"{launches} cudaLaunchKernel calls = "
-          f"{launches / rep['ticks']:.0f} per tick")
+          f"{launches / rep['ticks']:.0f} per live tick, "
+          f"{launches / rep.get('ticks_issued', rep['ticks']):.0f} per "
+          f"issued tick")
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=15,
                        max_name_column_width=60))

@@ -21,10 +21,15 @@ exits non-zero:
    scan: the forward kernel against the sequential oracle and the
    backward kernel against autograd of the plain chunked body, f32 at 1e-4
    and bf16 at 2e-2 of max(1, max |want|), at the mamba2 adapt shape, over
-   five tiles with an initial state, and at the chunk of 256), then its
-   median time beside its bound, the plain version's time and one PyTorch
-   library call's time where one computes the same function (a yardstick
-   the port never calls);
+   five tiles with an initial state, and at the chunk of 256; aligned
+   flash (kernel 3): f32 at 1e-4 with TF32 off and bf16 at 3e-2 at the
+   kernel bench's two shapes (causal), at qwen2-1.5b's attention width as a
+   long cache-free prefill (1, 4096, 12, 2, 128) in bf16, at mixtral-8x7b's
+   sliding window (1, 8192, 32, 8, 128, window 4096) in bf16, without the
+   causal mask, with Sk != Sq both ways, a window smaller than a tile and
+   D = 256), then its median time beside its bound, the plain version's
+   time and one PyTorch library call's time where one computes the same
+   function (a yardstick the port never calls);
 4. small-input checks on qwen2-smoke in f32, card against the plain path
    on the CPU: the serving engine's greedy streams (contiguous, paged, and
    paged under half the page budget with at least one requeue), and
@@ -83,8 +88,18 @@ exits non-zero:
    multiple of 48, backward launches, SSD units selected, every request
    ``done``.
 
-Phases 7 to 9 run right after phase 5, on its weights.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 11) and read
+12. kernel bench: ``benchmarks_torch/kernel_bench.py --full`` in this
+   process (its record appended to ``build/BENCH_torch_kernels.json``),
+   the path that runs kernel 3: every row within its tolerance, every
+   field of the record present, the aligned flash kernel launched.
+
+Phases 7 to 9 run right after phase 5, on its weights.  The serves of
+phases 5 and 7 to 11 print ``host_syncs`` beside ``chunks`` and fail
+unless they are equal (one blocking read a chunk, none inside the tick
+loop); phases 5, 7, 8, 10 and 11 run their tick loops under
+``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
+the run.  The kernel launch
+counts are set to 0 just before each main path (phases 5 to 12) and read
 just after.  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -92,6 +107,7 @@ package.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -101,6 +117,7 @@ import subprocess
 import sys
 import time
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, non-TC f32 / TC bf16
 
@@ -130,10 +147,35 @@ PERSONALISE = dict(slots=8, max_len=128, chunk=16, requests=16, users=4,
 SSD = dict(b=48, s=64, h=64, p=64, n=128, chunk=256)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to max |want|
 SSD_TILE = 32  # csrc/ssd_scan.cu's tokens per tile
+# kernel 3 (aligned flash): (what, B, Sq, Sk, Hq, Hkv, D, causal, window,
+# dtypes); the first four are timed, in their first dtype
+ALIGNED = [
+    ("bench quick", 1, 512, 512, 4, 2, 64, True, 0, ("float32", "bfloat16")),
+    ("bench full", 2, 2048, 2048, 8, 2, 128, True, 0,
+     ("float32", "bfloat16")),
+    ("qwen2-1.5b prefill", 1, 4096, 4096, 12, 2, 128, True, 0,
+     ("bfloat16",)),
+    ("mixtral-8x7b window", 1, 8192, 8192, 32, 8, 128, True, 4096,
+     ("bfloat16",)),
+    ("not causal", 2, 256, 256, 2, 2, 128, False, 0, ("float32", "bfloat16")),
+    ("Sk < Sq", 1, 300, 200, 4, 2, 64, True, 0, ("float32", "bfloat16")),
+    ("Sk > Sq, not causal", 1, 150, 333, 4, 2, 64, False, 0,
+     ("float32", "bfloat16")),
+    ("window 5 < tile", 2, 130, 130, 2, 1, 16, True, 5,
+     ("float32", "bfloat16")),
+    ("D 256", 1, 96, 90, 2, 2, 256, True, 40, ("float32", "bfloat16")),
+]
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def one_sync_a_chunk(report, what: str) -> None:
+    """The JAX engine's contract: one blocking host read a serving chunk."""
+    if report["host_syncs"] != report["chunks"]:
+        fail(f"{what}: {report['host_syncs']} host syncs for "
+             f"{report['chunks']} chunks")
 
 
 def max_err(got, want, tol: float, what: str) -> float:
@@ -194,6 +236,19 @@ def flash_work(q_offset, kv_len, sq, hq, hkv, d, elt, window):
               + 2 * kv_rows * hkv * d * elt      # k, v rows
               + 2 * b * 4)                       # q_offset, kv_len
     return nbytes, 4 * d * hq * keys
+
+
+def aligned_work(b, sq, sk, hq, hkv, d, causal, window, elt):
+    """(bytes, operations) of one aligned attention call: q, k, v read and
+    out written once, two multiply-adds per (query, visible key, feature);
+    positions from 0 on both axes."""
+    pairs = 0
+    for i in range(sq):
+        hi = min(sk - 1, i) if causal else sk - 1
+        lo = max(0, i - window + 1) if window else 0
+        pairs += max(0, hi - lo + 1)
+    return (elt * (2 * b * sq * hq * d + 2 * b * sk * hkv * d),
+            4 * d * hq * b * pairs)
 
 
 def page_table(kv_len, ps, mp, n_pages, gen, device):
@@ -278,13 +333,16 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch import api, configs
-    from repro_torch.kernels import build, flash_attention, flash_paged, ops
+    from repro_torch.kernels import (
+        build, flash_aligned, flash_attention, flash_paged, ops,
+    )
     from repro_torch.kernels import fisher as fisher_kernel
     from repro_torch.kernels import grad_quant as gq_kernel
     from repro_torch.kernels import ssd_scan as ssd_kernel
     from repro_torch.kernels.ref import (
         fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
-        flash_attention_paged_ref, grad_quant_ref, ssd_scan_ref,
+        flash_attention_paged_ref, flash_attention_ref, grad_quant_ref,
+        ssd_scan_ref,
     )
     from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
     from repro_torch.models import ssm
@@ -857,6 +915,81 @@ def main() -> int:
                          "max_abs_err": worst_}
     del sets, dys, y_out, dx_o, ddt_o, parts, db_o, dc_o, states
 
+    # -- kernel 3, aligned flash attention: parity against the plain version
+    # at every case of ALIGNED, then the timed cases (kernel through its C
+    # entry; their K/V fit the L2, as a long prefill's do layer by layer)
+    fa_entry = flash_aligned._entry()
+    fa_worst, fa_times = 0.0, {}
+    for (what, b_, sq_, sk_, hq_, hkv_, d_, causal_, window_,
+         dnames) in ALIGNED:
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            q = torch.randn((b_, sq_, hq_, d_), generator=gen,
+                            device=dev).to(dtype)
+            k = torch.randn((b_, sk_, hkv_, d_), generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn((b_, sk_, hkv_, d_), generator=gen,
+                            device=dev).to(dtype)
+            got = ops.flash_attention(q, k, v, causal=causal_,
+                                      window=window_)
+            want = flash_attention_ref(q, k, v, causal=causal_,
+                                       window=window_)
+            torch.cuda.synchronize()
+            err = max_err(got, want, TOL[dname], f"flash_attention {what} "
+                          f"{dname}")
+            fa_worst = max(fa_worst, err)
+            print(f"[parity] flash_attention {what} {dname} (B={b_} Sq={sq_} "
+                  f"Sk={sk_} Hq={hq_} Hkv={hkv_} D={d_} causal={causal_} "
+                  f"window={window_}): max abs err {err:.3g} (tol "
+                  f"{TOL[dname]:g} rel+abs)", flush=True)
+            if len(fa_times) >= 4 or dname != dnames[0] or what in fa_times:
+                continue
+            out = torch.empty_like(q)
+
+            def run_fa():
+                rc = fa_entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), b_, sq_, sk_, hq_, hkv_, d_,
+                              int(causal_), window_,
+                              0 if dtype == torch.float32 else 1, stream)
+                if rc:
+                    fail(f"flash_aligned_fwd returned cudaError {rc}")
+
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            pos = torch.arange(sk_, device=dev)
+            qp = torch.arange(sq_, device=dev)[:, None]
+            band = (pos[None, :] <= qp) & (pos[None, :] > qp - window_)
+
+            def run_sdpa():
+                if window_:
+                    F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=band,
+                                                   enable_gqa=True)
+                else:
+                    F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal_,
+                                                   enable_gqa=True)
+
+            ms = time_ms(run_fa, 10)
+            plain_ms = time_ms(lambda: flash_attention_ref(
+                q, k, v, causal=causal_, window=window_), 1)
+            library_ms = time_ms(run_sdpa, 10)
+            nbytes, nops = aligned_work(b_, sq_, sk_, hq_, hkv_, d_, causal_,
+                                        window_, q.element_size())
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS[dname]
+            bound_ms = 1e3 * max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            fa_times[what] = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": library_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by}
+            print(f"[time] flash_attention {what} {dname} (B={b_} S={sq_} "
+                  f"Hq={hq_} Hkv={hkv_} D={d_} causal window={window_}): "
+                  f"kernel {ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+                  f"{nbytes} B, {nops} ops at the {dname} peak), plain "
+                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms", flush=True)
+    aligned = dict(fa_times["bench full"], max_abs_err=fa_worst)
+    del q, k, v, got, want, out, qt, kt, vt, band
+    torch.cuda.empty_cache()
+
     # -- small-input check: kernel path on the card vs plain path on the CPU
     small = configs.get_reduced("qwen2-1.5b")
     sp_cpu = T.init_params(small, torch.Generator().manual_seed(0),
@@ -1056,6 +1189,7 @@ def main() -> int:
                     prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
                     max_new=16)
             for i, n in enumerate(rng.integers(32, 257, 8))]
+    eng.tick_sync_debug = "error"
     torch.cuda.synchronize()
     ops.flash_attention_cached.launches = 0
     t0 = time.perf_counter()
@@ -1069,10 +1203,12 @@ def main() -> int:
           f"32, prefill_block {eng.prefill_block}: {len(reqs)} requests "
           f"(prompts {sum(len(r.prompt) for r in reqs)} tokens), "
           f"{new_tokens} new tokens in {wall:.3f} s = "
-          f"{new_tokens / wall:.2f} tok/s, {rep['ticks']} ticks, "
-          f"{rep['host_syncs']} host syncs, kv_cache_bytes "
+          f"{new_tokens / wall:.2f} tok/s, {rep['ticks']} ticks "
+          f"({rep['ticks_issued']} issued), {rep['host_syncs']} host syncs "
+          f"for {rep['chunks']} chunks, kv_cache_bytes "
           f"{eng.memory_report()['kv_cache_bytes']}, flash_cached launches "
           f"{launches}", flush=True)
+    one_sync_a_chunk(rep, "serve")
     bad = [(r.uid, r.outcome, len(r.out)) for r in reqs
            if r.outcome != "done" or len(r.out) != 16
            or not all(0 <= t < cfg.vocab for t in r.out)]
@@ -1085,14 +1221,15 @@ def main() -> int:
     prompts5 = [r.prompt for r in reqs]
     del eng
 
-    def full_serve(reqs, **kw):
+    def full_serve(reqs, sync_debug="error", **kw):
         """Serve ``reqs`` through a fresh engine on phase 5's weights: a
-        warm-up request, then the kernel counts set to 0, the run, and the
-        counts read just after.  Returns (engine, wall seconds, paged
-        launches, cached launches)."""
+        warm-up request, then the kernel counts set to 0, the run (its tick
+        loops under ``sync_debug``), and the counts read just after.
+        Returns (engine, wall seconds, paged launches, cached launches)."""
         eng = ServeEngine(cfg, params, slots=8, max_len=512, chunk=32, **kw)
         eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
                          max_new=2)])
+        eng.tick_sync_debug = sync_debug
         torch.cuda.synchronize()
         ops.flash_attention_paged.launches = 0
         ops.flash_attention_cached.launches = 0
@@ -1130,7 +1267,8 @@ def main() -> int:
           f"32, page size {PAGE_SIZE}, {mem['n_pages']} pages: "
           f"{sum(len(r.out) for r in reqs)} new tokens in {wall:.3f} s = "
           f"{sum(len(r.out) for r in reqs) / wall:.2f} tok/s, {rep['ticks']} "
-          f"ticks, {rep['host_syncs']} host syncs, peak {rep['peak_resident']} "
+          f"ticks ({rep['ticks_issued']} issued), {rep['host_syncs']} host "
+          f"syncs for {rep['chunks']} chunks, peak {rep['peak_resident']} "
           f"resident; streams equal to phase 5's: {same} of {len(reqs)}; "
           f"kv_cache_bytes {mem['kv_cache_bytes']} (pages "
           f"{mem['page_bytes'] * mem['n_pages']}, fixed-stripe bytes "
@@ -1140,6 +1278,7 @@ def main() -> int:
           f"{paged_launches}, flash_cached launches {cached_in_paged}",
           flush=True)
     all_done(reqs, 16, "paged serve")
+    one_sync_a_chunk(rep, "paged serve")
     if same != len(reqs):
         fail("the paged serve's streams differ from phase 5's")
     if paged_launches <= 0 or paged_launches % nl:
@@ -1182,13 +1321,15 @@ def main() -> int:
           f"{PRESSURE['max_new']} new tokens need {demand} pages at their "
           f"ends ({admit} at admission): {new_tokens} new tokens in "
           f"{wall:.3f} s = {new_tokens / wall:.2f} tok/s, {rep['ticks']} "
-          f"ticks, {rep['host_syncs']} host syncs, outcomes "
+          f"ticks ({rep['ticks_issued']} issued), {rep['host_syncs']} host "
+          f"syncs for {rep['chunks']} chunks, outcomes "
           f"{rep['outcomes']}, preemptions {sum(r.preempts for r in reqs)}, "
           f"peak {rep['peak_resident']} resident where the same pages hold "
           f"{PRESSURE['pages'] // stripe} fixed stripes; streams equal to an "
           f"unpressured run: {same} of {len(reqs)} (reported, not gated); "
           f"flash_paged launches {pressure_launches}", flush=True)
     all_done(reqs, PRESSURE["max_new"], "pressure")
+    one_sync_a_chunk(rep, "pressure")
     if rep["outcomes"].get("requeued", 0) < 1:
         fail(f"half the pages preempted nothing: {rep['outcomes']}")
     if pressure_launches <= 0:
@@ -1200,7 +1341,8 @@ def main() -> int:
     reqs = [Request(uid=i, prompt=p, max_new=16)
             for i, p in enumerate(prompts5)]
     eng, wall, paged_in_int8, int8_launches = full_serve(
-        reqs, kv_paging=True, kv_page_size=PAGE_SIZE, kv_int8=True)
+        reqs, sync_debug=None, kv_paging=True, kv_page_size=PAGE_SIZE,
+        kv_int8=True)
     rep, mem = eng.last_run_report, eng.last_run_report["memory"]
     pages_bytes = mem["page_bytes"] * mem["n_pages"]
     same = sum(list(r.out) == want for r, want in zip(reqs, phase5))
@@ -1209,11 +1351,13 @@ def main() -> int:
           f"{pages_bytes / stripe_bytes:.3f}x), kv_cache_bytes "
           f"{mem['kv_cache_bytes']}: {sum(len(r.out) for r in reqs)} new "
           f"tokens in {wall:.3f} s = {sum(len(r.out) for r in reqs) / wall:.2f}"
-          f" tok/s, {rep['ticks']} ticks; streams equal to phase 5's: {same} "
+          f" tok/s, {rep['ticks']} ticks, {rep['host_syncs']} host syncs "
+          f"for {rep['chunks']} chunks; streams equal to phase 5's: {same} "
           f"of {len(reqs)} (reported, not gated); flash_cached launches "
           f"{int8_launches} (block prefill over the gathered int8 view), "
           f"flash_paged launches {paged_in_int8}", flush=True)
     all_done(reqs, 16, "int8 pages")
+    one_sync_a_chunk(rep, "int8 pages")
     if pages_bytes != int8_bytes:
         fail(f"int8 pages hold {pages_bytes} B, not {int8_bytes}")
     del eng, params
@@ -1294,6 +1438,7 @@ def main() -> int:
                       personalise=pol)
     eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
                      max_new=2)])
+    eng.tick_sync_debug = "error"
     pers = Personaliser(session, eng, pol, profile=profile,
                         iters=P["iters"], seq=P["seq"])
     rng = np.random.default_rng(0)
@@ -1331,7 +1476,8 @@ def main() -> int:
           f"refreshes (wall less adapt and swap {pers_wall - adapt_s - swap_s:.3f}"
           f" s), "
           f"{online['rounds']} rounds, {online['ticks']} ticks, "
-          f"{online['host_syncs']} host syncs; peak device memory "
+          f"{online['host_syncs']} host syncs for {online['chunks']} chunks; "
+          f"peak device memory "
           f"{pers_peak} B, delta arena {mem['delta_arena_bytes']} B "
           f"({mem['delta_bytes_per_stream']} B a slot; a folded copy "
           f"{mem['params_bytes_folded_copy']} B); grad_quant launches "
@@ -1345,6 +1491,7 @@ def main() -> int:
               f"{r['payload_bytes_wire']} B vs f32 {r['payload_bytes_f32']} B"
               f" = {r['payload_ratio']:.4f}x", flush=True)
     all_done(reqs, P["max_new"], "personalise")
+    one_sync_a_chunk(online, "personalise")
     if not refreshes:
         fail("the personalised serve refreshed no user")
     if gq_launches <= 0 or gq_launches != refreshed * leaves_per_user:
@@ -1388,6 +1535,9 @@ def main() -> int:
     ssd_bwd_launches = ops.ssd_scan.bwd_launches
     eng = ServeEngine(mcfg, msession.params, slots=4, max_len=96, chunk=16)
     madapt.fold_into(eng)
+    eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
+                     max_new=2)])
+    eng.tick_sync_debug = "error"
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i, prompt=rng.integers(
         0, mcfg.vocab, size=int(rng.integers(4, 16))).astype(np.int32),
@@ -1418,7 +1568,8 @@ def main() -> int:
     print(f"[mamba2] losses {[round(x, 6) for x in mlosses]}", flush=True)
     print(f"[mamba2] folded engine: {len(reqs)} requests, {new_tokens} new "
           f"tokens in {mserve_wall:.3f} s = {new_tokens / mserve_wall:.2f} "
-          f"tok/s, {rep['ticks']} ticks, {rep['host_syncs']} host syncs, "
+          f"tok/s, {rep['ticks']} ticks ({rep['ticks_issued']} issued), "
+          f"{rep['host_syncs']} host syncs for {rep['chunks']} chunks, "
           f"outcomes {rep['outcomes']}, recurrent state "
           f"{rep['memory']['kv_cache_bytes']} B, ssd_scan launches "
           f"{serve_ssd} (the serve runs the recurrence)", flush=True)
@@ -1440,9 +1591,50 @@ def main() -> int:
     if not all(r.done and r.outcome == "done" for r in reqs):
         fail(f"mamba2 folded-engine requests not done: "
              f"{[(r.uid, r.outcome) for r in reqs]}")
+    one_sync_a_chunk(rep, "mamba2 serve")
+    del eng, msession, madapt
+    torch.cuda.empty_cache()
+
+    # -- kernel bench: the twin of benchmarks/kernel_bench.py --------------
+    # the path that runs kernel 3 (and every other kernel at the reference
+    # bench's full shapes); its record goes to the build directory
+    spec = importlib.util.spec_from_file_location(
+        "kernel_bench", os.path.join(ROOT, "benchmarks_torch",
+                                     "kernel_bench.py"))
+    kb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kb)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    bench = kb.main(quick=False, device="cuda",
+                    out=os.path.join(ROOT, "build", "BENCH_torch_kernels.json"))
+    bench_launches = ops.flash_attention.launches
+    for r in bench["rows"]:
+        lib = ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+        print(f"[bench] {r['name']} {r['shape']}: {r['ms']:.4f} ms "
+              f"({r['ms_min']:.4f}-{r['ms_max']:.4f} over {r['trials']} "
+              f"trials of {r['inner']}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib} ms, "
+              f"max abs err {r['max_abs_err']:.3g} (tol {r['tol']:g})",
+              flush=True)
+    print(f"[bench] kernel_bench --full in {time.perf_counter() - t0:.1f} s, "
+          f"{len(bench['rows'])} rows, flash_aligned launches "
+          f"{bench_launches}", flush=True)
+    bad = kb.check(bench)
+    if bad:
+        fail(f"kernel_bench: {bad}")
+    if bench_launches <= 0:
+        fail("the kernel bench never launched the aligned flash kernel")
 
     print(smi)
     print(json.dumps({"kernels": [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_aligned.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:38",
+        "launches": bench_launches,
+        **aligned,
+    }, {
         "name": "flash_attention_cached",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_cached.cu",

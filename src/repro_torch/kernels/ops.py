@@ -6,18 +6,27 @@ kernel wrapper raises on what it does not take).  Each entry counts its
 kernel launches in a plain integer attribute, ``<entry>.launches``, so a
 run can show that its main path went through the kernel (``ssd_scan``
 also counts its backward's in ``ssd_scan.bwd_launches``).
+
+Entries: ``fisher``/``fisher_auto``/``fisher_tapgrads`` (Eq. 2),
+``flash_attention`` (aligned: whole sequences, positions from 0),
+``flash_attention_cached`` (a query block per slot against its cache),
+``flash_attention_paged`` (the same over a paged arena), ``grad_quant``
+(int8 error feedback) and ``ssd_scan`` (the Mamba2 scan, with its
+backward under autograd).
 """
 from __future__ import annotations
 
 import torch
 
 from .fisher import fisher_cuda
+from .flash_aligned import flash_attention_aligned_cuda
 from .flash_attention import flash_attention_cached_cuda
 from .flash_paged import flash_attention_paged_cuda
 from .grad_quant import grad_quant_cuda
 from .ref import (
     fisher_ref, fisher_tapgrads_ref, flash_attention_cached_ref,
-    flash_attention_paged_ref, grad_quant_ref, ssd_scan_ref,
+    flash_attention_paged_ref, flash_attention_ref, grad_quant_ref,
+    ssd_scan_ref,
 )
 from .ssd_scan import SSDScanFn
 
@@ -79,6 +88,20 @@ def fisher_tapgrads(g, n, mask=None) -> torch.Tensor:
 
 
 fisher_tapgrads.launches = 0
+
+
+def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
+    """Aligned attention of whole sequences: q (B, Sq, Hq, D) against k, v
+    (B, Sk, Hkv, D), positions from 0 on both axes, causal and/or a
+    sliding ``window`` (see ``ref.flash_attention_ref``)."""
+    if not _on_card(q):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = flash_attention_aligned_cuda(q, k, v, causal=causal, window=window)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
 
 
 def flash_attention_cached(q, k, v, *, q_offset, kv_len, causal=True,

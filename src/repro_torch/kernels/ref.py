@@ -49,6 +49,48 @@ def fisher_tapgrads_ref(g: torch.Tensor, n: float,
     return _sum_sq_rows(g.float(), mask, 1.0 / (2.0 * float(n)), False)
 
 
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    block: int = 512,
+) -> torch.Tensor:
+    """Aligned attention, the aligned CUDA kernel's contract: positions run
+    from 0 on both axes, query ``i`` sees key ``j`` when ``j <= i``
+    (causal) and ``j > i - window`` (``window > 0``); query head ``h``
+    reads kv head ``h // (Hq / Hkv)`` (kv heads not repeated by the
+    caller).  Scores scaled by ``1/sqrt(D)``, everything in float32, a row
+    that sees no key gives 0 (the JAX oracle's NaN -> 0).  Query rows go
+    ``block`` at a time, so a plain run at (1, 8192, 32, 8, 128) fits on a
+    card.  Returns (B, Sq, Hq, D) in q's dtype."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(hq // hkv, dim=2)
+    vf = v.float().repeat_interleave(hq // hkv, dim=2)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    out = torch.empty_like(q)
+    for i0 in range(0, sq, block):
+        qb = q[:, i0:i0 + block].float()
+        qpos = torch.arange(i0, i0 + qb.shape[1], device=q.device)[:, None]
+        mask = torch.ones((qb.shape[1], sk), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window > 0:
+            mask = mask & (kpos > qpos - window)
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, kf) / math.sqrt(d)
+        s = torch.where(mask, s, -math.inf)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.permute(0, 2, 1, 3)
+        out[:, i0:i0 + block] = o.to(q.dtype)
+    return out
+
+
 def flash_attention_cached_ref(
     q: torch.Tensor,         # (B, Sq, Hq, D)
     k: torch.Tensor,         # (B, Sk, Hkv, D)

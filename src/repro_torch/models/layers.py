@@ -259,6 +259,7 @@ def attention_apply(
     cache: Optional[Params] = None,
     causal: bool = True,
     valid: Optional[torch.Tensor] = None,
+    step_valid: Optional[torch.Tensor] = None,
     delta: Optional[Params] = None,
     head_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
@@ -272,7 +273,9 @@ def attention_apply(
     cache holds the same tensors with the new lengths.  ``valid`` (B, S)
     switches the cache path into block-prefill mode: each slot writes its
     left-aligned valid tokens at its own cursor and attends causally from
-    its own offset.
+    its own offset.  ``step_valid`` (B,) masks slots of a single-token
+    decode: a masked slot writes no row and keeps its length (its output
+    row is meaningless).
     """
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -302,8 +305,12 @@ def attention_apply(
 
         spec = PG.spec_from(cache)
         table, lens = cache["page_table"], cache["len"]
-        vmask = (valid if valid is not None
-                 else torch.ones((b, s), dtype=torch.bool, device=x.device))
+        if valid is not None:
+            vmask = valid
+        elif step_valid is not None:
+            vmask = step_valid[:, None].expand(b, s)
+        else:
+            vmask = torch.ones((b, s), dtype=torch.bool, device=x.device)
         n_new = vmask.sum(dim=1, dtype=torch.int32)
         kst = PG.write_rows(cache["k"], table, spec, lens, k, vmask)
         vst = PG.write_rows(cache["v"], table, spec, lens, v, vmask)
@@ -334,17 +341,25 @@ def attention_apply(
             new_cache = {"k": ck, "v": cv, "len": lens + n_new}
             out = _block_cached_attention(q, ck, cv, lens=lens, n_new=n_new)
         else:
+            n_new = s
             if s == 1:
                 pos = lens.clamp(max=s_max - 1).long()
                 bidx = torch.arange(b, device=x.device)
-                ck[bidx, pos] = k[:, 0].to(ck.dtype)
-                cv[bidx, pos] = v[:, 0].to(cv.dtype)
+                kr, vr = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+                if step_valid is not None:
+                    # a masked slot rewrites the row it already holds
+                    m = step_valid[:, None, None]
+                    kr = torch.where(m, kr, ck[bidx, pos])
+                    vr = torch.where(m, vr, cv[bidx, pos])
+                    n_new = step_valid.to(torch.int32)
+                ck[bidx, pos] = kr
+                cv[bidx, pos] = vr
             else:  # batch-aligned prefill write, start clamped to fit
                 start = lens[0].clamp(0, s_max - s).long()
                 rows = start + torch.arange(s, device=x.device)
                 ck[:, rows] = k.to(ck.dtype)
                 cv[:, rows] = v.to(cv.dtype)
-            new_cache = {"k": ck, "v": cv, "len": lens + s}
+            new_cache = {"k": ck, "v": cv, "len": lens + n_new}
             kv_len = (lens + s).clamp(max=s_max)
             out = dot_attention(q, ck, cv, causal=False, kv_len=kv_len)
 

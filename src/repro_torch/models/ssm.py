@@ -212,6 +212,7 @@ def ssd_apply(
     delta: Optional[Params] = None,
     head_idx: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
+    step_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """The whole Mamba2 block: proj -> conv -> SSD -> gated norm -> out.
 
@@ -222,7 +223,9 @@ def ssd_apply(
     folds into the state token by token with the single-token update's
     ops (dt is zeroed on invalid positions, so ragged tails and paused
     slots leave the state as it was), and each slot's conv window advances
-    by its own valid count.  TinyTrain deltas select SSD heads
+    by its own valid count.  A slot with no valid token there, or masked
+    by ``step_valid`` (B,) in a single-token decode, keeps its conv window
+    and state bit for bit.  TinyTrain deltas select SSD heads
     (``head_idx``)."""
     b, s, _ = x.shape
     di, n, h, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
@@ -247,8 +250,9 @@ def ssd_apply(
 
     xh = xs.reshape(b, s, h, hd)
     if cache is not None and (valid is not None or s == 1):
-        if valid is None:  # single-token decode: every slot takes one token
-            n_new = torch.ones((b,), dtype=torch.int32, device=x.device)
+        if valid is None:  # single-token decode: every valid slot takes one
+            n_new = (torch.ones((b,), dtype=torch.int32, device=x.device)
+                     if step_valid is None else step_valid.to(torch.int32))
         else:
             # block prefill: dt = 0 makes exp(dt a) = 1 and dt x = 0, so
             # the update is the identity on invalid positions
@@ -268,6 +272,14 @@ def ssd_apply(
                                       cc[:, j], a)
             ys.append(y_j)
         y = torch.stack(ys, dim=1)                                # (B,S,H,P)
+        if valid is not None or step_valid is not None:
+            # a slot that took no token keeps its window and state as they
+            # were (dt = 0 alone could turn a -0.0 into +0.0)
+            keep = (n_new > 0)[:, None, None]
+            if new_conv_state is not None:
+                new_conv_state = torch.where(keep, new_conv_state,
+                                             cache["conv"])
+            st = torch.where(keep[..., None], st, cache["ssm"])
         new_cache = {"conv": new_conv_state, "ssm": st,
                      "len": cache["len"] + n_new}
     else:

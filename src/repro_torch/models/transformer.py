@@ -203,6 +203,7 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, layer: int, *,
                  cache: Optional[Params] = None,
                  valid: Optional[torch.Tensor] = None,
+                 step_valid: Optional[torch.Tensor] = None,
                  deltas: Optional[Dict[str, Params]] = None,
                  chan_idx: Optional[Dict[str, torch.Tensor]] = None,
                  taps: Optional[Dict[str, torch.Tensor]] = None,
@@ -238,12 +239,14 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
     if mk == "ssm":
         y, c = S.ssd_apply(eff("ssm"), h, cfg,
                            cache=cache["ssm"] if cache else None,
-                           valid=valid, delta=deltas.get("ssm"),
+                           valid=valid, step_valid=step_valid,
+                           delta=deltas.get("ssm"),
                            head_idx=chan_idx.get("ssm"))
     else:
         y, c = L.attention_apply(eff("attn"), h, cfg, positions=positions,
                                  cache=cache["attn"] if cache else None,
-                                 valid=valid, delta=deltas.get("attn"),
+                                 valid=valid, step_valid=step_valid,
+                                 delta=deltas.get("attn"),
                                  head_idx=chan_idx.get("attn"))
     if "mixer" in taps:
         # tap over per-head chunks of the output: scale (B, n_heads)
@@ -292,6 +295,7 @@ def forward_hidden(
     *,
     caches: Optional[Dict[str, Any]] = None,
     seq_valid: Optional[torch.Tensor] = None,
+    step_valid: Optional[torch.Tensor] = None,
     deltas: Optional[Dict[str, Params]] = None,
     plan=None,  # core.policy.SparseUpdatePolicy
     taps: Optional[Dict[str, Any]] = None,
@@ -309,10 +313,13 @@ def forward_hidden(
     With ``caches`` every layer reads and writes its cache in place and
     the same cache tree is returned with new lengths.  ``seq_valid``
     (B, S) enables block-prefill mode (per-slot writes at each slot's own
-    cursor, ragged tails masked).  ``overlay`` ({layer: {kind:
-    (delta_pack, channel_idx)}}, slot-stacked leaves) gives those layers
-    per-slot effective weights: the serving engine's personalisation path,
-    which passes its policy as ``plan`` with no ``deltas``."""
+    cursor, ragged tails masked).  ``step_valid`` (B,) masks slots of a
+    single-token decode: a masked slot writes no cache row, keeps its
+    length and, in an SSD layer, its conv window and state.  ``overlay``
+    ({layer: {kind: (delta_pack, channel_idx)}}, slot-stacked leaves) gives
+    those layers per-slot effective weights: the serving engine's
+    personalisation path, which passes its policy as ``plan`` with no
+    ``deltas``."""
     if plan is not None and (plan.meta or {}).get("remat"):
         raise NotImplementedError(
             "rematerialised backprop spans (policy meta 'remat') arrive "
@@ -338,6 +345,7 @@ def forward_hidden(
             with frozen:
                 x, nc = _apply_block(cfg, lp, x, positions, lid,
                                      cache=cache_in, valid=seq_valid,
+                                     step_valid=step_valid,
                                      deltas=d, chan_idx=ci, taps=tap,
                                      overlay=(overlay or {}).get(lid))
             if g_caches is not None:
@@ -357,9 +365,9 @@ def embed_tokens(cfg: ArchConfig, params: Params,
     if (cfg.family in ("vlm", "dense") and cfg.norm == "rmsnorm"
             and cfg.tie_embeddings):
         # gemma-style sqrt(d) embedding scale, rounded to the weight dtype
-        # first as the JAX package does
-        e = e * torch.tensor(math.sqrt(cfg.d_model), dtype=e.dtype,
-                             device=e.device)
+        # first as the JAX package does; rounded on the host, so the
+        # serving tick uploads nothing
+        e = e * float(torch.tensor(math.sqrt(cfg.d_model), dtype=e.dtype))
     return e
 
 
@@ -505,18 +513,22 @@ def decode_step(
     tokens: torch.Tensor,  # (B, 1)
     caches: Dict[str, Any],
     pos: torch.Tensor,     # () shared or (B,) per-slot positions
+    valid: Optional[torch.Tensor] = None,  # (B,) bool; None = all valid
     *,
     overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
     plan=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: new token -> logits (B, 1, vocab), caches updated
-    in place.  ``overlay`` + ``plan`` decode each slot against its own
-    delta set (see :func:`forward_hidden`)."""
+    in place.  A slot masked by ``valid`` writes no K/V row and keeps its
+    cache length, SSD conv window and state bit for bit; its logits are
+    meaningless, and the other slots' are those of the unmasked call.
+    ``overlay`` + ``plan`` decode each slot against its own delta set (see
+    :func:`forward_hidden`)."""
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=tokens.device)
     positions = pos[:, None] if pos.dim() else pos.expand(tokens.shape)
     h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
-                               overlay=overlay, plan=plan)
+                               step_valid=valid, overlay=overlay, plan=plan)
     return unembed(cfg, params, h), caches
 
 

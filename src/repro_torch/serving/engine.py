@@ -29,13 +29,30 @@ for a recompute swap, so a resumed stream equals the unpreempted one;
 and a resident-tick ledger carries a deadline across preemptions.  All
 of it runs on the device: paging adds no host read.
 
-Host syncs: JAX branches and loops on the device (``lax.cond``,
-``lax.while_loop``); eager PyTorch has no sync-free counterpart.  So each
-tick reads one small flag tensor — the loop's early-exit test and the
-block-vs-decode choice — and each chunk reads its event rows once.  Every
-read goes through ``core.adapt._fetch``, so ``last_run_report
-["host_syncs"]`` counts them all.  One sync per chunk is ROADMAP queue 1,
-item 11.2.
+Host syncs: one per chunk, the fetch of its event rows, as in the JAX
+engine.  JAX branches and loops on the device (``lax.cond``,
+``lax.while_loop``); here the host issues every tick of the chunk's
+budget and the device decides, with nothing read back inside the loop.
+A device flag ``live`` latches False at the first tick whose exit test
+holds (pending drained and either no slot active, or a free slot while
+the host holds more work), and every commit of a tick is predicated on
+it: admission, the pending head, page reserve/growth/release, the slot
+resets, the delta arena, the lifecycle selects.  A tick after the exit
+changes nothing, and its event row says so (no resident, no emit, not
+live), so the drain books only the live ticks, as the JAX engine books
+``t_exec``.  Each tick issues both forward programs, the block prefill
+over the prefilling slots when the tick is a block tick and the
+single-token decode over the active slots when it is not, and selects
+the logits with ``torch.where``; the unchosen program's slots are masked
+and write nothing.  The event fetch goes through ``core.adapt._fetch``,
+so ``last_run_report["host_syncs"]`` counts it: ``host_syncs ==
+chunks``.  With ``skip_masked`` (on a card by default) the host issues
+no work it already knows to be masked: each tick's flags are copied to
+pinned memory behind an event, and once a copy has completed (the host
+never waits for one) no tick after a known exit is issued, nor the
+unchosen program of a tick whose flags are known; the program the last
+known tick chose goes first.  The skip changes no result and no count but
+``ticks_issued`` and ``forwards_issued``.
 
 **Online personalisation** (``personalise=SparseUpdatePolicy``): instead
 of one folded parameter copy per user, the engine keeps a per-slot delta
@@ -64,6 +81,7 @@ item.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
@@ -217,7 +235,8 @@ class PendingBuffer(NamedTuple):
 
 class TickPlan(NamedTuple):
     """One tick's admission, page growth and preemption, computed on the
-    device before the tick's flag read and committed only if it runs."""
+    device and predicated on ``live``: a tick after the chunk's exit
+    admits, grows and preempts nothing."""
 
     state: SlotState
     pool: Optional[PG.PagePool]
@@ -229,7 +248,75 @@ class TickPlan(NamedTuple):
     active_row: torch.Tensor   # (slots,) bool residents before preemption
     pre_requeue: torch.Tensor  # (slots,) bool preempted, requeued
     pre_final: torch.Tensor    # (slots,) bool preempted, terminal
-    flags: torch.Tensor        # (2,) bool [stop, block]
+    live: torch.Tensor         # () bool the chunk has not exited yet
+    block: torch.Tensor        # () bool this tick runs the block program
+
+
+@contextlib.contextmanager
+def _sync_debug(device: torch.device, mode: Optional[str]):
+    """``torch.cuda.set_sync_debug_mode(mode)`` for the block on a card,
+    the previous mode restored after; nothing when ``mode`` is None or the
+    device is the CPU."""
+    if mode is None or device.type != "cuda":
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+class _FlagProbe:
+    """What the host may know of a chunk's ticks without waiting.  Each
+    tick's ``[live, block]`` flags are copied to pinned host memory behind
+    a recorded event, and only a copy whose event has completed is read
+    (``Event.query``), so nothing blocks on the device and nothing counts
+    as a host sync; on the CPU the flags are known at once.  The engine
+    issues no work the flags show to be masked: no tick after a known exit
+    (``live`` only latches off) and not the unchosen forward program of a
+    tick whose flags are known."""
+
+    def __init__(self, device: torch.device, n: int):
+        self.card = device.type == "cuda"
+        self.flags = torch.empty((n, 2), dtype=torch.bool,
+                                 pin_memory=self.card)
+        self.events: Deque[Tuple[int, Any]] = collections.deque()
+        self.known = -1        # flags of ticks <= known are readable
+        self.exited = False    # a known tick was not live
+        self.last_block = False  # the latest known live tick's kind
+
+    def post(self, t: int, live: torch.Tensor, block: torch.Tensor) -> None:
+        if not self.card:
+            self.flags[t, 0], self.flags[t, 1] = live, block
+            self._learn(t)
+            return
+        self.flags[t].copy_(torch.stack([live, block]), non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self.events.append((t, ev))
+
+    def _learn(self, t: int) -> None:
+        self.known = t
+        live, block = (bool(x) for x in self.flags[t])
+        self.exited = self.exited or not live
+        if live:
+            self.last_block = block
+
+    def poll(self) -> bool:
+        """Read every completed copy; True once the chunk is known to have
+        exited."""
+        while self.events and self.events[0][1].query():
+            self._learn(self.events.popleft()[0])
+        return self.exited
+
+    def flags_of(self, t: int) -> Optional[Tuple[bool, bool]]:
+        """Tick t's (live, block) if its copy has completed, else None."""
+        self.poll()
+        if t > self.known:
+            return None
+        return bool(self.flags[t, 0]), bool(self.flags[t, 1])
 
 
 def _later(knob: str, item: str, what: str) -> NotImplementedError:
@@ -263,6 +350,7 @@ class ServeEngine:
         faults: Optional[Any] = None,
         personalise: Optional[Any] = None,
         admit_backfill: Optional[int] = None,
+        skip_masked: Optional[bool] = None,
         device: DeviceLike = "cuda",
     ):
         if not fused:
@@ -286,6 +374,14 @@ class ServeEngine:
         self.n_slots = slots
         self.max_len = max_len
         self.chunk = chunk
+        self.skip_masked = (self.device.type == "cuda" if skip_masked is None
+                            else bool(skip_masked))
+        # on a card, "warn" or "error" runs every tick loop under
+        # torch.cuda.set_sync_debug_mode, so a hidden host sync inside it
+        # (an .item(), a pageable copy, a boolean-mask index) shows; None
+        # leaves the mode alone
+        self.tick_sync_debug: Optional[str] = None
+        self._forwards = 0  # forward programs issued (lifetime)
         self.deadline_ticks = deadline_ticks
         self.queue_limit = queue_limit
         self.preempt_budget = int(preempt_budget)
@@ -588,19 +684,23 @@ class ServeEngine:
         return self._pending_cache
 
     def _plan(self, st: SlotState, pend: PendingBuffer, head: torch.Tensor,
-              pool: Optional[PG.PagePool], backlog: bool) -> TickPlan:
+              pool: Optional[PG.PagePool], backlog: bool,
+              live: torch.Tensor) -> TickPlan:
         """Admission, page growth and preemption for one tick, on the
-        device and functional: the caller commits the plan only if the
-        tick runs.  Its ``flags`` are the tick's one host read, [stop,
-        block]: ``stop`` is the chunk loop's exit test on the state
-        *before* admission (pending drained and either no slot active, or a
-        free slot while the host holds more queued work); ``block`` chooses
-        the block-prefill forward (some slot prefills, or a slot stalled
-        for want of a page)."""
+        device and functional.  ``live`` is the previous tick's flag; the
+        plan's own latches False when the chunk loop's exit test holds on
+        the state *before* admission (pending drained and either no slot
+        active, or a free slot while the host holds more queued work), and
+        every mask of the plan is predicated on it.  ``block`` chooses the
+        block-prefill forward (some slot prefills, or a slot stalled for
+        want of a page)."""
         P, spec = self.pending_size, self.spec
         free = ~st.active
+        stop = ((head >= pend.count)
+                & (~st.active.any() | (free.any() & backlog)))
+        live = live & ~stop
         rank = torch.cumsum(free.to(torch.int32), 0) - 1
-        fifo = free & (head + rank < pend.count)
+        fifo = free & (head + rank < pend.count) & live
         src = (head + rank).clamp(0, P - 1).long()
         if spec is not None:
             # a candidate is admitted only if the demand up to and
@@ -611,8 +711,6 @@ class ServeEngine:
             pool = PG.reserve(pool, need, take)
         else:
             take = fifo
-        stop = ((head >= pend.count)
-                & (~st.active.any() | (free.any() & backlog)))
 
         def sel(new, old):
             return torch.where(take, new, old)
@@ -631,15 +729,17 @@ class ServeEngine:
             ttl=sel(pend.ttl[src], st.ttl),
             preempt_left=sel(pend.preempt_left[src], st.preempt_left))
         n_admit = take.sum(dtype=torch.int32)
-        # event snapshots: a slot preempted this tick still reports its rid
-        rid_row, active_row = st.rid, st.active
-        prefilling = st.active & (st.cursor < st.prompt_len)
+        # event snapshots: a slot preempted this tick still reports its rid;
+        # a dead tick reports no resident
+        act = st.active & live
+        rid_row, active_row = torch.where(act, st.rid, -1), act
+        prefilling = act & (st.cursor < st.prompt_len)
         pre_requeue = pre_final = torch.zeros_like(st.active)
         stalled = torch.zeros_like(st.active)
         if self.rayg:
             # a generating slot crossing a page boundary claims its next
             # page; grants go oldest rid first while the free-list lasts
-            grow = (st.active & ~prefilling
+            grow = (act & ~prefilling
                     & (spec.pages_for(st.pos + 1) > st.pages))
             prio = torch.where(grow, st.rid, torch.iinfo(torch.int32).max)
             before = (prio[None, :] < prio[:, None]).sum(
@@ -653,7 +753,7 @@ class ServeEngine:
             # 'preempted' once its retry budget is spent)
             vrid = torch.where(st.active, st.rid, -1)
             youngest = ((torch.arange(self.n_slots, device=self.device)
-                         == torch.argmax(vrid)) & st.active)
+                         == torch.argmax(vrid)) & act)
             victims = stalled.any() & youngest
             pre_final = victims & (st.preempt_left <= 0)
             pre_requeue = victims & ~pre_final
@@ -666,47 +766,95 @@ class ServeEngine:
         block = ((prefilling.any() & (self.prefill_block > 1))
                  | stalled.any())
         return TickPlan(st, pool, take, src, n_admit, head + n_admit, rid_row,
-                        active_row, pre_requeue, pre_final,
-                        torch.stack([stop, block]))
+                        active_row, pre_requeue, pre_final, live, block)
 
-    def _forward(self, st: SlotState, prefilling: torch.Tensor, block: bool):
-        """One forward over every slot: (last logits (slots, vocab), tokens
-        consumed per slot).  A block tick pauses every slot that is not
-        prefilling (all-False rows advance nothing)."""
-        cfg, params, maxp = self.cfg, self.params, self.max_len
-        if block:
-            B = self.prefill_block
-            n_tok = torch.where(
-                prefilling,
-                torch.clamp(st.prompt_len - st.cursor, max=B), 0).to(torch.int32)
-            j = torch.arange(B, device=self.device)[None, :]
-            valid = j < n_tok[:, None]
-            gidx = (st.cursor[:, None] + j).clamp(0, maxp - 1)
-            toks = torch.where(valid, st.prompt.gather(1, gidx), 0)
-            logits, self.caches = T.prefill_block(
-                cfg, params, toks.long(), self.caches, st.pos, valid,
-                **self._fwd_kwargs())
-            last = (n_tok - 1).clamp(0, B - 1).long()
-            idx = last[:, None, None].expand(-1, 1, logits.shape[-1])
-            return logits.gather(1, idx)[:, 0], n_tok
+    def _forward(self, st: SlotState, act: torch.Tensor,
+                 prefilling: torch.Tensor, block: torch.Tensor,
+                 known=lambda: None, block_first: bool = False):
+        """One tick's forward over every slot: (last logits (slots, vocab),
+        tokens consumed per slot).  The device picks between the two
+        programs: the block prefill runs the prefilling slots when
+        ``block`` holds (pausing every other slot), the single-token decode
+        runs the ``act`` slots when it does not; the masked slots of each
+        write nothing, and ``torch.where`` selects.  ``known()`` gives the
+        tick's (live, block) flags where the host has them without waiting:
+        then the unchosen program is not issued (neither is either program
+        of a dead tick).  ``block_first`` orders the two.  An engine that
+        can never take a block tick (prefill block 1 without page growth)
+        issues the decode alone."""
+        progs = [self._decode_program, self._block_program]
+        if self.prefill_block == 1 and not self.rayg:
+            progs = progs[:1]
+        elif block_first:
+            progs.reverse()
+        out: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+        for prog in progs:
+            flags = known()
+            if flags is not None:
+                live, blk = flags
+                if not live:  # a dead tick: every slot is masked
+                    return (torch.zeros((self.n_slots, self.cfg.vocab),
+                                        device=self.device),
+                            torch.zeros_like(st.cursor))
+                chosen = self._block_program if blk else self._decode_program
+                if chosen in out:
+                    return out[chosen]
+                return chosen(st, act, prefilling, block)
+            out[prog] = prog(st, act, prefilling, block)
+        if len(out) == 1:
+            return out[self._decode_program]
+        (logits, n_tok), (blk_logits, n_blk) = (
+            out[self._decode_program], out[self._block_program])
+        return (torch.where(block, blk_logits, logits),
+                torch.where(block, n_blk, n_tok))
+
+    def _decode_program(self, st: SlotState, act: torch.Tensor,
+                        prefilling: torch.Tensor, block: torch.Tensor):
+        """The single-token decode over the ``act`` slots of a decode tick
+        (every slot is masked in a block tick)."""
+        self._forwards += 1
+        maxp = self.max_len
         ptok = st.prompt.gather(
             1, st.cursor.clamp(0, maxp - 1)[:, None].long())[:, 0]
-        tok = torch.where(st.active,
-                          torch.where(prefilling, ptok, st.last_tok), 0)
+        tok = torch.where(act, torch.where(prefilling, ptok, st.last_tok), 0)
+        step = act & ~block
         logits, self.caches = T.decode_step(
-            cfg, params, tok[:, None].long(), self.caches, st.pos,
-            **self._fwd_kwargs())
-        return logits[:, 0], st.active.to(torch.int32)
+            self.cfg, self.params, tok[:, None].long(), self.caches, st.pos,
+            step, **self._fwd_kwargs())
+        return logits[:, 0], step.to(torch.int32)
 
-    def _advance(self, plan: TickPlan, block: bool):
-        """Forward plus lifecycle advance.  Returns (state, pool, event
-        row)."""
+    def _block_program(self, st: SlotState, act: torch.Tensor,
+                       prefilling: torch.Tensor, block: torch.Tensor):
+        """The block prefill over the prefilling slots of a block tick (every
+        slot is masked in a decode tick)."""
+        self._forwards += 1
+        B, maxp = self.prefill_block, self.max_len
+        n_blk = torch.where(
+            prefilling & block,
+            torch.clamp(st.prompt_len - st.cursor, max=B), 0).to(torch.int32)
+        j = torch.arange(B, device=self.device)[None, :]
+        valid = j < n_blk[:, None]
+        gidx = (st.cursor[:, None] + j).clamp(0, maxp - 1)
+        toks = torch.where(valid, st.prompt.gather(1, gidx), 0)
+        logits, self.caches = T.prefill_block(
+            self.cfg, self.params, toks.long(), self.caches, st.pos, valid,
+            **self._fwd_kwargs())
+        last = (n_blk - 1).clamp(0, B - 1).long()
+        idx = last[:, None, None].expand(-1, 1, logits.shape[-1])
+        return logits.gather(1, idx)[:, 0], n_blk
+
+    def _advance(self, plan: TickPlan, known=lambda: None,
+                 block_first: bool = False):
+        """Forward plus lifecycle advance, predicated on ``plan.live``
+        (``known`` and ``block_first`` as in :meth:`_forward`).  Returns
+        (state, pool, event row)."""
         st, pool = plan.state, plan.pool
-        prefilling = st.active & (st.cursor < st.prompt_len)
-        logits, n_tok = self._forward(st, prefilling, block)
+        act = st.active & plan.live
+        prefilling = act & (st.cursor < st.prompt_len)
+        logits, n_tok = self._forward(st, act, prefilling, plan.block, known,
+                                      block_first)
         cursor = torch.where(prefilling, st.cursor + n_tok, st.cursor)
-        emit = st.active & (n_tok > 0) & (~prefilling
-                                          | (cursor >= st.prompt_len))
+        emit = act & (n_tok > 0) & (~prefilling | (cursor >= st.prompt_len))
         pos = st.pos + n_tok
         # numerics guard: a non-finite row on an emitting slot suppresses
         # the emit and terminates the stream instead of feeding back garbage
@@ -716,12 +864,12 @@ class ServeEngine:
         # greedy pick: argmax returns the first maximum, as jnp.argmax does
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         remaining = st.remaining - good_emit.to(torch.int32)
-        done = st.active & ~bad & ((remaining <= 0) | (pos >= st.budget - 1))
+        done = act & ~bad & ((remaining <= 0) | (pos >= st.budget - 1))
         trunc = done & (remaining > 0)
         # the deadline counts resident ticks, this tick's preempted slot's
         # included (the host ledger counts the same event rows)
         ttl = st.ttl - plan.active_row.to(torch.int32)
-        expired = st.active & ~bad & ~done & (ttl <= 0)
+        expired = act & ~bad & ~done & (ttl <= 0)
         term = done | bad | expired
         outcome = torch.zeros_like(st.cursor)
         outcome = torch.where(done, OUTCOME_DONE, outcome)
@@ -733,7 +881,7 @@ class ServeEngine:
         row = torch.cat([
             plan.rid_row, torch.where(good_emit, next_tok, -1), outcome,
             plan.active_row.any().to(torch.int32)[None],
-            plan.n_admit[None]])
+            plan.n_admit[None], plan.live.to(torch.int32)[None]])
         st = st._replace(
             cursor=cursor, pos=pos,
             last_tok=torch.where(good_emit, next_tok, st.last_tok),
@@ -756,9 +904,42 @@ class ServeEngine:
         return bool(self.queue or self._staged or self._live
                     or self._requeue)
 
+    def _tick(self, st: SlotState, pend: PendingBuffer, head: torch.Tensor,
+              pool: Optional[PG.PagePool], backlog: bool,
+              live: torch.Tensor, t: int = 0,
+              probe: Optional[_FlagProbe] = None):
+        """Tick ``t`` of the chunk loop, issued with no host read and
+        predicated on ``live``; its flags go to ``probe``.  Returns (head,
+        live, state, pool, event row)."""
+        plan = self._plan(st, pend, head, pool, backlog, live)
+        known, block_first = (lambda: None), False
+        if probe is not None:
+            probe.post(t, plan.live, plan.block)
+            known, block_first = (lambda: probe.flags_of(t)), probe.last_block
+        if pool is not None:
+            # the table the forward reads is this tick's, after its
+            # reserve, growth and preemption
+            PG.set_page_table(self.caches, plan.pool.table)
+        T.reset_slot_state(self.caches, plan.take)
+        if self.personalise is not None:
+            # park each admitted request's staged deltas in its slot's
+            # arena row: a gather and a select per leaf, the whole
+            # per-tick cost of personalisation outside the forward
+            take = plan.take
+
+            def admit(a, q):
+                m = take.reshape((self.n_slots,) + (1,) * (a.dim() - 1))
+                return torch.where(
+                    m, q[plan.src.clamp(max=q.shape[0] - 1)], a)
+
+            self._arena = tree_map(admit, self._arena, pend.delta)
+        st, pool, row = self._advance(plan, known, block_first)
+        return plan.head, plan.live, st, pool, row
+
     def _dispatch(self, budget: int) -> List[torch.Tensor]:
-        """Stage queued work and run up to ``budget`` ticks; returns the
-        executed ticks' event rows (still on the device)."""
+        """Stage queued work and issue ``budget`` ticks with no host read;
+        returns their event rows (still on the device), the live ticks
+        first."""
         # preempted streams restage first, in preemption order
         while self._requeue and len(self._staged) < self.pending_size:
             self._staged.appendleft(self._requeue.pop())
@@ -771,55 +952,42 @@ class ServeEngine:
             self._by_rid[rid] = req
             self._staged.append((rid, req))
             self._pending_dirty = True
-        # backlog: host work beyond the pending buffer; the tick loop
-        # returns early if the buffer drains while a slot is free, so the
-        # freed slot refills from the host instead of idling out the chunk
+        # backlog: host work beyond the pending buffer; the chunk exits
+        # early (on the device) if the buffer drains while a slot is free,
+        # so the freed slot refills from the host instead of idling out
+        # the chunk
         backlog = bool(self.queue or self._requeue)
         pend = self._make_pending()
         head = torch.zeros((), dtype=torch.int32, device=self.device)
+        live = torch.ones((), dtype=torch.bool, device=self.device)
         st, pool = self._state, self.pool
         rows: List[torch.Tensor] = []
-        while len(rows) < budget:
-            plan = self._plan(st, pend, head, pool, backlog)
-            stop, block = _telemetry._fetch(plan.flags)  # the tick's one sync
-            if stop:
-                break
-            head = plan.head
-            if pool is not None:
-                # the table the forward reads is this tick's, after its
-                # reserve, growth and preemption
-                PG.set_page_table(self.caches, plan.pool.table)
-            T.reset_slot_state(self.caches, plan.take)
-            if self.personalise is not None:
-                # park each admitted request's staged deltas in its slot's
-                # arena row: a gather and a select per leaf, the whole
-                # per-tick cost of personalisation outside the forward
-                take = plan.take
-
-                def admit(a, q):
-                    m = take.reshape((self.n_slots,) + (1,) * (a.dim() - 1))
-                    return torch.where(
-                        m, q[plan.src.clamp(max=q.shape[0] - 1)], a)
-
-                self._arena = tree_map(admit, self._arena, pend.delta)
-            st, pool, row = self._advance(plan, bool(block))
-            rows.append(row)
+        probe = _FlagProbe(self.device, budget) if self.skip_masked else None
+        with _sync_debug(self.device, self.tick_sync_debug):
+            for t in range(budget):
+                if probe is not None and probe.poll():
+                    break  # the chunk is known to have exited
+                head, live, st, pool, row = self._tick(
+                    st, pend, head, pool, backlog, live, t, probe)
+                rows.append(row)
         self._state, self.pool = st, pool
         return rows
 
     def _drain(self, rows: List[torch.Tensor], fr: Dict[str, Any]) -> None:
-        """Fetch a chunk's event rows (one sync) and book them."""
+        """Fetch a chunk's event rows (its one sync) and book the live
+        ticks; the rows of ticks after the exit hold no event."""
         fr["chunks"] += 1
-        if not rows:
-            return
         ev = _telemetry._fetch(torch.stack(rows))
         S = self.n_slots
+        n_live = int(ev[:, 3 * S + 2].sum())
+        ev = ev[:n_live]
         rids, toks, outs = ev[:, :S], ev[:, S:2 * S], ev[:, 2 * S:3 * S]
         act, n_admit = ev[:, 3 * S], ev[:, 3 * S + 1]
-        # per-slot occupancy at the last executed tick: the resident map
-        # swap_deltas targets between chunks (terminal rids resolve to no
-        # live request)
-        self._slot_rids = rids[-1].copy()
+        if n_live:
+            # per-slot occupancy at the last executed tick: the resident
+            # map swap_deltas targets between chunks (terminal rids resolve
+            # to no live request)
+            self._slot_rids = rids[-1].copy()
         for _ in range(int(n_admit.sum())):
             rid, _req = self._staged.popleft()
             self._live.add(rid)
@@ -855,9 +1023,11 @@ class ServeEngine:
         used = int(act.sum())
         fr["used"] += used
         self.ticks += used
-        fr["dispatched"] += len(rows)
+        fr["dispatched"] += n_live
+        fr["issued"] += len(rows)
         fr["toks"] += int((toks >= 0).sum())
-        fr["peak"] = max(fr["peak"], int((rids >= 0).sum(axis=1).max()))
+        if n_live:
+            fr["peak"] = max(fr["peak"], int((rids >= 0).sum(axis=1).max()))
 
     def _run_fused(self, max_ticks: int, chunk: Optional[int]) -> None:
         chunk = self.chunk if chunk is None else int(chunk)
@@ -865,8 +1035,9 @@ class ServeEngine:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if self._state is None:
             self._state = self._init_state()
-        fr = {"used": 0, "chunks": 0, "dispatched": 0, "peak": 0, "toks": 0,
-              "busy_s": 0.0}
+        fr = {"used": 0, "chunks": 0, "dispatched": 0, "issued": 0, "peak": 0,
+              "toks": 0, "busy_s": 0.0}
+        forwards0 = self._forwards
         syncs0 = _telemetry.host_sync_count()
         while self.has_work() and fr["used"] < max_ticks:
             t0 = time.perf_counter()
@@ -875,10 +1046,14 @@ class ServeEngine:
             fr["busy_s"] += time.perf_counter() - t0
         self.last_run_report = {
             "ticks": fr["used"], "chunks": fr["chunks"],
-            # every blocking device->host read of this run: one flag read
-            # per tick plus one event fetch per chunk
+            # every blocking device->host read of this run: the one event
+            # fetch of each chunk
             "host_syncs": _telemetry.host_sync_count() - syncs0,
             "ticks_dispatched": fr["dispatched"],
+            # ticks and forward programs the host issued, the masked ones
+            # included (fewer under skip_masked)
+            "ticks_issued": fr["issued"],
+            "forwards_issued": self._forwards - forwards0,
             "peak_resident": fr["peak"],
             "new_tokens": fr["toks"],
             "busy_seconds": fr["busy_s"],

@@ -121,7 +121,9 @@ def pages_in_use(pool: PagePool) -> torch.Tensor:
 def _mark(n: int, idx: torch.Tensor, device) -> torch.Tensor:
     """(n,) bool, True at ``idx``; entries equal to ``n`` are dropped."""
     out = torch.zeros((n + 1,), dtype=torch.bool, device=device)
-    out[idx.reshape(-1).long()] = True
+    # index_fill_ takes the value as a kernel argument: an index_put of a
+    # Python scalar uploads it with a blocking copy on a card
+    out.index_fill_(0, idx.reshape(-1).long(), True)
     return out[:n]
 
 

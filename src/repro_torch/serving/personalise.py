@@ -249,12 +249,13 @@ class Personaliser:
         summary."""
         chunk = int(ticks_per_round or self.engine.chunk)
         pending: List[Request] = list(requests)
-        rounds, ticks, syncs, history = 0, 0, 0, []
+        rounds, ticks, chunks, syncs, history = 0, 0, 0, 0, []
         while rounds < max_rounds:
             self.engine.run(pending, max_ticks=chunk, chunk=chunk)
             pending = []
             rep = self.engine.last_run_report
             ticks += rep.get("ticks", 0)
+            chunks += rep.get("chunks", 0)
             syncs += rep.get("host_syncs", 0)
             self.observe(requests)
             r = self.refresh()
@@ -267,6 +268,7 @@ class Personaliser:
         return {
             "rounds": rounds,
             "ticks": ticks,
+            "chunks": chunks,
             "host_syncs": syncs,
             "refreshes": history,
             "all_done": all(q.done for q in requests),

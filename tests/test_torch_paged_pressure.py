@@ -161,12 +161,14 @@ def test_one_tick_chunks_preempt_one_stream_until_its_budget_ends(ref):
     assert [(o, p) for _, o, p in got if o != "done"] == [("preempted", 16)]
 
 
-def test_pressure_reads_one_flag_per_tick(ref):
-    """Growth, stalls and preemption decide on the device: the host reads
-    one flag per tick and the event rows once per chunk, as unpaged."""
-    tcfg, tp, _ = ref
+def test_pressure_syncs_once_per_chunk(ref):
+    """Growth, stalls, preemption and the forced block tick decide on the
+    device: the host reads the event rows once per chunk and nothing
+    inside the tick loop, as unpaged and as the JAX engine."""
+    tcfg, tp, out = ref
     eng, _ = run_port(tcfg, tp, **PRESSURE)
     rep = eng.last_run_report
     assert rep["outcomes"]["requeued"] >= 1
-    assert rep["ticks"] + rep["chunks"] <= rep["host_syncs"]
-    assert rep["host_syncs"] <= rep["ticks"] + 2 * rep["chunks"]
+    assert rep["host_syncs"] == rep["chunks"]
+    assert rep["chunks"] == out["report_pressure"]["chunks"]
+    assert rep["ticks_dispatched"] == rep["ticks"]

@@ -86,6 +86,9 @@ def test_paged_streams_outcomes_and_report_match_reference(ref, name):
     for key in REPORT_KEYS:
         assert rep[key] == jrep[key], key
     assert rep["memory"] == jrep["memory"]
+    # fp and int8 pages: one host sync a chunk, over the JAX engine's
+    assert rep["host_syncs"] == rep["chunks"] == jrep["chunks"]
+    assert rep["ticks_dispatched"] == jrep["ticks_dispatched"]
     # the drained pool leaks nothing
     assert int(PG.free_page_count(eng.pool)) == eng.spec.n_pages
     assert (eng.pool.table == -1).all()
@@ -113,8 +116,8 @@ def test_paged_streams_equal_contiguous(ref, page_size, chunk, block):
 
 
 def test_paging_adds_no_host_read(ref):
-    """The paged engine reads the same one flag per tick and one event
-    fetch per chunk as the contiguous engine, over the same ticks."""
+    """The paged engine reads the event rows once per chunk, as the
+    contiguous engine does, over the same ticks."""
     tcfg, tp, _ = ref
     plain, _ = run_port(tcfg, tp)
     for kw in PAGED.values():

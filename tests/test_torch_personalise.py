@@ -107,13 +107,14 @@ def ref():
     jdeltas = {0: rand_deltas(jbb, jpolicy, 3, 0.5),
                1: rand_deltas(jbb, jpolicy, 4, 0.5)}
     prompts = prompts_for(jcfg.vocab, 2)
-    out = {"prompts": prompts, "streams": {}}
+    out = {"prompts": prompts, "streams": {}, "report": {}}
     for mode, kw in MODES.items():
         eng = JServeEngine(jcfg, jparams, personalise=jpolicy,
                            **ENGINE, **kw)
         for uid, d in jdeltas.items():
             eng.swap_deltas(uid, JDeltaSet.from_policy(jpolicy, d))
         out["streams"][mode] = streams(eng.run(make(JRequest, prompts)))
+        out["report"][mode] = eng.last_run_report
     p8 = prompts_for(jcfg.vocab, 1, n=8, lo=3, hi=9)
     out["p8"] = p8
     for what, kw in (("pressure", dict(page_budget=8)), ("roomy", {})):
@@ -124,6 +125,7 @@ def ref():
         reqs = make(JRequest, p8, max_new=16)
         eng.run(reqs)
         out[what] = [(list(r.out), r.outcome, r.preempts) for r in reqs]
+        out["report"][what] = eng.last_run_report
 
     cfg = configs.get_reduced("qwen2-1.5b")
     params = bridge.params_from_numpy(
@@ -152,6 +154,11 @@ def test_overlay_matches_folded_oracle_and_reference(ref, mode):
     got = streams(eng.run(make(Request, out["prompts"])))
     assert all(o == "done" for _, o in got)
     assert got == out["streams"][mode]
+    # one host sync a chunk, over the JAX engine's ticks and chunks
+    rep, jrep = eng.last_run_report, out["report"][mode]
+    assert rep["host_syncs"] == rep["chunks"] == jrep["chunks"]
+    for key in ("ticks", "ticks_dispatched", "new_tokens"):
+        assert rep[key] == jrep[key], key
     per_user = {}
     for uid, d in deltas.items():
         folded = ServeEngine(cfg, OV.fold_deltas(cfg, params, d, policy),
@@ -220,6 +227,9 @@ def test_preempt_requeue_reattaches_delta_set(ref):
         eng.run(reqs)
         runs[what] = [(list(r.out), r.outcome, r.preempts) for r in reqs]
         assert runs[what] == out[what]
+        rep, jrep = eng.last_run_report, out["report"][what]
+        assert rep["host_syncs"] == rep["chunks"] == jrep["chunks"]
+        assert rep["ticks"] == jrep["ticks"]
     assert sum(p for _, _, p in runs["pressure"]) >= 1
     assert [s for s, _, _ in runs["pressure"]] == \
         [s for s, _, _ in runs["roomy"]]
@@ -372,6 +382,8 @@ def test_personaliser_rounds_match_reference(loop):
     got, want = loop["rep"], loop["jrep"]
     assert got["all_done"] and want["all_done"]
     assert got["rounds"] == want["rounds"] and got["ticks"] == want["ticks"]
+    # one host sync a chunk, as the JAX engine's loop makes
+    assert got["host_syncs"] == got["chunks"] == want["host_syncs"]
     assert len(got["refreshes"]) == len(want["refreshes"]) >= 2
     for g, w in zip(got["refreshes"], want["refreshes"]):
         assert {k: g[k] for k in REFRESH_KEYS} == \

@@ -95,6 +95,7 @@ def ref():
         eng = JServeEngine(jcfg, js.params, prefill_block=block, **ENGINE)
         out[block] = streams(eng.run(requests(JRequest, jcfg.vocab)))
         out[f"memory{block}"] = eng.memory_report()
+        out[f"report{block}"] = eng.last_run_report
     jtask = japi.sample_lm_task(np.random.default_rng(0), jcfg.vocab, **TASK)
     out["chans"] = jax.tree_util.tree_map(
         np.asarray, js.step_cache.probe_fisher()(
@@ -174,6 +175,12 @@ def test_streams_and_outcomes_match_reference(ref, block):
     got = streams(eng.run(requests(Request, cfg.vocab)))
     assert got == out[block]
     assert {o for _, o in got} == {"done", "truncated"}
+    # the recurrent serve syncs once a chunk, over the JAX engine's ticks
+    rep, jrep = eng.last_run_report, out[f"report{block}"]
+    assert rep["host_syncs"] == rep["chunks"] == jrep["chunks"]
+    for key in ("ticks", "ticks_dispatched", "peak_resident", "new_tokens",
+                "outcomes"):
+        assert rep[key] == jrep[key], key
 
 
 @pytest.mark.parametrize("block", [8, 3])

@@ -99,7 +99,9 @@ def main(argv=None) -> int:
                    if e.device_type == DeviceType.CUDA and fn in e.name]
         if spans_k:
             own[what] = (len(spans_k), sum(spans_k))
-    launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+    # cudaLaunchKernel, and cudaLaunchKernelExC for cluster launches
+    launches = sum(1 for e in prof.events()
+                   if e.name.startswith("cudaLaunchKernel"))
     print(f"[trace] {args.arch} profiled adapt wall {pwall:.4f} s "
           f"(fisher_seconds {a.fisher_seconds:.4f}, train_seconds "
           f"{a.train_seconds:.4f}); device busy {busy_us / 1e6:.4f} s = "

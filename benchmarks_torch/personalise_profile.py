@@ -43,7 +43,9 @@ def busy_and_launches(prof):
     for lo, end in spans:
         busy_us += max(0.0, end - max(lo, hi))
         hi = max(hi, end)
-    launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+    # cudaLaunchKernel, and cudaLaunchKernelExC for cluster launches
+    launches = sum(1 for e in prof.events()
+                   if e.name.startswith("cudaLaunchKernel"))
     return busy_us / 1e6, launches
 
 

@@ -9,8 +9,9 @@ tokens each, weights and prompts from seed 0), broken down three ways:
   engine's per-chunk event fetches (``core.adapt._fetch``);
 - wall time per tick kind (block prefill, single-token decode, and dead:
   issued after its chunk's exit), each tick synchronised;
-- ``torch.profiler``: device time by kernel, launches per tick, and the
-  device's busy share of the profiled window.
+- ``torch.profiler``: device time by kernel, the block flash kernels'
+  share of it, launches per tick, and the device's busy share of the
+  profiled window.
 
     python3 benchmarks_torch/serve_profile.py [--trace DIR]
         [--paging] [--page-budget N] [--kv-int8] [--arch mamba2-1.3b]
@@ -177,7 +178,10 @@ def main() -> int:
     for lo, end in spans:
         busy_us += max(0.0, end - max(lo, hi))
         hi = max(hi, end)
-    launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+    # cudaLaunchKernel, and cudaLaunchKernelExC for the cluster launches of
+    # the block flash kernels
+    launches = sum(1 for e in prof.events()
+                   if e.name.startswith("cudaLaunchKernel"))
     print(f"[profile] profiled wall {pwall:.4f} s; device busy "
           f"{busy_us / 1e6:.4f} s over {len(spans)} device events = "
           f"{100 * busy_us / 1e6 / pwall:.1f}% of the profiled wall and "
@@ -186,6 +190,13 @@ def main() -> int:
           f"{launches / rep['ticks']:.0f} per live tick, "
           f"{launches / rep.get('ticks_issued', rep['ticks']):.0f} per "
           f"issued tick")
+    # the block flash kernels' (kernels 2 and 4) share of device time
+    attn = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "flash_" in e.name]
+    attn_us = sum(e.time_range.end - e.time_range.start for e in attn)
+    print(f"[profile] attention kernels (flash_*): {attn_us / 1e6:.4f} s on "
+          f"the device over {len(attn)} launches = "
+          f"{100 * attn_us / max(busy_us, 1e-9):.1f}% of device busy time")
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=15,
                        max_name_column_width=60))

@@ -10,26 +10,29 @@ exits non-zero:
 1. environment: torch, the card, ``nvidia-smi`` name and power limit;
 2. build: every CUDA source of the port with ``nvcc`` for ``sm_90a``, one
    process per source, all started together;
-3. kernel parity: each kernel against its plain PyTorch version at the
-   main paths' shapes (cached flash: f32 at 1e-4 with TF32 off, bf16 at
-   3e-2; paged flash: the same tolerances at page sizes 1, 5 and 16, NaN
-   in every page row no query can see, and exactly the cached kernel's
-   output on the same rows laid out contiguously; Fisher: f32 at 1e-5,
-   bf16 inputs at 2e-2, masked rows holding NaN; grad_quant: codes, scale
-   and residual exactly equal, f32 and bf16 g, a ragged multi-block size,
-   ties, zeros and a NaN, and the tree compressor with no host read; SSD
-   scan: the forward kernel against the sequential oracle and the
-   backward kernel against autograd of the plain chunked body, f32 at 1e-4
-   and bf16 at 2e-2 of max(1, max |want|), at the mamba2 adapt shape, over
-   five tiles with an initial state, and at the chunk of 256; aligned
-   flash (kernel 3): f32 at 1e-4 with TF32 off and bf16 at 3e-2 at the
-   kernel bench's two shapes (causal), at qwen2-1.5b's attention width as a
-   long cache-free prefill (1, 4096, 12, 2, 128) in bf16, at mixtral-8x7b's
-   sliding window (1, 8192, 32, 8, 128, window 4096) in bf16, without the
-   causal mask, with Sk != Sq both ways, a window smaller than a tile and
-   D = 256), then its median time beside its bound, the plain version's
-   time and one PyTorch library call's time where one computes the same
-   function (a yardstick the port never calls);
+3. kernel parity: each kernel against its plain PyTorch version at the main
+   paths' shapes (cached flash: f32 at 1e-4 with TF32 off, bf16 at 3e-2,
+   two runs bit-equal, and a 4096-row cache; paged flash: the same
+   tolerances at page sizes 1, 5 and 16, NaN in every page row no query can
+   see, two runs bit-equal, and exactly the cached kernel's output on the
+   same rows laid out contiguously, at the 4096-row cache too; the launch
+   geometry of both at the main shape, at least 128 CTAs, and their time
+   also as launches replayed from a CUDA graph; Fisher: f32 at 1e-5, bf16
+   inputs at 2e-2, masked rows holding NaN; grad_quant: codes, scale and
+   residual exactly equal, f32 and bf16 g, a ragged multi-block size, ties,
+   zeros and a NaN, and the tree compressor with no host read; SSD scan:
+   the forward kernel against the sequential oracle and the backward kernel
+   against autograd of the plain chunked body, f32 at 1e-4 and bf16 at 2e-2
+   of max(1, max |want|), at the mamba2 adapt shape, over five tiles with
+   an initial state, and at the chunk of 256; aligned flash (kernel 3): f32
+   at 1e-4 with TF32 off and bf16 at 3e-2 at the kernel bench's two shapes
+   (causal), at qwen2-1.5b's attention width as a long cache-free prefill
+   (1, 4096, 12, 2, 128) in bf16, at mixtral-8x7b's sliding window (1,
+   8192, 32, 8, 128, window 4096) in bf16, without the causal mask, with Sk
+   != Sq both ways, a window smaller than a tile and D = 256), then its
+   median time beside its bound, the plain version's time and one PyTorch
+   library call's time where one computes the same function (a yardstick
+   the port never calls);
 4. small-input checks on qwen2-smoke in f32, card against the plain path
    on the CPU: the serving engine's greedy streams (contiguous, paged, and
    paged under half the page budget with at least one requeue), and
@@ -128,6 +131,11 @@ MAIN = dict(B=8, Sq=8, Hq=12, Hkv=2, D=128, Sk=512)
 # (q_offset + Sq > kv_len), and a block ending at the last cache row
 Q_OFFSET = [0, 0, 37, 100, 255, 300, 504, 128]
 KV_LEN = [0, 8, 40, 108, 263, 305, 512, 136]
+# a long cache (max_len 4096) for kernels 2 and 4: each CTA of a cluster
+# walks up to 8 tiles
+LONG = dict(Sk=4096, kv_len=[0, 8, 700, 1500, 2600, 3333, 4000, 4096])
+PLAN_KEYS = ("CTAs", "cluster", "threads", "smem_bytes", "registers",
+             "stages")
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 FISHER_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PAGE_SIZE = 16        # cfg.kv_page_size: the paged serve's page size
@@ -192,6 +200,32 @@ def max_err(got, want, tol: float, what: str) -> float:
     return worst
 
 
+def launch_plan(lib, entry: str, *args: int) -> dict:
+    """The launch a block flash kernel's C entry would make for these
+    shapes (``flash_cached_plan``/``flash_paged_plan``), without making it."""
+    import ctypes
+
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    err = fn(*args, out)
+    if err:
+        fail(f"{entry} returned cudaError {err}")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def ptxas_registers(log: str, *parts: str):
+    """Registers ptxas reports for the one entry function of ``log`` whose
+    mangled name holds every one of ``parts`` (None when absent)."""
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if all(x in name for x in parts):
+            m = re.search(r"Used (\d+) registers", block)
+            return int(m.group(1)) if m else None
+    return None
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -217,6 +251,19 @@ def time_ms(fn, n_inner: int, trials: int = 5) -> float:
         end.synchronize()
         per.append(start.elapsed_time(end) / n_inner)
     return statistics.median(per)
+
+
+def graph_ms(launch, n: int) -> float:
+    """Device time per call of ``launch(stream)`` without the host's
+    launch cost: ``n`` calls captured in one CUDA graph, replayed."""
+    import torch
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        st = torch.cuda.current_stream().cuda_stream
+        for _ in range(n):
+            launch(st)
+    return time_ms(g.replay, 1) / n
 
 
 def flash_work(q_offset, kv_len, sq, hq, hkv, d, elt, window):
@@ -387,6 +434,9 @@ def main() -> int:
         for window in (0, 64):
             got = ops.flash_attention_cached(q, k, v, q_offset=qo, kv_len=kl,
                                              causal=True, window=window)
+            again = ops.flash_attention_cached(q, k, v, q_offset=qo,
+                                               kv_len=kl, causal=True,
+                                               window=window)
             want = flash_attention_cached_ref(q, k, v, q_offset=qo, kv_len=kl,
                                               causal=True, window=window)
             torch.cuda.synchronize()
@@ -394,11 +444,16 @@ def main() -> int:
             zero_row = got[0].float().abs().max().item()
             print(f"[parity] flash_cached {dname} window={window}: max abs "
                   f"err {err:.3g} (tol {TOL[dname]:g}); kv_len=0 row max "
-                  f"{zero_row:g}", flush=True)
+                  f"{zero_row:g}; a second run "
+                  f"{'bit-equal' if torch.equal(got, again) else 'DIFFERS'}",
+                  flush=True)
             if not math.isfinite(err) or err > TOL[dname]:
                 fail(f"flash_cached {dname} window={window} error {err}")
             if zero_row != 0.0:
                 fail("a kv_len = 0 row must give 0")
+            if not torch.equal(got, again):
+                fail(f"flash_cached {dname} window={window}: two runs on the "
+                     "same inputs differ")
             worst = max(worst, err)
 
     # time at the main path's shapes in bf16, cycling through one K/V
@@ -419,11 +474,11 @@ def main() -> int:
     entry, out = flash_attention._entry(), torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def run_kernel():
+    def run_kernel(st=stream):
         k, v = layer()
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     qo.data_ptr(), kl.data_ptr(), B, Sq, Sk, Hq, Hkv, D, 1, 0,
-                    1, stream)
+                    1, st)
         if err:
             fail(f"flash_cached_fwd returned cudaError {err}")
 
@@ -444,6 +499,7 @@ def main() -> int:
                                        enable_gqa=True)
 
     ms = time_ms(run_kernel, 4 * nl)
+    device_ms = graph_ms(run_kernel, 4 * nl)
     plain_ms = time_ms(run_plain, nl)
     library_ms = time_ms(run_library, 4 * nl)
     nbytes, nops = flash_work(Q_OFFSET, KV_LEN, Sq, Hq, Hkv, D, 2, 0)
@@ -451,7 +507,8 @@ def main() -> int:
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"[time] flash_cached bf16 B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
-          f"Sk={Sk}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"Sk={Sk}: kernel {ms:.4f} ms ({device_ms:.4f} ms a launch in a "
+          f"CUDA graph), bound {bound_ms:.5f} ms ({bound_by}: "
           f"{nbytes} B, {nops} ops), plain {plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms", flush=True)
     flash = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -478,6 +535,8 @@ def main() -> int:
                             .to(dtype), v, table, KV_LEN)
             got = ops.flash_attention_paged(q, kp, vp, table, q_offset=qo,
                                             kv_len=kl)
+            again = ops.flash_attention_paged(q, kp, vp, table, q_offset=qo,
+                                              kv_len=kl)
             want = flash_attention_paged_ref(q, kp, vp, table, q_offset=qo,
                                              kv_len=kl)
             # NaN in every arena row, but the rows some query can see
@@ -496,7 +555,9 @@ def main() -> int:
                   f"max abs diff vs flash_cached on the same rows "
                   f"{vs_cached:g} (gate 0.0); kv_len=0 row max {zero_row:g}; "
                   f"NaN in unseen rows: "
-                  f"{'output unchanged' if torch.equal(poisoned, got) else 'OUTPUT CHANGED'}",
+                  f"{'output unchanged' if torch.equal(poisoned, got) else 'OUTPUT CHANGED'}"
+                  f"; a second run "
+                  f"{'bit-equal' if torch.equal(got, again) else 'DIFFERS'}",
                   flush=True)
             if not math.isfinite(err) or err > TOL[dname]:
                 fail(f"flash_paged {dname} page_size={ps} error {err}")
@@ -508,7 +569,79 @@ def main() -> int:
             if not torch.equal(poisoned, got):
                 fail(f"flash_paged {dname} page_size={ps}: a NaN in a row no "
                      "query can see reached the output")
+            if not torch.equal(got, again):
+                fail(f"flash_paged {dname} page_size={ps}: two runs on the "
+                     "same inputs differ")
             p_worst = max(p_worst, err)
+
+    # a 4096-row cache: both kernels against their plain versions, and the
+    # paged one (pages of 16) equal to the cached one on the same rows
+    long_sk, long_kl = LONG["Sk"], LONG["kv_len"]
+    long_qo = [max(0, n - Sq) for n in long_kl]
+    lqo = torch.tensor(long_qo, dtype=torch.int32, device=dev)
+    lkl = torch.tensor(long_kl, dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, long_sk, Hkv, D), generator=gen,
+                        device=dev).to(dtype)
+        v = torch.randn((B, long_sk, Hkv, D), generator=gen,
+                        device=dev).to(dtype)
+        mp = long_sk // PAGE_SIZE
+        n_pages = sum(-(-n // PAGE_SIZE) for n in long_kl) + 7
+        table = page_table(long_kl, PAGE_SIZE, mp, n_pages, gen, dev)
+        shape = (n_pages, PAGE_SIZE, Hkv, D)
+        kp = fill_pages(torch.zeros(shape, device=dev, dtype=dtype), k, table,
+                        long_kl)
+        vp = fill_pages(torch.zeros(shape, device=dev, dtype=dtype), v, table,
+                        long_kl)
+        got = ops.flash_attention_cached(q, k, v, q_offset=lqo, kv_len=lkl)
+        want = flash_attention_cached_ref(q, k, v, q_offset=lqo, kv_len=lkl)
+        pgot = ops.flash_attention_paged(q, kp, vp, table, q_offset=lqo,
+                                         kv_len=lkl)
+        pwant = flash_attention_paged_ref(q, kp, vp, table, q_offset=lqo,
+                                          kv_len=lkl)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        perr = (pgot.float() - pwant.float()).abs().max().item()
+        print(f"[parity] 4096-row cache, {dname}: flash_cached max abs err "
+              f"{err:.3g}, flash_paged (pages of {PAGE_SIZE}) {perr:.3g} "
+              f"(tol {TOL[dname]:g}); paged "
+              f"{'equal to' if torch.equal(pgot, got) else 'DIFFERS FROM'} "
+              f"cached", flush=True)
+        for what, e in (("flash_cached", err), ("flash_paged", perr)):
+            if not math.isfinite(e) or e > TOL[dname]:
+                fail(f"{what} {dname} error {e} on a 4096-row cache")
+        if not torch.equal(pgot, got):
+            fail(f"flash_paged {dname} differs from flash_cached on a "
+                 "4096-row cache")
+        if got[0].abs().max().item() != 0.0:
+            fail("a kv_len = 0 row must give 0")
+        worst, p_worst = max(worst, err), max(p_worst, perr)
+    del k, v, kp, vp
+
+    # the launch each kernel makes at the main shape (bf16)
+    for what, lib, entry, args in (
+            ("flash_cached", "flash_cached", "flash_cached_plan",
+             (B, Sq, Sk, Hq, Hkv, D, 1)),
+            ("flash_paged", "flash_paged", "flash_paged_plan",
+             (B, Sq, Hq, Hkv, D, DEFAULT_PAGES, PAGE_SIZE, Sk // PAGE_SIZE,
+              1))):
+        plan = launch_plan(build.load(lib), entry, *args)
+        rows = "ContigRows" if lib == "flash_cached" else "PagedRows"
+        ptx = ptxas_registers(build.BUILD_LOG.get(lib, (0, ""))[1],
+                              "flash_block_kernel", "13__nv_bfloat16",
+                              f"Li{D}E", "Lb1E", rows)
+        print(f"[geometry] {what} bf16 B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
+              f"{'Sk=' + str(Sk) if rows == 'ContigRows' else f'pages of {PAGE_SIZE}'}: "
+              f"{plan['CTAs']} CTAs in clusters of {plan['cluster']}, "
+              f"{plan['threads']} threads, {plan['smem_bytes']} B of dynamic "
+              f"shared memory, {plan['stages']} stages, {plan['registers']} "
+              f"registers a thread (ptxas log: "
+              f"{'not in this build' if ptx is None else ptx})", flush=True)
+        if plan["CTAs"] < 128:
+            fail(f"{what} spans {plan['CTAs']} CTAs at the main shape, "
+                 "fewer than 128")
 
     # time at the paged serve's block-prefill shapes in bf16: page size 16,
     # 32 table columns over a permuted arena of the default 256 pages, one
@@ -525,12 +658,12 @@ def main() -> int:
         i = it["i"] = (it["i"] + 1) % nl
         return kps[i], vps[i]
 
-    def run_paged():
+    def run_paged(st=stream):
         kp, vp = pages()
         err = p_entry(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                       out.data_ptr(), table.data_ptr(), qo.data_ptr(),
                       kl.data_ptr(), B, Sq, Hq, Hkv, D, DEFAULT_PAGES,
-                      PAGE_SIZE, mp, 1, stream)
+                      PAGE_SIZE, mp, 1, st)
         if err:
             fail(f"flash_paged_fwd returned cudaError {err}")
 
@@ -551,6 +684,7 @@ def main() -> int:
                                        enable_gqa=True)
 
     p_ms = time_ms(run_paged, 4 * nl)
+    p_device_ms = graph_ms(run_paged, 4 * nl)
     p_plain_ms = time_ms(run_paged_plain, nl)
     p_library_ms = time_ms(run_paged_library, 4 * nl)
     nbytes, nops = flash_work(Q_OFFSET, KV_LEN, Sq, Hq, Hkv, D, 2, 0)
@@ -560,7 +694,8 @@ def main() -> int:
     p_bound_by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"[time] flash_paged bf16 B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
           f"page_size={PAGE_SIZE} table {B}x{mp} over {DEFAULT_PAGES} pages: "
-          f"kernel {p_ms:.4f} ms, bound {p_bound_ms:.5f} ms ({p_bound_by}: "
+          f"kernel {p_ms:.4f} ms ({p_device_ms:.4f} ms a launch in a CUDA "
+          f"graph), bound {p_bound_ms:.5f} ms ({p_bound_by}: "
           f"{nbytes} B, {nops} ops), plain {p_plain_ms:.4f} ms, page gather "
           f"+ sdpa {p_library_ms:.4f} ms", flush=True)
     paged = {"ms": p_ms, "plain_ms": p_plain_ms, "library_ms": p_library_ms,

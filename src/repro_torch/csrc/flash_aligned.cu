@@ -21,7 +21,7 @@
 // 17.2 GFLOP on CUDA cores (67 TFLOP/s), 0.257 ms.  The design:
 //   * one CTA per (64 query rows, query head, sample): at Sq = Sk there are
 //     Sq / 64 * Hq * B CTAs (768 at qwen2-1.5b's width and S = 4096), enough
-//     to fill the 132 SMs, unlike the cached kernel's 16 at its shapes;
+//     to fill the 132 SMs without splitting the kv axis;
 //   * kv tiles of 64 rows wholly outside the causal or window band of the
 //     CTA's query rows are skipped by their tile index, as the TPU kernel's
 //     `relevant` test skips its kv blocks: a causal pass does about half the
@@ -34,28 +34,21 @@
 //   * f32, and bf16 with D > 128: plain FMA loops over 64 x 64 tiles in
 //     shared memory, the cached kernel's scheme, in full float32 (f32 inputs
 //     are held to 1e-4, which TF32 tensor cores would not meet).
+// pack_bf16 and mma_bf16 are flash_block.cuh's, shared with kernels 2 and 4.
 // Not yet: wgmma, TMA, a producer warp and double-buffered tiles; sharing a
 // K/V tile between the query heads of a GQA group (L2 serves the repeats).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "flash_block.cuh"
 
 namespace {
 
+using flash::from_f;
+using flash::mma_bf16;
+using flash::pack_bf16;
+using flash::to_f;
+
 constexpr int BM = 64;  // query rows per CTA
 constexpr int BN = 64;  // kv rows per tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // the kv tiles [lo, hi) some query row of [q0, q0 + BM) can see
 __device__ __forceinline__ void kv_band(int q0, int Sq, int Sk, int causal,
@@ -236,21 +229,6 @@ flash_aligned_fma(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int MT = 128;  // four warps, 16 query rows each
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo, low half
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D>
 __global__ void __launch_bounds__(MT)

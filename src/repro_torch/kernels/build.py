@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own,
 for ``sm_90a``, into ``build/repro_torch/lib<name>-<hash>.so`` at the root
 of the checkout (a directory ``.gitignore`` lists); the library is then
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source never loads a stale library.  ``build_all`` starts one
+loaded with ``ctypes``.  The hash covers the source, every header under
+``csrc/`` (``*.cuh``, which any source may include) and the flags, so an
+edited source or header never loads a stale library.  ``build_all`` starts one
 ``nvcc`` per source, all at once.
 
 Nothing here runs at import: the CPU tests import every module on
@@ -45,9 +46,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> Tuple[subprocess.Popen, Path, Path, float]:

@@ -68,6 +68,9 @@ def flash_attention_cached_cuda(
         raise ValueError("all inputs must lie on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned (the kernel "
+                         "copies 16 bytes at a time)")
     out = torch.empty_like(q)
     err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

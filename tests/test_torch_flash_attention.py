@@ -5,6 +5,8 @@ the CUDA kernel against its plain version.
 JAX is imported inside the reference helper only, so that the card's
 tests run on a machine without it:
 ``python -m pytest -q -m cuda tests/test_torch_flash_attention.py``."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -214,4 +216,178 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, window, dtype, tol):
     poisoned = ops.flash_attention_cached(q, pk, pv, q_offset=off,
                                           kv_len=kl, window=window)
     torch.cuda.synchronize()
+    assert torch.equal(poisoned, got)
+
+
+# -- the split over the kv axis (csrc/flash_block.cuh) -------------------------
+
+BN, MAX_SPLIT = 64, 8  # the kernels' logical tile rows and cluster size
+
+
+def _split_combine(q, k, v, q_off, kv_len, window, n_split=None):
+    """The kernels' split-and-combine algebra in plain float32 torch, in
+    their order: 64-row tiles from row 0; the band's n tiles dealt out in
+    runs of ceil(n / 8) to ``n_split`` ranks (the kernels' cluster size by
+    default); per rank an online softmax in base 2 from the sentinel (m =
+    -1e30, l = 0, acc = 0), rows outside the band zero-filled; then M = max
+    m_j, e_j = 2^(m_j - M), out = sum e_j acc_j / max(sum e_j l_j, 1e-30) in
+    rank order.  Causal."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if n_split is None:
+        n_split = 1
+        while n_split < MAX_SPLIT and n_split < -(-sk // BN):
+            n_split *= 2
+    scale = math.log2(math.e) / math.sqrt(d)
+    out = torch.zeros(b, sq, hq, d)
+    for bi in range(b):
+        qo, kl = int(q_off[bi]), int(kv_len[bi])
+        hi = min(kl, sk, qo + sq)
+        lo = max(0, qo - window + 1) if window else 0
+        t_lo = lo // BN
+        n = -(-hi // BN) - t_lo if hi > lo else 0
+        per = -(-n // MAX_SPLIT)
+        qpos = qo + torch.arange(sq).repeat(group)           # (group * Sq,)
+        for h in range(hkv):
+            qr = q[bi, :, h * group:(h + 1) * group].permute(1, 0, 2)
+            qr = qr.reshape(group * sq, d)                     # (head, token)
+            parts = []
+            for rank in range(n_split):
+                t0 = t_lo + min(n, rank * per)
+                t1 = t_lo + min(n, (rank + 1) * per)
+                m = torch.full((group * sq,), -1e30)
+                l = torch.zeros(group * sq)
+                acc = torch.zeros(group * sq, d)
+                for t in range(t0, t1):
+                    s = torch.arange(t * BN, (t + 1) * BN)
+                    inb = (s >= lo) & (s < hi)
+                    rows = s.clamp(max=sk - 1)
+                    kt = torch.where(inb[:, None], k[bi, rows, h], 0.0)
+                    vt = torch.where(inb[:, None], v[bi, rows, h], 0.0)
+                    vis = inb[None] & (s[None] <= qpos[:, None])
+                    if window:
+                        vis = vis & (s[None] > qpos[:, None] - window)
+                    sc = torch.where(vis, (qr @ kt.T) * scale, -math.inf)
+                    m_new = torch.maximum(m, sc.amax(1))
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(sc - m_new[:, None])
+                    l = l * corr + p.sum(1)
+                    acc = acc * corr[:, None] + p @ vt
+                    m = m_new
+                parts.append((m, l, acc))
+            big_m = torch.stack([pt[0] for pt in parts]).amax(0)
+            num, den = torch.zeros(group * sq, d), torch.zeros(group * sq)
+            for m, l, acc in parts:
+                e = torch.exp2(m - big_m)
+                den = den + l * e
+                num = num + acc * e[:, None]
+            o = num / den.clamp_min(1e-30)[:, None]
+            out[bi, :, h * group:(h + 1) * group] = o.reshape(
+                group, sq, d).permute(1, 0, 2)
+    return out
+
+
+def test_split_combine_algebra_matches_the_plain_version():
+    """The split's arithmetic before any card runs it: caches of several
+    tiles a rank (1100 rows: 18 tiles, runs of 3), ranks left empty (short
+    bands), a window whose band starts deep in the cache, rows that see no
+    key (an empty cache; a window past every valid row), against
+    ``flash_attention_cached_ref`` at 1e-6; and the trailing empty ranks add
+    exact zeros, so 8 ranks give the kernels' cluster size's bits."""
+    rng = np.random.default_rng(7)
+    b, sq, hq, hkv, d, sk = 6, 8, 4, 2, 16, 1100
+    q = torch.from_numpy(rng.standard_normal((b, sq, hq, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, sk, hkv, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, sk, hkv, d)).astype(np.float32))
+    for window, q_off, kv_len in (
+            (0, [0, 0, 56, 1092, 500, 1000], [0, 1, 64, 1100, 505, 1008]),
+            (100, [1000, 300, 0, 1092, 64, 60], [1008, 120, 8, 1100, 65, 63])):
+        q_off = np.asarray(q_off, np.int32)
+        kv_len = np.asarray(kv_len, np.int32)
+        got = _split_combine(q, k, v, q_off, kv_len, window)
+        want = flash_attention_cached_ref(
+            q, k, v, q_offset=torch.from_numpy(q_off),
+            kv_len=torch.from_numpy(kv_len), window=window)
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        assert torch.all(got[kv_len == 0] == 0)
+        if window:  # slot 1: queries 300..307 see no row below 120
+            assert torch.all(got[1] == 0)
+        assert torch.equal(got, _split_combine(q, k, v, q_off, kv_len,
+                                               window, n_split=MAX_SPLIT))
+        assert torch.equal(_split_combine(q[:, :, :2], k[:, :512, :1],
+                                          v[:, :512, :1], q_off.clip(0, 504),
+                                          kv_len.clip(0, 512), window),
+                           _split_combine(q[:, :, :2], k[:, :512, :1],
+                                          v[:, :512, :1], q_off.clip(0, 504),
+                                          kv_len.clip(0, 512), window,
+                                          n_split=2 * MAX_SPLIT))
+
+
+# (what, shape, q_offset, kv_len, window); q_offset None: kv_len - Sq, from 0
+SPLIT_CASES = [
+    ("tile edges, cache 1024", dict(b=7, sq=8, hq=12, hkv=2, d=128, smax=1024),
+     None, [0, 1, 63, 64, 65, 1021, 1024], 0),
+    ("tile edges, cache 4096, Sq 8",
+     dict(b=7, sq=8, hq=12, hkv=2, d=128, smax=4096),
+     None, [0, 1, 63, 64, 65, 4000, 4096], 0),
+    ("decode, cache 4096", dict(b=7, sq=1, hq=12, hkv=2, d=128, smax=4096),
+     None, [0, 1, 63, 64, 65, 2049, 4096], 0),
+    ("window past most splits", dict(b=3, sq=8, hq=12, hkv=2, d=128,
+                                     smax=4096),
+     [4000, 200, 3000], [4008, 100, 3008], 100),
+    ("128 rows a group", dict(b=3, sq=16, hq=16, hkv=2, d=128, smax=512),
+     [0, 100, 496], [0, 116, 512], 0),
+    ("D 64", dict(b=4, sq=8, hq=8, hkv=2, d=64, smax=1024),
+     None, [0, 63, 65, 1024], 0),
+    ("D 256", dict(b=4, sq=8, hq=4, hkv=1, d=256, smax=1024),
+     None, [0, 63, 65, 1024], 0),
+]
+
+
+def _split_case(case, dtype, dev):
+    """(q, k, v, q_offset, kv_len) of a SPLIT_CASES entry on the card, and
+    the slots whose rows see no key."""
+    _, shape, q_off, kv_len, window = case
+    q, k, v = _qkv(seed=11, **shape)
+    kv_len = np.asarray(kv_len, np.int32)
+    q_off = (np.maximum(kv_len - shape["sq"], 0) if q_off is None
+             else np.asarray(q_off)).astype(np.int32)
+    blind = [i for i in range(len(kv_len))
+             if min(kv_len[i], q_off[i] + shape["sq"])
+             <= (max(0, q_off[i] - window + 1) if window else 0)]
+    on = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    ints = (lambda a: torch.from_numpy(a).to(dev))
+    return on(q), on(k), on(v), ints(q_off), ints(kv_len), blind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_cuda_split_cases(cuda_device, case, dtype, tol):
+    """The split over the kv axis at its edges: within tolerance of the
+    plain version, exactly 0 where a row sees no key, the same bits on a
+    second run, and NaN in every row no query sees changes nothing."""
+    window = case[4]
+    q, k, v, off, kl, blind = _split_case(case, dtype, cuda_device)
+    got = ops.flash_attention_cached(q, k, v, q_offset=off, kv_len=kl,
+                                     window=window)
+    again = ops.flash_attention_cached(q, k, v, q_offset=off, kv_len=kl,
+                                       window=window)
+    want = flash_attention_cached_ref(q, k, v, q_offset=off, kv_len=kl,
+                                      window=window)
+    pk, pv = (torch.from_numpy(a).to(cuda_device, dtype) for a in
+              _poison_unseen(k.float().cpu().numpy(), v.float().cpu().numpy(),
+                             off.cpu().numpy(), kl.cpu().numpy(), window,
+                             sq=q.shape[1]))
+    poisoned = ops.flash_attention_cached(q, pk, pv, q_offset=off, kv_len=kl,
+                                          window=window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert blind and all(torch.all(got[i] == 0) for i in blind)
+    assert torch.equal(got, again)
     assert torch.equal(poisoned, got)

@@ -269,3 +269,68 @@ def test_cuda_kernel_never_reads_unseen_rows(cuda_device, ps):
                                     kv_len=kl)
     torch.cuda.synchronize()
     assert torch.equal(got, clean)
+
+
+# the split over the kv axis at its edges (csrc/flash_block.cuh): (what,
+# shape, kv_len); each block ends at its slot's last row
+SPLIT_CASES = [
+    ("tile edges, cache 1024", dict(b=7, sq=8, hq=12, hkv=2, d=128, s=1024),
+     [0, 1, 63, 64, 65, 1021, 1024]),
+    ("tile edges, cache 4096", dict(b=7, sq=8, hq=12, hkv=2, d=128, s=4096),
+     [0, 1, 63, 64, 65, 4000, 4096]),
+    ("decode, cache 4096", dict(b=7, sq=1, hq=12, hkv=2, d=128, s=4096),
+     [0, 1, 63, 64, 65, 2049, 4096]),
+    ("128 rows a group", dict(b=3, sq=16, hq=16, hkv=2, d=128, s=512),
+     [0, 116, 512]),
+    ("D 64", dict(b=4, sq=8, hq=8, hkv=2, d=64, s=1024), [0, 63, 65, 1024]),
+    ("D 256", dict(b=4, sq=8, hq=4, hkv=1, d=256, s=1024), [0, 63, 65, 1024]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("ps", [1, 5, 16])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_cuda_split_cases_equal_the_cached_kernel(cuda_device, case, ps,
+                                                  dtype, tol):
+    """Caches of several tiles a CTA and kv_len around tile edges: within
+    tolerance of the plain version, bit for bit the cached kernel's output on
+    the same rows, 0 for the empty cache, the same bits on a second run, and
+    NaN in unmapped pages and in mapped rows at or past kv_len changes
+    nothing."""
+    _, shape, kv_len = case
+    rng = np.random.default_rng(ps)
+    b, sq, hq, hkv, d, s = (shape[x] for x in ("b", "sq", "hq", "hkv", "d",
+                                                "s"))
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    kv_len = np.asarray(kv_len, np.int32)
+    q_off = np.maximum(kv_len - sq, 0).astype(np.int32)
+    kp, vp, table = layout(k, v, kv_len, ps, seed=ps)
+    pk, pv, _ = layout(k, v, kv_len, ps, seed=ps, fill=np.nan)
+    for i, n in enumerate(kv_len):
+        for r in range(int(n), table.shape[1] * ps):
+            pg = table[i, r // ps]
+            if pg >= 0:
+                pk[pg, r % ps] = pv[pg, r % ps] = np.nan
+    on = (lambda a: torch.from_numpy(a).to(cuda_device, dtype))
+    ints = (lambda a: torch.from_numpy(a).to(cuda_device))
+    q, k, v, kp, vp, pk, pv = map(on, (q, k, v, kp, vp, pk, pv))
+    table, off, kl = map(ints, (table, q_off, kv_len))
+    got = ops.flash_attention_paged(q, kp, vp, table, q_offset=off, kv_len=kl)
+    again = ops.flash_attention_paged(q, kp, vp, table, q_offset=off,
+                                      kv_len=kl)
+    poisoned = ops.flash_attention_paged(q, pk, pv, table, q_offset=off,
+                                         kv_len=kl)
+    cached = ops.flash_attention_cached(q, k, v, q_offset=off, kv_len=kl)
+    want = flash_attention_paged_ref(q, kp, vp, table, q_offset=off,
+                                     kv_len=kl)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert torch.equal(got, cached)
+    assert torch.all(got[0] == 0)
+    assert torch.equal(got, again)
+    assert torch.equal(poisoned, got)

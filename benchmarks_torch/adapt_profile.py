@@ -11,7 +11,7 @@ qwen2-1.5b is phase 6, mamba2-1.3b phase 11.
    profile is the one ``chip_smoke.py`` uses.
 2. ``torch.profiler`` over one more adapt under that profile: device time
    by kernel, the port's own kernels' shares (Fisher; SSD scan forward,
-   backward and its head sums), and the device's busy share.
+   backward and its group sums), and the device's busy share.
 
     python3 benchmarks_torch/adapt_profile.py [--arch mamba2-1.3b]
 
@@ -28,7 +28,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's kernels by their device function names
 KERNELS = {"fisher": "fisher_rows_kernel", "ssd_scan": "ssd_fwd_kernel",
-           "ssd_scan_bwd": "ssd_bwd_kernel", "ssd head sums": "reduce_heads"}
+           "ssd_scan_bwd": "ssd_bwd_kernel", "ssd group sums": "reduce_groups"}
 
 
 def main(argv=None) -> int:

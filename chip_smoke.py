@@ -24,15 +24,20 @@ exits non-zero:
    the forward kernel against the sequential oracle and the backward kernel
    against autograd of the plain chunked body, f32 at 1e-4 and bf16 at 2e-2
    of max(1, max |want|), at the mamba2 adapt shape, over five tiles with
-   an initial state, and at the chunk of 256; aligned flash (kernel 3): f32
+   an initial state, and at the chunk of 256, then the backward's launch
+   geometry (held to its host-side model) and its time split by launch
+   (torch.profiler); aligned flash (kernel 3): f32
    at 1e-4 with TF32 off and bf16 at 3e-2 at the kernel bench's two shapes
    (causal), at qwen2-1.5b's attention width as a long cache-free prefill
    (1, 4096, 12, 2, 128) in bf16, at mixtral-8x7b's sliding window (1,
    8192, 32, 8, 128, window 4096) in bf16, without the causal mask, with Sk
-   != Sq both ways, a window smaller than a tile and D = 256), then its
-   median time beside its bound, the plain version's time and one PyTorch
-   library call's time where one computes the same function (a yardstick
-   the port never calls);
+   != Sq both ways, a window smaller than a tile and D = 256, and on its
+   TMA + wgmma path (bf16, D 64 and 128) a window smaller than its tile and
+   Sq, Sk off multiples of 128 both ways), then its median time beside its
+   bound, the plain version's time and one PyTorch library call's time
+   where one computes the same function (a yardstick the port never
+   calls), the wgmma path's launch geometry (held to its host-side model)
+   and its time with and without a GQA group sharing K/V;
 4. small-input checks on qwen2-smoke in f32, card against the plain path
    on the CPU: the serving engine's greedy streams (contiguous, paged, and
    paged under half the page budget with at least one requeue), and
@@ -88,8 +93,9 @@ exits non-zero:
    and backward, the Fisher kernel), ``fold_into`` a ``ServeEngine`` (4
    slots, max_len 96) and 10 requests; finite losses, two host transfers,
    one Fisher launch (one tap group), forward SSD launches a positive
-   multiple of 48, backward launches, SSD units selected, every request
-   ``done``.
+   multiple of 48, backward launches, each backward two device kernels
+   (the fused backward and the cluster groups' sum; the forward is not
+   re-run), SSD units selected, every request ``done``.
 
 12. kernel bench: ``benchmarks_torch/kernel_bench.py --full`` in this
    process (its record appended to ``build/BENCH_torch_kernels.json``),
@@ -110,6 +116,7 @@ package.
 """
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import json
 import math
@@ -137,6 +144,12 @@ LONG = dict(Sk=4096, kv_len=[0, 8, 700, 1500, 2600, 3333, 4000, 4096])
 PLAN_KEYS = ("CTAs", "cluster", "threads", "smem_bytes", "registers",
              "stages")
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# kernel 3 in bf16: the absolute term is the smaller of 3e-2 and 0.1
+# rms(want).  An attention output's typical value shrinks as 1 / sqrt(
+# visible keys) (rms 0.05 at mixtral's window), so 3e-2 alone would pass a
+# dropped or unmasked kv tile at long sequences; the kernel's own error
+# beyond 3e-2 |want| is about 0.03 rms(want) at these shapes (bf16 P)
+ALIGNED_RMS_TOL = 0.1
 FISHER_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PAGE_SIZE = 16        # cfg.kv_page_size: the paged serve's page size
 DEFAULT_PAGES = 256   # the default budget: 8 slots x ceil(512 / 16)
@@ -172,6 +185,14 @@ ALIGNED = [
     ("window 5 < tile", 2, 130, 130, 2, 1, 16, True, 5,
      ("float32", "bfloat16")),
     ("D 256", 1, 96, 90, 2, 2, 256, True, 40, ("float32", "bfloat16")),
+    # the TMA + wgmma path (bf16, D 64 and 128) off its main shapes: a
+    # window smaller than its 128-row tile, Sq and Sk not multiples of 128
+    # either way, rows that see no key
+    ("wgmma window 5 < tile", 2, 130, 130, 2, 1, 64, True, 5, ("bfloat16",)),
+    ("wgmma Sk < Sq, window 7", 2, 300, 200, 2, 1, 128, True, 7,
+     ("bfloat16",)),
+    ("wgmma Sk > Sq, not causal", 1, 150, 333, 4, 2, 128, False, 0,
+     ("bfloat16",)),
 ]
 
 
@@ -186,18 +207,26 @@ def one_sync_a_chunk(report, what: str) -> None:
              f"{report['chunks']} chunks")
 
 
-def max_err(got, want, tol: float, what: str) -> float:
+def max_err(got, want, tol: float, what: str, atol=None) -> float:
     """Max abs error of ``got`` against ``want``; fails unless every
-    element is finite and within ``tol + tol * |want|``."""
+    element is finite and within ``atol + tol * |want|`` (atol defaults
+    to ``tol``)."""
     import torch
 
+    atol = tol if atol is None else atol
     got, want = got.float(), want.float()
     err = (got - want).abs()
     worst = err.max().item()
     if not (torch.isfinite(got).all().item()
-            and (err <= tol + tol * want.abs()).all().item()):
-        fail(f"{what}: max abs error {worst} beyond {tol:g} (or non-finite)")
+            and (err <= atol + tol * want.abs()).all().item()):
+        fail(f"{what}: max abs error {worst} beyond {atol:.3g} + {tol:g} "
+             f"|want| (or non-finite)")
     return worst
+
+
+def rms(t) -> float:
+    """Root mean square of ``t``."""
+    return t.float().pow(2).mean().sqrt().item()
 
 
 def launch_plan(lib, entry: str, *args: int) -> dict:
@@ -958,6 +987,11 @@ def main() -> int:
             y, _ = ssm.ssd_chunked(leaves[0], leaves[1], a, leaves[2],
                                    leaves[3], chunk, st, need_state=False)
             got = torch.autograd.grad((y * w).sum(), leaves)
+            y, _ = ssm.ssd_chunked(leaves[0], leaves[1], a, leaves[2],
+                                   leaves[3], chunk, st, need_state=False)
+            again = torch.autograd.grad((y * w).sum(), leaves)
+            if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+                fail(f"ssd_scan_bwd {dname} {case}: two runs differ")
             refl = [t.float().clone().requires_grad_()
                     for t in (x, dt, bm, cm)]
             yp, _ = ssm.ssd_chunked_plain(refl[0], refl[1], a, refl[2],
@@ -972,9 +1006,9 @@ def main() -> int:
                                         max(ssd_bwd_worst, e_bwd))
             print(f"[parity] ssd_scan {dname} {case}: forward max abs error "
                   f"{e_fwd:.3g} (tol 1e-4 of max(1, max |y|)), backward (dx, "
-                  f"d(dt), dB, dC) {e_bwd:.3g} (tol {tol:g} of the same)",
-                  flush=True)
-    del x, dt, a, bm, cm, st, y, yp, yr, w, leaves, refl, got, want
+                  f"d(dt), dB, dC) {e_bwd:.3g} (tol {tol:g} of the same), "
+                  f"two runs bit-equal", flush=True)
+    del x, dt, a, bm, cm, st, y, yp, yr, w, leaves, refl, got, again, want
 
     # time at the main path's shape in bf16, two input sets cycled (each
     # call moves 78 MB, above the 50 MB L2), the kernels through their C
@@ -986,10 +1020,13 @@ def main() -> int:
     y_out = torch.empty((b_, s_, h_, p_), device=dev)
     dx_o, ddt_o = torch.empty_like(y_out), torch.empty((b_, s_, h_),
                                                        device=dev)
-    parts = torch.empty((2, b_, h_, s_, n_), device=dev)
-    db_o, dc_o = (torch.empty((b_, s_, n_), device=dev) for _ in range(2))
-    nt_ = -(-s_ // SSD_TILE)
-    states = torch.empty((b_, h_, nt_, p_, n_), device=dev) if nt_ > 1 else None
+    geo = ssd_kernel.bwd_geometry(b_, s_, h_)
+    part = (torch.empty((2, b_, geo["groups"], s_, n_), device=dev)
+            if geo["groups"] > 1 else None)
+    dbc_o = torch.empty((2, b_, s_, n_), device=dev)
+    states = (torch.empty((b_, h_, geo["state_slots"], p_, n_), device=dev)
+              if geo["state_slots"] else None)
+    launched = ctypes.c_int(0)
     fwd_entry, bwd_entry = ssd_kernel._entry(), ssd_kernel._bwd_entry()
     it["i"] = 0
 
@@ -1010,9 +1047,10 @@ def main() -> int:
         rc = bwd_entry(dy.data_ptr(), x.data_ptr(), dt.data_ptr(),
                        a.data_ptr(), bm.data_ptr(), cm.data_ptr(), None,
                        None if states is None else states.data_ptr(),
-                       dx_o.data_ptr(), ddt_o.data_ptr(), parts[0].data_ptr(),
-                       parts[1].data_ptr(), db_o.data_ptr(), dc_o.data_ptr(),
-                       b_, s_, h_, p_, n_, 1, stream)
+                       dx_o.data_ptr(), ddt_o.data_ptr(),
+                       None if part is None else part.data_ptr(),
+                       dbc_o.data_ptr(), b_, s_, h_, p_, n_, 1, stream,
+                       ctypes.byref(launched))
         if rc:
             fail(f"ssd_scan_bwd returned cudaError {rc}")
 
@@ -1029,6 +1067,40 @@ def main() -> int:
 
     ssd_ms = time_ms(run_ssd, 20)
     ssd_bwd_ms = time_ms(run_ssd_bwd, 10)
+    # the backward's launch and its time split by launch (device time from
+    # torch.profiler over ten calls)
+    plan = ssd_kernel.bwd_plan(b_, s_, h_, p_, n_, torch.bfloat16)
+    want_plan = dict(CTAs=geo["ctas"], cluster=geo["cluster"], threads=512,
+                     smem_bytes=ssd_kernel.bwd_smem_bytes(p_, n_, 2),
+                     state_slots=geo["state_slots"])
+    ptx = ptxas_registers(build.BUILD_LOG.get("ssd_scan", (0, ""))[1],
+                          "ssd_bwd_kernel", "13__nv_bfloat16")
+    print(f"[geometry] ssd_scan_bwd bf16 B={b_} S={s_} H={h_} P={p_} N={n_}: "
+          f"{plan['CTAs']} CTAs in clusters of {plan['cluster']} heads, "
+          f"{plan['threads']} threads, {plan['smem_bytes']} B of dynamic "
+          f"shared memory, {plan['registers']} registers a thread (ptxas "
+          f"log: {'not in this build' if ptx is None else ptx}), "
+          f"{plan['state_slots']} tile states in a scratch, {launched.value} "
+          f"launches a call ({geo['groups']} group partials a (b, s))",
+          flush=True)
+    if any(plan[k] != v for k, v in want_plan.items()):
+        fail(f"ssd_scan_bwd launch {plan} differs from the model {want_plan}")
+    if launched.value != geo["launches"]:
+        fail(f"ssd_scan_bwd launched {launched.value} kernels a call, not "
+             f"{geo['launches']}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            run_ssd_bwd()
+        torch.cuda.synchronize()
+    split = {next((n for n in ("ssd_bwd_kernel", "reduce_groups")
+                   if n in ev.key), ev.key[:40]):
+             ev.device_time_total / max(ev.count, 1) / 1e3
+             for ev in prof.key_averages()
+             if getattr(ev, "device_time_total", 0) > 0}
+    print("[time] ssd_scan_bwd split by launch (torch.profiler, device ms a "
+          "call): " + (", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                       or "not measured (no device events)"), flush=True)
     ssd_plain_ms = time_ms(run_ssd_plain, 2)
     ssd_bwd_plain_ms = time_ms(run_ssd_bwd_plain, 2)
     ssd_rec = {}
@@ -1048,7 +1120,7 @@ def main() -> int:
         ssd_rec[what] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "max_abs_err": worst_}
-    del sets, dys, y_out, dx_o, ddt_o, parts, db_o, dc_o, states
+    del sets, dys, y_out, dx_o, ddt_o, part, dbc_o, states
 
     # -- kernel 3, aligned flash attention: parity against the plain version
     # at every case of ALIGNED, then the timed cases (kernel through its C
@@ -1067,16 +1139,24 @@ def main() -> int:
                             device=dev).to(dtype)
             got = ops.flash_attention(q, k, v, causal=causal_,
                                       window=window_)
+            again = ops.flash_attention(q, k, v, causal=causal_,
+                                        window=window_)
             want = flash_attention_ref(q, k, v, causal=causal_,
                                        window=window_)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"flash_attention {what} {dname}: two runs differ")
+            scale = rms(want)
+            atol = (min(TOL[dname], ALIGNED_RMS_TOL * scale)
+                    if dtype == torch.bfloat16 else TOL[dname])
             err = max_err(got, want, TOL[dname], f"flash_attention {what} "
-                          f"{dname}")
+                          f"{dname}", atol)
             fa_worst = max(fa_worst, err)
             print(f"[parity] flash_attention {what} {dname} (B={b_} Sq={sq_} "
                   f"Sk={sk_} Hq={hq_} Hkv={hkv_} D={d_} causal={causal_} "
-                  f"window={window_}): max abs err {err:.3g} (tol "
-                  f"{TOL[dname]:g} rel+abs)", flush=True)
+                  f"window={window_}): max abs err {err:.3g} = "
+                  f"{err / scale:.3g} rms(want) (gate {atol:.3g} + "
+                  f"{TOL[dname]:g} |want|), two runs bit-equal", flush=True)
             if len(fa_times) >= 4 or dname != dnames[0] or what in fa_times:
                 continue
             out = torch.empty_like(q)
@@ -1122,7 +1202,43 @@ def main() -> int:
                   f"{nbytes} B, {nops} ops at the {dname} peak), plain "
                   f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms", flush=True)
     aligned = dict(fa_times["bench full"], max_abs_err=fa_worst)
-    del q, k, v, got, want, out, qt, kt, vt, band
+    # the wgmma path's launch at qwen2-1.5b's prefill width, and whether L2
+    # serves a GQA group's K/V: the same work with one kv head a query head
+    b_, sq_, hq_, hkv_, d_ = 1, 4096, 12, 2, 128
+    plan = flash_aligned.plan(b_, sq_, sq_, hq_, hkv_, d_, torch.bfloat16)
+    sched = flash_aligned.wgmma_schedule(b_, sq_, sq_, hq_, causal=True)
+    tiles = sum(len(o["tiles"]) for o in sched["order"])
+    masked = sum(m for o in sched["order"] for _, m in o["tiles"])
+    ptx = ptxas_registers(build.BUILD_LOG.get("flash_aligned", (0, ""))[1],
+                          "flash_aligned_wgmma", f"Li{d_}E")
+    print(f"[geometry] flash_aligned wgmma bf16 B={b_} S={sq_} Hq={hq_} "
+          f"Hkv={hkv_} D={d_} causal: {plan['CTAs']} CTAs (grid "
+          f"{sched['grid']}, longest bands first), {plan['threads']} threads "
+          f"(a producer warpgroup, two consumer warpgroups), "
+          f"{plan['smem_bytes']} B of dynamic shared memory, "
+          f"{plan['stages']} K/V stages, {plan['registers']} registers a "
+          f"thread at launch (ptxas log: "
+          f"{'not in this build' if ptx is None else ptx}; setmaxnreg: "
+          f"producer 24, consumers 240); {tiles} kv tiles of 128, {masked} "
+          f"masked", flush=True)
+    if (plan["CTAs"] != sched["grid"][0] * sched["grid"][1]
+            or plan["threads"] != flash_aligned.WG_THREADS
+            or plan["smem_bytes"] != flash_aligned.wgmma_smem(d_)
+            or plan["stages"] != flash_aligned.WG_STAGES):
+        fail(f"flash_aligned's launch {plan} differs from the model")
+    q = torch.randn((b_, sq_, hq_, d_), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b_, sq_, hkv_, d_), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b_, sq_, hkv_, d_), generator=gen, device=dev).bfloat16()
+    kf, vf = (x.repeat_interleave(hq_ // hkv_, dim=2).contiguous()
+              for x in (k, v))
+    gqa_ms = time_ms(lambda: flash_aligned.flash_attention_aligned_cuda(
+        q, k, v), 10)
+    mha_ms = time_ms(lambda: flash_aligned.flash_attention_aligned_cuda(
+        q, kf, vf), 10)
+    print(f"[time] flash_aligned wgmma, GQA group of {hq_ // hkv_} sharing "
+          f"K/V through L2: {gqa_ms:.4f} ms; the same work with a kv head "
+          f"a query head: {mha_ms:.4f} ms", flush=True)
+    del q, k, v, kf, vf, got, again, want, out, qt, kt, vt, band
     torch.cuda.empty_cache()
 
     # -- small-input check: kernel path on the card vs plain path on the CPU
@@ -1660,6 +1776,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ops.fisher_tapgrads.launches = ops.fisher.launches = 0
     ops.ssd_scan.launches = ops.ssd_scan.bwd_launches = 0
+    ssd_kernel.bwd_kernels = 0
     t0 = time.perf_counter()
     madapt = msession.adapt(mtask, profile, iters=ADAPT["iters"])
     torch.cuda.synchronize()
@@ -1668,6 +1785,9 @@ def main() -> int:
     m_fisher = ops.fisher_tapgrads.launches + ops.fisher.launches
     ssd_launches = ops.ssd_scan.launches
     ssd_bwd_launches = ops.ssd_scan.bwd_launches
+    ssd_bwd_kernels = ssd_kernel.bwd_kernels
+    ssd_geo = ssd_kernel.bwd_geometry(ADAPT["batch_size"], ADAPT["seq"],
+                                      mcfg.n_ssm_heads)
     eng = ServeEngine(mcfg, msession.params, slots=4, max_len=96, chunk=16)
     madapt.fold_into(eng)
     eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
@@ -1699,7 +1819,9 @@ def main() -> int:
           f"{madapt_peak} B, host_transfers {madapt.host_transfers:g}, "
           f"skipped {madapt.skipped_steps}, fisher launches {m_fisher}, "
           f"ssd_scan launches {ssd_launches} forward, {ssd_bwd_launches} "
-          f"backward", flush=True)
+          f"backward ({ssd_bwd_kernels} device kernels: "
+          f"{ssd_geo['launches']} a backward, the forward never re-run)",
+          flush=True)
     print(f"[mamba2] losses {[round(x, 6) for x in mlosses]}", flush=True)
     print(f"[mamba2] folded engine: {len(reqs)} requests, {new_tokens} new "
           f"tokens in {mserve_wall:.3f} s = {new_tokens / mserve_wall:.2f} "
@@ -1723,6 +1845,9 @@ def main() -> int:
              f"multiple of n_layers = {mnl}")
     if ssd_bwd_launches <= 0:
         fail("the mamba2 adapt never launched the SSD backward kernel")
+    if ssd_bwd_kernels != ssd_geo["launches"] * ssd_bwd_launches:
+        fail(f"the mamba2 adapt's {ssd_bwd_launches} SSD backwards launched "
+             f"{ssd_bwd_kernels} kernels, not {ssd_geo['launches']} each")
     if not all(r.done and r.outcome == "done" for r in reqs):
         fail(f"mamba2 folded-engine requests not done: "
              f"{[(r.uid, r.outcome) for r in reqs]}")

@@ -18,6 +18,14 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the Hopper path's tiling (csrc/flash_aligned.cu, namespace wg): a CTA of
+# three warpgroups over 128 query rows of one head, 128-row K/V tiles in a
+# ring of two stages, one 64-column TMA box a row per 64 of D
+WG_BM = WG_BN = 128
+WG_STAGES = 2
+WG_THREADS = 384
+PLAN_KEYS = ("CTAs", "cluster", "threads", "smem_bytes", "registers",
+             "stages")
 _fn = None
 
 
@@ -30,6 +38,59 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def wgmma_smem(d: int) -> int:
+    """Dynamic shared memory a CTA of the wgmma path asks for: Q, two K and
+    two V stages, nine mbarriers and 1024 bytes to align the base."""
+    return WG_BM * d * 2 + 2 * WG_STAGES * WG_BN * d * 2 + 8 * (
+        1 + 4 * WG_STAGES) + 1024
+
+
+def wgmma_schedule(b: int, sq: int, sk: int, hq: int, *, causal: bool = True,
+                   window: int = 0) -> dict:
+    """The wgmma path's launch as ``csrc/flash_aligned.cu`` makes it: grid
+    (Hq B, ceil(Sq / 128)), and for each ``blockIdx.y`` in launch order the
+    query tile it owns (the last first, so the longest causal bands start
+    first) with its kv tiles [(start, masked)]: the 128-row tiles of the
+    band its rows can see, ``masked`` when some (row, key) pair of the tile
+    is not visible (the diagonal, the window edge, keys past Sk); the others
+    skip the mask.  A model for the CPU tests and the card's geometry
+    check; the kernel does not call it."""
+    nq = -(-sq // WG_BM)
+    order = []
+    for y in range(nq):
+        q0 = (nq - 1 - y) * WG_BM
+        q_last = min(q0 + WG_BM, sq) - 1
+        hi = min(sk, q_last + 1) if causal else sk
+        first = max(0, q0 - window + 1) if window > 0 else 0
+        lo = first // WG_BN * WG_BN
+        n = -(-(hi - lo) // WG_BN) if hi > first else 0
+        tiles = []
+        for i in range(n):
+            kt = lo + i * WG_BN
+            full = (kt + WG_BN <= sk
+                    and (not causal or kt + WG_BN - 1 <= q0)
+                    and (window <= 0 or kt > q0 + WG_BM - 1 - window))
+            tiles.append((kt, not full))
+        order.append(dict(q0=q0, tiles=tiles))
+    return dict(grid=(hq * b, nq), threads=WG_THREADS, order=order)
+
+
+def plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int,
+         dtype: torch.dtype) -> dict:
+    """The launch the kernel would make for these shapes, from the CUDA
+    library (``flash_aligned_plan``), without making it: CTAs, cluster,
+    threads, shared memory, registers a thread (the compiled kernel's) and
+    K/V stages."""
+    fn = build.load("flash_aligned").flash_aligned_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    err = fn(b, sq, sk, hq, hkv, d, _DTYPES[dtype], out)
+    if err:
+        raise RuntimeError(f"flash_aligned_plan failed: cudaError {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def flash_attention_aligned_cuda(

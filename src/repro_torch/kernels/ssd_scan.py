@@ -21,6 +21,10 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 32  # tokens per tile in the kernels (csrc/ssd_scan.cu's TILE)
 MAX_SMEM = 232448
+MAX_CLUSTER = 8  # heads a backward cluster combines at most (the portable size)
+# kernels the backward entry has launched in this process, as it reports
+# them (the fused backward, plus the group reduction when H > 8)
+bwd_kernels = 0
 _fns = {}
 
 
@@ -40,8 +44,75 @@ def _entry():
 
 
 def _bwd_entry():
-    return _lib_fn("ssd_scan_bwd", [ctypes.c_void_p] * 14
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return _lib_fn("ssd_scan_bwd", [ctypes.c_void_p] * 12
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+
+
+def bwd_geometry(b: int, s: int, h: int) -> dict:
+    """The backward's launch and scratch at these dims, as
+    ``csrc/ssd_scan.cu`` computes them: one CTA a (b, h) in clusters of
+    ``cluster`` consecutive heads (the largest divisor of H up to 8), whose
+    dB/dC tiles combine in the cluster into one partial a (b, group, s);
+    ``groups`` = H / cluster partials summed by the group reduction (none
+    with one group); ``state_slots`` tile states in the scratch (those
+    entering tiles 1 .. nt - 2; the last tile's stays on chip)."""
+    cl = min(MAX_CLUSTER, h)
+    while h % cl:
+        cl -= 1
+    nt = -(-s // TILE)
+    return dict(ctas=b * h, cluster=cl, groups=h // cl, tiles=nt,
+                state_slots=max(0, nt - 2), launches=1 + (h // cl > 1))
+
+
+def bwd_smem_bytes(p: int, n: int, elt: int) -> int:
+    """Dynamic shared memory a backward CTA needs (``bwd_smem`` in the
+    CUDA source) for inputs of ``elt`` bytes: the state and its adjoint, B,
+    C and the head's dB/dC tiles, x, u and dy, W, G and R, the epilogues'
+    row partials, seven per-row vectors and one slot a warp, float32, each
+    row padded to 4 words more than a multiple of 32 (the fragment loads'
+    banks); then the staging area of the next tile's x, B, C, dy and dt."""
+    ctp, ctn = -(-p // 8), -(-n // 8)
+    ln, lp, lt = (w + (36 - w % 32) % 32 for w in (n, p, TILE))
+    return (4 * (2 * p * ln + 4 * TILE * ln + 3 * TILE * lp + 3 * TILE * lt
+                 + TILE * (2 * ctp + ctn) + 7 * TILE + 16)
+            + TILE * (p + 2 * n) * elt + 4 * TILE * p + 4 * TILE)
+
+
+def bwd_plan(b: int, s: int, h: int, p: int, n: int,
+             dtype: torch.dtype) -> dict:
+    """The backward launch the CUDA library would make at these dims
+    (``ssd_scan_bwd_plan``), without making it: CTAs, cluster, threads,
+    shared memory, registers a thread and the tile states in the
+    scratch."""
+    fn = _lib_fn("ssd_scan_bwd_plan", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    keys = ("CTAs", "cluster", "threads", "smem_bytes", "registers",
+            "state_slots")
+    out = (ctypes.c_int * len(keys))()
+    err = fn(b, s, h, p, n, _DTYPES[dtype], out)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd_plan failed: cudaError {err}")
+    return dict(zip(keys, out))
+
+
+def combine_heads(per_head: torch.Tensor, cluster: int,
+                  finish_order=None) -> torch.Tensor:
+    """The backward's fixed-order sum over heads of ``per_head`` (B, H, S,
+    N), float32, as the kernels add: within each cluster of ``cluster``
+    heads in rank order, then the H / cluster group partials in group
+    order.  ``finish_order`` is the order the clusters compute their
+    partials in (any: they are stored by group, then summed in group
+    order).  A model for the CPU tests; the kernels never call it."""
+    b, h, s, n = per_head.shape
+    groups = [None] * (h // cluster)
+    for g in (range(h // cluster) if finish_order is None else finish_order):
+        acc = torch.zeros((b, s, n), dtype=torch.float32)
+        for r in range(cluster):
+            acc = acc + per_head[:, g * cluster + r].float()
+        groups[g] = acc
+    out = torch.zeros((b, s, n), dtype=torch.float32)
+    for part in groups:
+        out = out + part
+    return out
 
 
 def _smem(p: int, n: int, backward: bool) -> int:
@@ -91,6 +162,9 @@ def _check(x, dt, a, bmat, cmat, init_state, chunk: int) -> None:
         raise ValueError("all inputs must lie on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous")
+    if any(t.data_ptr() % 4 for t in tensors):
+        raise ValueError("inputs must start on a 4-byte boundary (the "
+                         "backward stages them 4 bytes a copy)")
     for backward in (False, True):
         need = _smem(p, n, backward)
         if need > MAX_SMEM:
@@ -130,10 +204,13 @@ def ssd_scan_fwd_cuda(x, dt, a, bmat, cmat, *, chunk: int,
 
 def ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat, *, chunk: int,
                       init_state: Optional[torch.Tensor] = None):
-    """Launch the backward kernels: (dx, d(dt), dB, dC), all float32, for
-    the gradient ``dy`` (B, S, H, P) of y.  The tile states are recomputed
-    into a scratch the wrapper allocates (none for one tile and no initial
-    state), and dB/dC sum per-head partials in a fixed order."""
+    """Launch the backward: (dx, d(dt), dB, dC), all float32, for the
+    gradient ``dy`` (B, S, H, P) of y.  One kernel rebuilds the tile states
+    itself (a scratch only for the tiles between the first and the last,
+    :func:`bwd_geometry`) and combines dB/dC over each cluster of heads; a
+    second sums the cluster groups in a fixed order when there are more
+    than one."""
+    global bwd_kernels
     _check(x, dt, a, bmat, cmat, init_state, chunk)
     b, s, h, p = x.shape
     n = bmat.shape[-1]
@@ -144,23 +221,25 @@ def ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat, *, chunk: int,
         raise ValueError("dy must lie on x's device")
     dy = dy.contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
-    nt = -(-s // TILE)
-    states = (torch.empty((b, h, nt, p, n), **f32)
-              if nt > 1 or init_state is not None else None)
+    geo = bwd_geometry(b, s, h)
+    states = (torch.empty((b, h, geo["state_slots"], p, n), **f32)
+              if geo["state_slots"] else None)
+    part = (torch.empty((2, b, geo["groups"], s, n), **f32)
+            if geo["groups"] > 1 else None)
     dx = torch.empty((b, s, h, p), **f32)
     ddt = torch.empty((b, s, h), **f32)
-    parts = torch.empty((2, b, h, s, n), **f32)
-    db = torch.empty((b, s, n), **f32)
-    dc = torch.empty((b, s, n), **f32)
+    dbc = torch.empty((2, b, s, n), **f32)
+    launched = ctypes.c_int(0)
     err = _bwd_entry()(dy.data_ptr(), x.data_ptr(), dt.data_ptr(),
                        a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
                        _ptr(init_state), _ptr(states), dx.data_ptr(),
-                       ddt.data_ptr(), parts[0].data_ptr(),
-                       parts[1].data_ptr(), db.data_ptr(), dc.data_ptr(),
-                       b, s, h, p, n, _DTYPES[x.dtype], _stream(x))
+                       ddt.data_ptr(), _ptr(part), dbc.data_ptr(),
+                       b, s, h, p, n, _DTYPES[x.dtype], _stream(x),
+                       ctypes.byref(launched))
+    bwd_kernels += launched.value
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
-    return dx, ddt, db, dc
+    return dx, ddt, dbc[0], dbc[1]
 
 
 class SSDScanFn(torch.autograd.Function):

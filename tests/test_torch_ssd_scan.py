@@ -176,6 +176,94 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, exc, match):
 
 
 # ---------------------------------------------------------------------------
+# The backward's launch, scratch and head combine (host-side models)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b, s, h, want", [
+    (48, 64, 64, dict(ctas=3072, cluster=8, groups=8, tiles=2,
+                      state_slots=0, launches=2)),    # the adapt shape
+    (2, 160, 4, dict(ctas=8, cluster=4, groups=1, tiles=5, state_slots=3,
+                     launches=1)),                      # five tiles
+    (1, 512, 2, dict(ctas=2, cluster=2, groups=1, tiles=16,
+                     state_slots=14, launches=1)),      # the chunk of 256
+    (2, 96, 3, dict(ctas=6, cluster=3, groups=1, tiles=3, state_slots=1,
+                    launches=1)),
+    (1, 40, 12, dict(ctas=12, cluster=6, groups=2, tiles=2, state_slots=0,
+                     launches=2)),
+    (1, 32, 1, dict(ctas=1, cluster=1, groups=1, tiles=1, state_slots=0,
+                    launches=1)),
+])
+def test_backward_geometry(b, s, h, want):
+    """Clusters of the largest divisor of H up to 8 heads, one group
+    partial a cluster (a second launch sums them when there are several),
+    and a scratch only for the states entering tiles 1 .. nt - 2."""
+    assert SK.bwd_geometry(b, s, h) == want
+
+
+def test_backward_scratch_at_the_adapt_shape():
+    """At mamba2-1.3b's adapt shape the backward writes no tile states and
+    2 x 12.6 MB of group partials, where the design it replaces wrote
+    201 MB of tile states and 2 x 100.7 MB of per-head partials."""
+    b, s, h, p, n = 48, 64, 64, 64, 128
+    geo = SK.bwd_geometry(b, s, h)
+    assert geo["state_slots"] * b * h * p * n == 0
+    part_bytes = 2 * b * geo["groups"] * s * n * 4
+    assert part_bytes == 25_165_824
+    assert part_bytes * 8 == 2 * b * h * s * n * 4  # an eighth of before
+
+
+@pytest.mark.parametrize("p, n, elt, want", [
+    (64, 128, 2, 208960), (64, 128, 4, 229440), (32, 64, 4, 107584),
+    (16, 16, 4, 60736)])
+def test_backward_shared_memory(p, n, elt, want):
+    """Rows padded to 4 words past a multiple of 32, and the staging area
+    of the next tile; mamba2-1.3b's widths fit one CTA an SM in both
+    dtypes (227 KB)."""
+    assert SK.bwd_smem_bytes(p, n, elt) == want <= SK.MAX_SMEM
+
+
+def _per_head_grads(arrays, chunk):
+    """dB and dC of sum(y * w) through the plain chunked body, one head at
+    a time (each head's term of the sum over heads), and for all heads."""
+    x, dt, a, bm, cm, st = (None if v is None else torch.from_numpy(v)
+                            for v in arrays)
+    w = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        x.shape).astype(np.float32))
+
+    def grads(hs):
+        bl, cl = bm.clone().requires_grad_(), cm.clone().requires_grad_()
+        y, _ = ssm.ssd_chunked_plain(x[:, :, hs].contiguous(),
+                                     dt[:, :, hs].contiguous(), a[hs], bl,
+                                     cl, chunk,
+                                     None if st is None else st[:, hs])
+        return torch.autograd.grad((y * w[:, :, hs]).sum(), (bl, cl))
+
+    h = x.shape[2]
+    per = [grads(slice(i, i + 1)) for i in range(h)]
+    return (torch.stack([g[0] for g in per], 1),
+            torch.stack([g[1] for g in per], 1), grads(slice(0, h)))
+
+
+@pytest.mark.parametrize("h, cluster", [(8, 8), (8, 4), (16, 8), (6, 3),
+                                        (8, 1)])
+def test_head_combine_model_matches_plain_and_is_order_free(h, cluster):
+    """The backward's fixed-order dB/dC sum over heads (rank order inside a
+    cluster, then group order): equal to the plain gradient within
+    float32 rounding, and bit for bit the same whatever order the groups'
+    CTAs finish in (the kernels combine in rank and group order, never in
+    arrival order)."""
+    arrays = _inputs(b=2, s=64, h=h, p=8, n=16, init=True)
+    db_h, dc_h, (db, dc) = _per_head_grads(arrays, 32)
+    for per, want in ((db_h, db), (dc_h, dc)):
+        got = SK.combine_heads(per, cluster)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+        order = np.random.default_rng(h + cluster).permutation(h // cluster)
+        assert torch.equal(SK.combine_heads(per, cluster,
+                                            finish_order=order), got)
+
+
+# ---------------------------------------------------------------------------
 # On a card
 # ---------------------------------------------------------------------------
 
@@ -185,8 +273,11 @@ CARD_SHAPES = [
     dict(b=1, s=40, h=2, p=16, n=8, chunk=40, init=False),     # ragged tile
     dict(b=1, s=512, h=2, p=64, n=128, chunk=256, init=False),  # Q = 256
     dict(b=48, s=64, h=64, p=64, n=128, chunk=256, init=False),  # adapt shape
+    dict(b=2, s=160, h=4, p=32, n=64, chunk=80, init=True),    # 5 tiles
+    dict(b=1, s=72, h=12, p=12, n=20, chunk=72, init=True),    # odd widths
 ]
-CARD_IDS = ["4chunks", "init", "ragged", "Q256", "adapt"]
+CARD_IDS = ["4chunks", "init", "ragged", "Q256", "adapt", "5tiles",
+            "oddwidths"]
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -273,3 +364,26 @@ def test_cuda_function_refuses_gradients_it_does_not_give(cuda_device):
     with pytest.raises(NotImplementedError, match="no gradient for init"):
         ops.ssd_scan(x, dt, a.detach(), bm, cm, chunk=32,
                      init_state=st.requires_grad_())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", CARD_SHAPES, ids=CARD_IDS)
+def test_cuda_backward_launch_matches_the_model(cuda_device, cfg, dtype):
+    """The launch the library makes (CTAs, cluster, threads, shared memory,
+    scratch states) is the one the host-side model describes, and a
+    backward launches the kernels it reports (the forward is not re-run)."""
+    b, s, h, p, n = (cfg[k] for k in ("b", "s", "h", "p", "n"))
+    geo = SK.bwd_geometry(b, s, h)
+    plan = SK.bwd_plan(b, s, h, p, n, dtype)
+    assert (plan["CTAs"], plan["cluster"], plan["threads"],
+            plan["smem_bytes"], plan["state_slots"]) == (
+        geo["ctas"], geo["cluster"], 512,
+        SK.bwd_smem_bytes(p, n, 4 if dtype == torch.float32 else 2),
+        geo["state_slots"])
+    t = _t(_inputs(**cfg), cuda_device, dtype)
+    dy = torch.ones((b, s, h, p), device=cuda_device)
+    before = SK.bwd_kernels
+    SK.ssd_scan_bwd_cuda(dy, *t[:5], chunk=cfg["chunk"], init_state=t[5])
+    assert SK.bwd_kernels - before == geo["launches"]

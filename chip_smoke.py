@@ -20,13 +20,17 @@ exits non-zero:
    also as launches replayed from a CUDA graph; Fisher: f32 at 1e-5, bf16
    inputs at 2e-2, masked rows holding NaN; grad_quant: codes, scale and
    residual exactly equal, f32 and bf16 g, a ragged multi-block size, ties,
-   zeros and a NaN, and the tree compressor with no host read; SSD scan:
-   the forward kernel against the sequential oracle and the backward kernel
-   against autograd of the plain chunked body, f32 at 1e-4 and bf16 at 2e-2
-   of max(1, max |want|), at the mamba2 adapt shape, over five tiles with
-   an initial state, and at the chunk of 256, then the backward's launch
-   geometry (held to its host-side model) and its time split by launch
-   (torch.profiler); aligned flash (kernel 3): f32
+   zeros and a NaN, on each of its paths (one CTA, on chip, two passes:
+   one element either side of the on-chip capacity, two leaves), its one
+   launch held to its host-side model, and the tree compressor with no
+   host read; SSD scan: the forward kernel against the sequential oracle
+   (with the final state and without it, the main path's launch of
+   several heads a CTA) and the backward kernel against autograd of the
+   plain chunked body, f32 at 1e-4 and bf16 at 2e-2 of max(1, max |want|)
+   (the forward at 1e-4 in both), at the mamba2 adapt shape, over five
+   tiles with an initial state, and at the chunk of 256, then both launch
+   geometries (held to their host-side models) and the backward's time
+   split by launch (torch.profiler); aligned flash (kernel 3): f32
    at 1e-4 with TF32 off and bf16 at 3e-2 at the kernel bench's two shapes
    (causal), at qwen2-1.5b's attention width as a long cache-free prefill
    (1, 4096, 12, 2, 128) in bf16, at mixtral-8x7b's sliding window (1,
@@ -359,10 +363,11 @@ def ssd_work(b, s, h, p, n, elt, backward, zero_init=True):
     """(bytes, operations) of one SSD scan call at these dims, with no
     final state asked for: each input read once and each output written
     once (x, B and C of ``elt`` bytes, dt, a, y and the gradients float32,
-    dx/dB/dC back in x's dtype), and the multiply-adds the kernels' loops
-    do on this data (two operations each, tile by tile of 32 tokens; the
-    state terms skipped where the state is known to be zero or no output
-    needs it)."""
+    dx/dB/dC back in x's dtype), and the multiply-adds of the tile
+    algebra on this data (two operations each, tile by tile of 32 tokens;
+    the state terms skipped where the state is known to be zero or no
+    output needs it).  The forward kernel tiles by 64; the count keeps
+    the tile of 32, so the bound stays comparable with earlier designs."""
     bshp, bsh, bsn = b * s * h * p, b * s * h, b * s * n
     tiles = [min(SSD_TILE, s - t0) for t0 in range(0, s, SSD_TILE)]
     pairs = SSD_TILE * (SSD_TILE + 1) // 2
@@ -848,9 +853,18 @@ def main() -> int:
             g[n // 3] = float("nan")
         return g.to(dtype), err
 
+    # the paths by size: one CTA (<= 8192), on chip (the leaf, up to the
+    # SMs' shared memory, gq_cap) and two passes (one element past gq_cap,
+    # two leaves)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gq_cap = gq_kernel.capacity(sms)
+    n_leaf = GQ_LEAF[0] * GQ_LEAF[1]
     gq_cases = [(1, "normal"), (5000, "normal"), (6151, "normal"),
-                (1_000_003, "normal"), (GQ_LEAF[0] * GQ_LEAF[1], "normal"),
-                (8, "ties"), (4099, "zeros"), (4099, "nan")]
+                (1_000_003, "normal"), (n_leaf, "normal"),
+                (gq_cap - 1, "normal"), (gq_cap, "normal"),
+                (gq_cap + 1, "normal"), (2 * n_leaf, "normal"),
+                (8, "ties"), (4099, "zeros"), (4099, "nan"),
+                (gq_cap + 1, "nan")]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for n, kind in gq_cases:
@@ -863,9 +877,11 @@ def main() -> int:
                                        torch.nan_to_num(b.float(), nan=7.0))
                        and torch.equal(a.isnan(), b.isnan())
                        for a, b in zip(got, want))
-            print(f"[parity] grad_quant {dname} n={n} {kind}: codes, scale "
-                  f"and residual {'equal' if same else 'DIFFERENT'} (gate: "
-                  f"equal); scale {got[1].item():.6g}", flush=True)
+            path = gq_kernel.PATHS[gq_kernel.plan_model(n, sms)["path"]]
+            print(f"[parity] grad_quant {dname} n={n} {kind} ({path}): "
+                  f"codes, scale and residual "
+                  f"{'equal' if same else 'DIFFERENT'} (gate: equal); scale "
+                  f"{got[1].item():.6g}", flush=True)
             if not same:
                 fail(f"grad_quant {dname} n={n} {kind} differs from its "
                      "plain version")
@@ -892,6 +908,25 @@ def main() -> int:
     if ops.grad_quant.launches - before != 2:
         fail("int8_compress did not launch grad_quant once per leaf")
 
+    # one launch a call, on the path and grid of the host-side model
+    gq_log = build.BUILD_LOG.get("grad_quant", (0, ""))[1]
+    for n in (5000, n_leaf, gq_cap, gq_cap + 1):
+        plan = gq_kernel.grad_quant_plan(n, torch.bfloat16)
+        model = gq_kernel.plan_model(n, sms)
+        ptx = ptxas_registers(gq_log, "grad_quant_kernel", "13__nv_bfloat16",
+                              f"Li{plan['path']}E")
+        path = gq_kernel.PATHS[plan["path"]]
+        print(f"[geometry] grad_quant bf16 n={n}: {path}, {plan['ctas']} "
+              f"CTAs of {plan['threads']} threads on "
+              f"{plan['sms']} SMs, {plan['smem_bytes']} B of dynamic shared "
+              f"memory, {plan['registers']} registers a thread (ptxas log: "
+              f"{'not in this build' if ptx is None else ptx}), one launch",
+              flush=True)
+        if (plan["path"], plan["ctas"], plan["threads"],
+                plan["smem_bytes"]) != (model["path"], model["ctas"],
+                                        model["threads"], model["smem_bytes"]):
+            fail(f"grad_quant launch {plan} differs from the model {model}")
+
     # time at the largest leaf: bf16 g and a float32 residual, cycling 4
     # buffers (4 x 41 MB > the 50 MB L2), the kernel through its C entry
     n_gq = GQ_LEAF[0] * GQ_LEAF[1]
@@ -900,7 +935,7 @@ def main() -> int:
              for _ in range(4)]
     q_out = torch.empty(n_gq, dtype=torch.int8, device=dev)
     e_out = torch.empty(n_gq, device=dev)
-    scratch = torch.empty(2, device=dev)
+    scratch = torch.empty(2 + gq_kernel.MAX_CTAS, device=dev)
     gq_entry = gq_kernel._entry()
     it["i"] = 0
 
@@ -980,8 +1015,17 @@ def main() -> int:
             y, fin = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
                                   init_state=st, out_dtype=torch.float32)
             yr, sr = ssd_scan_ref(x.float(), dt, a, bm, cm, st)
+            # and the main path's launch: no final state asked for, so
+            # several heads a CTA and the states kept only where a tile
+            # needs one
+            y0, _ = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                 init_state=st, want_state=False,
+                                 out_dtype=torch.float32)
             e_fwd = max(rel_err(y, yr, 1e-4, f"ssd_scan y {dname} {case}"),
-                        rel_err(fin, sr, 1e-4, f"ssd_scan state {dname}"))
+                        rel_err(fin, sr, 1e-4, f"ssd_scan state {dname}"),
+                        rel_err(y0, yr, 1e-4, f"ssd_scan y without the "
+                                f"final state {dname} {case}"))
+            y0_same = torch.equal(y0, y)
             w = torch.randn(y.shape, generator=gen, device=dev)
             leaves = [t.clone().requires_grad_() for t in (x, dt, bm, cm)]
             y, _ = ssm.ssd_chunked(leaves[0], leaves[1], a, leaves[2],
@@ -1004,11 +1048,15 @@ def main() -> int:
                                                             "dB", "dC")))
             ssd_worst, ssd_bwd_worst = (max(ssd_worst, e_fwd),
                                         max(ssd_bwd_worst, e_bwd))
-            print(f"[parity] ssd_scan {dname} {case}: forward max abs error "
-                  f"{e_fwd:.3g} (tol 1e-4 of max(1, max |y|)), backward (dx, "
+            print(f"[parity] ssd_scan {dname} {case}: forward (with and "
+                  f"without the final state, y "
+                  f"{'bit-equal' if y0_same else 'not bit-equal'} between "
+                  f"them) max abs error {e_fwd:.3g} (tol "
+                  f"1e-4 of max(1, max |y|)), backward (dx, "
                   f"d(dt), dB, dC) {e_bwd:.3g} (tol {tol:g} of the same), "
                   f"two runs bit-equal", flush=True)
-    del x, dt, a, bm, cm, st, y, yp, yr, w, leaves, refl, got, again, want
+    del (x, dt, a, bm, cm, st, y, y0, yp, yr, w, leaves, refl, got, again,
+         want)
 
     # time at the main path's shape in bf16, two input sets cycled (each
     # call moves 78 MB, above the 50 MB L2), the kernels through their C
@@ -1088,6 +1136,28 @@ def main() -> int:
     if launched.value != geo["launches"]:
         fail(f"ssd_scan_bwd launched {launched.value} kernels a call, not "
              f"{geo['launches']}")
+    # the forward's launch at the main path's call (no initial or final
+    # state): heads a CTA and shared memory as the host-side model sets them
+    fplan = ssd_kernel.fwd_plan(b_, s_, h_, p_, n_, torch.bfloat16)
+    fgeo = ssd_kernel.fwd_geometry(b_, s_, h_, p_, n_, 2)
+    ptx = ptxas_registers(build.BUILD_LOG.get("ssd_scan", (0, ""))[1],
+                          "ssd_fwd_kernel", "13__nv_bfloat16", "Lb1E")
+    per_sm = ("two CTAs" if fgeo["smem_bytes"] <= ssd_kernel.HALF_SM_SMEM
+              else "one CTA")
+    print(f"[geometry] ssd_scan_fwd bf16 B={b_} S={s_} H={h_} P={p_} N={n_}: "
+          f"{fplan['CTAs']} CTAs of {fplan['heads']} heads, "
+          f"{fplan['threads']} threads, {fplan['smem_bytes']} B of dynamic "
+          f"shared memory ({per_sm} an SM), {fplan['registers']} registers "
+          f"a thread (ptxas log: "
+          f"{'not in this build' if ptx is None else ptx}), "
+          f"{fplan['stages']} staging area(s), states "
+          f"{'kept' if fplan['state'] else 'not kept'}, {fgeo['tiles']} "
+          f"tile(s) of {ssd_kernel.FWD_TILE} tokens", flush=True)
+    want_f = dict(CTAs=fgeo["ctas"], heads=fgeo["heads"],
+                  threads=fgeo["threads"], smem_bytes=fgeo["smem_bytes"],
+                  stages=fgeo["stages"], state=int(fgeo["state"]))
+    if any(fplan[k] != v for k, v in want_f.items()):
+        fail(f"ssd_scan_fwd launch {fplan} differs from the model {want_f}")
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):

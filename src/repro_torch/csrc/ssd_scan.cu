@@ -19,19 +19,56 @@
 //
 // Forward (ssd_fwd_kernel).  The Pallas grid walks the chunk axis in order
 // and keeps the state in VMEM; on Hopper blocks run in no order, so one CTA
-// per (b, h) loops over the sequence and keeps the (P, N) state in shared
-// memory (32 KB at mamba2-1.3b's P 64, N 128).  It walks tiles of TILE = 32
-// tokens, whatever the model's chunk: the chunk is only a blocking of the
-// same recurrence, and at the Pallas chunk of 256 the B and C rows of a
-// whole chunk would not fit beside the state in 227 KB.  Per tile, with
-// cum = cumsum(dt a) inside the tile:
-//   W   = (C B^T) . L,  L_ij = exp(cum_i - cum_j) for j <= i, else 0
-//   y   = W (x dt) + (C . exp(cum)) S^T
-//   S  <- S exp(cum_last) + (x dt)^T (B . exp(cum_last - cum))
+// takes HPC consecutive heads of one batch row and loops over the sequence
+// in tiles of FT = 64 tokens, whatever the model's chunk (the chunk is only
+// a blocking of the same recurrence).  Per tile, with each head's cum =
+// cumsum(dt a) inside the tile:
+//   G   = C B^T                      once a CTA: B and C are the same for
+//                                    every head of a batch row
+//   W'  = G . L . dt_j,  L_ij = exp(cum_i - cum_j) for j <= i, else 0
+//   y   = W' x + exp(cum) . (C S^T)
+//   S  <- S exp(cum_last) + x^T (B . dt exp(cum_last - cum))
+// dt goes into W' and into B, so x is used as it came: with bf16 inputs x,
+// B and C are exact in TF32.  How it runs:
+//   * Every product is on the tensor cores (mm_sum/tile_mm: mma.sync
+//     m16n8k8 TF32).  An operand exact in TF32 is used once; any other is
+//     split into a TF32 head and a TF32 residual, both rounded to nearest
+//     (cvt.rna), and the products that matter are summed.  bf16 inputs:
+//     C B^T one product, W' x two (W' split), C S^T two (S split), the
+//     update two (B . dt decay split); float32 inputs: three products
+//     everywhere (3xTF32).  Both meet float32's 1e-4 bar, which one product
+//     of rounded operands everywhere (the backward's bf16 choice) misses;
+//     tests/test_torch_ssd_scan.py emulates both.
+//   * HPC, the heads of a CTA, is set by shared-memory arithmetic: the
+//     largest power of two up to 8 dividing H whose CTA fits twice in an
+//     SM (233,472 B, 1 KB of it reserved a CTA), else the largest that fits
+//     once (fwd_geometry).  8 warps a CTA, 8 / HPC a head: a warp a head
+//     forms its cum and decays, all warps form G's ten lower 16 x 16
+//     blocks, then a head's warps take its 16-row blocks of y in snake
+//     order (block r sums 16 (r + 1) tokens of W' x) and its 16 x 16 blocks
+//     of the state update.  At the adapt shape (B 48, S 64, H 64, P 64,
+//     N 128, bf16): HPC 4, 768 CTAs of 91,136 B, two an SM.
+//   * A head's state lives in shared memory only when some tile needs it:
+//     one tile with no initial state and no final state asked for (the
+//     adapt shape, S 64) has none.  Otherwise work no output needs is
+//     skipped as before: the state terms of tile 0 without an initial
+//     state, the update after the last tile without a final state.
+//   * B, C, the CTA's heads of x (contiguous in a token) and dt are copied
+//     with cp.async straight into padded tiles of the inputs' own type (16
+//     bytes a copy when the widths and pointers allow, else 4; rows past
+//     the sequence are zero-filled, so they add nothing and leave cum
+//     flat), double-buffered when there are two tiles or more and both
+//     stages fit: tile t + 1 is in flight while t computes.  Rows are
+//     padded to 4 words past a multiple of 32 where a fragment reads them
+//     as A (row g, column t) and 8 words past where it reads them as B
+//     (row t, column g), so a fragment load meets no bank twice.
+//   * W' is formed inside the fragment loads, one exp an element and once a
+//     head: a warp holds all 64 columns of its row block of y (NB 8).
+//   * EXACT (P a multiple of 64, N of 16) drops the bounds checks; other
+//     widths (multiples of 4) take the checked instantiation (NB 2): a
+//     choice by shape.
 // The final state is an optional output: the cache-free path does not ask
-// for it (it would be 100.7 MB of float32 a call at the adapt shape).  With
-// y null the kernel only writes the state entering every tile (`states`,
-// (B, H, ceil(S/32), P, N)): the backward's recomputation.
+// for it (it would be 100.7 MB of float32 a call at the adapt shape).
 //
 // Backward (ssd_bwd_kernel, then reduce_groups).  Given dy (the final
 // state is not differentiable), one CTA per (b, h) walks the tiles in
@@ -85,51 +122,52 @@
 // Fisher scores built on them are the same from run to run.  a and init
 // get no gradient (the wrapper refuses them).
 //
-// The forward's products are small matrix products of shared-memory
-// operands on float32 CUDA cores (block_mm): each thread accumulates a 2x2,
-// 2x4 or 4x4 block of outputs in registers, so a loaded operand feeds
-// several multiply-adds; the triangular sums run over the whole tile, since
-// W holds zeros above the diagonal.  The kernels take P and N in multiples
-// of 4.  Work that no output needs is skipped: the state update after the
-// last tile when no final state is asked for, the state terms of a tile
-// whose entering state is zero, the adjoint of the state entering tile 0.
+// The forward too sums in a fixed order, so y is the same from run to
+// run.  Both kernels take P and N in multiples of 4.
 //
-// What bounds it on this card.  At the adapt shape (B 48, S 64, H 64, P
-// 64, N 128, bf16 x, B, C) the forward must move 77.9 MB (0.023 ms at
-// 3.35 TB/s) and its loops do 4.5 GFLOP, 0.067 ms on float32 CUDA cores
-// (the tensor cores are idle here): bytes bound the work, but float32
-// FMAs fed from shared memory bound this kernel.  The design keeps every
-// operand of a tile in shared memory (rows padded to odd strides, so the
-// lanes of a warp hit distinct banks), reads each input once, and never
-// lets the state leave the SM.  The backward moves 105.4 MB and does
-// about 13 GFLOP (the in-CTA recomputation included), 0.03 ms at the bytes'
-// rate.  With the products on TF32 tensor cores, what remains around them
-// is the barriers of each 32-token tile, the staging, the cluster combine
-// and the row sums, with one CTA an SM to hide them.
+// What bounds it on this card.  At the adapt shape the forward must move
+// 77.9 MB (0.023 ms at 3.35 TB/s); its TF32 products, splits included,
+// are about 2.5 GFLOP (0.005 ms at the TF32 rate): bytes bound it, so the
+// design reads each input once, keeps G, W' and the states on the SM and
+// keeps loads in flight (two CTAs an SM, cp.async).  The backward moves
+// 105.4 MB and does about 13 GFLOP (the in-CTA recomputation included),
+// 0.03 ms at the bytes' rate.  With the products on TF32 tensor cores,
+// what remains around them is the barriers of each 32-token tile, the
+// staging, the cluster combine and the row sums, with one CTA an SM to
+// hide them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TILE = 32;      // tokens per tile: one warp lane per row
-constexpr int THREADS = 256;  // forward
+constexpr int TILE = 32;      // backward: tokens per tile, a lane a row
+constexpr int FT = 64;        // forward: tokens per tile
+constexpr int THREADS = 256;  // forward (8 warps) and the group reduction
+constexpr int FWARPS = THREADS / 32;
+constexpr int MAX_HPC = 8;    // forward: heads a CTA at most
 constexpr int BT = 512;       // backward: 16 warps
 constexpr int BWARPS = BT / 32;
 constexpr int MAX_CLUSTER = 8;  // CTAs (heads) a cluster, the portable size
-constexpr int TS = TILE + 1;  // padded row stride of the TILE x TILE tiles
 
-// The backward's row strides: a width padded to 4 more than a multiple of
-// 32 words, so the fragment loads of mma.sync (lanes 4g + t) hit 32
-// distinct banks along a row and at most two lanes a bank down a column.
-__host__ __device__ constexpr int ld4(int n) { return n + (36 - n % 32) % 32; }
+// A row of n words padded to r more than a multiple of 32 words: r = 4 for
+// rows a fragment reads as A (lanes 4g + t at row g, column t), r = 8 for
+// rows it reads as B (row t, column g); either way a load meets no bank
+// twice.  The backward pads every row to 4 (at most two lanes a bank).
+__host__ __device__ constexpr int ldw(int n, int r) {
+  return n + (r + 32 - n % 32) % 32;
+}
+__host__ __device__ constexpr int ld4(int n) { return ldw(n, 4); }
 constexpr int TB = ld4(TILE);  // 36
 constexpr long long MAX_SMEM = 232448;
+// a CTA that fits twice in an SM: its 233,472 B less 1 KB reserved a CTA
+constexpr long long HALF_SM_SMEM = 233472 / 2 - 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -141,9 +179,41 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-long long fwd_smem(int P, int N) {
-  return 4LL * ((long long)P * (N + 1) + 2LL * TILE * (N + 1) +
-                (long long)TILE * (P + 1) + TILE * TS + 2 * TILE);
+// Forward: the dynamic shared memory of a CTA of hpc heads for inputs of
+// elt bytes: `stages` staging areas (the B and C tiles and the heads' x in
+// the inputs' type, dt in float32), G, three per-head vectors and, with
+// `state`, the heads' (P, N) states in float32
+long long fwd_smem(int P, int N, int elt, int hpc, int stages, bool state) {
+  const long long wb = ldw(N * elt / 4, 4), wx = ldw(hpc * P * elt / 4, 8);
+  return 4LL * stages * FT * (2 * wb + wx + hpc) + 4LL * FT * ld4(FT) +
+         4LL * 3 * hpc * FT + (state ? 4LL * hpc * P * ld4(N) : 0);
+}
+
+struct FwdGeo {
+  int hpc, stages;
+  bool state;
+  long long smem;
+};
+
+// The forward's launch at these dims (false when no CTA fits): a state
+// when some tile needs one, two stages when there are two tiles or more
+// and they fit, and the most heads a CTA (a power of two up to 8 dividing
+// H) that fit twice in an SM, else once.
+bool fwd_geometry(int S, int H, int P, int N, int elt, bool init, bool fin,
+                  FwdGeo* geo) {
+  const int nt = (S + FT - 1) / FT;
+  const bool state = nt > 1 || init || fin;
+  const long long caps[2] = {HALF_SM_SMEM, MAX_SMEM};
+  for (int stages = nt > 1 ? 2 : 1; stages >= 1; --stages)
+    for (long long cap : caps)
+      for (int c = MAX_HPC; c >= 1; c /= 2) {
+        const long long sm = fwd_smem(P, N, elt, c, stages, state);
+        if (H % c == 0 && sm <= cap) {
+          *geo = {c, stages, state, sm};
+          return true;
+        }
+      }
+  return false;
 }
 
 // state and adjoint, B, C and the dB/dC tiles, x, u and dy, W, G and R, the
@@ -165,38 +235,6 @@ int bwd_cluster(int H) {
   return cl;
 }
 
-// Loads rows [s0, s0 + rows) of one tile of x (scaled by dt into u), B
-// and C for (b, h); rows past the end of the sequence are zero, so they
-// add nothing and leave cum flat.  Xs may be null.
-template <typename T>
-__device__ void load_tile(const T* __restrict__ x, const float* __restrict__ dt,
-                          const T* __restrict__ bm, const T* __restrict__ cm,
-                          int b, int h, int s0, int rows, int S, int H, int P,
-                          int N, float* dts, float* Xs, float* Us, float* Bs,
-                          float* Cs) {
-  const int tid = threadIdx.x, NS = N + 1, PS = P + 1;
-  if (tid < TILE)
-    dts[tid] = tid < rows ? dt[((long long)b * S + s0 + tid) * H + h] : 0.f;
-  for (int idx = tid; idx < TILE * P; idx += THREADS) {
-    const int i = idx / P, p = idx % P;
-    float v = 0.f;
-    if (i < rows) v = to_f(x[(((long long)b * S + s0 + i) * H + h) * P + p]);
-    if (Xs) Xs[i * PS + p] = v;
-    Us[i * PS + p] = v;
-  }
-  for (int idx = tid; idx < TILE * N; idx += THREADS) {
-    const int i = idx / N, n = idx % N;
-    const long long off = ((long long)b * S + s0 + i) * N + n;
-    Bs[i * NS + n] = i < rows ? to_f(bm[off]) : 0.f;
-    Cs[i * NS + n] = i < rows ? to_f(cm[off]) : 0.f;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < TILE * P; idx += THREADS) {
-    const int i = idx / P, p = idx % P;
-    Us[i * PS + p] *= dts[i];
-  }
-}
-
 // Inclusive cumsum of dt a over the tile's 32 rows, by warp 0.
 __device__ __forceinline__ void tile_cumsum(const float* dts, float av,
                                             float* cum) {
@@ -212,133 +250,417 @@ __device__ __forceinline__ void tile_cumsum(const float* dts, float av,
   }
 }
 
-// A register-blocked product of shared-memory operands.  Each thread owns
-// BR x BC outputs of an R x C result (R % BR == C % BC == 0), at rows
-// rb + r R/BR and columns cb + c C/BC: strided, so the lanes of a warp read
-// neighbouring columns of one or two rows, which the odd row strides of the
-// tiles keep free of bank conflicts.  It sums s1 = sum_{k<K1} a1(row, k)
-// b1(k, col) and s2 = sum_{k<K2} a2(row, k) b2(k, col) in registers, in k
-// order, and hands both to out(row, col, s1, s2).  Each loaded operand feeds
-// BR or BC multiply-adds, where a thread per output would load two a FMA.
-template <int BR, int BC, typename A1, typename B1, typename A2, typename B2,
-          typename O>
-__device__ __forceinline__ void block_mm(int R, int C, int K1, A1 a1, B1 b1,
-                                         int K2, A2 a2, B2 b2, O out) {
-  const int RB = R / BR, CB = C / BC;
-  for (int q = threadIdx.x; q < RB * CB; q += THREADS) {
-    const int rb = q / CB, cb = q % CB;
-    float s1[BR][BC], s2[BR][BC];
+// ---------------------------------------------------------------------------
+// Tile products on the tensor cores (TF32 mma.sync), for both kernels
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[e] += a b[e] for one k-step of 8 and NB B column blocks, the A
+// fragment split once.  Every operand is rounded to its nearest TF32 value
+// (cvt.rna): handed the raw float bits, the unit would drop the low 13
+// mantissa bits, a truncation toward zero that biases every product the
+// same way.  SA (SB) 2: the A (B) operand is a TF32 head plus a TF32
+// residual, and the residual's product with the other head is added, small
+// terms first; 1: the head alone, which is exact for an operand that is
+// exact in TF32 (a bf16 value).  2 and 2 is 3xTF32, float32's accuracy.
+template <int SA, int SB, int NB>
+__device__ __forceinline__ void mma_step(float (&d)[NB][4],
+                                         const float (&a)[4],
+                                         const float (&b)[NB][2]) {
+  uint32_t ah[4], al[4];
 #pragma unroll
-    for (int r = 0; r < BR; ++r)
+  for (int i = 0; i < 4; ++i) {
+    ah[i] = tf32(a[i]);
+    if constexpr (SA == 2) al[i] = tf32(a[i] - __uint_as_float(ah[i]));
+  }
 #pragma unroll
-      for (int c = 0; c < BC; ++c) s1[r][c] = s2[r][c] = 0.f;
-    for (int k = 0; k < K1; ++k) {
-      float av[BR], bv[BC];
-#pragma unroll
-      for (int r = 0; r < BR; ++r) av[r] = a1(rb + r * RB, k);
-#pragma unroll
-      for (int c = 0; c < BC; ++c) bv[c] = b1(k, cb + c * CB);
-#pragma unroll
-      for (int r = 0; r < BR; ++r)
-#pragma unroll
-        for (int c = 0; c < BC; ++c) s1[r][c] += av[r] * bv[c];
+  for (int e = 0; e < NB; ++e) {
+    const uint32_t bh[2] = {tf32(b[e][0]), tf32(b[e][1])};
+    if constexpr (SA == 2) mma_tf32(d[e], al, bh);
+    if constexpr (SB == 2) {
+      const uint32_t bl[2] = {tf32(b[e][0] - __uint_as_float(bh[0])),
+                              tf32(b[e][1] - __uint_as_float(bh[1]))};
+      mma_tf32(d[e], ah, bl);
     }
-    for (int k = 0; k < K2; ++k) {
-      float av[BR], bv[BC];
-#pragma unroll
-      for (int r = 0; r < BR; ++r) av[r] = a2(rb + r * RB, k);
-#pragma unroll
-      for (int c = 0; c < BC; ++c) bv[c] = b2(k, cb + c * CB);
-#pragma unroll
-      for (int r = 0; r < BR; ++r)
-#pragma unroll
-        for (int c = 0; c < BC; ++c) s2[r][c] += av[r] * bv[c];
-    }
-#pragma unroll
-    for (int r = 0; r < BR; ++r)
-#pragma unroll
-      for (int c = 0; c < BC; ++c)
-        out(rb + r * RB, cb + c * CB, s1[r][c], s2[r][c]);
+    mma_tf32(d[e], ah, bh);
   }
 }
 
+// s[e] += sum_k a(row, k) b(k, col) over k < K for a warp's 16 x 8 NB
+// block: this lane's rows ra, rb = ra + 8 and B columns cn + 8 e, in the
+// m16n8k8 fragment layout (A: rows g, g + 8 at k = t, t + 4; B: k = t,
+// t + 4 at column g).  Operands outside R, C or K read as 0, so any size
+// works; EXACT (R a multiple of 16, C of 8 NB, K of 8) drops the checks.
+template <int SA, int SB, bool EXACT, int NB, typename A, typename Bf>
+__device__ __forceinline__ void mm_sum(float (&s)[NB][4], int K, A a, Bf bf,
+                                       int ra, int rb, int cn, int R, int C,
+                                       int t) {
+#pragma unroll 2
+  for (int k = 0; k < K; k += 8) {
+    const int k0 = k + t, k1 = k0 + 4;
+    const bool i0 = EXACT || k0 < K, i1 = EXACT || k1 < K;
+    const bool ia = EXACT || ra < R, ib = EXACT || rb < R;
+    const float av[4] = {ia && i0 ? a(ra, k0) : 0.f, ib && i0 ? a(rb, k0) : 0.f,
+                         ia && i1 ? a(ra, k1) : 0.f, ib && i1 ? a(rb, k1) : 0.f};
+    float bv[NB][2];
+#pragma unroll
+    for (int e = 0; e < NB; ++e) {
+      const bool ic = EXACT || cn + 8 * e < C;
+      bv[e][0] = ic && i0 ? bf(k0, cn + 8 * e) : 0.f;
+      bv[e][1] = ic && i1 ? bf(k1, cn + 8 * e) : 0.f;
+    }
+    mma_step<SA, SB, NB>(s, av, bv);
+  }
+}
+
+// An R x C product of shared-memory operands on the tensor cores: warps w0
+// .. w0 + nw - 1 take 16 x 8 NB output blocks in turn (an A fragment feeds
+// NB products), sum s1 = sum_{k<K1} a1(row, k) b1(k, col) and s2 over K2
+// in k order, and hand each element to out(row, col, s1, s2), which returns
+// two values to be summed along the row.  The four lanes of a quad hold whole rows of an
+// 8-column block: they add their values in a fixed pattern, and part0 /
+// part1 (when not null) receive one partial a (row, 8-column block), at
+// row * ceil(C / 8) + block, which a warp adds up in a fixed pattern.
+template <int SA, int SB, bool EXACT, int NB = 2, typename A1, typename B1,
+          typename A2, typename B2, typename O>
+__device__ __forceinline__ void tile_mm(int R, int C, int K1, A1 a1, B1 b1,
+                                        int K2, A2 a2, B2 b2, O out,
+                                        float* part0, float* part1,
+                                        int w0 = 0, int nw = BWARPS) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) - w0;
+  const int g = lane >> 2, t = lane & 3;
+  const int RT = (R + 15) / 16, CT = (C + 7) / 8, CTB = (CT + NB - 1) / NB;
+  for (int w = warp; w < RT * CTB; w += nw) {
+    const int ct0 = (w % CTB) * NB, ra = (w / CTB) * 16 + g, rb = ra + 8;
+    float s1[NB][4] = {}, s2[NB][4] = {};
+    mm_sum<SA, SB, EXACT, NB>(s1, K1, a1, b1, ra, rb, ct0 * 8 + g, R, C, t);
+    mm_sum<SA, SB, EXACT, NB>(s2, K2, a2, b2, ra, rb, ct0 * 8 + g, R, C, t);
+#pragma unroll
+    for (int e = 0; e < NB; ++e) {
+      const int ct = ct0 + e, c0 = ct * 8 + 2 * t, c1 = c0 + 1;
+      if (!EXACT && ct >= CT) break;  // the same for the whole warp
+      float2 va = make_float2(0.f, 0.f), vb = va;
+      if (EXACT || (ra < R && c0 < C)) {
+        const float2 v = out(ra, c0, s1[e][0], s2[e][0]);
+        va.x += v.x;
+        va.y += v.y;
+      }
+      if (EXACT || (ra < R && c1 < C)) {
+        const float2 v = out(ra, c1, s1[e][1], s2[e][1]);
+        va.x += v.x;
+        va.y += v.y;
+      }
+      if (EXACT || (rb < R && c0 < C)) {
+        const float2 v = out(rb, c0, s1[e][2], s2[e][2]);
+        vb.x += v.x;
+        vb.y += v.y;
+      }
+      if (EXACT || (rb < R && c1 < C)) {
+        const float2 v = out(rb, c1, s1[e][3], s2[e][3]);
+        vb.x += v.x;
+        vb.y += v.y;
+      }
+      if (part0 || part1) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          va.x += __shfl_xor_sync(0xffffffffu, va.x, off);
+          va.y += __shfl_xor_sync(0xffffffffu, va.y, off);
+          vb.x += __shfl_xor_sync(0xffffffffu, vb.x, off);
+          vb.y += __shfl_xor_sync(0xffffffffu, vb.y, off);
+        }
+        if (t == 0) {
+          if (part0 && ra < R) part0[ra * CT + ct] = va.x;
+          if (part0 && rb < R) part0[rb * CT + ct] = vb.x;
+          if (part1 && ra < R) part1[ra * CT + ct] = va.y;
+          if (part1 && rb < R) part1[rb * CT + ct] = vb.y;
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+// cp.async of BYTES (4 or 16) from src to dst, or zeros there when !in
+template <int BYTES>
+__device__ __forceinline__ void cp_async_z(void* dst, const void* src,
+                                           bool in) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(in ? 4 : 0)
+                 : "memory");
+}
+
+// FT rows of rb bytes (a multiple of BYTES), gs bytes apart in device
+// memory, to rows ss bytes apart in shared memory; rows from `rows` on are
+// zeros (their copies read nothing)
+template <int BYTES>
+__device__ __forceinline__ void copy_rows(char* dst, int ss, const char* src,
+                                          long long gs, int rb, int rows) {
+  const int per = rb / BYTES;
+  for (int idx = threadIdx.x; idx < FT * per; idx += THREADS) {
+    const int i = idx / per, c = idx - i * per;
+    const bool in = i < rows;
+    cp_async_z<BYTES>(dst + i * ss + c * BYTES,
+                      src + (in ? i * gs : 0) + c * BYTES, in);
+  }
+}
+
+// Starts copying the tile of rows [s0, s0 + rows) of batch row b into a
+// staging area (B, C, the heads h0 .. h0 + hpc - 1 of x, their dt) as one
+// cp.async group; wb and wx are the padded row widths in words.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ void fwd_stage(char* dst, const T* __restrict__ x,
+                          const float* __restrict__ dt,
+                          const T* __restrict__ bm, const T* __restrict__ cm,
+                          int b, int h0, int s0, int rows, int S, int H, int P,
+                          int N, int hpc, int wb, int wx, bool vec16) {
+  constexpr int E = (int)sizeof(T);
+  const long long row0 = (long long)b * S + s0;
+  char* sb = dst;
+  char* sc = sb + 4 * FT * wb;
+  char* sx = sc + 4 * FT * wb;
+  char* sd = sx + 4 * FT * wx;
+  const char* gb = reinterpret_cast<const char*>(bm + row0 * N);
+  const char* gc = reinterpret_cast<const char*>(cm + row0 * N);
+  const char* gx = reinterpret_cast<const char*>(x + (row0 * H + h0) * P);
+  if (vec16) {
+    copy_rows<16>(sb, 4 * wb, gb, (long long)N * E, N * E, rows);
+    copy_rows<16>(sc, 4 * wb, gc, (long long)N * E, N * E, rows);
+    copy_rows<16>(sx, 4 * wx, gx, (long long)H * P * E, hpc * P * E, rows);
+  } else {
+    copy_rows<4>(sb, 4 * wb, gb, (long long)N * E, N * E, rows);
+    copy_rows<4>(sc, 4 * wb, gc, (long long)N * E, N * E, rows);
+    copy_rows<4>(sx, 4 * wx, gx, (long long)H * P * E, hpc * P * E, rows);
+  }
+  copy_rows<4>(sd, 4 * hpc,
+               reinterpret_cast<const char*>(dt + row0 * H + h0), 4LL * H,
+               4 * hpc, rows);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One CTA per (b, group of hpc consecutive heads); see the header.  NBY is
+// the 8-column blocks of y a warp holds (8 with EXACT: all of P 64).
+template <typename T, bool EXACT, int NBY>
+__global__ void __launch_bounds__(THREADS, 2)
 ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ a, const T* __restrict__ bm,
                const T* __restrict__ cm, const float* __restrict__ init,
                float* __restrict__ y, float* __restrict__ final_state,
-               int S, int H, int P, int N) {
-  extern __shared__ float smem[];
-  const int NS = N + 1, PS = P + 1;
-  float* st = smem;                  // P x NS   the state
-  float* Bs = st + P * NS;           // TILE x NS
-  float* Cs = Bs + TILE * NS;        // TILE x NS
-  float* Us = Cs + TILE * NS;        // TILE x PS  u = x dt
-  float* Ws = Us + TILE * PS;        // TILE x TS  (C B^T) . L
-  float* cum = Ws + TILE * TS;       // TILE
-  float* dts = cum + TILE;           // TILE
-  const int h = blockIdx.x % H, b = blockIdx.x / H, tid = threadIdx.x;
-  const float av = a[h];
-  const int nt = (S + TILE - 1) / TILE;
-  const long long PN = (long long)P * N, bh = (long long)b * H + h;
+               int S, int H, int P, int N, int hpc, int stages, int vec16) {
+  extern __shared__ __align__(16) char fsm[];
+  constexpr int E = (int)sizeof(T);
+  // x, B and C as operands: bf16 values are exact in TF32, float32 split
+  constexpr int SX = std::is_same<T, float>::value ? 2 : 1;
+  const int wb = ldw(N * E / 4, 4), wx = ldw(hpc * P * E / 4, 8);
+  const int LB = wb * 4 / E, LX = wx * 4 / E;  // row strides in elements
+  const int NS = ld4(N), GS = ld4(FT);
+  const int stage_bytes = 4 * FT * (2 * wb + wx + hpc);
+  float* G = reinterpret_cast<float*>(fsm + stages * stage_bytes);  // FT x GS
+  float* cum = G + FT * GS;          // hpc x FT
+  float* ecum = cum + hpc * FT;      // hpc x FT  exp(cum)
+  float* fdec = ecum + hpc * FT;     // hpc x FT  dt exp(cum_last - cum)
+  float* st = fdec + hpc * FT;       // hpc x P x NS  the states
+  const int groups = H / hpc, b = blockIdx.x / groups;
+  const int h0 = (blockIdx.x % groups) * hpc;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // this warp's head and its rank among the head's warps
+  const int wph = FWARPS / hpc, hh = warp / wph, part = warp % wph;
+  const int nt = (S + FT - 1) / FT;
+  float* sth = st + hh * P * NS;
+  const float* ch = cum + hh * FT;
 
-  for (int idx = tid; idx < P * N; idx += THREADS)
-    st[(idx / N) * NS + idx % N] = init ? init[bh * PN + idx] : 0.f;
-  __syncthreads();
+  auto load = [&](int t) {
+    const int s0 = t * FT;
+    fwd_stage<T>(fsm + (t % stages) * stage_bytes, x, dt, bm, cm, b, h0, s0,
+                 min(FT, S - s0), S, H, P, N, hpc, wb, wx, vec16 != 0);
+  };
+  load(0);
+  if (init) {  // the heads' states are contiguous
+    const float* src = init + ((long long)b * H + h0) * P * N;
+    for (int idx = tid; idx < hpc * P * N; idx += THREADS) {
+      const int r = idx / N;
+      st[r * NS + idx - r * N] = src[idx];
+    }
+  }
   for (int t = 0; t < nt; ++t) {
-    const int s0 = t * TILE, rows = min(TILE, S - s0);
-    const bool zero_state = t == 0 && init == nullptr;
+    const int s0 = t * FT, rows = min(FT, S - s0);
+    const bool zero = t == 0 && init == nullptr;  // the entering state is 0
     // the state leaving the last tile is needed only as the final state
-    const bool update = t < nt - 1 || final_state != nullptr;
-    load_tile(x, dt, bm, cm, b, h, s0, rows, S, H, P, N, dts, nullptr, Us, Bs,
-              Cs);
-    tile_cumsum(dts, av, cum);
+    const bool update = t + 1 < nt || final_state != nullptr;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    auto c_in = [=](int i, int n) { return Cs[i * NS + n]; };
-    // W = (C B^T) . L
-    block_mm<2, 2>(
-        TILE, TILE, N, c_in, [=](int n, int j) { return Bs[j * NS + n]; },
-        0, c_in, c_in, [=](int i, int j, float g, float) {
-          Ws[i * TS + j] = j <= i ? g * expf(cum[i] - cum[j]) : 0.f;
-        });
-    __syncthreads();
-    // y = W u + exp(cum) . (C S^T); W is 0 above the diagonal
-    block_mm<2, 4>(
-        TILE, P, TILE, [=](int i, int j) { return Ws[i * TS + j]; },
-        [=](int j, int p) { return Us[j * PS + p]; }, zero_state ? 0 : N,
-        c_in, [=](int n, int p) { return st[p * NS + n]; },
-        [=](int i, int p, float intra, float inter) {
-          if (i < rows)
-            y[(((long long)b * S + s0 + i) * H + h) * P + p] =
-                intra + expf(cum[i]) * inter;
-        });
-    if (!update) break;
-    __syncthreads();
-    const float clast = cum[TILE - 1];
-    for (int idx = tid; idx < TILE * P; idx += THREADS) {
-      const int i = idx / P, p = idx % P;
-      Us[i * PS + p] *= expf(clast - cum[i]);
+    if (t + 1 < nt && stages == 2) load(t + 1);
+    const char* sg = fsm + (t % stages) * stage_bytes;
+    const T* Bt = reinterpret_cast<const T*>(sg);
+    const T* Ct = reinterpret_cast<const T*>(sg + 4 * FT * wb);
+    const T* Xh = reinterpret_cast<const T*>(sg + 8 * FT * wb) + hh * P;
+    const float* Dt =
+        reinterpret_cast<const float*>(sg + 4 * FT * (2 * wb + wx));
+
+    // each head's cum, exp(cum) and dt exp(cum_last - cum): a warp a head,
+    // two rows a lane
+    if (warp < hpc) {
+      const float av = a[h0 + warp];
+      const float d0 = Dt[2 * lane * hpc + warp];
+      const float d1 = Dt[(2 * lane + 1) * hpc + warp];
+      const float v0 = d0 * av, v1 = d1 * av;
+      float v = v0 + v1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += o;
+      }
+      float ex = __shfl_up_sync(0xffffffffu, v, 1);
+      if (lane == 0) ex = 0.f;
+      const float c0 = ex + v0, c1 = c0 + v1;
+      const float cl = __shfl_sync(0xffffffffu, c1, 31);
+      const int o = warp * FT + 2 * lane;
+      cum[o] = c0;
+      cum[o + 1] = c1;
+      ecum[o] = expf(c0);
+      ecum[o + 1] = expf(c1);
+      fdec[o] = d0 * expf(cl - c0);
+      fdec[o + 1] = d1 * expf(cl - c1);
+    }
+    // G = C B^T, the same for every head: its ten 16 x 16 blocks on or
+    // below the diagonal (W' is 0 above it), over all warps
+    for (int item = warp; item < 10; item += FWARPS) {
+      int r = 0;
+      while ((r + 1) * (r + 2) / 2 <= item) ++r;
+      const int c = item - r * (r + 1) / 2;
+      const int ra = 16 * r + g, rb = ra + 8;
+      float s[2][4] = {};
+      mm_sum<SX, SX, EXACT, 2>(
+          s, N, [=](int i, int n) { return to_f(Ct[i * LB + n]); },
+          [=](int n, int j) { return to_f(Bt[j * LB + n]); }, ra, rb,
+          16 * c + g, FT, FT, t4);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c0 = 16 * c + 8 * e + 2 * t4;
+        G[ra * GS + c0] = s[e][0];
+        G[ra * GS + c0 + 1] = s[e][1];
+        G[rb * GS + c0] = s[e][2];
+        G[rb * GS + c0 + 1] = s[e][3];
+      }
     }
     __syncthreads();
-    const float dec = expf(clast);
-    // S <- S exp(cum_last) + (u . decay)^T B; each thread writes only the
-    // state elements it owns, and the sum reads no state
-    block_mm<4, 4>(
-        P, N, TILE, [=](int p, int j) { return Us[j * PS + p]; },
-        [=](int j, int n) { return Bs[j * NS + n]; }, 0, c_in, c_in,
-        [=](int p, int n, float acc, float) {
-          st[p * NS + n] = (zero_state ? 0.f : st[p * NS + n] * dec) + acc;
-        });
-    __syncthreads();
+
+    // y = W' x + exp(cum) . (C S^T): the head's 16-row blocks, each with
+    // all its columns in groups of 8 NBY, in snake order over the head's
+    // warps (block r sums 16 (r + 1) tokens of W' x)
+    const int cgs = (P + 8 * NBY - 1) / (8 * NBY);
+    for (int it = 0; it < 4 * cgs; ++it) {
+      const int m = it % (2 * wph);
+      if ((m < wph ? m : 2 * wph - 1 - m) != part) continue;
+      const int r = it / cgs, col0 = (it % cgs) * 8 * NBY;
+      const int ra = 16 * r + g, rb = ra + 8;
+      float s[NBY][4] = {};
+      if (!zero) {
+        mm_sum<SX, 2, EXACT, NBY>(
+            s, N, [=](int i, int n) { return to_f(Ct[i * LB + n]); },
+            [=](int n, int p) { return sth[p * NS + n]; }, ra, rb, col0 + g,
+            FT, P, t4);
+        const float ea = ecum[hh * FT + ra], eb = ecum[hh * FT + rb];
+#pragma unroll
+        for (int e = 0; e < NBY; ++e) {
+          s[e][0] *= ea;
+          s[e][1] *= ea;
+          s[e][2] *= eb;
+          s[e][3] *= eb;
+        }
+      }
+      mm_sum<2, SX, EXACT, NBY>(
+          s, 16 * (r + 1),
+          [=](int i, int j) {
+            return j <= i ? G[i * GS + j] * expf(ch[i] - ch[j]) *
+                                Dt[j * hpc + hh]
+                          : 0.f;
+          },
+          [=](int j, int p) { return to_f(Xh[j * LX + p]); }, ra, rb,
+          col0 + g, FT, P, t4);
+      const long long rs = (long long)H * P;  // y's row stride
+      float* yb = y + (((long long)b * S + s0) * H + h0 + hh) * P;
+#pragma unroll
+      for (int e = 0; e < NBY; ++e) {
+        const int c0 = col0 + 8 * e + 2 * t4;  // P is even: c0 + 1 < P too
+        if (!EXACT && c0 >= P) continue;
+        if (ra < rows)
+          *reinterpret_cast<float2*>(yb + ra * rs + c0) =
+              make_float2(s[e][0], s[e][1]);
+        if (rb < rows)
+          *reinterpret_cast<float2*>(yb + rb * rs + c0) =
+              make_float2(s[e][2], s[e][3]);
+      }
+    }
+
+    // S <- S exp(cum_last) + x^T (B . dt exp(cum_last - cum)), each state
+    // element by one lane of the head's warps
+    if (update) {
+      __syncthreads();  // no warp still reads a state
+      const float dec = expf(ch[FT - 1]);
+      const float* fh = fdec + hh * FT;
+      tile_mm<SX, 2, EXACT>(
+          P, N, FT, [=](int p, int j) { return to_f(Xh[j * LX + p]); },
+          [=](int j, int n) { return to_f(Bt[j * LB + n]) * fh[j]; }, 0,
+          [](int, int) { return 0.f; }, [](int, int) { return 0.f; },
+          [=](int p, int n, float acc, float) {
+            sth[p * NS + n] = (zero ? 0.f : sth[p * NS + n] * dec) + acc;
+            return make_float2(0.f, 0.f);
+          },
+          nullptr, nullptr, hh * wph, wph);
+    }
+    if (t + 1 < nt && stages == 1) {
+      __syncthreads();  // the one staging area is free
+      load(t + 1);
+    }
   }
-  if (final_state)
-    for (int idx = tid; idx < P * N; idx += THREADS)
-      final_state[bh * PN + idx] = st[(idx / N) * NS + idx % N];
+  if (final_state) {
+    __syncthreads();
+    float* dst = final_state + ((long long)b * H + h0) * P * N;
+    for (int idx = tid; idx < hpc * P * N; idx += THREADS) {
+      const int r = idx / N;
+      dst[idx] = st[r * NS + idx - r * N];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
-// Backward: loads, and its tile products on the tensor cores (TF32 mma.sync)
+// Backward
 // ---------------------------------------------------------------------------
 
 // f(r, c) for r < R, c < C: a warp a row, its lanes along the row (no
@@ -347,13 +669,6 @@ template <typename F>
 __device__ __forceinline__ void for_rows(int R, int C, F f) {
   for (int r = threadIdx.x >> 5; r < R; r += BWARPS)
     for (int c = threadIdx.x & 31; c < C; c += 32) f(r, c);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
 }
 
 // Starts copying the rows [s0, s0 + rows) of one tile for (b, h) into the
@@ -443,149 +758,9 @@ __device__ void load_state(const float* __restrict__ src, float* dst, int P,
   for_rows(P, N, [&](int p, int n) { dst[p * NS + n] = src[p * N + n]; });
 }
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d[e] += a b[e] for one k-step of 8 and NB B column blocks, the A
-// fragment split once.  Every operand is rounded to its nearest TF32 value
-// (cvt.rna): handed the raw float bits, the unit would drop the low 13
-// mantissa bits, a truncation toward zero that biases every product the
-// same way.  SPLIT 3 (float32 inputs): each operand is a TF32 head plus a
-// TF32 residual and the three products that matter are summed, small terms
-// first (float32 accuracy); SPLIT 1: one TF32 product of the rounded heads
-// (bf16 inputs, held to 2e-2; x, B and C are exact in TF32, dy and the
-// tile's intermediates W, G, dS and the decay-scaled terms are rounded).
-template <int SPLIT, int NB>
-__device__ __forceinline__ void mma_step(float (&d)[NB][4],
-                                         const float (&a)[4],
-                                         const float (&b)[NB][2]) {
-  uint32_t ah[4], al[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ah[i] = tf32(a[i]);
-    if constexpr (SPLIT == 3) al[i] = tf32(a[i] - __uint_as_float(ah[i]));
-  }
-#pragma unroll
-  for (int e = 0; e < NB; ++e) {
-    const uint32_t bh[2] = {tf32(b[e][0]), tf32(b[e][1])};
-    if constexpr (SPLIT == 3) {
-      const uint32_t bl[2] = {tf32(b[e][0] - __uint_as_float(bh[0])),
-                              tf32(b[e][1] - __uint_as_float(bh[1]))};
-      mma_tf32(d[e], al, bh);
-      mma_tf32(d[e], ah, bl);
-    }
-    mma_tf32(d[e], ah, bh);
-  }
-}
-
-// s[e] += sum_k a(row, k) b(k, col) over k < K for a warp's 16 x 8 NB
-// block: this lane's rows ra, rb = ra + 8 and B columns cn + 8 e, in the
-// m16n8k8 fragment layout (A: rows g, g + 8 at k = t, t + 4; B: k = t,
-// t + 4 at column g).  Operands outside R, C or K read as 0, so any size
-// works; EXACT (R a multiple of 16, C of 8 NB, K of 8) drops the checks.
-template <int SPLIT, bool EXACT, int NB, typename A, typename Bf>
-__device__ __forceinline__ void mm_sum(float (&s)[NB][4], int K, A a, Bf bf,
-                                       int ra, int rb, int cn, int R, int C,
-                                       int t) {
-#pragma unroll 2
-  for (int k = 0; k < K; k += 8) {
-    const int k0 = k + t, k1 = k0 + 4;
-    const bool i0 = EXACT || k0 < K, i1 = EXACT || k1 < K;
-    const bool ia = EXACT || ra < R, ib = EXACT || rb < R;
-    const float av[4] = {ia && i0 ? a(ra, k0) : 0.f, ib && i0 ? a(rb, k0) : 0.f,
-                         ia && i1 ? a(ra, k1) : 0.f, ib && i1 ? a(rb, k1) : 0.f};
-    float bv[NB][2];
-#pragma unroll
-    for (int e = 0; e < NB; ++e) {
-      const bool ic = EXACT || cn + 8 * e < C;
-      bv[e][0] = ic && i0 ? bf(k0, cn + 8 * e) : 0.f;
-      bv[e][1] = ic && i1 ? bf(k1, cn + 8 * e) : 0.f;
-    }
-    mma_step<SPLIT, NB>(s, av, bv);
-  }
-}
-
-// An R x C product of shared-memory operands on the tensor cores: warps w0
-// .. w0 + nw - 1 take 16 x 8 NB output blocks in turn (an A fragment feeds
-// NB products), sum s1 = sum_{k<K1} a1(row, k) b1(k, col) and s2 over K2
-// in k order, and hand each element to out(row, col, s1, s2), which returns
-// two values to be summed along the row.  The four lanes of a quad hold whole rows of an
-// 8-column block: they add their values in a fixed pattern, and part0 /
-// part1 (when not null) receive one partial a (row, 8-column block), at
-// row * ceil(C / 8) + block, which a warp adds up in a fixed pattern.
-template <int SPLIT, bool EXACT, int NB = 2, typename A1, typename B1,
-          typename A2, typename B2, typename O>
-__device__ __forceinline__ void tile_mm(int R, int C, int K1, A1 a1, B1 b1,
-                                        int K2, A2 a2, B2 b2, O out,
-                                        float* part0, float* part1,
-                                        int w0 = 0, int nw = BWARPS) {
-  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) - w0;
-  const int g = lane >> 2, t = lane & 3;
-  const int RT = (R + 15) / 16, CT = (C + 7) / 8, CTB = (CT + NB - 1) / NB;
-  for (int w = warp; w < RT * CTB; w += nw) {
-    const int ct0 = (w % CTB) * NB, ra = (w / CTB) * 16 + g, rb = ra + 8;
-    float s1[NB][4] = {}, s2[NB][4] = {};
-    mm_sum<SPLIT, EXACT, NB>(s1, K1, a1, b1, ra, rb, ct0 * 8 + g, R, C, t);
-    mm_sum<SPLIT, EXACT, NB>(s2, K2, a2, b2, ra, rb, ct0 * 8 + g, R, C, t);
-#pragma unroll
-    for (int e = 0; e < NB; ++e) {
-      const int ct = ct0 + e, c0 = ct * 8 + 2 * t, c1 = c0 + 1;
-      if (!EXACT && ct >= CT) break;  // the same for the whole warp
-      float2 va = make_float2(0.f, 0.f), vb = va;
-      if (EXACT || (ra < R && c0 < C)) {
-        const float2 v = out(ra, c0, s1[e][0], s2[e][0]);
-        va.x += v.x;
-        va.y += v.y;
-      }
-      if (EXACT || (ra < R && c1 < C)) {
-        const float2 v = out(ra, c1, s1[e][1], s2[e][1]);
-        va.x += v.x;
-        va.y += v.y;
-      }
-      if (EXACT || (rb < R && c0 < C)) {
-        const float2 v = out(rb, c0, s1[e][2], s2[e][2]);
-        vb.x += v.x;
-        vb.y += v.y;
-      }
-      if (EXACT || (rb < R && c1 < C)) {
-        const float2 v = out(rb, c1, s1[e][3], s2[e][3]);
-        vb.x += v.x;
-        vb.y += v.y;
-      }
-      if (part0 || part1) {
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          va.x += __shfl_xor_sync(0xffffffffu, va.x, off);
-          va.y += __shfl_xor_sync(0xffffffffu, va.y, off);
-          vb.x += __shfl_xor_sync(0xffffffffu, vb.x, off);
-          vb.y += __shfl_xor_sync(0xffffffffu, vb.y, off);
-        }
-        if (t == 0) {
-          if (part0 && ra < R) part0[ra * CT + ct] = va.x;
-          if (part0 && rb < R) part0[rb * CT + ct] = vb.x;
-          if (part1 && ra < R) part1[ra * CT + ct] = va.y;
-          if (part1 && rb < R) part1[rb * CT + ct] = vb.y;
-        }
-      }
-    }
-  }
-}
-
 // One CTA per (b, h) in clusters of CL consecutive heads: the forward walk
 // that rebuilds the entering states, then the reverse walk (see the header)
-template <typename T, int SPLIT, bool EXACT>
+template <typename T, int SP, bool EXACT>
 __global__ void __launch_bounds__(BT, 1)
 ssd_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
                const float* __restrict__ dt, const float* __restrict__ a,
@@ -662,7 +837,7 @@ ssd_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
     const float dec = expf(clast);
     const bool zero = t == 0 && init == nullptr;
     // S <- S exp(cum_last) + (u . decay)^T B, each element by one lane
-    tile_mm<SPLIT, EXACT>(
+    tile_mm<SP, SP, EXACT>(
         P, N, TILE, [=](int p, int j) { return Us[j * PS + p]; },
         [=](int j, int n) { return Bs[j * NS + n]; }, 0,
         [](int, int) { return 0.f; }, [](int, int) { return 0.f; },
@@ -699,7 +874,7 @@ ssd_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
     // and Gs), then W = (C B^T) . L, G = (dy u^T) . L and R = (dy u^T) . W,
     // 0 above the diagonal
     if (warp < BWARPS / 2)
-      tile_mm<SPLIT, EXACT, 1>(
+      tile_mm<SP, SP, EXACT, 1>(
           TILE, TILE, N, [=](int i, int n) { return Cs[i * NS + n]; },
           [=](int n, int j) { return Bs[j * NS + n]; }, 0,
           [](int, int) { return 0.f; }, [](int, int) { return 0.f; },
@@ -709,7 +884,7 @@ ssd_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
           },
           nullptr, nullptr, 0, BWARPS / 2);
     else
-      tile_mm<SPLIT, EXACT, 1>(
+      tile_mm<SP, SP, EXACT, 1>(
           TILE, TILE, P, [=](int i, int p) { return dYs[i * PS + p]; },
           [=](int p, int j) { return Us[j * PS + p]; }, 0,
           [](int, int) { return 0.f; }, [](int, int) { return 0.f; },
@@ -729,7 +904,7 @@ ssd_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
     });
     __syncthreads();
     // du and dx; row partials of x.du and of u (dS B) decay for dcum
-    tile_mm<SPLIT, EXACT>(
+    tile_mm<SP, SP, EXACT>(
         TILE, P, TILE, [=](int j, int i) { return Ws[i * TB + j]; },
         [=](int i, int p) { return dYs[i * PS + p]; }, ds_zero ? 0 : N,
         [=](int j, int n) { return Bs[j * NS + n]; },
@@ -745,7 +920,7 @@ ssd_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
     // this head's dC tile; row partials of C (S_in^T dy).  The ranks have
     // read the tile before out of OB and OC.
     if (t + 1 < nt) cluster_wait();
-    tile_mm<SPLIT, EXACT>(
+    tile_mm<SP, SP, EXACT>(
         TILE, N, TILE, [=](int i, int j) { return Gs[i * TB + j]; },
         [=](int j, int n) { return Bs[j * NS + n]; }, sin_zero ? 0 : P,
         [=](int i, int p) { return dYs[i * PS + p]; },
@@ -756,7 +931,7 @@ ssd_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
         },
         pE, nullptr);
     // this head's dB tile
-    tile_mm<SPLIT, EXACT>(
+    tile_mm<SP, SP, EXACT>(
         TILE, N, TILE, [=](int j, int i) { return Gs[i * TB + j]; },
         [=](int i, int n) { return Cs[i * NS + n]; }, ds_zero ? 0 : P,
         [=](int j, int p) { return Us[j * PS + p]; },
@@ -829,7 +1004,7 @@ ssd_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
     // dS for the tile before: exp(cum_last) dS + sum_i exp(cum_i) dy_i C_i
     const float eclast = expf(clast);
     if (t > 0)  // tile 0's leaving-state adjoint feeds nothing
-      tile_mm<SPLIT, EXACT>(
+      tile_mm<SP, SP, EXACT>(
           P, N, TILE, [=](int p, int i) { return ecum[i] * dYs[i * PS + p]; },
           [=](int i, int n) { return Cs[i * NS + n]; }, 0,
           [](int, int) { return 0.f; }, [](int, int) { return 0.f; },
@@ -876,18 +1051,56 @@ reduce_groups(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
+// plan (when not null) receives {CTAs, heads a CTA, threads a CTA, dynamic
+// shared memory bytes, registers a thread, staging areas, state kept} and
+// nothing is launched
 template <typename T>
 int fwd_launch(const void* x, const float* dt, const float* a, const void* bm,
                const void* cm, const float* init, float* y, float* fin,
-               int Bsz, int S, int H, int P, int N, cudaStream_t s) {
-  const long long smem = fwd_smem(P, N);
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  ssd_fwd_kernel<T><<<Bsz * H, THREADS, smem, s>>>(
+               int Bsz, int S, int H, int P, int N, bool has_init,
+               bool has_fin, cudaStream_t s, int* plan) {
+  constexpr int E = (int)sizeof(T);
+  // by shape: y's 16-row blocks whole groups of 64 columns, G and the
+  // update whole 16 x 16 blocks
+  void (*kern)(const T*, const float*, const float*, const T*, const T*,
+               const float*, float*, float*, int, int, int, int, int, int,
+               int) = P % 64 == 0 && N % 16 == 0 ? ssd_fwd_kernel<T, true, 8>
+                                                 : ssd_fwd_kernel<T, false, 2>;
+  FwdGeo geo;
+  if (!fwd_geometry(S, H, P, N, E, has_init, has_fin, &geo))
+    return (int)cudaErrorInvalidValue;
+  const int ctas = Bsz * (H / geo.hpc);
+  if (plan) {
+    cudaFuncAttributes fa;
+    const cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+    if (err != cudaSuccess) return (int)err;
+    plan[0] = ctas;
+    plan[1] = geo.hpc;
+    plan[2] = THREADS;
+    plan[3] = (int)geo.smem;
+    plan[4] = fa.numRegs;
+    plan[5] = geo.stages;
+    plan[6] = geo.state ? 1 : 0;
+    return 0;
+  }
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(ssd_fwd_kernel<T, false, 2>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)MAX_SMEM),
+      cudaFuncSetAttribute(ssd_fwd_kernel<T, true, 8>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)MAX_SMEM)};
+  if (attr[0] != cudaSuccess) return (int)attr[0];
+  if (attr[1] != cudaSuccess) return (int)attr[1];
+  // 16-byte copies when every row of B, C and x starts on 16 bytes
+  const bool vec16 =
+      (P * E) % 16 == 0 && (N * E) % 16 == 0 &&
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(bm) |
+        reinterpret_cast<uintptr_t>(cm)) % 16) == 0;
+  kern<<<ctas, THREADS, geo.smem, s>>>(
       static_cast<const T*>(x), dt, a, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), init, y, fin, S, H, P, N);
+      static_cast<const T*>(cm), init, y, fin, S, H, P, N, geo.hpc,
+      geo.stages, vec16 ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -900,13 +1113,13 @@ int bwd_launch(const float* dy, const void* x, const float* dt, const float* a,
                float* states, float* dx, float* ddt, float* part, float* dbc,
                int Bsz, int S, int H, int P, int N, cudaStream_t s,
                int* plan, int* launched) {
-  constexpr int SPLIT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int SP = std::is_same<T, float>::value ? 2 : 1;
   // by shape: every tile product is whole 16 x 16 blocks and 8-deep steps
   void (*kern)(const float*, const T*, const float*, const float*, const T*,
                const T*, const float*, float*, float*, float*, float*, float*,
                int, int, int, int) =
-      P % 16 == 0 && N % 16 == 0 ? ssd_bwd_kernel<T, SPLIT, true>
-                                : ssd_bwd_kernel<T, SPLIT, false>;
+      P % 16 == 0 && N % 16 == 0 ? ssd_bwd_kernel<T, SP, true>
+                                : ssd_bwd_kernel<T, SP, false>;
   const long long smem = bwd_smem(P, N, (int)sizeof(T));
   const int CL = bwd_cluster(H), G = H / CL;
   const int nt = (S + TILE - 1) / TILE;
@@ -923,10 +1136,10 @@ int bwd_launch(const float* dy, const void* x, const float* dt, const float* a,
     return 0;
   }
   static const cudaError_t attr[2] = {
-      cudaFuncSetAttribute(ssd_bwd_kernel<T, SPLIT, false>,
+      cudaFuncSetAttribute(ssd_bwd_kernel<T, SP, false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)MAX_SMEM),
-      cudaFuncSetAttribute(ssd_bwd_kernel<T, SPLIT, true>,
+      cudaFuncSetAttribute(ssd_bwd_kernel<T, SP, true>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)MAX_SMEM)};
   if (attr[0] != cudaSuccess) return (int)attr[0];
@@ -971,12 +1184,18 @@ bool dims_ok(int Bsz, int S, int H, int P, int N, long long smem) {
          (long long)Bsz * H < (1LL << 31) && smem <= MAX_SMEM;
 }
 
+// The least forward CTA: one head, one staging area, a state
+long long fwd_smem_least(int P, int N) {
+  return fwd_smem(P, N, 4, 1, 1, true);
+}
+
 }  // namespace
 
 // Dynamic shared memory (bytes) a CTA of the forward (backward = 0) or
-// backward (1) kernel needs for state width P and N.
+// backward (1) kernel needs at least for state width P and N with float32
+// inputs (the forward's least CTA: one head, one staging area, a state).
 extern "C" long long ssd_scan_smem(int P, int N, int backward) {
-  return backward ? bwd_smem(P, N, 4) : fwd_smem(P, N);
+  return backward ? bwd_smem(P, N, 4) : fwd_smem_least(P, N);
 }
 
 // x, bm, cm: dtype (0 float32, 1 bfloat16); dt, a, init, y, final_state
@@ -986,7 +1205,7 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a,
                             const void* bm, const void* cm, const void* init,
                             void* y, void* final_state, int Bsz, int S, int H,
                             int P, int N, int dtype, void* stream) {
-  if (!dims_ok(Bsz, S, H, P, N, fwd_smem(P, N)) || y == nullptr)
+  if (!dims_ok(Bsz, S, H, P, N, fwd_smem_least(P, N)) || y == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* d = static_cast<const float*>(dt);
@@ -995,10 +1214,33 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a,
   float* yy = static_cast<float*>(y);
   float* fs = static_cast<float*>(final_state);
   if (dtype == 0)
-    return fwd_launch<float>(x, d, av, bm, cm, in, yy, fs, Bsz, S, H, P, N, s);
+    return fwd_launch<float>(x, d, av, bm, cm, in, yy, fs, Bsz, S, H, P, N,
+                             in != nullptr, fs != nullptr, s, nullptr);
   if (dtype == 1)
     return fwd_launch<__nv_bfloat16>(x, d, av, bm, cm, in, yy, fs, Bsz, S, H,
-                                     P, N, s);
+                                     P, N, in != nullptr, fs != nullptr, s,
+                                     nullptr);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forward launch ssd_scan_fwd would make for these dims, with or
+// without an initial state and a final state, without making it:
+// plan[0..6] = CTAs, heads a CTA, threads a CTA, dynamic shared memory
+// bytes, registers a thread, staging areas, 1 when the states are kept.
+extern "C" int ssd_scan_fwd_plan(int Bsz, int S, int H, int P, int N,
+                                 int dtype, int has_init, int want_state,
+                                 int* plan) {
+  if (!dims_ok(Bsz, S, H, P, N, fwd_smem_least(P, N)) || !plan)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return fwd_launch<float>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, Bsz, S, H, P, N,
+                             has_init != 0, want_state != 0, nullptr, plan);
+  if (dtype == 1)
+    return fwd_launch<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr, nullptr, Bsz,
+                                     S, H, P, N, has_init != 0,
+                                     want_state != 0, nullptr, plan);
   return (int)cudaErrorInvalidValue;
 }
 

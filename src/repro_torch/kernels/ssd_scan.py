@@ -2,7 +2,8 @@
 ``csrc/ssd_scan.cu``.
 
 The port of ``repro.kernels.ssd_scan.ssd_scan_pallas``.  The kernels'
-contract, design and bound are described in the CUDA source.
+contract, design and bound are described in the CUDA source;
+:func:`fwd_geometry` and :func:`bwd_geometry` are their launch models.
 :class:`SSDScanFn` makes the pair one differentiable operation: its
 forward launches ``ssd_scan_fwd`` and its backward ``ssd_scan_bwd`` (the
 JAX package takes this gradient from XLA's autodiff of ``ssd_chunked``).
@@ -19,8 +20,12 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 32  # tokens per tile in the kernels (csrc/ssd_scan.cu's TILE)
+TILE = 32  # tokens per tile of the backward (csrc/ssd_scan.cu's TILE)
+FWD_TILE = 64  # tokens per tile of the forward (FT)
+FWD_THREADS = 256
+MAX_HEADS = 8  # heads a forward CTA takes at most
 MAX_SMEM = 232448
+HALF_SM_SMEM = 233472 // 2 - 1024  # a CTA that fits twice in an SM
 MAX_CLUSTER = 8  # heads a backward cluster combines at most (the portable size)
 # kernels the backward entry has launched in this process, as it reports
 # them (the fused backward, plus the group reduction when H > 8)
@@ -46,6 +51,65 @@ def _entry():
 def _bwd_entry():
     return _lib_fn("ssd_scan_bwd", [ctypes.c_void_p] * 12
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+
+
+def _ldw(n: int, r: int) -> int:
+    """n words padded to r more than a multiple of 32 (``ldw``)."""
+    return n + (r + 32 - n % 32) % 32
+
+
+def fwd_smem_bytes(p: int, n: int, elt: int, heads: int, stages: int,
+                   state: bool) -> int:
+    """Dynamic shared memory of a forward CTA of ``heads`` heads for inputs
+    of ``elt`` bytes (``fwd_smem`` in the CUDA source): ``stages`` staging
+    areas of the B and C tiles (rows padded to 4 words past a multiple of
+    32) and the heads' x (padded to 8) in the inputs' type and their dt;
+    then G, three per-head vectors and, with ``state``, the heads' (P, N)
+    states in float32."""
+    wb, wx = _ldw(n * elt // 4, 4), _ldw(heads * p * elt // 4, 8)
+    return (4 * stages * FWD_TILE * (2 * wb + wx + heads)
+            + 4 * FWD_TILE * _ldw(FWD_TILE, 4) + 4 * 3 * heads * FWD_TILE
+            + (4 * heads * p * _ldw(n, 4) if state else 0))
+
+
+def fwd_geometry(b: int, s: int, h: int, p: int, n: int, elt: int,
+                 init: bool = False, final: bool = False) -> dict:
+    """The forward's launch at these dims, as ``csrc/ssd_scan.cu``'s
+    ``fwd_geometry`` sets it: tiles of 64 tokens; the states kept (``state``)
+    only when some tile needs one (more than one tile, an initial state or
+    a final state asked for); two staging areas when there are two tiles or
+    more and they fit; and ``heads`` a CTA, the largest power of two up to
+    8 dividing H whose CTA fits twice in an SM (233,472 B, 1 KB reserved a
+    CTA), else the largest that fits once.  None when nothing fits."""
+    nt = -(-s // FWD_TILE)
+    state = nt > 1 or init or final
+    for stages in ((2, 1) if nt > 1 else (1,)):
+        for cap in (HALF_SM_SMEM, MAX_SMEM):
+            c = MAX_HEADS
+            while c >= 1:
+                smem = fwd_smem_bytes(p, n, elt, c, stages, state)
+                if h % c == 0 and smem <= cap:
+                    return dict(ctas=b * (h // c), heads=c,
+                                threads=FWD_THREADS, tiles=nt,
+                                stages=stages, state=state, smem_bytes=smem)
+                c //= 2
+    return None
+
+
+def fwd_plan(b: int, s: int, h: int, p: int, n: int, dtype: torch.dtype,
+             init: bool = False, final: bool = False) -> dict:
+    """The forward launch the CUDA library would make at these dims
+    (``ssd_scan_fwd_plan``), without making it: CTAs, heads a CTA, threads,
+    shared memory, registers a thread, staging areas and whether the
+    states are kept."""
+    fn = _lib_fn("ssd_scan_fwd_plan", [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    keys = ("CTAs", "heads", "threads", "smem_bytes", "registers", "stages",
+            "state")
+    out = (ctypes.c_int * len(keys))()
+    err = fn(b, s, h, p, n, _DTYPES[dtype], int(init), int(final), out)
+    if err:
+        raise RuntimeError(f"ssd_scan_fwd_plan failed: cudaError {err}")
+    return dict(zip(keys, out))
 
 
 def bwd_geometry(b: int, s: int, h: int) -> dict:

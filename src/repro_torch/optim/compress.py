@@ -6,7 +6,7 @@ refreshed delta set as int8 codes and one float32 scale per tensor, 4x
 fewer bytes than float32, and carries the quantisation residual per user
 into the next round, so the exchange stays unbiased over rounds.  A leaf
 on the card goes through the hand-written grad_quant kernel
-(``kernels.ops.grad_quant``, two launches, no host read of the scale); a
+(``kernels.ops.grad_quant``, one launch, no host read of the scale); a
 leaf on the CPU through its plain version.  **Per-row packing**
 (``rowwise_quant``/``rowwise_dequant``): the pack side of the paged int8
 KV store (``serving/paging.py``), where a row is one token's head×dim

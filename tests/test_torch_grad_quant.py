@@ -5,12 +5,17 @@ path (codes, scales and residuals equal) and against the Pallas kernel in
 interpret mode (codes equal, scale within 1e-6, residual within 1e-6, as
 ``tests/test_kernels.py`` holds it: the Pallas kernel multiplies by
 1/scale); the tree-level compressor and its error-feedback telescoping;
-the wrapper's checks; and, on a card, the CUDA kernel against its plain
-version, exactly.
+the wrapper's checks; the kernel's choice of path and its slice-by-slice
+arithmetic (host-side models); the per-call bench's CPU smoke; and, on a
+card, the CUDA kernel on each path against its plain version, exactly,
+and its launch against the model.
 
 JAX is imported inside the reference helpers only, so that the card's
 tests run on a machine without it:
 ``python -m pytest -q -m cuda tests/test_torch_grad_quant.py``."""
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -213,6 +218,124 @@ def test_ops_entry_runs_the_plain_version_on_the_cpu():
     assert s.item() == want[1]
 
 
+def _assert_same(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def test_wrapper_refuses_pointers_the_vector_loads_cannot_take():
+    """The kernel reads g and err 16 bytes a load: a tensor that starts
+    off a 16-byte boundary is refused, not run on a slower path."""
+    g = torch.zeros(9)[1:]  # 4 bytes past the allocation's boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        GQ.grad_quant_cuda(g, torch.zeros(8))
+    with pytest.raises(ValueError, match="16-byte"):
+        GQ.grad_quant_cuda(torch.zeros(8), torch.zeros(9)[1:])
+
+
+# the main path's largest leaf (qwen2-1.5b's d_model x d_ff / 2) and the
+# on-chip capacity of 132 SMs
+GQ_LEAF = 1536 * 4480
+CAP132 = 132 * GQ.CAP
+
+
+@pytest.mark.parametrize("n, path, ctas", [
+    (1, 0, 1), (GQ.MIN_PER_CTA, 0, 1), (GQ.MIN_PER_CTA + 1, 1, 2),
+    (1_000_003, 1, 123), (GQ_LEAF, 1, 132), (CAP132 - 1, 1, 132),
+    (CAP132, 1, 132), (CAP132 + 1, 2, 264), (2 * GQ_LEAF, 2, 264)])
+def test_plan_chooses_the_path_by_size(n, path, ctas):
+    """One CTA up to MIN_PER_CTA elements (no grid barrier), on chip up to
+    the SMs' shared memory (slices in whole units of 16, the last one
+    ragged, none empty), two passes beyond; one launch each."""
+    plan = GQ.plan_model(n)
+    assert (plan["path"], plan["ctas"], plan["threads"]) == (path, ctas, 512)
+    if path == 1:
+        per = plan["per"]
+        assert per % GQ.UNIT == 0 and per * ctas >= n > per * (ctas - 1)
+        assert plan["smem_bytes"] == 4 * per <= GQ.MAX_SMEM - 256
+    if path == 0:
+        assert plan["smem_bytes"] == 4 * (-(-n // 16) * 16)
+
+
+def test_plan_at_the_main_paths_largest_leaf():
+    """6,881,280 elements fit on chip: 132 slices of 52,144 floats
+    (208,576 B), under the capacity of 7,662,336."""
+    assert GQ.capacity() == 7_662_336
+    assert GQ.plan_model(GQ_LEAF) == dict(path=1, ctas=132, threads=512,
+                                          per=52_144, smem_bytes=208_576)
+
+
+def _nan_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's max: a NaN on either side wins."""
+    return torch.where(torch.isnan(a) | torch.isnan(b),
+                       torch.full_like(a, float("nan")), torch.maximum(a, b))
+
+
+def sliced_model(g: torch.Tensor, err: torch.Tensor, sms: int = 132):
+    """The kernel's one-pass arithmetic slice by slice, in plain torch on
+    the CPU: each CTA's slice of ``plan_model`` (on the two-pass path,
+    n cut into as many contiguous slices as CTAs: which CTA takes an
+    element changes no bit) forms g32 = g + err and its own absmax slot
+    (NaN propagating); the global absmax is the max of the slots in order;
+    then each slice quantises its g32 with the one scale.  Returns (q,
+    scale, new_err) as ``grad_quant_ref`` does."""
+    n = g.numel()
+    plan = GQ.plan_model(n, sms)
+    per = plan["per"] if plan["path"] < 2 else -(-n // plan["ctas"])
+    g32 = g.reshape(-1).float() + err.reshape(-1)
+    slices = [g32[lo:lo + per] for lo in range(0, n, per)]
+    absmax = torch.zeros((), dtype=torch.float32)
+    for s in slices:
+        absmax = _nan_max(absmax, s.abs().amax())
+    scale = absmax / torch.full((), 127.0) + 1e-12
+    qs, es = [], []
+    for s in slices:
+        q = torch.clamp(torch.round(s / scale), -127, 127).to(torch.int8)
+        qs.append(q)
+        es.append(s - q.float() * scale)
+    return (torch.cat(qs).reshape(g.shape), scale,
+            torch.cat(es).reshape(g.shape))
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("n, sms, dtype", [
+    (GQ.MIN_PER_CTA + 1, 132, "float32"),    # two slices, the last ragged
+    (100_003, 132, "bfloat16"),              # 13 slices
+    (50_001, 4, "float32"),                  # 4 slices of a 4-SM card
+    (3 * GQ.CAP + 5, 3, "bfloat16"),         # past a 3-SM card's capacity
+])
+def test_sliced_model_equals_plain(n, sms, dtype, nan):
+    """The one-pass kernel's arithmetic slice by slice (each slice's g32
+    and absmax slot, the slots' max, one scale, each slice's codes and
+    residuals) is bit for bit ``grad_quant_ref``, across slice boundaries,
+    with a ragged tail and with a NaN in one slice."""
+    g, err = _inputs(n, n % 97, dtype)
+    plan = GQ.plan_model(n, sms)
+    if nan:
+        g[min(n - 1, plan["per"] + 3)] = np.nan  # the second slice
+    got = sliced_model(_t(g, dtype), _t(err), sms)
+    want = grad_quant_ref(_t(g, dtype), _t(err))
+    _assert_same(got, want)
+    assert torch.isnan(got[1]).item() == nan
+
+
+def test_bench_times_every_size_on_the_cpu():
+    """``benchmarks_torch/grad_quant_bench.py`` as a CPU smoke: a row a
+    size with the wrapper's time and spread, no C entry off the card."""
+    spec = importlib.util.spec_from_file_location(
+        "grad_quant_bench", pathlib.Path(__file__).resolve().parents[1]
+        / "benchmarks_torch" / "grad_quant_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    rec = bench.main(device="cpu", sizes=(1, 4096, 20_000))
+    assert rec["device"] == "cpu" and rec["nvidia_smi"] is None
+    assert [r["n"] for r in rec["rows"]] == [1, 4096, 20_000]
+    for r in rec["rows"]:
+        assert 0 < r["ops_ms_min"] <= r["ops_ms"] <= r["ops_ms_max"]
+        assert r["entry_ms"] is None
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against its plain version, exactly
 # ---------------------------------------------------------------------------
@@ -223,12 +346,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
     return torch.device("cuda")
-
-
-def _assert_same(got, want):
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
@@ -244,6 +361,41 @@ def test_cuda_kernel_equals_plain(cuda_device, n, dtype, kind):
     torch.cuda.synchronize()
     assert ops.grad_quant.launches == before + 1
     _assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("where", ["one CTA", "on chip", "capacity - 1",
+                                   "capacity", "capacity + 1", "2 leaves"])
+def test_cuda_paths_match_the_model_and_equal_plain(cuda_device, where,
+                                                    dtype):
+    """The launch the library makes is ``plan_model``'s on this card's SMs;
+    each path (one CTA, on chip, two passes, chosen by n) gives the plain
+    version's codes, scale and residuals exactly, the same bits twice, and
+    a NaN in the tensor a NaN scale."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    cap = GQ.capacity(sms)
+    n = {"one CTA": 5000, "on chip": GQ_LEAF, "capacity - 1": cap - 1,
+         "capacity": cap, "capacity + 1": cap + 1,
+         "2 leaves": 2 * GQ_LEAF}[where]
+    plan = GQ.grad_quant_plan(n, getattr(torch, dtype))
+    model = GQ.plan_model(n, sms)
+    assert plan["sms"] == sms
+    assert (plan["path"], plan["ctas"], plan["threads"],
+            plan["smem_bytes"]) == (model["path"], model["ctas"],
+                                    model["threads"], model["smem_bytes"])
+    g, err = _inputs(n, 5, dtype)
+    g[n // 2] = np.nan if where == "capacity + 1" else g[n // 2]
+    gt, et = _t(g, dtype).to(cuda_device), _t(err).to(cuda_device)
+    before = ops.grad_quant.launches
+    got = ops.grad_quant(gt, et)
+    again = ops.grad_quant(gt, et)
+    want = grad_quant_ref(gt, et)
+    torch.cuda.synchronize()
+    assert ops.grad_quant.launches == before + 2
+    _assert_same(got, want)
+    _assert_same(again, got)
+    assert torch.isnan(got[1]).item() == (where == "capacity + 1")
 
 
 @pytest.mark.cuda

@@ -4,13 +4,18 @@ Pallas kernel in interpret mode at ``TestSSDScan``'s shapes (2e-3, the
 repo's SSD bar); ``models.ssm.ssd_chunked`` against the JAX package's XLA
 ``ssd_chunked`` with and without an initial state over several chunks
 (1e-5), and its gradients for x, dt, B and C against ``jax.grad``; the
-wrapper's checks; and, on a card, the forward kernel against the plain
-version and the backward kernel against autograd of the plain chunked
-body, in float32 (TF32 off) and bfloat16.
+wrapper's checks; the forward's and the backward's launch models and the
+forward's TF32 splits emulated in plain torch; and, on a card, the
+forward kernel against the plain version and the backward kernel against
+autograd of the plain chunked body, in float32 (TF32 off) and bfloat16,
+and each launch against its model.
 
 JAX is imported inside the reference helpers only, so that the card's
 tests run on a machine without it:
 ``python -m pytest -q -m cuda tests/test_torch_ssd_scan.py``."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -176,6 +181,188 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, exc, match):
 
 
 # ---------------------------------------------------------------------------
+# The forward's launch and TF32 splits (host-side models)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dims, kw, want", [
+    # the adapt shape in bf16: 4 heads a CTA, no state, two CTAs an SM
+    ((48, 64, 64, 64, 128, 2), {}, dict(ctas=768, heads=4, tiles=1, stages=1,
+                                        state=False, smem_bytes=91136)),
+    # the same asking for the final state: one head's state a CTA
+    ((48, 64, 64, 64, 128, 2), dict(final=True),
+     dict(ctas=3072, heads=1, tiles=1, stages=1, state=True,
+          smem_bytes=97280)),
+    # float32 at the adapt shape: two heads would not fit twice an SM
+    ((48, 64, 64, 64, 128, 4), {}, dict(ctas=3072, heads=1, tiles=1,
+                                        stages=1, state=False,
+                                        smem_bytes=104448)),
+    # mamba2-smoke's widths (P = N = 16), three tiles and an initial state
+    ((2, 160, 8, 16, 16, 4), dict(init=True),
+     dict(ctas=4, heads=4, tiles=3, stages=2, state=True,
+          smem_bytes=105472)),
+    # a ragged tile at odd widths (12 heads of 12, state 20)
+    ((1, 72, 12, 12, 20, 2), {}, dict(ctas=3, heads=4, tiles=2, stages=2,
+                                      state=True, smem_bytes=86784)),
+    # the Pallas chunk of 256 at mamba2-1.3b's widths: one CTA an SM
+    ((1, 512, 2, 64, 128, 2), {}, dict(ctas=1, heads=2, tiles=8, stages=2,
+                                       state=True, smem_bytes=194048)),
+    ((1, 512, 2, 64, 128, 4), {}, dict(ctas=2, heads=1, tiles=8, stages=2,
+                                       state=True, smem_bytes=224512)),
+    # wide B and C rows in float32: one staging area for three tiles
+    ((1, 160, 2, 16, 192, 4), {}, dict(ctas=1, heads=2, tiles=3, stages=1,
+                                       state=True, smem_bytes=155136)),
+], ids=["adapt", "adapt-final", "adapt-f32", "smoke-init", "ragged",
+        "Q256", "Q256-f32", "onestage"])
+def test_forward_geometry(dims, kw, want):
+    """Tiles of 64 tokens; the states kept only when some tile needs them;
+    two staging areas when there are two tiles or more; the most heads a
+    CTA (a power of two up to 8 dividing H) that fit twice an SM, else
+    once; every CTA within the 232,448 B limit."""
+    geo = SK.fwd_geometry(*dims, **kw)
+    assert geo == dict(want, threads=256)
+    b, s, h, p, n, elt = dims
+    assert geo["smem_bytes"] == SK.fwd_smem_bytes(
+        p, n, elt, geo["heads"], geo["stages"], geo["state"]) <= SK.MAX_SMEM
+    two_an_sm = geo["smem_bytes"] <= SK.HALF_SM_SMEM
+    bigger = geo["heads"] * 2
+    if h % bigger == 0 and bigger <= SK.MAX_HEADS:  # the next size is too big
+        assert SK.fwd_smem_bytes(p, n, elt, bigger, geo["stages"],
+                                 geo["state"]) > (SK.HALF_SM_SMEM if two_an_sm
+                                                  else SK.MAX_SMEM)
+
+
+@pytest.mark.parametrize("p, n, elt, heads, stages, state, want", [
+    (64, 128, 2, 4, 1, False, 91136),     # B, C 17,408 each, x 34,816
+    (64, 128, 4, 1, 2, True, 224512),     # the least float32 CTA, doubled
+    (16, 16, 2, 1, 1, False, 38912),      # rows of 8 words padded to 36
+])
+def test_forward_shared_memory(p, n, elt, heads, stages, state, want):
+    """Staged B and C rows padded to 4 words past a multiple of 32, x rows
+    to 8 past, in the inputs' type; G (64 x 68) and three per-head vectors
+    in float32; the states (rows padded to 4 past) only when kept."""
+    assert SK.fwd_smem_bytes(p, n, elt, heads, stages, state) == want
+
+
+# the forward kernel's TF32 splits by input dtype (the (SA, SB) template
+# arguments of ssd_fwd_kernel's products in csrc/ssd_scan.cu, SX being 1
+# for bf16 and 2 for float32): 2 splits an operand into a head and a
+# residual, 1 rounds it alone (exact for a bf16 value).  G = C B^T, W' x,
+# C S^T and the state update x^T (B . decay), each (A, B).
+FWD_SPLITS = {
+    torch.bfloat16: dict(G=(1, 1), Wx=(2, 1), CS=(1, 2), upd=(1, 2)),
+    torch.float32: dict(G=(2, 2), Wx=(2, 2), CS=(2, 2), upd=(2, 2)),
+}
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to its nearest TF32 value, ties away from zero
+    (``cvt.rna.tf32.f32``: 10 mantissa bits kept), by bit arithmetic."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a: torch.Tensor, b: torch.Tensor, split) -> torch.Tensor:
+    """a @ b as the kernel's mma_step sums it: each operand rounded to TF32
+    and, where its split is 2, its TF32 residual's product with the other
+    head added (products of TF32 values are exact in float32)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    if split[0] == 2:
+        out = out + tf32_round(a - ah) @ bh
+    if split[1] == 2:
+        out = out + ah @ tf32_round(b - bh)
+    return out + ah @ bh
+
+
+def fwd_model(x, dt, a, bmat, cmat, init_state=None, splits=None):
+    """The forward kernel's tile algebra in plain torch on float32 values:
+    tiles of 64 tokens, G = C B^T, W' = G . L . dt, y = W' x + exp(cum) .
+    (C S^T), S <- S exp(cum_last) + x^T (B . dt exp(cum_last - cum)), every
+    product through TF32 with the kernel's splits (``FWD_SPLITS`` of the
+    inputs' dtype unless ``splits`` names others).  Returns (y, final
+    state)."""
+    splits = splits or FWD_SPLITS[x.dtype]
+    x, bmat, cmat = x.float(), bmat.float(), cmat.float()
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    y = torch.empty((b, s, h, p), dtype=torch.float32)
+    fin = torch.empty((b, h, p, n), dtype=torch.float32)
+    for bi in range(b):
+        for hi in range(h):
+            st = (torch.zeros((p, n)) if init_state is None
+                  else init_state[bi, hi].float())
+            for s0 in range(0, s, SK.FWD_TILE):
+                rows = slice(s0, s0 + SK.FWD_TILE)
+                xt, d = x[bi, rows, hi], dt[bi, rows, hi]
+                bt, ct = bmat[bi, rows], cmat[bi, rows]
+                cum = torch.cumsum(d * a[hi], 0)
+                g = _tf32_mm(ct, bt.T, splits["G"])
+                w = g * torch.exp(cum[:, None] - cum[None, :]).tril() * d
+                y[bi, rows, hi] = (_tf32_mm(w, xt, splits["Wx"])
+                                   + torch.exp(cum)[:, None]
+                                   * _tf32_mm(ct, st.T, splits["CS"]))
+                f = d * torch.exp(cum[-1] - cum)
+                st = st * torch.exp(cum[-1]) + _tf32_mm(
+                    xt.T, bt * f[:, None], splits["upd"])
+            fin[bi, hi] = st
+    return y, fin
+
+
+def test_forward_splits_are_the_kernels():
+    """``FWD_SPLITS`` is what ``ssd_fwd_kernel`` compiles: the (SA, SB)
+    template arguments of its four products, in the source's order G, C
+    S^T, W' x, the state update, with SX 1 for bf16 and 2 for float32."""
+    src = (Path(SK.__file__).parents[1] / "csrc" / "ssd_scan.cu").read_text()
+    start = src.index("ssd_fwd_kernel(const T*")
+    body = src[start:src.index("\n}\n", start)]
+    args = re.findall(r"(?:mm_sum|tile_mm)<\s*(\w+)\s*,\s*(\w+)", body)
+    for dtype, sx in ((torch.bfloat16, 1), (torch.float32, 2)):
+        got = [tuple(sx if v == "SX" else int(v) for v in pair)
+               for pair in args]
+        want = [FWD_SPLITS[dtype][k] for k in ("G", "CS", "Wx", "upd")]
+        assert got == want, (dtype, args)
+
+
+def test_tf32_round_is_nearest_ties_away():
+    one = 1.0
+    v = torch.tensor([one + 2 ** -12, one + 2 ** -11, one + 3 * 2 ** -11,
+                      -(one + 2 ** -11), 2 ** -11 * 5, 0.0])
+    got = tf32_round(v).tolist()
+    assert got == [one, one + 2 ** -10, one + 2 ** -9, -(one + 2 ** -10),
+                   2 ** -11 * 5, 0.0]
+
+
+TF32_SHAPES = [dict(b=1, s=192, h=2, p=16, n=32, init=True),   # 3 tiles
+               dict(b=1, s=64, h=2, p=64, n=128, init=False)]  # adapt widths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", TF32_SHAPES, ids=["3tiles-init", "adapt"])
+def test_forward_tf32_splits_meet_the_bar_one_product_does_not(cfg, dtype):
+    """The forward's tile algebra with every operand rounded to nearest
+    TF32 (``fwd_model``): the kernel's splits stay within 1e-4 of max(1,
+    max |want|) of the float64 oracle, which one product of rounded
+    operands everywhere misses (as do the bf16 splits on float32 inputs,
+    whose x, B and C are not exact in TF32)."""
+    x, dt, a, bm, cm, st = _t(_inputs(**cfg), dtype=dtype)
+    yr, sr = ssd_scan_ref(x.double(), dt.double(), a.double(), bm.double(),
+                          cm.double(), None if st is None else st.double())
+
+    def err(got, want):
+        return ((got.double() - want).abs().max().item()
+                / max(1.0, want.abs().max().item()))
+
+    y, fin = fwd_model(x, dt, a, bm, cm, st)
+    assert err(y, yr) <= 1e-4 and err(fin, sr) <= 1e-4
+    one = {k: (1, 1) for k in FWD_SPLITS[dtype]}
+    assert err(fwd_model(x, dt, a, bm, cm, st, one)[0], yr) > 1e-4
+    if dtype == torch.float32:
+        bf16 = FWD_SPLITS[torch.bfloat16]
+        assert err(fwd_model(x, dt, a, bm, cm, st, bf16)[0], yr) > 1e-4
+
+
+# ---------------------------------------------------------------------------
 # The backward's launch, scratch and head combine (host-side models)
 # ---------------------------------------------------------------------------
 
@@ -275,9 +462,11 @@ CARD_SHAPES = [
     dict(b=48, s=64, h=64, p=64, n=128, chunk=256, init=False),  # adapt shape
     dict(b=2, s=160, h=4, p=32, n=64, chunk=80, init=True),    # 5 tiles
     dict(b=1, s=72, h=12, p=12, n=20, chunk=72, init=True),    # odd widths
+    # float32: the forward's two staging areas would not fit, one does
+    dict(b=1, s=160, h=2, p=16, n=192, chunk=160, init=False),
 ]
 CARD_IDS = ["4chunks", "init", "ragged", "Q256", "adapt", "5tiles",
-            "oddwidths"]
+            "oddwidths", "onestage"]
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -317,6 +506,12 @@ def test_cuda_forward_matches_plain(cuda_device, cfg, dtype):
                             want_state=False)
     assert none is None and y2.dtype == dtype
     assert torch.equal(y2, y.to(dtype))
+    # the main path's launch (no final state: several heads a CTA, states
+    # kept only where a tile needs one) in float32 against the plain version
+    y3, _ = ops.ssd_scan(*t[:5], chunk=cfg["chunk"], init_state=t[5],
+                         want_state=False, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _close(y3, yr, 1e-4, "y without the final state")
 
 
 @pytest.mark.cuda
@@ -353,6 +548,38 @@ def test_cuda_backward_matches_autograd_of_plain(cuda_device, cfg, dtype):
                            cfg["chunk"], t[5], need_state=False)
     again = torch.autograd.grad((y * w).sum(), leaves)
     assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", CARD_SHAPES, ids=CARD_IDS)
+def test_cuda_forward_launch_matches_the_model(cuda_device, cfg, dtype):
+    """The forward launch the library makes (CTAs, heads a CTA, threads,
+    shared memory, staging areas, states kept) is the one ``fwd_geometry``
+    describes, with and without the final state; two runs give the same
+    bits."""
+    b, s, h, p, n = (cfg[k] for k in ("b", "s", "h", "p", "n"))
+    elt = 4 if dtype == torch.float32 else 2
+    for final in (False, True):
+        geo = SK.fwd_geometry(b, s, h, p, n, elt, init=cfg["init"],
+                              final=final)
+        plan = SK.fwd_plan(b, s, h, p, n, dtype, init=cfg["init"],
+                           final=final)
+        assert (plan["CTAs"], plan["heads"], plan["threads"],
+                plan["smem_bytes"], plan["stages"], plan["state"]) == (
+            geo["ctas"], geo["heads"], geo["threads"], geo["smem_bytes"],
+            geo["stages"], int(geo["state"]))
+        t = _t(_inputs(**cfg), cuda_device, dtype)
+        one = SK.ssd_scan_fwd_cuda(*t[:5], chunk=cfg["chunk"],
+                                   init_state=t[5], want_state=final)
+        two = SK.ssd_scan_fwd_cuda(*t[:5], chunk=cfg["chunk"],
+                                   init_state=t[5], want_state=final)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], two[0])
+        assert (one[1] is None) == (not final)
+        if final:
+            assert torch.equal(one[1], two[1])
 
 
 @pytest.mark.cuda

@@ -17,8 +17,11 @@ exits non-zero:
    see, two runs bit-equal, and exactly the cached kernel's output on the
    same rows laid out contiguously, at the 4096-row cache too; the launch
    geometry of both at the main shape, at least 128 CTAs, and their time
-   also as launches replayed from a CUDA graph; Fisher: f32 at 1e-5, bf16
-   inputs at 2e-2, masked rows holding NaN; grad_quant: codes, scale and
+   also as launches replayed from a CUDA graph; both again at gemma-2b's
+   block prefill (D 256, one kv head: parity, paged equal to cached, each
+   timed beside SDPA and a page gather + SDPA); Fisher: f32 at 1e-5, bf16
+   inputs at 2e-2, masked rows holding NaN, the tap-gradient launch held
+   to its host-side model; grad_quant: codes, scale and
    residual exactly equal, f32 and bf16 g, a ragged multi-block size, ties,
    zeros and a NaN, on each of its paths (one CTA, on chip, two passes:
    one element either side of the on-chip capacity, two leaves), its one
@@ -34,14 +37,18 @@ exits non-zero:
    at 1e-4 with TF32 off and bf16 at 3e-2 at the kernel bench's two shapes
    (causal), at qwen2-1.5b's attention width as a long cache-free prefill
    (1, 4096, 12, 2, 128) in bf16, at mixtral-8x7b's sliding window (1,
-   8192, 32, 8, 128, window 4096) in bf16, without the causal mask, with Sk
-   != Sq both ways, a window smaller than a tile and D = 256, and on its
-   TMA + wgmma path (bf16, D 64 and 128) a window smaller than its tile and
-   Sq, Sk off multiples of 128 both ways), then its median time beside its
-   bound, the plain version's time and one PyTorch library call's time
-   where one computes the same function (a yardstick the port never
-   calls), the wgmma path's launch geometry (held to its host-side model)
-   and its time with and without a GQA group sharing K/V;
+   8192, 32, 8, 128, window 4096) in bf16, at gemma-2b's (1, 4096, 8, 1,
+   256) and stablelm-12b's (1, 4096, 32, 8, 160) prefill widths in bf16,
+   without the causal mask, with Sk != Sq both ways, a window smaller than
+   a tile and D = 256, and on its TMA + wgmma path (bf16, D 64, 128 and
+   160 to 256) a window smaller than its tile and Sq, Sk off multiples of
+   128 both ways, f32 (TF32 tensor cores) at the same shapes), then its
+   median time beside its bound (f32: three TF32 products at the TF32
+   rate, the CUDA cores' bound beside it), the plain version's time and
+   one PyTorch library call's time where one computes the same function
+   (a yardstick the port never calls), each path's launch geometry (held
+   to its host-side model, with ptxas's registers and spills) and the
+   wgmma path's time with and without a GQA group sharing K/V;
 4. small-input checks on qwen2-smoke in f32, card against the plain path
    on the CPU: the serving engine's greedy streams (contiguous, paged, and
    paged under half the page budget with at least one requeue), and
@@ -133,7 +140,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, non-TC f32 / TC bf16
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,  # dense, non-TC f32 / TC bf16
+            "tf32": 495e12}  # dense TF32 tensor cores
 
 # main-path shapes of the cached flash kernel: qwen2-1.5b block prefill with
 # 8 slots, prefill_block 8 and max_len 512
@@ -173,7 +181,7 @@ SSD = dict(b=48, s=64, h=64, p=64, n=128, chunk=256)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to max |want|
 SSD_TILE = 32  # csrc/ssd_scan.cu's tokens per tile
 # kernel 3 (aligned flash): (what, B, Sq, Sk, Hq, Hkv, D, causal, window,
-# dtypes); the first four are timed, in their first dtype
+# dtypes); the cases of ALIGNED_TIMED are timed, in their first dtype
 ALIGNED = [
     ("bench quick", 1, 512, 512, 4, 2, 64, True, 0, ("float32", "bfloat16")),
     ("bench full", 2, 2048, 2048, 8, 2, 128, True, 0,
@@ -181,6 +189,11 @@ ALIGNED = [
     ("qwen2-1.5b prefill", 1, 4096, 4096, 12, 2, 128, True, 0,
      ("bfloat16",)),
     ("mixtral-8x7b window", 1, 8192, 8192, 32, 8, 128, True, 4096,
+     ("bfloat16",)),
+    # the head dims of gemma-2b and paligemma-3b (256) and stablelm-12b
+    # (160, padded to 192 on the wgmma path) at a 4096-token prefill
+    ("gemma-2b prefill", 1, 4096, 4096, 8, 1, 256, True, 0, ("bfloat16",)),
+    ("stablelm-12b prefill", 1, 4096, 4096, 32, 8, 160, True, 0,
      ("bfloat16",)),
     ("not causal", 2, 256, 256, 2, 2, 128, False, 0, ("float32", "bfloat16")),
     ("Sk < Sq", 1, 300, 200, 4, 2, 64, True, 0, ("float32", "bfloat16")),
@@ -197,7 +210,21 @@ ALIGNED = [
      ("bfloat16",)),
     ("wgmma Sk > Sq, not causal", 1, 150, 333, 4, 2, 128, False, 0,
      ("bfloat16",)),
+    # ... and past D 128 (64-row kv tiles, padding columns zero-filled by
+    # TMA and never stored), with the float32 path at the same shapes
+    ("wgmma D 160, Sk < Sq, window 7", 2, 300, 200, 2, 1, 160, True, 7,
+     ("bfloat16", "float32")),
+    ("wgmma D 192, window 5 < tile", 2, 130, 130, 2, 1, 192, True, 5,
+     ("bfloat16", "float32")),
+    ("wgmma D 256, Sk > Sq, not causal", 1, 150, 333, 4, 2, 256, False, 0,
+     ("bfloat16", "float32")),
 ]
+ALIGNED_TIMED = ("bench quick", "bench full", "qwen2-1.5b prefill",
+                 "mixtral-8x7b window", "gemma-2b prefill",
+                 "stablelm-12b prefill")
+# kernels 2 and 4 at gemma-2b's block prefill (D 256 on their FMA loops):
+# timed beside SDPA and a page gather + SDPA, 18 layers' buffers cycled
+WIDE_BLOCK = dict(B=8, Sq=8, Hq=8, Hkv=1, D=256, Sk=512, layers=18)
 
 
 def fail(msg: str) -> None:
@@ -248,13 +275,16 @@ def launch_plan(lib, entry: str, *args: int) -> dict:
     return dict(zip(PLAN_KEYS, out))
 
 
-def ptxas_registers(log: str, *parts: str):
-    """Registers ptxas reports for the one entry function of ``log`` whose
-    mangled name holds every one of ``parts`` (None when absent)."""
+def ptxas_report(log: str, *parts: str, what: str = "registers"):
+    """What ptxas reports for the one entry function of ``log`` whose
+    mangled name holds every one of ``parts``: its ``registers`` or its
+    bytes of ``spill`` stores (None when absent)."""
+    pattern = (r"Used (\d+) registers" if what == "registers"
+               else r"(\d+) bytes spill stores")
     for block in log.split("Compiling entry function '")[1:]:
         name = block.split("'", 1)[0]
         if all(x in name for x in parts):
-            m = re.search(r"Used (\d+) registers", block)
+            m = re.search(pattern, block)
             return int(m.group(1)) if m else None
     return None
 
@@ -663,7 +693,7 @@ def main() -> int:
               1))):
         plan = launch_plan(build.load(lib), entry, *args)
         rows = "ContigRows" if lib == "flash_cached" else "PagedRows"
-        ptx = ptxas_registers(build.BUILD_LOG.get(lib, (0, ""))[1],
+        ptx = ptxas_report(build.BUILD_LOG.get(lib, (0, ""))[1],
                               "flash_block_kernel", "13__nv_bfloat16",
                               f"Li{D}E", "Lb1E", rows)
         print(f"[geometry] {what} bf16 B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
@@ -736,6 +766,97 @@ def main() -> int:
              "bound_ms": p_bound_ms, "bound_by": p_bound_by,
              "max_abs_err": p_worst}
     del kps, vps
+
+    # kernels 2 and 4 at gemma-2b's block prefill (D 256, one kv head: the
+    # FMA loops of flash_block.cuh): parity, then each beside SDPA and a
+    # page gather + SDPA, one buffer set a layer cycled past the L2
+    wb, wsq, whq, whkv, wd, wsk, wl = (WIDE_BLOCK[x] for x in (
+        "B", "Sq", "Hq", "Hkv", "D", "Sk", "layers"))
+    bf = torch.bfloat16
+    wq = torch.randn((wb, wsq, whq, wd), generator=gen, device=dev).to(bf)
+    wks = torch.randn((wl, wb, wsk, whkv, wd), generator=gen,
+                      device=dev).to(bf)
+    wvs = torch.randn((wl, wb, wsk, whkv, wd), generator=gen,
+                      device=dev).to(bf)
+    wmp = wsk // PAGE_SIZE
+    wtable = page_table(KV_LEN, PAGE_SIZE, wmp, DEFAULT_PAGES, gen, dev)
+    wkps = torch.zeros((wl, DEFAULT_PAGES, PAGE_SIZE, whkv, wd), device=dev,
+                       dtype=bf)
+    wvps = torch.zeros_like(wkps)
+    for i in range(wl):
+        fill_pages(wkps[i], wks[i], wtable, KV_LEN)
+        fill_pages(wvps[i], wvs[i], wtable, KV_LEN)
+    wgot = ops.flash_attention_cached(wq, wks[0], wvs[0], q_offset=qo,
+                                      kv_len=kl)
+    wwant = flash_attention_cached_ref(wq, wks[0], wvs[0], q_offset=qo,
+                                       kv_len=kl)
+    wpgot = ops.flash_attention_paged(wq, wkps[0], wvps[0], wtable,
+                                      q_offset=qo, kv_len=kl)
+    torch.cuda.synchronize()
+    w_err = max_err(wgot, wwant, TOL["bfloat16"], "flash_cached at D 256")
+    if not torch.equal(wpgot, wgot):
+        fail("flash_paged differs from flash_cached at gemma-2b's block "
+             "prefill")
+    wout = torch.empty_like(wq)
+    c_entry = flash_attention._entry()
+    it["i"] = 0
+
+    def wide_layer():
+        i = it["i"] = (it["i"] + 1) % wl
+        return i
+
+    def run_wide_cached():
+        i = wide_layer()
+        rc = c_entry(wq.data_ptr(), wks[i].data_ptr(), wvs[i].data_ptr(),
+                   wout.data_ptr(), qo.data_ptr(), kl.data_ptr(), wb, wsq,
+                   wsk, whq, whkv, wd, 1, 0, 1, stream)
+        if rc:
+            fail(f"flash_cached_fwd returned cudaError {rc}")
+
+    def run_wide_paged():
+        i = wide_layer()
+        rc = p_entry(wq.data_ptr(), wkps[i].data_ptr(), wvps[i].data_ptr(),
+                     wout.data_ptr(), wtable.data_ptr(), qo.data_ptr(),
+                     kl.data_ptr(), wb, wsq, whq, whkv, wd, DEFAULT_PAGES,
+                     PAGE_SIZE, wmp, 1, stream)
+        if rc:
+            fail(f"flash_paged_fwd returned cudaError {rc}")
+
+    wqt = wq.transpose(1, 2)
+    wrows_ok = (wtable >= 0).repeat_interleave(PAGE_SIZE, dim=1)
+    widx = wtable.long().clamp(min=0)
+
+    def run_wide_sdpa():
+        i = wide_layer()
+        F.scaled_dot_product_attention(wqt, wks[i].transpose(1, 2),
+                                       wvs[i].transpose(1, 2),
+                                       attn_mask=mask, enable_gqa=True)
+
+    def run_wide_gather_sdpa():
+        i = wide_layer()
+        kk = wkps[i][widx].reshape(wb, wsk, whkv, wd).transpose(1, 2)
+        vv = wvps[i][widx].reshape(wb, wsk, whkv, wd).transpose(1, 2)
+        F.scaled_dot_product_attention(
+            wqt, kk, vv, attn_mask=mask & wrows_ok[:, None, None],
+            enable_gqa=True)
+
+    nbytes, nops = flash_work(Q_OFFSET, KV_LEN, wsq, whq, whkv, wd, 2, 0)
+    for what, run, lib, extra in (
+            ("flash_cached", run_wide_cached, run_wide_sdpa, 0),
+            ("flash_paged", run_wide_paged, run_wide_gather_sdpa,
+             4 * wtable.numel())):
+        k_ms = time_ms(run, 4 * wl)
+        l_ms = time_ms(lib, 4 * wl)
+        t_bytes = (nbytes + extra) / HBM_BYTES_PER_S
+        t_ops = nops / PEAK_OPS["bfloat16"]
+        print(f"[time] {what} bf16 gemma-2b block prefill B={wb} Sq={wsq} "
+              f"Hq={whq} Hkv={whkv} D={wd} max_len={wsk}: kernel "
+              f"{k_ms:.4f} ms, bound {1e3 * max(t_bytes, t_ops):.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
+              f"{'sdpa' if what == 'flash_cached' else 'page gather + sdpa'} "
+              f"{l_ms:.4f} ms; max abs err {w_err:.3g}, paged equal to "
+              f"cached", flush=True)
+    del wks, wvs, wkps, wvps
 
     # -- Fisher kernel: parity at the adaptation path's shapes ---------------
     # the main path's tap-gradient groups: (layers, support rows, channels)
@@ -830,6 +951,16 @@ def main() -> int:
     fisher = {"ms": f_ms, "plain_ms": f_plain_ms,
               "library_ms": f_library_ms, "bound_ms": f_bound_ms,
               "bound_by": f_bound_by, "max_abs_err": f_worst}
+    # the launch at the main shape, held to the host-side model: 16-byte
+    # loads, every block resident at once (one wave)
+    f_plan = fisher_kernel.plan(gs[0], per_layer=True)
+    f_model = fisher_kernel.rows_plan(*shape, torch.float32)
+    print(f"[geometry] fisher_tapgrads f32 {shape}: {f_plan['blocks']} "
+          f"blocks of {f_plan['threads']} threads, {f_plan['vec']} columns "
+          f"a thread, {f_plan['rows_ahead']} rows loaded ahead, valid rows "
+          f"compacted {f_plan['rows_a_pass']} a pass", flush=True)
+    if any(f_plan[k] != f_model[k] for k in fisher_kernel.PLAN_KEYS):
+        fail(f"fisher's launch {f_plan} differs from the model")
     del gs
 
     # -- grad_quant kernel: exact parity with its plain version ---------------
@@ -913,7 +1044,7 @@ def main() -> int:
     for n in (5000, n_leaf, gq_cap, gq_cap + 1):
         plan = gq_kernel.grad_quant_plan(n, torch.bfloat16)
         model = gq_kernel.plan_model(n, sms)
-        ptx = ptxas_registers(gq_log, "grad_quant_kernel", "13__nv_bfloat16",
+        ptx = ptxas_report(gq_log, "grad_quant_kernel", "13__nv_bfloat16",
                               f"Li{plan['path']}E")
         path = gq_kernel.PATHS[plan["path"]]
         print(f"[geometry] grad_quant bf16 n={n}: {path}, {plan['ctas']} "
@@ -1121,7 +1252,7 @@ def main() -> int:
     want_plan = dict(CTAs=geo["ctas"], cluster=geo["cluster"], threads=512,
                      smem_bytes=ssd_kernel.bwd_smem_bytes(p_, n_, 2),
                      state_slots=geo["state_slots"])
-    ptx = ptxas_registers(build.BUILD_LOG.get("ssd_scan", (0, ""))[1],
+    ptx = ptxas_report(build.BUILD_LOG.get("ssd_scan", (0, ""))[1],
                           "ssd_bwd_kernel", "13__nv_bfloat16")
     print(f"[geometry] ssd_scan_bwd bf16 B={b_} S={s_} H={h_} P={p_} N={n_}: "
           f"{plan['CTAs']} CTAs in clusters of {plan['cluster']} heads, "
@@ -1140,7 +1271,7 @@ def main() -> int:
     # state): heads a CTA and shared memory as the host-side model sets them
     fplan = ssd_kernel.fwd_plan(b_, s_, h_, p_, n_, torch.bfloat16)
     fgeo = ssd_kernel.fwd_geometry(b_, s_, h_, p_, n_, 2)
-    ptx = ptxas_registers(build.BUILD_LOG.get("ssd_scan", (0, ""))[1],
+    ptx = ptxas_report(build.BUILD_LOG.get("ssd_scan", (0, ""))[1],
                           "ssd_fwd_kernel", "13__nv_bfloat16", "Lb1E")
     per_sm = ("two CTAs" if fgeo["smem_bytes"] <= ssd_kernel.HALF_SM_SMEM
               else "one CTA")
@@ -1227,7 +1358,8 @@ def main() -> int:
                   f"window={window_}): max abs err {err:.3g} = "
                   f"{err / scale:.3g} rms(want) (gate {atol:.3g} + "
                   f"{TOL[dname]:g} |want|), two runs bit-equal", flush=True)
-            if len(fa_times) >= 4 or dname != dnames[0] or what in fa_times:
+            if (what not in ALIGNED_TIMED or dname != dnames[0]
+                    or what in fa_times):
                 continue
             out = torch.empty_like(q)
 
@@ -1260,42 +1392,75 @@ def main() -> int:
             library_ms = time_ms(run_sdpa, 10)
             nbytes, nops = aligned_work(b_, sq_, sk_, hq_, hkv_, d_, causal_,
                                         window_, q.element_size())
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS[dname]
+            # float32 runs three TF32 products a multiply-add: its bound is
+            # theirs at the TF32 rate; the CUDA cores' is printed beside
+            rate = "tf32" if dtype == torch.float32 else dname
+            k_ops = 3 * nops if dtype == torch.float32 else nops
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, k_ops / PEAK_OPS[rate]
             bound_ms = 1e3 * max(t_bytes, t_ops)
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             fa_times[what] = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": library_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by}
+            cores = ("" if dtype != torch.float32 else
+                     f"; on the CUDA cores {1e3 * max(t_bytes, nops / PEAK_OPS['float32']):.5f} ms")
             print(f"[time] flash_attention {what} {dname} (B={b_} S={sq_} "
-                  f"Hq={hq_} Hkv={hkv_} D={d_} causal window={window_}): "
-                  f"kernel {ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-                  f"{nbytes} B, {nops} ops at the {dname} peak), plain "
+                  f"Hq={hq_} Hkv={hkv_} D={d_} causal window={window_}, "
+                  f"{flash_aligned.path(d_, dtype)} path): kernel {ms:.4f} "
+                  f"ms, bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, "
+                  f"{k_ops} ops at the {rate} peak{cores}), plain "
                   f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms", flush=True)
     aligned = dict(fa_times["bench full"], max_abs_err=fa_worst)
-    # the wgmma path's launch at qwen2-1.5b's prefill width, and whether L2
-    # serves a GQA group's K/V: the same work with one kv head a query head
+    # each path's launch at its timed shapes, held to the host-side models:
+    # the wgmma path at qwen2-1.5b's, gemma-2b's and stablelm-12b's prefill
+    # widths (head dims 128, 256 and 160 padded to 192), the float32 path
+    # at the bench's full shape; ptxas's registers and spills of each
+    fa_log = build.BUILD_LOG.get("flash_aligned", (0, ""))[1]
+    for b_, sq_, hq_, hkv_, d_, dtype in (
+            (1, 4096, 12, 2, 128, torch.bfloat16),
+            (1, 4096, 8, 1, 256, torch.bfloat16),
+            (1, 4096, 32, 8, 160, torch.bfloat16),
+            (2, 2048, 8, 2, 128, torch.float32)):
+        plan = flash_aligned.plan(b_, sq_, sq_, hq_, hkv_, d_, dtype)
+        if dtype == torch.float32:
+            sched = flash_aligned.tf32_schedule(b_, sq_, sq_, hq_)
+            smem, threads, stages = (flash_aligned.tf32_smem(d_),
+                                     flash_aligned.TF_THREADS,
+                                     flash_aligned.TF_STAGES)
+            kern, dp = "flash_aligned_tf32", d_
+            who = "four warps"
+        else:
+            sched = flash_aligned.wgmma_schedule(b_, sq_, sq_, hq_, d=d_)
+            smem, threads, stages = (flash_aligned.wgmma_smem(d_),
+                                     flash_aligned.WG_THREADS,
+                                     flash_aligned.WG_STAGES)
+            kern = "flash_aligned_wgmma"
+            dp = flash_aligned.wgmma_tiles(d_)["dp"]
+            who = ("a producer warpgroup, two consumer warpgroups; "
+                   "setmaxnreg: producer 24, consumers 240")
+        tiles = sum(len(o["tiles"]) for o in sched["order"])
+        masked = sum(m for o in sched["order"] for _, m in o["tiles"])
+        spill = ptxas_report(fa_log, kern, f"Li{dp}E", what="spill")
+        ptx = ptxas_report(fa_log, kern, f"Li{dp}E")
+        print(f"[geometry] flash_aligned {flash_aligned.path(d_, dtype)} "
+              f"{str(dtype).split('.')[-1]} B={b_} S={sq_} Hq={hq_} "
+              f"Hkv={hkv_} D={d_} causal: {plan['CTAs']} CTAs (grid "
+              f"{sched['grid']}, longest bands first), {plan['threads']} "
+              f"threads ({who}), {plan['smem_bytes']} B of dynamic shared "
+              f"memory, {plan['stages']} K/V stages, {plan['registers']} "
+              f"registers a thread at launch (ptxas log: "
+              f"{'not in this build' if ptx is None else ptx} registers, "
+              f"{'?' if spill is None else spill} bytes of spill stores); "
+              f"{tiles} kv tiles of {sched['bn']}, {masked} masked",
+              flush=True)
+        if (plan["CTAs"] != sched["grid"][0] * sched["grid"][1]
+                or plan["threads"] != threads
+                or plan["smem_bytes"] != smem or plan["stages"] != stages):
+            fail(f"flash_aligned's launch {plan} at D={d_} {dtype} differs "
+                 "from the model")
+    # whether L2 serves a GQA group's K/V on the wgmma path: the same work
+    # with one kv head a query head, at qwen2-1.5b's prefill width
     b_, sq_, hq_, hkv_, d_ = 1, 4096, 12, 2, 128
-    plan = flash_aligned.plan(b_, sq_, sq_, hq_, hkv_, d_, torch.bfloat16)
-    sched = flash_aligned.wgmma_schedule(b_, sq_, sq_, hq_, causal=True)
-    tiles = sum(len(o["tiles"]) for o in sched["order"])
-    masked = sum(m for o in sched["order"] for _, m in o["tiles"])
-    ptx = ptxas_registers(build.BUILD_LOG.get("flash_aligned", (0, ""))[1],
-                          "flash_aligned_wgmma", f"Li{d_}E")
-    print(f"[geometry] flash_aligned wgmma bf16 B={b_} S={sq_} Hq={hq_} "
-          f"Hkv={hkv_} D={d_} causal: {plan['CTAs']} CTAs (grid "
-          f"{sched['grid']}, longest bands first), {plan['threads']} threads "
-          f"(a producer warpgroup, two consumer warpgroups), "
-          f"{plan['smem_bytes']} B of dynamic shared memory, "
-          f"{plan['stages']} K/V stages, {plan['registers']} registers a "
-          f"thread at launch (ptxas log: "
-          f"{'not in this build' if ptx is None else ptx}; setmaxnreg: "
-          f"producer 24, consumers 240); {tiles} kv tiles of 128, {masked} "
-          f"masked", flush=True)
-    if (plan["CTAs"] != sched["grid"][0] * sched["grid"][1]
-            or plan["threads"] != flash_aligned.WG_THREADS
-            or plan["smem_bytes"] != flash_aligned.wgmma_smem(d_)
-            or plan["stages"] != flash_aligned.WG_STAGES):
-        fail(f"flash_aligned's launch {plan} differs from the model")
     q = torch.randn((b_, sq_, hq_, d_), generator=gen, device=dev).bfloat16()
     k = torch.randn((b_, sq_, hkv_, d_), generator=gen, device=dev).bfloat16()
     v = torch.randn((b_, sq_, hkv_, d_), generator=gen, device=dev).bfloat16()

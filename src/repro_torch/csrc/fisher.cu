@@ -30,71 +30,148 @@
 //     scratch and the output across a sequential n axis.  Here one thread
 //     owns its output columns outright and loops over n (and d) itself, so
 //     nothing is carried between blocks and there are no atomics;
-//   * D == 1: a thread owns RV columns RT apart (neighbouring threads on
-//     neighbouring addresses), so each warp load is one 128-byte line, and
-//     the n loop is unrolled for more loads in flight;
+//   * D == 1 (the probe's route): a thread owns VEC neighbouring columns of
+//     one layer (16 bytes: 4 float32 or 8 bf16 values, when C and the
+//     pointers allow it, else 1), neighbouring threads on neighbouring
+//     columns, so a warp reads 512 contiguous bytes a row.  Each block
+//     first compacts the valid rows of the device mask into a list in
+//     shared memory (one warp, a ballot a 32 rows; no host read), so the
+//     row loop holds no branch on the mask: RU rows' loads are issued
+//     back to back, independent of each other, before their sums.  At
+//     qwen2-1.5b's d_ff group (28, 48, 8960) f32 that is 62,720 threads,
+//     490 blocks of 128, resident at once on the 132 SMs (one wave), with
+//     RU x 16 = 128 bytes in flight a thread;
 //   * D > 1: a 32 x 8 block splits d over its 8 warps, each warp on 32
 //     neighbouring columns, and reduces the 8 partial sums of u in shared
 //     memory once per row n.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int RT = 256;  // threads per block, D == 1 kernel
-constexpr int RV = 2;    // columns per thread, D == 1 kernel
-constexpr int GX = 32;   // columns per block, D > 1 kernel
-constexpr int GY = 8;    // d lanes per block, D > 1 kernel
+constexpr int RT = 128;    // threads per block, D == 1 kernel
+constexpr int RU = 8;      // rows loaded ahead a thread, D == 1 kernel
+constexpr int RCH = 1024;  // rows compacted into shared memory a pass
+constexpr int GX = 32;     // columns per block, D > 1 kernel
+constexpr int GY = 8;      // d lanes per block, D > 1 kernel
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T, bool HAS_A>
+// VEC neighbouring elements at p as float32: one 16-byte load when VEC * the
+// element size is 16 (p then 16-byte aligned), else VEC scalar loads
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float (&x)[VEC]) {
+  if constexpr (sizeof(T) * VEC == 16 && sizeof(T) == 4) {
+    const float4 r = __ldcs(reinterpret_cast<const float4*>(p));
+    x[0] = r.x;
+    x[1] = r.y;
+    x[2] = r.z;
+    x[3] = r.w;
+  } else if constexpr (sizeof(T) * VEC == 16) {
+    const uint4 r = __ldcs(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // two bf16 a word, the low one first
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) x[v] = to_f(p[v]);
+  }
+}
+
+template <typename T, int VEC, bool HAS_A>
 __global__ void __launch_bounds__(RT)
 fisher_rows_kernel(const T* __restrict__ a, const T* __restrict__ g,
                    const float* __restrict__ mask, float* __restrict__ out,
                    long long L, int N, long long C, float scale,
                    int mask_norm) {
-  const long long total = L * C;
-  const long long base = (long long)blockIdx.x * (RT * RV) + threadIdx.x;
-  long long off[RV];  // element offset of (l, 0, c) for each owned column
-  bool live[RV];
-  float acc[RV];
+  __shared__ int s_row[RCH];   // the chunk's valid rows, in order
+  __shared__ float s_w[RCH];   // their weights m^2 (1 without a mask)
+  __shared__ int s_cnt;
+  __shared__ float s_msum;
+  const long long groups = C / VEC;  // VEC divides C
+  const long long j = (long long)blockIdx.x * RT + threadIdx.x;
+  const bool live = j < L * groups;
+  const long long l = live ? j / groups : 0;
+  const long long c0 = live ? (j - l * groups) * VEC : 0;
+  const long long base = l * (long long)N * C + c0;  // (l, 0, c0)
+  float acc[VEC];
 #pragma unroll
-  for (int k = 0; k < RV; ++k) {
-    const long long j = base + (long long)k * RT;
-    live[k] = j < total;
-    const long long l = live[k] ? j / C : 0;
-    const long long c = live[k] ? j - l * C : 0;
-    off[k] = l * (long long)N * C + c;
-    acc[k] = 0.f;
-  }
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
   float msum = 0.f;
-#pragma unroll 4
-  for (int n = 0; n < N; ++n) {
-    float w = 1.f;
-    if (mask != nullptr) {
-      const float m = mask[n];
-      msum += m;
-      if (m == 0.f) continue;  // padded row: never read
-      w = m * m;
-    }
-    const long long row = (long long)n * C;
+  for (int r0 = 0; r0 < N; r0 += RCH) {
+    const int rows = min(RCH, N - r0);
+    __syncthreads();  // every thread is done with the previous chunk's list
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int cnt = 0;
+      float ms = 0.f;
+      for (int i0 = 0; i0 < rows; i0 += 32) {
+        const int i = i0 + lane;
+        const float m = (i < rows && mask != nullptr) ? mask[r0 + i] : 1.f;
+        const bool keep = i < rows && m != 0.f;  // padded rows: never read
+        const unsigned bal = __ballot_sync(0xffffffffu, keep);
+        if (keep) {
+          const int at = cnt + __popc(bal & ((1u << lane) - 1u));
+          s_row[at] = r0 + i;
+          s_w[at] = m * m;
+        }
+        cnt += __popc(bal);
+        if (i < rows && mask != nullptr) ms += m;
+      }
 #pragma unroll
-    for (int k = 0; k < RV; ++k) {
-      if (live[k]) {
-        float u = to_f(g[off[k] + row]);
-        if (HAS_A) u *= to_f(a[off[k] + row]);
-        acc[k] += w * (u * u);
+      for (int off = 16; off > 0; off /= 2)
+        ms += __shfl_xor_sync(0xffffffffu, ms, off);
+      if (lane == 0) {
+        s_cnt = cnt;
+        s_msum = ms;
+      }
+    }
+    __syncthreads();
+    const int cnt = s_cnt;
+    msum += s_msum;
+    if (!live) continue;
+    int i = 0;
+    for (; i + RU <= cnt; i += RU) {  // RU independent loads, then the sums
+      float x[RU][VEC], y[RU][VEC];
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const long long off = base + (long long)s_row[i + u] * C;
+        load_vec<T, VEC>(g + off, x[u]);
+        if (HAS_A) load_vec<T, VEC>(a + off, y[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const float w = s_w[i + u];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float uu = HAS_A ? x[u][v] * y[u][v] : x[u][v];
+          acc[v] += w * (uu * uu);
+        }
+      }
+    }
+    for (; i < cnt; ++i) {
+      float x[VEC], y[VEC];
+      const long long off = base + (long long)s_row[i] * C;
+      load_vec<T, VEC>(g + off, x);
+      if (HAS_A) load_vec<T, VEC>(a + off, y);
+      const float w = s_w[i];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float uu = HAS_A ? x[v] * y[v] : x[v];
+        acc[v] += w * (uu * uu);
       }
     }
   }
+  if (!live) return;
   const float s = mask_norm ? scale / fmaxf(msum, 1.f) : scale;
 #pragma unroll
-  for (int k = 0; k < RV; ++k) {
-    if (live[k]) out[base + (long long)k * RT] = acc[k] * s;
-  }
+  for (int v = 0; v < VEC; ++v) out[l * C + c0 + v] = acc[v] * s;
 }
 
 template <typename T>
@@ -138,31 +215,68 @@ fisher_general_kernel(const T* __restrict__ a, const T* __restrict__ g,
   }
 }
 
+// the D == 1 kernel's columns a thread: 16 bytes when C and the pointers
+// allow it, else 1 (a choice by shape and alignment, never by failure)
+template <typename T>
+int rows_vec(const void* a, const void* g, long long C) {
+  constexpr int V = 16 / sizeof(T);
+  const bool ok = C % V == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0 &&
+                  (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  return ok ? V : 1;
+}
+
+template <typename T, int VEC>
+int launch_rows(const T* a, const T* g, const float* m, float* o, long long L,
+                int N, long long C, float scale, int mask_norm,
+                cudaStream_t stream, int* plan) {
+  const long long blocks = (L * (C / VEC) + RT - 1) / RT;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (plan) {
+    plan[0] = (int)blocks;
+    plan[1] = RT;
+    plan[2] = VEC;
+    plan[3] = RU;
+    plan[4] = RCH;
+    return 0;
+  }
+  if (a != nullptr) {
+    fisher_rows_kernel<T, VEC, true><<<(unsigned)blocks, RT, 0, stream>>>(
+        a, g, m, o, L, N, C, scale, mask_norm);
+  } else {
+    fisher_rows_kernel<T, VEC, false><<<(unsigned)blocks, RT, 0, stream>>>(
+        a, g, m, o, L, N, C, scale, mask_norm);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* a, const void* g, const void* mask, void* out,
            long long L, int N, int D, long long C, float scale,
-           int mask_norm, cudaStream_t stream) {
+           int mask_norm, cudaStream_t stream, int* plan) {
   const T* a_ = static_cast<const T*>(a);
   const T* g_ = static_cast<const T*>(g);
   const float* m_ = static_cast<const float*>(mask);
   float* o_ = static_cast<float*>(out);
   if (D == 1) {
-    const long long blocks = (L * C + RT * RV - 1) / (RT * RV);
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    if (a_ != nullptr) {
-      fisher_rows_kernel<T, true><<<(unsigned)blocks, RT, 0, stream>>>(
-          a_, g_, m_, o_, L, N, C, scale, mask_norm);
-    } else {
-      fisher_rows_kernel<T, false><<<(unsigned)blocks, RT, 0, stream>>>(
-          a_, g_, m_, o_, L, N, C, scale, mask_norm);
-    }
-  } else {
-    if (L != 1 || a_ == nullptr) return (int)cudaErrorInvalidValue;
-    const long long blocks = (C + GX - 1) / GX;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    fisher_general_kernel<T><<<(unsigned)blocks, dim3(GX, GY), 0, stream>>>(
-        a_, g_, m_, o_, N, D, C, scale, mask_norm);
+    if (rows_vec<T>(a, g, C) == 1)
+      return launch_rows<T, 1>(a_, g_, m_, o_, L, N, C, scale, mask_norm,
+                               stream, plan);
+    return launch_rows<T, 16 / sizeof(T)>(a_, g_, m_, o_, L, N, C, scale,
+                                          mask_norm, stream, plan);
   }
+  if (L != 1 || a_ == nullptr) return (int)cudaErrorInvalidValue;
+  const long long blocks = (C + GX - 1) / GX;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (plan) {
+    plan[0] = (int)blocks;
+    plan[1] = GX * GY;
+    plan[2] = 1;
+    plan[3] = 1;
+    plan[4] = 0;
+    return 0;
+  }
+  fisher_general_kernel<T><<<(unsigned)blocks, dim3(GX, GY), 0, stream>>>(
+      a_, g_, m_, o_, N, D, C, scale, mask_norm);
   return (int)cudaGetLastError();
 }
 
@@ -179,9 +293,27 @@ extern "C" int fisher_fwd(const void* a, const void* g, const void* mask,
   if (L < 1 || N < 1 || D < 1 || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(a, g, mask, out, L, N, D, C, scale, mask_norm, s);
+    return launch<float>(a, g, mask, out, L, N, D, C, scale, mask_norm, s,
+                         nullptr);
   if (dtype == 1)
     return launch<__nv_bfloat16>(a, g, mask, out, L, N, D, C, scale,
-                                 mask_norm, s);
+                                 mask_norm, s, nullptr);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch fisher_fwd would make for these shapes and pointers (a, g:
+// only their alignment is read), without making it: plan[0..4] = blocks,
+// threads a block, columns a thread, rows loaded ahead a thread, rows
+// compacted a pass (0 for the D > 1 kernel, which compacts none).
+extern "C" int fisher_plan(const void* a, const void* g, long long L, int N,
+                           int D, long long C, int dtype, int* plan) {
+  if (L < 1 || N < 1 || D < 1 || C < 1 || !plan)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float>(a, g, nullptr, nullptr, L, N, D, C, 0.f, 0, nullptr,
+                         plan);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(a, g, nullptr, nullptr, L, N, D, C, 0.f, 0,
+                                 nullptr, plan);
   return (int)cudaErrorInvalidValue;
 }

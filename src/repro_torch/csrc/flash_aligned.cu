@@ -18,46 +18,72 @@
 // (query, key) pair against 2 bytes an element read once: at (1, 4096, 12,
 // 2, 128) bf16 causal, 51.5 GFLOP and 29.4 MB, 0.052 ms on the tensor cores
 // (989 TFLOP/s) against 0.009 ms for the bytes; at (2, 2048, 8, 2, 128) f32,
-// 17.2 GFLOP on CUDA cores (67 TFLOP/s), 0.257 ms.  The design:
+// 17.2 GFLOP, 0.257 ms on the CUDA cores (67 TFLOP/s) and, as the three
+// TF32 products this design makes, 0.104 ms at the TF32 rate (495 TFLOP/s).
+// The design:
 //   * one CTA per (query tile, query head, sample): 64 rows a tile on the
-//     FMA path, 128 on the Hopper path (384 CTAs at qwen2-
+//     FMA and TF32 paths, 128 on the Hopper path (384 CTAs at qwen2-
 //     1.5b's width and S = 4096), enough to fill the 132 SMs without
 //     splitting the kv axis;
-//   * kv tiles (64 or 128 rows) wholly outside the causal or window band of
-//     the CTA's query rows are skipped by their tile index, as the TPU
-//     kernel's `relevant` test skips its kv blocks: a causal pass does about
-//     half the products, a window of W about W / Sk of them;
-//   * bf16 with D 64 or 128 (the Hopper path, `wg` below): a CTA of three
-//     warpgroups owns 128 query rows of one head.  One thread of the third
-//     (the producer, setmaxnreg down to 24 registers) loads Q once and
-//     keeps a ring of two K and two V stages of 128 rows full with TMA
-//     (cp.async.bulk.tensor from 4-D (D, H, S, B) maps, 128-byte swizzle,
-//     a D-128 row arriving as two 64-column boxes), each stage completing
-//     on an mbarrier; the consumers release a stage through an "empty"
-//     mbarrier as soon as their product has read it.  The two consumer
-//     warpgroups (setmaxnreg up to 240) own 64 rows each: S = Q K^T is
-//     wgmma m64n128k16 with Q and K from shared memory, O += P V is wgmma
-//     with P from registers (the score accumulator repacked to bf16) and V
-//     read MN-major through the descriptor's transpose bit, so V is never
-//     transposed.  The softmax runs in base 2 with log2(e) folded into the
-//     scale, and masks only a tile that straddles the diagonal, the window
-//     edge or Sk (TMA zero-fills rows past Sk; the mask sets them to
-//     -inf).  Query tiles are launched longest band first, heads fastest,
-//     so the query heads of a GQA group run side by side and read their
-//     shared K/V tiles from L2 (no explicit sharing);
-//   * f32 (any D), and bf16 with any other D (16 .. 256; no configuration
-//     of the repo has a bf16 head dim of 16 to 112 other than 64): plain
-//     FMA loops over 64 x 64 tiles in shared memory, the cached kernel's
-//     scheme, in full float32 (f32 inputs are held to 1e-4, which TF32
-//     tensor cores would not meet).
+//   * kv tiles wholly outside the causal or window band of the CTA's query
+//     rows are skipped by their tile index, as the TPU kernel's `relevant`
+//     test skips its kv blocks: a causal pass does about half the
+//     products, a window of W about W / Sk of them;
+//   * bf16 with D 64, 128 or 144 .. 256 (the Hopper path, `wg` below): a
+//     CTA of three warpgroups owns 128 query rows of one head.  One thread
+//     of the third (the producer, setmaxnreg down to 24 registers) loads Q
+//     once and keeps a ring of two K and two V stages full with TMA
+//     (cp.async.bulk.tensor from 4-D (D, H, S, B) maps, 128-byte swizzle, a
+//     row arriving as 64-column boxes), each stage completing on an
+//     mbarrier; the consumers release a stage through an "empty" mbarrier
+//     as soon as their product has read it.  The two consumer warpgroups
+//     (setmaxnreg up to 240) own 64 rows each: S = Q K^T is wgmma with Q
+//     and K from shared memory, O += P V is wgmma with P from registers
+//     (the score accumulator repacked to bf16) and V read MN-major through
+//     the descriptor's transpose bit, so V is never transposed.  D 64 and
+//     128 take kv tiles of 128 rows; a head dim past 128 is padded to the
+//     next multiple of 64 (DP: 160 -> 192, 256 stays) and takes kv tiles of
+//     64 rows, so the 64 x DP float32 output accumulator (128 registers a
+//     thread at 256) and the 64 x 64 score accumulator fit the 240
+//     registers, and Q (64 KB at 256) and two K/V stages (4 x 32 KB) fit
+//     the 227 KB.  The tensor maps keep the true D as their inner extent,
+//     so TMA zero-fills the padding columns: they add nothing to Q K^T
+//     (whose k-steps past D are skipped), and the output columns they give
+//     are never stored.  The softmax runs in
+//     base 2 with log2(e) / sqrt(D) (the true D) as the scale, and masks
+//     only a tile that straddles the diagonal, the window edge or Sk (TMA
+//     zero-fills rows past Sk; the mask sets them to -inf).  Query tiles
+//     are launched longest band first, heads fastest, so the query heads
+//     of a GQA group run side by side and read their shared K/V tiles from
+//     L2 (no explicit sharing);
+//   * f32, any D (the TF32 path, `tf` below): four warps own 16 query rows
+//     each and walk kv tiles of 32 rows, staged with cp.async into a
+//     double-buffered ring of padded float32 rows (Q once); S = Q K^T and
+//     O += P V run on mma.sync m16n8k8 TF32 with every operand split into
+//     a TF32 head and a residual, and three products summed (al bh + ah bl
+//     + ah bh, small terms first: 3xTF32), which keeps the unchanged 1e-4
+//     gate that one rounded product misses (ssd_scan.cu's forward showed
+//     the same).  The split is two instructions a value (the head by
+//     clearing the low 13 bits, the residual by a subtraction, exact), and
+//     each K value is split by every warp that reads it: these, and not
+//     the products, bound this path.  The fragment's k = t and t + 4 take
+//     the columns 2t and 2t + 1, so a lane reads its Q or K pair with one
+//     8-byte load.  P feeds the second product from the score registers:
+//     the accumulator's keys 2t and 2t + 1 serve as the A fragment's k = t
+//     and t + 4, and V's rows are read in the same order, so no shuffle is
+//     needed;
+//   * bf16 with D 16 .. 48 and 80 .. 112 (only the smoke presets have such
+//     a head dim): plain FMA loops over 64 x 64 tiles in shared memory, the
+//     cached kernel's scheme, in float32.
 // The choice is by dtype and D alone.  pack_bf16 is flash_block.cuh's,
-// shared with kernels 2 and 4.  The tensor maps are
-// encoded on the host through cudaGetDriverEntryPoint, so the build links
-// no driver library.
+// shared with kernels 2 and 4; tf32.cuh's TF32 helpers are shared with the
+// SSD scan.  The tensor maps are encoded on the host through
+// cudaGetDriverEntryPoint, so the build links no driver library.
 
 #include <cuda.h>
 
 #include "flash_block.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -68,13 +94,16 @@ using flash::to_f;
 constexpr int BM = 64;  // query rows per CTA
 constexpr int BN = 64;  // kv rows per tile
 
-// the kv tiles [lo, hi) some query row of [q0, q0 + BM) can see
-__device__ __forceinline__ void kv_band(int q0, int Sq, int Sk, int causal,
-                                        int window, int* lo, int* hi) {
-  const int q_last = min(q0 + BM, Sq) - 1;
-  *hi = causal ? min(Sk, q_last + 1) : Sk;
-  *lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  *lo = (*lo / BN) * BN;
+// the kv band [lo, lo + n TN) that query rows [q0, q0 + TM) can see, in
+// tiles of TN rows (every path's); n = 0 when no row sees a key
+template <int TM, int TN>
+__device__ __forceinline__ int band(int q0, int Sq, int Sk, int causal,
+                                    int window, int* lo) {
+  const int q_last = min(q0 + TM, Sq) - 1;
+  const int hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
+  *lo = (first / TN) * TN;
+  return hi > first ? (hi - *lo + TN - 1) / TN : 0;
 }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk, int causal,
@@ -86,7 +115,7 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// FMA path: f32 (any D), bf16 with D other than 64 and 128
+// FMA path: bf16 with D 16 .. 48 and 80 .. 112
 // ---------------------------------------------------------------------------
 
 constexpr int NT = 256;  // 16 x 16 threads, each owning 4 query rows
@@ -128,8 +157,9 @@ flash_aligned_fma(const T* __restrict__ q, const T* __restrict__ k,
     sM[tid] = -INFINITY;
     sL[tid] = 0.f;
   }
-  int lo, hi;
-  kv_band(q0, Sq, Sk, causal, window, &lo, &hi);
+  int lo;
+  const int n = band<BM, BN>(q0, Sq, Sk, causal, window, &lo);
+  const int hi = lo + n * BN;
 
   float acc[4][NJ];
 #pragma unroll
@@ -243,13 +273,13 @@ flash_aligned_fma(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper path: bf16 with D = 64 or 128, TMA + wgmma, warp-specialised
+// Hopper path: bf16 with D 64, 128 or 144 .. 256, TMA + wgmma,
+// warp-specialised
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
 constexpr int BM = 128;       // query rows a CTA: two consumer warpgroups of 64
-constexpr int BN = 128;       // kv rows a tile
 constexpr int STAGES = 2;     // K/V ring depth
 constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, 2 produces
 constexpr int CONSUMERS = 256;
@@ -257,13 +287,18 @@ constexpr int PRODUCER_REGS = 24;   // setmaxnreg: 128 x 24 + 256 x 240 <= 64K
 constexpr int CONSUMER_REGS = 240;
 constexpr int ROW_BYTES = 128;      // one 64-column box row, 128-byte swizzle
 
-// Shared memory from a 1024-byte aligned base: Q (BM rows), then STAGES K
-// and STAGES V tiles (BN rows), each stored as D / 64 boxes of 64 columns
-// (rows x 128 bytes, swizzled by TMA), then the mbarriers.
-template <int D>
+// Tiles of the padded head dim DP (64, 128, 192 or 256).  Shared memory
+// from a 1024-byte aligned base: Q (BM rows), then STAGES K and STAGES V
+// tiles (BN rows: 128 up to DP 128, else 64), each stored as DP / 64 boxes
+// of 64 columns (rows x 128 bytes, swizzled by TMA), then the mbarriers.
+// The output accumulator is DP / CW chunks of CW columns (CW 128 at DP
+// 128, else 64), one wgmma each a k-step.
+template <int DP>
 struct Smem {
-  static constexpr int Q_BYTES = BM * D * 2;
-  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int BN = DP <= 128 ? 128 : 64;
+  static constexpr int CW = DP == 128 ? 128 : 64;
+  static constexpr int Q_BYTES = BM * DP * 2;
+  static constexpr int KV_BYTES = BN * DP * 2;
   static constexpr int OFF_K = Q_BYTES;
   static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
   static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
@@ -376,6 +411,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16, K-major) B (16 x 64, K-major), both from
+// shared memory through descriptors; scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 128,
 // MN-major in shared memory: the descriptor's transpose bit)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -428,26 +484,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 }
 
 
-// the kv band [lo, lo + n * BN) the CTA's query rows [q0, q0 + BM) can see
-__device__ __forceinline__ int band(int q0, int Sq, int Sk, int causal,
-                                    int window, int* lo) {
-  const int q_last = min(q0 + BM, Sq) - 1;
-  const int hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
-  *lo = (first / BN) * BN;
-  return hi > first ? (hi - *lo + BN - 1) / BN : 0;  // 0: no row sees a key
-}
-
-template <int D>
+// D is the tensors' head dim (the output's row length); DP >= D its
+// padding to whole 64-column boxes
+template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_aligned_wgmma(__grid_constant__ const CUtensorMap tq,
                     __grid_constant__ const CUtensorMap tk,
                     __grid_constant__ const CUtensorMap tv,
                     __nv_bfloat16* __restrict__ o, int Sq, int Sk, int Hq,
-                    int Hkv, int causal, int window, float scale_log2) {
-  using L = Smem<D>;
-  constexpr int HALVES = D / 64;
-  constexpr int NO = D / 2;  // output accumulator floats a thread
+                    int Hkv, int D, int causal, int window, float scale_log2) {
+  using L = Smem<DP>;
+  constexpr int BN = L::BN, CW = L::CW;
+  constexpr int HALVES = DP / 64;
+  constexpr int NCH = DP / CW;  // output accumulator chunks
+  constexpr int NO = CW / 2;    // floats a thread a chunk
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
@@ -461,7 +511,7 @@ flash_aligned_wgmma(__grid_constant__ const CUtensorMap tq,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest bands first
   const int kvh = h / (Hq / Hkv);
   int lo;
-  const int n = band(q0, Sq, Sk, causal, window, &lo);
+  const int n = band<BM, BN>(q0, Sq, Sk, causal, window, &lo);
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -508,9 +558,11 @@ flash_aligned_wgmma(__grid_constant__ const CUtensorMap tq,
     const int g = lane / 4, t = lane % 4;
     const int ra = q0 + wgi * 64 + warp * 16 + g, rb = ra + 8;  // my rows
     const uint8_t* sq = smem + wgi * 64 * ROW_BYTES;
-    float acc[NO];
+    float acc[NCH][NO];
 #pragma unroll
-    for (int j = 0; j < NO; ++j) acc[j] = 0.f;
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < NO; ++j) acc[c][j] = 0.f;
     float m_a = -1e30f, m_b = -1e30f, l_a = 0.f, l_b = 0.f;
 
     mbar_wait(q_full, 0);
@@ -519,16 +571,21 @@ flash_aligned_wgmma(__grid_constant__ const CUtensorMap tq,
       const uint8_t* sk = smem + L::OFF_K + s * L::KV_BYTES;
       const uint8_t* sv = smem + L::OFF_V + s * L::KV_BYTES;
 
-      // S = Q K^T over D in k-steps of 16 columns (32 bytes inside a box)
+      // S = Q K^T in k-steps of 16 columns (32 bytes inside a box); the
+      // steps past D, whose columns TMA zero-filled in Q and K, are skipped
       float sc[BN / 2];
       mbar_wait(&k_full[s], ph);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        if (DP > 128 && kk * 16 >= D) break;  // the same for the warpgroup
         const int c = kk / 4, off = (kk % 4) * 32;
-        wgmma_ss_n128(sc, desc_sw128(sq + c * BM * ROW_BYTES + off, 16, 1024),
-                      desc_sw128(sk + c * BN * ROW_BYTES + off, 16, 1024),
-                      kk > 0);
+        const uint64_t dq = desc_sw128(sq + c * BM * ROW_BYTES + off, 16, 1024);
+        const uint64_t dk = desc_sw128(sk + c * BN * ROW_BYTES + off, 16, 1024);
+        if constexpr (BN == 128)
+          wgmma_ss_n128(sc, dq, dk, kk > 0);
+        else
+          wgmma_ss_n64(sc, dq, dk, kk > 0);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -577,12 +634,14 @@ flash_aligned_wgmma(__grid_constant__ const CUtensorMap tq,
       l_a = l_a * corr_a + sum_a;  // this thread's columns; summed at the end
       l_b = l_b * corr_b + sum_b;
 #pragma unroll
-      for (int j = 0; j < NO; j += 4) {
-        acc[j] *= corr_a;
-        acc[j + 1] *= corr_a;
-        acc[j + 2] *= corr_b;
-        acc[j + 3] *= corr_b;
-      }
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < NO; j += 4) {
+          acc[c][j] *= corr_a;
+          acc[c][j + 1] *= corr_a;
+          acc[c][j + 2] *= corr_b;
+          acc[c][j + 3] *= corr_b;
+        }
 
       // O += P V: P from registers (two score n-blocks make one A fragment
       // of 16 keys), V from shared memory as it arrived, MN-major
@@ -595,22 +654,28 @@ flash_aligned_wgmma(__grid_constant__ const CUtensorMap tq,
         pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
       mbar_wait(&v_full[s], ph);
-      fence_regs(acc);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        // 16 keys = two 8-row groups (SBO 1024 B); the D / 64 boxes are
-        // BN rows apart (LBO)
-        const uint64_t dv = desc_sw128(sv + kk * 16 * ROW_BYTES,
-                                       BN * ROW_BYTES, 1024);
-        if constexpr (D == 128)
-          wgmma_rs_n128(acc, pa[kk], dv);
-        else
-          wgmma_rs_n64(acc, pa[kk], dv);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          // 16 keys = two 8-row groups (SBO 1024 B); chunk c starts at box
+          // c * CW / 64, and the boxes of a chunk are BN rows apart (LBO)
+          const uint64_t dv =
+              desc_sw128(sv + (c * CW / 64 * BN + kk * 16) * ROW_BYTES,
+                         BN * ROW_BYTES, 1024);
+          if constexpr (CW == 128)
+            wgmma_rs_n128(acc[c], pa[kk], dv);
+          else
+            wgmma_rs_n64(acc[c], pa[kk], dv);
+        }
       }
       wgmma_commit();
       wgmma_wait0();
-      fence_regs(acc);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
       mbar_arrive(&v_empty[s]);
     }
 
@@ -620,18 +685,23 @@ flash_aligned_wgmma(__grid_constant__ const CUtensorMap tq,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
     const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
     const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    // padding columns (col >= D, zero-filled operands) are never stored; D
+    // is a multiple of 16, so a column pair lies wholly on one side
 #pragma unroll
-    for (int j = 0; j < NO; j += 4) {
-      const int col = (j / 4) * 8 + 2 * t;
-      if (ra < Sq)
-        *reinterpret_cast<uint32_t*>(o + (((size_t)b * Sq + ra) * Hq + h) * D +
-                                     col) =
-            pack_bf16(acc[j] * inv_a, acc[j + 1] * inv_a);
-      if (rb < Sq)
-        *reinterpret_cast<uint32_t*>(o + (((size_t)b * Sq + rb) * Hq + h) * D +
-                                     col) =
-            pack_bf16(acc[j + 2] * inv_b, acc[j + 3] * inv_b);
-    }
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < NO; j += 4) {
+        const int col = c * CW + (j / 4) * 8 + 2 * t;
+        if (DP != 64 && DP != 128 && col >= D) continue;
+        if (ra < Sq)
+          *reinterpret_cast<uint32_t*>(
+              o + (((size_t)b * Sq + ra) * Hq + h) * D + col) =
+              pack_bf16(acc[c][j] * inv_a, acc[c][j + 1] * inv_a);
+        if (rb < Sq)
+          *reinterpret_cast<uint32_t*>(
+              o + (((size_t)b * Sq + rb) * Hq + h) * D + col) =
+              pack_bf16(acc[c][j + 2] * inv_b, acc[c][j + 3] * inv_b);
+      }
   }
 }
 
@@ -666,7 +736,8 @@ cudaError_t encoder(EncodeTiled* fn) {
 }
 
 // (B, S, H, D) bf16, contiguous, as a 4-D map (D, H, S, B) read in boxes of
-// 64 columns x `rows` rows of one head and sample, 128-byte swizzled
+// 64 columns x `rows` rows of one head and sample, 128-byte swizzled;
+// box columns past D (a padded head dim) and rows past S arrive as zeros
 cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H,
                      int D, int rows) {
   EncodeTiled enc;
@@ -688,6 +759,230 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H,
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------------
+// TF32 path: f32, any D, split operands on mma.sync m16n8k8 (3xTF32)
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int BM = 64;       // query rows a CTA: four warps of 16
+constexpr int BN = 32;       // kv rows a tile
+constexpr int STAGES = 2;    // K/V ring depth
+constexpr int THREADS = 128;
+
+// Q (BM rows), then STAGES (K, V) pairs of BN rows, in float32 rows padded
+// so that every fragment read of a quarter-warp (8 bytes a lane) or a warp
+// (4 bytes) falls on distinct banks: Q and K to D + 8 words (a lane reads
+// the pair (row g, columns 2t, 2t + 1)), V to D + 4 (rows 2t and 2t + 1 of
+// column g)
+template <int D>
+struct Smem {
+  static constexpr int LDQK = D + 8;
+  static constexpr int LDV = D + 4;
+  static constexpr int BYTES = 4 * (BM * LDQK + STAGES * BN * (LDQK + LDV));
+};
+
+// x = hi + lo exactly, hi its TF32 truncation (the low 13 mantissa bits
+// cleared); lo goes to the unit as raw bits, which reads its top 19, so
+// the product sees lo within 2^-10 |lo| <= 2^-20 |x|
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b as three TF32 products of split operands, small terms first:
+// al bh + ah bl + ah bh (the dropped al bl, and the residuals' truncation,
+// are about 2^-20 of each term, 1e-6 of the output against its 1e-4 gate)
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh[2], bl[2];
+  split(b0, bh[0], bl[0]);
+  split(b1, bh[1], bl[1]);
+  tc::mma_tf32(d, al, bh);
+  tc::mma_tf32(d, ah, bl);
+  tc::mma_tf32(d, ah, bh);
+}
+
+// rows [row0, row0 + rows) of head h of a (B, S, H, D) float32 tensor into
+// dst (rows of LD words), 16 bytes a copy; rows past S are zero-filled and
+// not read
+template <int D, int LD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int b,
+                                      int row0, int rows, int S, int H, int h) {
+  constexpr int CH = D / 4;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += THREADS) {
+    const int r = idx / CH, c = idx % CH, s = row0 + r;
+    const float* from = src + (((size_t)b * S + (s < S ? s : 0)) * H + h) * D;
+    flash::cp_async16(dst + r * LD + 4 * c, from + 4 * c, s < S);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_aligned_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, int Sq,
+                   int Sk, int Hq, int Hkv, int causal, int window,
+                   float scale_log2) {
+  constexpr int LQ = Smem<D>::LDQK, LV = Smem<D>::LDV;
+  constexpr int KV = BN * (LQ + LV);  // floats a (K, V) stage
+  constexpr int NK = D / 8;   // k-steps of Q K^T, n-blocks of P V
+  constexpr int NS = BN / 8;  // n-blocks of Q K^T, k-steps of P V
+  extern __shared__ float4 smem_f4[];
+  float* sQ = reinterpret_cast<float*>(smem_f4);
+  float* sKV = sQ + BM * LQ;  // stage s: K at s KV, V BN LQ further
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest bands first
+  const int kvh = h / (Hq / Hkv);
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;  // my rows
+
+  int lo;
+  const int n = band<BM, BN>(q0, Sq, Sk, causal, window, &lo);
+
+  stage<D, LQ>(sQ, q, b, q0, BM, Sq, Hq, h);
+  if (n > 0) {
+    stage<D, LQ>(sKV, k, b, lo, BN, Sk, Hkv, kvh);
+    stage<D, LV>(sKV + BN * LQ, v, b, lo, BN, Sk, Hkv, kvh);
+  }
+  flash::cp_async_commit();
+
+  float acc[NK][4];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_a = -1e30f, m_b = -1e30f, l_a = 0.f, l_b = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int kt = lo + i * BN;
+    if (i + 1 < n) {  // the next tile into the other stage
+      float* nk = sKV + ((i + 1) % STAGES) * KV;
+      stage<D, LQ>(nk, k, b, kt + BN, BN, Sk, Hkv, kvh);
+      stage<D, LV>(nk + BN * LQ, v, b, kt + BN, BN, Sk, Hkv, kvh);
+      flash::cp_async_commit();
+      flash::cp_async_wait<1>();
+    } else {
+      flash::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = sKV + (i % STAGES) * KV;
+    const float* sV = sK + BN * LQ;
+
+    // S = Q K^T.  The fragment's k = t and t + 4 stand for the columns 2t
+    // and 2t + 1 of a k-step's eight (the same for Q and K, so the sum is
+    // unchanged), so each lane reads both with one 8-byte load; the Q
+    // fragment of a k-step is split once for NS key blocks
+    float sc[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < NK; ++kk) {
+      const float* qa = sQ + (warp * 16 + g) * LQ + 8 * kk + 2 * t;
+      const float2 q_a = *reinterpret_cast<const float2*>(qa);
+      const float2 q_b = *reinterpret_cast<const float2*>(qa + 8 * LQ);
+      uint32_t ah[4], al[4];
+      split(q_a.x, ah[0], al[0]);
+      split(q_b.x, ah[1], al[1]);
+      split(q_a.y, ah[2], al[2]);
+      split(q_b.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float2 kb = *reinterpret_cast<const float2*>(
+            sK + (8 * j + g) * LQ + 8 * kk + 2 * t);
+        mma3(sc[j], ah, al, kb.x, kb.y);
+      }
+    }
+
+    // mask only a tile that straddles the diagonal, the window edge or Sk
+    const bool full = kt + BN <= Sk && (!causal || kt + BN - 1 <= q0) &&
+                      (window <= 0 || kt > q0 + BM - 1 - window);
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible((e & 2) ? rb : ra, kt + 8 * j + 2 * t + (e & 1), Sk,
+                       causal, window))
+            sc[j][e] = -INFINITY;
+    }
+
+    // online softmax in base 2, as the Hopper path's
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[j][0], sc[j][1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[j][2], sc[j][3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a * scale_log2);
+    const float mn_b = fmaxf(m_b, mx_b * scale_log2);
+    const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      sc[j][0] = exp2f(fmaf(sc[j][0], scale_log2, -mn_a));
+      sc[j][1] = exp2f(fmaf(sc[j][1], scale_log2, -mn_a));
+      sc[j][2] = exp2f(fmaf(sc[j][2], scale_log2, -mn_b));
+      sc[j][3] = exp2f(fmaf(sc[j][3], scale_log2, -mn_b));
+      sum_a += sc[j][0] + sc[j][1];
+      sum_b += sc[j][2] + sc[j][3];
+    }
+    l_a = l_a * corr_a + sum_a;  // this thread's columns; summed at the end
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      acc[j][0] *= corr_a;
+      acc[j][1] *= corr_a;
+      acc[j][2] *= corr_b;
+      acc[j][3] *= corr_b;
+    }
+
+    // O += P V: key block j of the scores is k-step j, its keys 2t and
+    // 2t + 1 standing for the fragment's k = t and t + 4, and V's rows
+    // read in that order
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      uint32_t ph[4], pl[4];
+      split(sc[j][0], ph[0], pl[0]);
+      split(sc[j][2], ph[1], pl[1]);
+      split(sc[j][1], ph[2], pl[2]);
+      split(sc[j][3], ph[3], pl[3]);
+      const float* vr = sV + (8 * j + 2 * t) * LV + g;
+#pragma unroll
+      for (int c = 0; c < NK; ++c) mma3(acc[c], ph, pl, vr[8 * c], vr[LV + 8 * c]);
+    }
+    __syncthreads();  // this stage is refilled by the prefetch of tile i + 2
+  }
+  flash::cp_async_wait<0>();  // Q's copy, when no tile ran
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (ra < Sq)
+      *reinterpret_cast<float2*>(o + (((size_t)b * Sq + ra) * Hq + h) * D +
+                                 col) =
+          make_float2(acc[j][0] * inv_a, acc[j][1] * inv_a);
+    if (rb < Sq)
+      *reinterpret_cast<float2*>(o + (((size_t)b * Sq + rb) * Hq + h) * D +
+                                 col) =
+          make_float2(acc[j][2] * inv_b, acc[j][3] * inv_b);
+  }
+}
+
+}  // namespace tf
 
 // ---------------------------------------------------------------------------
 // Launch
@@ -729,63 +1024,89 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                         int window, cudaStream_t stream, int* plan) {
-  constexpr size_t smem = wg::Smem<D>::BYTES;
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                        int window, cudaStream_t stream, int* plan) {
+  constexpr size_t smem = tf::Smem<D>::BYTES;
+  const dim3 grid((unsigned)(Hq * B), (Sq + tf::BM - 1) / tf::BM, 1);
+  if (plan)
+    return fill_plan(tf::flash_aligned_tf32<D>, grid, tf::THREADS, smem,
+                     tf::STAGES, plan);
+  // once per instantiation (and process), not once per launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tf::flash_aligned_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
+  tf::flash_aligned_tf32<D><<<grid, tf::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq, Hkv,
+      causal, window, 1.4426950408889634f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+// DP: the head dim D padded to whole 64-column boxes
+template <int DP>
+cudaError_t launch_wgmma(int D, const void* q, const void* k, const void* v,
+                         void* o, int B, int Sq, int Sk, int Hq, int Hkv,
+                         int causal, int window, cudaStream_t stream,
+                         int* plan) {
+  using L = wg::Smem<DP>;
+  constexpr size_t smem = L::BYTES;
   const dim3 grid((unsigned)(Hq * B), (Sq + wg::BM - 1) / wg::BM, 1);
   if (plan)
-    return fill_plan(wg::flash_aligned_wgmma<D>, grid, wg::THREADS, smem,
+    return fill_plan(wg::flash_aligned_wgmma<DP>, grid, wg::THREADS, smem,
                      wg::STAGES, plan);
   // once per instantiation (and process), not once per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
-      wg::flash_aligned_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::flash_aligned_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tq, tk, tv;
   cudaError_t err = wg::make_map(&tq, q, B, Sq, Hq, D, wg::BM);
-  if (err == cudaSuccess) err = wg::make_map(&tk, k, B, Sk, Hkv, D, wg::BN);
-  if (err == cudaSuccess) err = wg::make_map(&tv, v, B, Sk, Hkv, D, wg::BN);
+  if (err == cudaSuccess) err = wg::make_map(&tk, k, B, Sk, Hkv, D, L::BN);
+  if (err == cudaSuccess) err = wg::make_map(&tv, v, B, Sk, Hkv, D, L::BN);
   if (err != cudaSuccess) return err;
-  wg::flash_aligned_wgmma<D><<<grid, wg::THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hkv, causal,
+  wg::flash_aligned_wgmma<DP><<<grid, wg::THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hkv, D, causal,
       window, 1.4426950408889634f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 #define FA_ARGS q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, s, plan
 
-// By shape, not by failure: bf16 with D 64 or 128 runs the TMA + wgmma
-// kernel; f32, and bf16 with any other D, the FMA loops.
+// By shape, not by failure: f32 runs the TF32 kernel at every D; bf16 with
+// D 64, 128 or 144 .. 256 the TMA + wgmma kernel (144 .. 192 padded to
+// 192, 208 .. 256 to 256); bf16 with D 16 .. 48 or 80 .. 112 the FMA loops.
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,
                      int window, int dtype, cudaStream_t s, int* plan) {
-#define F32_CASE(DD) \
-  case DD:           \
-    return launch_fma<float, DD>(FA_ARGS);
-#define WGMMA_CASE(DD) \
-  case DD:             \
-    return launch_wgmma<DD>(FA_ARGS);
+#define TF32_CASE(DD) \
+  case DD:            \
+    return launch_tf32<DD>(FA_ARGS);
+#define WGMMA_CASE(DD, DP) \
+  case DD:                 \
+    return launch_wgmma<DP>(D, FA_ARGS);
 #define BF16_FMA_CASE(DD) \
   case DD:                \
     return launch_fma<__nv_bfloat16, DD>(FA_ARGS);
   if (dtype == 0) {
     switch (D) {
-      F32_CASE(16) F32_CASE(32) F32_CASE(48) F32_CASE(64)
-      F32_CASE(80) F32_CASE(96) F32_CASE(112) F32_CASE(128)
-      F32_CASE(144) F32_CASE(160) F32_CASE(176) F32_CASE(192)
-      F32_CASE(208) F32_CASE(224) F32_CASE(240) F32_CASE(256)
+      TF32_CASE(16) TF32_CASE(32) TF32_CASE(48) TF32_CASE(64)
+      TF32_CASE(80) TF32_CASE(96) TF32_CASE(112) TF32_CASE(128)
+      TF32_CASE(144) TF32_CASE(160) TF32_CASE(176) TF32_CASE(192)
+      TF32_CASE(208) TF32_CASE(224) TF32_CASE(240) TF32_CASE(256)
       default: return cudaErrorInvalidValue;
     }
   }
   switch (D) {
-    BF16_FMA_CASE(16) BF16_FMA_CASE(32) BF16_FMA_CASE(48) WGMMA_CASE(64)
-    BF16_FMA_CASE(80) BF16_FMA_CASE(96) BF16_FMA_CASE(112) WGMMA_CASE(128)
-    BF16_FMA_CASE(144) BF16_FMA_CASE(160) BF16_FMA_CASE(176) BF16_FMA_CASE(192)
-    BF16_FMA_CASE(208) BF16_FMA_CASE(224) BF16_FMA_CASE(240) BF16_FMA_CASE(256)
+    BF16_FMA_CASE(16) BF16_FMA_CASE(32) BF16_FMA_CASE(48) WGMMA_CASE(64, 64)
+    BF16_FMA_CASE(80) BF16_FMA_CASE(96) BF16_FMA_CASE(112) WGMMA_CASE(128, 128)
+    WGMMA_CASE(144, 192) WGMMA_CASE(160, 192) WGMMA_CASE(176, 192)
+    WGMMA_CASE(192, 192) WGMMA_CASE(208, 256) WGMMA_CASE(224, 256)
+    WGMMA_CASE(240, 256) WGMMA_CASE(256, 256)
     default: return cudaErrorInvalidValue;
   }
-#undef F32_CASE
+#undef TF32_CASE
 #undef WGMMA_CASE
 #undef BF16_FMA_CASE
 }

@@ -43,9 +43,12 @@
 //     (a warp with no live row does no product); S = Q K^T and O += P V on the
 //     tensor cores (mma.sync m16n8k16, f32 accumulate), Q and the accumulator
 //     in registers, V read with ldmatrix.trans, P rounded to bf16 for the
-//     second product.  f32 (held to 1e-4, which TF32 would miss) and bf16
-//     with D > 128 (past the register file): FMA loops over the same tiles,
-//     256 threads each owning 4 rows, in the same split layout.
+//     second product.  f32 (held to 1e-4) and bf16 with D > 128 (past the
+//     register file at these tiles): FMA loops over the same tiles, 256
+//     threads each owning 4 rows, in the same split layout.  One TF32
+//     product would miss 1e-4, but three of split operands meet it, as
+//     kernel 3's float32 path (flash_aligned.cu) and the SSD scan show: a
+//     tensor-core f32 path here is open work, not a limit of the format.
 
 #pragma once
 

@@ -143,6 +143,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "tf32.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -254,20 +256,8 @@ __device__ __forceinline__ void tile_cumsum(const float* dts, float av,
 // Tile products on the tensor cores (TF32 mma.sync), for both kernels
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using tc::mma_tf32;  // tf32.cuh
+using tc::tf32;
 
 // d[e] += a b[e] for one k-step of 8 and NB B column blocks, the A
 // fragment split once.  Every operand is rounded to its nearest TF32 value

@@ -17,6 +17,11 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the D == 1 route's launch (csrc/fisher.cu): RT threads a block, each
+# owning VEC neighbouring columns of one layer, RU valid rows loaded ahead,
+# the mask's valid rows compacted RCH at a time into shared memory
+RT, RU, RCH = 128, 8, 1024
+PLAN_KEYS = ("blocks", "threads", "vec", "rows_ahead", "rows_a_pass")
 _fn = None
 
 
@@ -31,6 +36,69 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def rows_vec(c: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """Columns a thread of the D == 1 route: 16 bytes' worth (4 float32, 8
+    bf16) when C is a multiple of that and the operands start on a 16-byte
+    boundary, else 1."""
+    v = 16 // (4 if dtype == torch.float32 else 2)
+    return v if c % v == 0 and aligned else 1
+
+
+def rows_plan(layers: int, n: int, c: int, dtype: torch.dtype,
+              aligned: bool = True) -> dict:
+    """The D == 1 route's launch as ``csrc/fisher.cu`` makes it (a model
+    for the CPU tests and the card's launch check; the kernel does not call
+    it): ``owner(block, thread)`` is the (layer, first column) a thread
+    owns, or None past the last column."""
+    vec = rows_vec(c, dtype, aligned)
+    groups = c // vec
+    blocks = -(-layers * groups // RT)
+
+    def owner(block: int, thread: int):
+        j = block * RT + thread
+        if j >= layers * groups:
+            return None
+        return j // groups, (j % groups) * vec
+
+    return dict(blocks=blocks, threads=RT, vec=vec, rows_ahead=RU,
+                rows_a_pass=RCH, owner=owner)
+
+
+def compact_rows(mask: Optional[torch.Tensor], n: int) -> list:
+    """The rows the D == 1 route reads, pass by pass, as its first warp
+    compacts them into shared memory: [(rows, weights)] for each pass of
+    ``RCH`` rows, the rows whose mask is non-zero in increasing order, each
+    with weight m^2 (every row with weight 1 without a mask)."""
+    out = []
+    for r0 in range(0, n, RCH):
+        m = (torch.ones(min(RCH, n - r0)) if mask is None
+             else mask[r0:r0 + RCH].float())
+        keep = [r0 + i for i in range(m.numel()) if m[i] != 0]
+        out.append((keep, [float(mask[r] ** 2) if mask is not None else 1.0
+                           for r in keep]))
+    return out
+
+
+def plan(g: torch.Tensor, a: Optional[torch.Tensor] = None, *,
+         per_layer: bool = False) -> dict:
+    """The launch the kernel would make for these operands (their shapes
+    and alignment), from the CUDA library (``fisher_plan``), without making
+    it; the keys of ``PLAN_KEYS``."""
+    fn = build.load("fisher").fisher_plan
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lead, n, d, c = ((*g.shape[:2], 1, g.shape[2]) if per_layer
+                     else (1, g.shape[0], *g.shape[1:]))
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    err = fn(None if a is None else a.data_ptr(), g.data_ptr(), lead, n, d,
+             c, _DTYPES[g.dtype], out)
+    if err:
+        raise RuntimeError(f"fisher_plan failed: cudaError {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def fisher_cuda(

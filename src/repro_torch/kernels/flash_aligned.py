@@ -19,11 +19,16 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the Hopper path's tiling (csrc/flash_aligned.cu, namespace wg): a CTA of
-# three warpgroups over 128 query rows of one head, 128-row K/V tiles in a
-# ring of two stages, one 64-column TMA box a row per 64 of D
+# three warpgroups over 128 query rows of one head, K/V tiles of WG_BN rows
+# (64 past D 128) in a ring of two stages, one 64-column TMA box a row per
+# 64 of the padded head dim
 WG_BM = WG_BN = 128
 WG_STAGES = 2
 WG_THREADS = 384
+# the float32 path's tiling (namespace tf): four warps over 64 query rows,
+# 32-row K/V tiles double-buffered, float32 rows of Q and K padded to D + 8
+# words and of V to D + 4
+TF_BM, TF_BN, TF_STAGES, TF_THREADS = 64, 32, 2, 128
 PLAN_KEYS = ("CTAs", "cluster", "threads", "smem_bytes", "registers",
              "stages")
 _fn = None
@@ -40,41 +45,86 @@ def _entry():
     return _fn
 
 
+def path(d: int, dtype: torch.dtype) -> str:
+    """The kernel ``flash_aligned_fwd`` runs for this head dim and dtype
+    (by shape, never by failure): "tf32" for float32, "wgmma" for bf16 D
+    64, 128 and 144 .. 256, "fma" for bf16 D 16 .. 48 and 80 .. 112."""
+    if dtype == torch.float32:
+        return "tf32"
+    return "wgmma" if d in (64, 128) or d > 128 else "fma"
+
+
+def wgmma_tiles(d: int) -> dict:
+    """The wgmma path's tiles for head dim ``d``: ``dp`` (d padded to whole
+    64-column TMA boxes, whose padding TMA zero-fills and the kernel never
+    stores), ``bn`` (kv rows a tile: 128 up to 128 columns, else 64, so the
+    output accumulator and the scores fit 240 registers) and ``cw`` (the
+    columns of one output wgmma: 128 at dp 128, else 64)."""
+    dp = -(-d // 64) * 64
+    return dict(dp=dp, bn=WG_BN if dp <= 128 else 64,
+                cw=128 if dp == 128 else 64)
+
+
 def wgmma_smem(d: int) -> int:
     """Dynamic shared memory a CTA of the wgmma path asks for: Q, two K and
-    two V stages, nine mbarriers and 1024 bytes to align the base."""
-    return WG_BM * d * 2 + 2 * WG_STAGES * WG_BN * d * 2 + 8 * (
+    two V stages at the padded head dim, nine mbarriers and 1024 bytes to
+    align the base."""
+    t = wgmma_tiles(d)
+    return WG_BM * t["dp"] * 2 + 2 * WG_STAGES * t["bn"] * t["dp"] * 2 + 8 * (
         1 + 4 * WG_STAGES) + 1024
 
 
+def tf32_smem(d: int) -> int:
+    """Dynamic shared memory a CTA of the float32 path asks for: Q and two
+    (K, V) stages in float32 rows of d + 8 words (Q, K) and d + 4 (V)."""
+    return 4 * (TF_BM * (d + 8) + TF_STAGES * TF_BN * (2 * d + 12))
+
+
+def _schedule(sq: int, sk: int, bm: int, bn: int, causal: bool,
+              window: int) -> list:
+    nq = -(-sq // bm)
+    order = []
+    for y in range(nq):
+        q0 = (nq - 1 - y) * bm
+        q_last = min(q0 + bm, sq) - 1
+        hi = min(sk, q_last + 1) if causal else sk
+        first = max(0, q0 - window + 1) if window > 0 else 0
+        lo = first // bn * bn
+        n = -(-(hi - lo) // bn) if hi > first else 0
+        tiles = []
+        for i in range(n):
+            kt = lo + i * bn
+            full = (kt + bn <= sk
+                    and (not causal or kt + bn - 1 <= q0)
+                    and (window <= 0 or kt > q0 + bm - 1 - window))
+            tiles.append((kt, not full))
+        order.append(dict(q0=q0, tiles=tiles))
+    return order
+
+
 def wgmma_schedule(b: int, sq: int, sk: int, hq: int, *, causal: bool = True,
-                   window: int = 0) -> dict:
+                   window: int = 0, d: int = 128) -> dict:
     """The wgmma path's launch as ``csrc/flash_aligned.cu`` makes it: grid
     (Hq B, ceil(Sq / 128)), and for each ``blockIdx.y`` in launch order the
     query tile it owns (the last first, so the longest causal bands start
-    first) with its kv tiles [(start, masked)]: the 128-row tiles of the
-    band its rows can see, ``masked`` when some (row, key) pair of the tile
-    is not visible (the diagonal, the window edge, keys past Sk); the others
-    skip the mask.  A model for the CPU tests and the card's geometry
-    check; the kernel does not call it."""
-    nq = -(-sq // WG_BM)
-    order = []
-    for y in range(nq):
-        q0 = (nq - 1 - y) * WG_BM
-        q_last = min(q0 + WG_BM, sq) - 1
-        hi = min(sk, q_last + 1) if causal else sk
-        first = max(0, q0 - window + 1) if window > 0 else 0
-        lo = first // WG_BN * WG_BN
-        n = -(-(hi - lo) // WG_BN) if hi > first else 0
-        tiles = []
-        for i in range(n):
-            kt = lo + i * WG_BN
-            full = (kt + WG_BN <= sk
-                    and (not causal or kt + WG_BN - 1 <= q0)
-                    and (window <= 0 or kt > q0 + WG_BM - 1 - window))
-            tiles.append((kt, not full))
-        order.append(dict(q0=q0, tiles=tiles))
-    return dict(grid=(hq * b, nq), threads=WG_THREADS, order=order)
+    first) with its kv tiles [(start, masked)]: the tiles of
+    ``wgmma_tiles(d)["bn"]`` rows of the band its rows can see, ``masked``
+    when some (row, key) pair of the tile is not visible (the diagonal, the
+    window edge, keys past Sk); the others skip the mask.  A model for the
+    CPU tests and the card's geometry check; the kernel does not call
+    it."""
+    bn = wgmma_tiles(d)["bn"]
+    return dict(grid=(hq * b, -(-sq // WG_BM)), threads=WG_THREADS, bn=bn,
+                order=_schedule(sq, sk, WG_BM, bn, causal, window))
+
+
+def tf32_schedule(b: int, sq: int, sk: int, hq: int, *, causal: bool = True,
+                  window: int = 0) -> dict:
+    """The float32 path's launch, as ``wgmma_schedule`` describes the
+    wgmma path's: grid (Hq B, ceil(Sq / 64)), longest bands first, 32-row
+    kv tiles and which of them are masked."""
+    return dict(grid=(hq * b, -(-sq // TF_BM)), threads=TF_THREADS, bn=TF_BN,
+                order=_schedule(sq, sk, TF_BM, TF_BN, causal, window))
 
 
 def plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int,

@@ -206,3 +206,134 @@ def test_cuda_fisher_matches_plain(cuda_device, shape, dtype, masked):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The tap-gradient route's launch (csrc/fisher.cu, fisher_rows_kernel)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape, dtype, aligned, vec", [
+    ((28, 48, 8960), torch.float32, True, 4),    # qwen2-1.5b's d_ff group
+    ((28, 48, 12), torch.float32, True, 4),      # its heads group
+    ((28, 48, 8960), torch.bfloat16, True, 8),
+    ((28, 48, 12), torch.bfloat16, True, 1),     # 12 columns: no 8-wide load
+    ((4, 3, 77), torch.float32, True, 1),        # ragged
+    ((48, 48, 64), torch.float32, False, 1),     # an unaligned operand
+])
+def test_rows_plan_covers_every_column_once(shape, dtype, aligned, vec):
+    """Every (layer, column) belongs to exactly one thread's VEC
+    neighbouring columns; threads past the last own nothing; the grid is
+    whole blocks of 128."""
+    layers, n, c = shape
+    plan = FK.rows_plan(layers, n, c, dtype, aligned)
+    assert plan["vec"] == vec == FK.rows_vec(c, dtype, aligned)
+    assert plan["threads"] == FK.RT and plan["blocks"] == -(
+        -layers * (c // vec) // FK.RT)
+    seen = np.zeros((layers, c), np.int64)
+    for blk in range(plan["blocks"]):
+        for th in range(plan["threads"]):
+            own = plan["owner"](blk, th)
+            if own is None:
+                assert blk * FK.RT + th >= layers * c // vec
+                continue
+            lyr, c0 = own
+            assert c0 % vec == 0
+            seen[lyr, c0:c0 + vec] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n, seed", [(48, 0), (3, 1), (2500, 2)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_compacted_rows_are_the_mask_nonzero_rows(n, seed, masked):
+    """The rows the kernel reads, pass by pass (1024 a pass), are exactly
+    the mask's non-zero rows in order, each weighted m^2; without a mask
+    every row with weight 1."""
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy(np.where(rng.random(n) < 0.3, 0.0,
+                                     rng.random(n) + 0.5).astype(np.float32)
+                            ) if masked else None
+    passes = FK.compact_rows(mask, n)
+    assert len(passes) == -(-n // FK.RCH)
+    rows = [r for rs, _ in passes for r in rs]
+    weights = [w for _, ws in passes for w in ws]
+    want = (torch.nonzero(mask).flatten().tolist() if masked
+            else list(range(n)))
+    assert rows == want
+    np.testing.assert_allclose(
+        weights, [1.0] * n if not masked else (mask[want] ** 2).tolist(),
+        rtol=1e-6)
+    for i, (rs, _) in enumerate(passes):
+        assert all(i * FK.RCH <= r < (i + 1) * FK.RCH for r in rs)
+
+
+def test_rows_model_matches_plain():
+    """The kernel's sum over its compacted rows, for each owned column in
+    row order (scale x sum w g^2), is the plain version's Eq. 2; NaN in the
+    masked rows is never read."""
+    g = torch.from_numpy(_normal((3, 40, 24), 7))
+    mask = (torch.arange(40) % 5 != 0).float()
+    g[:, mask == 0] = float("nan")
+    n = float(mask.sum())
+    plan = FK.rows_plan(3, 40, 24, torch.float32)
+    got = torch.zeros(3, 24)
+    (rows, weights), = FK.compact_rows(mask, 40)
+    for blk in range(plan["blocks"]):
+        for th in range(plan["threads"]):
+            own = plan["owner"](blk, th)
+            if own is None:
+                continue
+            lyr, c0 = own
+            acc = torch.zeros(plan["vec"])
+            for r, w in zip(rows, weights):
+                acc += w * g[lyr, r, c0:c0 + plan["vec"]] ** 2
+            got[lyr, c0:c0 + plan["vec"]] = acc / (2.0 * n)
+    want = fisher_tapgrads_ref(g, n, mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype, offset", [
+    ((28, 48, 8960), torch.float32, 0),
+    ((28, 48, 12), torch.float32, 0),
+    ((28, 48, 8960), torch.bfloat16, 0),
+    ((28, 48, 12), torch.bfloat16, 0),
+    ((4, 3, 77), torch.float32, 0),
+    ((6, 48, 64), torch.float32, 1),  # g starts 4 bytes past a boundary
+])
+def test_cuda_tapgrads_launch_matches_model(cuda_device, shape, dtype,
+                                            offset):
+    """The launch the kernel makes (``fisher_plan``) is the host-side
+    model's, 16-byte loads where the shape and alignment allow them; the
+    result matches the plain version either way."""
+    numel = int(np.prod(shape))
+    buf = _t(_normal((numel + offset,), 3), "float32").to(cuda_device, dtype)
+    g = buf[offset:].view(shape)
+    plan = FK.plan(g, per_layer=True)
+    model = FK.rows_plan(*shape, dtype, aligned=g.data_ptr() % 16 == 0)
+    assert plan == {k: model[k] for k in FK.PLAN_KEYS}
+    mask = _valid_mask(shape[1], shape[1] - 1).to(cuda_device)
+    got = ops.fisher_tapgrads(g, float(shape[1] - 1), mask)
+    want = fisher_tapgrads_ref(g, float(shape[1] - 1), mask)
+    torch.cuda.synchronize()
+    tol = TOL[str(dtype).split(".")[-1]]
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tapgrads_over_many_passes(cuda_device, dtype):
+    """2,500 rows (three compaction passes of 1,024), a third of them
+    masked and holding NaN: never read, the plain version's result."""
+    shape = (3, 2500, 136)
+    g = _t(_normal(shape, 5), dtype).to(cuda_device)
+    keep = torch.from_numpy(np.random.default_rng(6).random(2500) > 0.33)
+    mask = keep.float().to(cuda_device)
+    g[:, ~keep.to(cuda_device)] = float("nan")
+    got = ops.fisher_tapgrads(g, float(keep.sum()), mask)
+    want = fisher_tapgrads_ref(g, float(keep.sum()), mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])

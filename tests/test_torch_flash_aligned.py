@@ -6,9 +6,12 @@ and, on a card, the CUDA kernel against its plain version.
 JAX is imported inside the reference fixture only, so that the card's
 tests run on a machine without it:
 ``python -m pytest -q -m cuda tests/test_torch_flash_aligned.py``."""
+import math
+
 import numpy as np
 import pytest
 import torch
+from test_torch_ssd_scan import tf32_round
 
 from repro_torch.kernels import flash_aligned as FA
 from repro_torch.kernels import ops
@@ -183,11 +186,16 @@ def _assert_close(got, want, tol):
     dict(b=2, s=130, hq=2, hkv=1, d=16, causal=True, window=5),
     dict(b=1, s=96, hq=2, hkv=2, d=256, causal=True, window=40, sk=90),
     dict(b=1, s=70, hq=6, hkv=3, d=208, causal=False, window=0),
+    dict(b=1, s=300, hq=4, hkv=2, d=160, causal=True, window=0, sk=200),
+    dict(b=2, s=130, hq=2, hkv=1, d=192, causal=True, window=5),
+    dict(b=1, s=150, hq=4, hkv=2, d=256, causal=False, window=0, sk=333),
+    dict(b=1, s=100, hq=2, hkv=1, d=144, causal=True, window=0),
 ])
 def test_cuda_kernel_matches_plain(cuda_device, shape, dtype, tol):
     """Causal, full, GQA/MQA, Sk != Sq both ways, a window smaller than
-    the 64-row tile, head dims on the wgmma path (bf16 64 and 128) and on
-    the FMA path (f32, and bf16 16, 32, 208, 256)."""
+    the 64-row tile, every path: f32 on TF32 tensor cores at every head
+    dim, bf16 on wgmma (64, 128, and 144 .. 256 padded to whole 64-column
+    boxes) and on the FMA loops (16, 32)."""
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                for a in _qkv(shape, sk=shape.get("sk")))
     n0 = ops.flash_attention.launches
@@ -284,6 +292,217 @@ def test_wgmma_shared_memory_fits_a_cta():
     assert FA.wgmma_smem(128) <= 232448
 
 
+@pytest.mark.parametrize("d, dp, bn, smem", [
+    (144, 192, 64, 148552), (160, 192, 64, 148552), (192, 192, 64, 148552),
+    (208, 256, 64, 197704), (256, 256, 64, 197704),
+])
+def test_wgmma_tiles_past_d128_fit_a_cta(d, dp, bn, smem):
+    """A head dim past 128 is padded to whole 64-column boxes and takes
+    64-row kv tiles: Q (128 x DP) and two K and two V stages (64 x DP) in
+    bf16 fit the 227 KB a CTA can have, and the accumulators (64 x DP
+    output, 64 x 64 scores, a warpgroup) fit 240 registers a thread."""
+    t = FA.wgmma_tiles(d)
+    assert (t["dp"], t["bn"], t["cw"]) == (dp, bn, 64)
+    assert FA.wgmma_smem(d) == 128 * dp * 2 + 4 * 64 * dp * 2 + 72 + 1024
+    assert FA.wgmma_smem(d) == smem <= 232448
+    regs = dp // 2 + bn // 2 + bn // 16 * 4  # O, S, P fragments a thread
+    assert regs <= 176 < 240
+    assert FA.path(d, torch.bfloat16) == "wgmma"
+    assert FA.path(d, torch.float32) == "tf32"
+
+
+@pytest.mark.parametrize("d", [64, 128, 144, 160, 176, 192, 208, 224, 240, 256])
+def test_wgmma_epilogue_stores_each_true_column_once(d):
+    """The consumer's epilogue writes columns c CW + 8 (j / 4) + 2 t and
+    the next one for every output chunk c, accumulator group j and quad
+    lane t, skipping col >= D: every column of the true head dim exactly
+    once, and no zero-filled padding column."""
+    t = FA.wgmma_tiles(d)
+    cols = []
+    for c in range(t["dp"] // t["cw"]):
+        for j in range(0, t["cw"] // 2, 4):
+            for lane in range(4):
+                col = c * t["cw"] + (j // 4) * 8 + 2 * lane
+                if col < d:
+                    cols += [col, col + 1]
+    assert sorted(cols) == list(range(d))
+
+
+def test_padding_columns_add_nothing():
+    """Zero Q/K columns past D add nothing to Q K^T and zero V columns give
+    zero output columns: attention over operands padded from 160 to 192
+    columns (scale 1/sqrt(160)) equals the unpadded attention in its first
+    160 columns, bit for bit in float64."""
+    cfg = dict(b=1, s=40, hq=2, hkv=1, d=160)
+    q, k, v = (torch.from_numpy(a).double() for a in _qkv(cfg, seed=3))
+    pad = [torch.nn.functional.pad(x, (0, 32)) for x in (q, k, v)]
+    for causal, window in ((True, 0), (False, 0), (True, 9)):
+        want = _oracle(q, k, v, causal=causal, window=window)
+        got = _oracle(*pad, causal=causal, window=window, d=160)
+        assert torch.equal(got[..., :160], want)
+        assert torch.equal(got[..., 160:], torch.zeros_like(got[..., 160:]))
+
+
+# ---------------------------------------------------------------------------
+# The float32 path: TF32 tensor cores with split operands (3xTF32)
+# ---------------------------------------------------------------------------
+
+def _oracle(q, k, v, *, causal, window, d=None):
+    """Attention in float64 with the kernel's contract: scale 1/sqrt(d)
+    (the head dim unless given), rows that see no key give 0."""
+    q, k, v = q.double(), k.double(), v.double()
+    sq, hq, d_ = q.shape[1:]
+    sk, hkv = k.shape[1:3]
+    kf, vf = (x.repeat_interleave(hq // hkv, dim=2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kf) / math.sqrt(d or d_)
+    qp, kp = torch.arange(sq)[:, None], torch.arange(sk)[None]
+    vis = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        vis &= kp <= qp
+    if window:
+        vis &= kp > qp - window
+    p = torch.softmax(s.masked_fill(~vis, -math.inf), -1).nan_to_num(0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf)
+
+
+def tf32_trunc(t: torch.Tensor) -> torch.Tensor:
+    """float32 with its low 13 mantissa bits cleared: the kernel's TF32
+    head, and what the tensor core reads of a residual handed over raw."""
+    return (t.float().contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+
+
+def _mm_tf32(a, b, products):
+    """a @ b as the kernel's mma3 sums it: each operand split into its TF32
+    truncation and the truncation of the (exact) residual, al bh + ah bl +
+    ah bh (products of TF32 values are exact in float32); ``products`` 1:
+    one product of operands rounded to their nearest TF32 values, the best
+    one product can do."""
+    if products == 1:
+        return tf32_round(a) @ tf32_round(b)
+    ah, bh = tf32_trunc(a), tf32_trunc(b)
+    return tf32_trunc(a - ah) @ bh + ah @ tf32_trunc(b - bh) + ah @ bh
+
+
+def tf32_model(q, k, v, *, causal, window, products=3):
+    """Kernel 3's float32 path in plain torch on float32 values: kv tiles of
+    ``FA.TF_BN`` keys (zero rows past Sk, masked to -inf), the online
+    softmax in base 2 with m from -1e30, S = Q K^T and O += P V through
+    ``_mm_tf32``.  Processing every tile, where the kernel skips those no
+    row of its query tile can see, changes no bit: such a tile leaves m,
+    l and the accumulator exactly as they were."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1:3]
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    bn = FA.TF_BN
+    out = torch.zeros((b, sq, hq, d))
+    qp = torch.arange(sq)[:, None]
+    for bi in range(b):
+        for h in range(hq):
+            kh = h // (hq // hkv)
+            m = torch.full((sq, 1), -1e30)
+            l, acc = torch.zeros((sq, 1)), torch.zeros((sq, d))
+            for kt in range(0, sk, bn):
+                kp = torch.arange(kt, kt + bn)[None]
+                kt_, vt_ = torch.zeros((bn, d)), torch.zeros((bn, d))
+                n = min(bn, sk - kt)
+                kt_[:n], vt_[:n] = k[bi, kt:kt + n, kh], v[bi, kt:kt + n, kh]
+                s = _mm_tf32(q[bi, :, h].float(), kt_.T, products)
+                vis = kp < sk
+                if causal:
+                    vis = vis & (kp <= qp)
+                if window:
+                    vis = vis & (kp > qp - window)
+                s = torch.where(vis, s, -math.inf)
+                mn = torch.maximum(m, s.amax(1, keepdim=True) * sl2)
+                corr = torch.exp2(m - mn)
+                p = torch.exp2(s * sl2 - mn)
+                l = l * corr + p.sum(1, keepdim=True)
+                acc = acc * corr + _mm_tf32(p, vt_, products)
+                m = mn
+            out[bi, :, h] = acc / l.clamp_min(1e-30)
+    return out
+
+
+TF32_CASES = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window)
+    (1, 96, 96, 2, 1, 32, True, 0),
+    (1, 80, 80, 2, 2, 16, True, 7),     # a window smaller than a tile
+    (1, 70, 45, 2, 1, 48, True, 0),     # Sk < Sq: rows past Sk see all
+    (1, 40, 100, 2, 2, 64, False, 0),   # Sk > Sq, not causal
+    (1, 60, 20, 2, 1, 16, True, 5),     # rows that see no key give 0
+    (1, 128, 128, 1, 1, 256, True, 0),
+]
+
+
+@pytest.mark.parametrize("case", TF32_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_tf32_split_products_hold_1e4(case):
+    """Three TF32 products of split operands hold the float32 gate, 1e-4
+    absolute plus 1e-4 |want|, against the float64 oracle (the kernel's
+    error is then the tensor cores' float32 sums, not its operands')."""
+    b, sq, sk, hq, hkv, d, causal, window = case
+    q, k, v = (torch.from_numpy(a) for a in _qkv(
+        dict(b=b, s=sq, hq=hq, hkv=hkv, d=d), seed=4, sk=sk))
+    want = _oracle(q, k, v, causal=causal, window=window)
+    got = tf32_model(q, k, v, causal=causal, window=window).double()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    if window and sk < sq:
+        blind = [i for i in range(sq) if i - window + 1 >= sk]
+        assert blind and got[:, blind].abs().max().item() == 0.0
+
+
+def test_one_tf32_product_misses_1e4():
+    """Why three: one product of operands rounded to TF32 misses the gate
+    at the bench's head dim."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(
+        dict(b=1, s=256, hq=2, hkv=1, d=128), seed=4))
+    want = _oracle(q, k, v, causal=True, window=0).numpy()
+    got = tf32_model(q, k, v, causal=True, window=0, products=1)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got.double().numpy(), want, rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("d, smem", [(16, 17408), (128, 103424),
+                                     (256, 201728)])
+def test_tf32_shared_memory_fits_a_cta(d, smem):
+    """Q (64 rows) and two (K, V) stages of 32 rows in float32 rows of
+    D + 8 words (Q, K) and D + 4 (V): two CTAs an SM at D 128, one at
+    D 256."""
+    assert FA.tf32_smem(d) == smem <= 232448
+    assert (2 * FA.tf32_smem(128) <= 233472) and 2 * FA.tf32_smem(256) > 233472
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES[:4], ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_tf32_schedule_covers_the_band(case):
+    """The float32 path's 64-row query tiles and 32-row kv tiles: every
+    visible pair in a tile of its band, every tile of a band holding one,
+    the longest bands first."""
+    b, sq, sk, hq, causal, window = case
+    sched = FA.tf32_schedule(b, sq, sk, hq, causal=causal, window=window)
+    assert sched["grid"] == (hq * b, -(-sq // FA.TF_BM))
+    assert sched["bn"] == FA.TF_BN and sched["threads"] == 128
+    step = 16 if sq > 1000 else 1
+    counts = []
+    for o in sched["order"]:
+        rows = range(o["q0"], min(o["q0"] + FA.TF_BM, sq))
+        covered = set()
+        for kt, _ in o["tiles"]:
+            keys = range(kt, kt + FA.TF_BN)
+            assert any(_visible(q, k_, sk, causal, window)
+                       for q in rows[::step] for k_ in keys) or step > 1
+            covered.update(keys)
+        for q in rows[::step]:
+            for k_ in range(0, sk, step):
+                if _visible(q, k_, sk, causal, window):
+                    assert k_ in covered
+        counts.append(len(o["tiles"]))
+    if causal and not window:
+        assert counts == sorted(counts, reverse=True)
+
+
 WGMMA_CARD = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window)
     (1, 4096, 4096, 12, 2, 128, True, 0),
     (1, 2048, 2048, 8, 2, 64, True, 0),
@@ -295,6 +514,12 @@ WGMMA_CARD = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window)
     (2, 300, 200, 2, 1, 128, True, 7),
     (2, 256, 256, 2, 2, 128, False, 0),
     (1, 1024, 1024, 8, 8, 64, True, 300),
+    (1, 4096, 4096, 8, 1, 256, True, 0),    # gemma-2b's prefill width
+    (1, 1024, 1024, 32, 8, 160, True, 0),   # stablelm-12b's, shorter
+    (1, 200, 150, 4, 2, 192, True, 0),
+    (2, 300, 200, 2, 1, 256, True, 7),
+    (1, 150, 333, 4, 2, 160, False, 0),
+    (2, 130, 130, 2, 1, 224, True, 5),
 ]
 
 
@@ -302,9 +527,10 @@ WGMMA_CARD = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window)
 @pytest.mark.parametrize("case", WGMMA_CARD, ids=lambda c: "-".join(
     str(x) for x in c))
 def test_cuda_wgmma_path_matches_plain(cuda_device, case):
-    """D 64 and 128, Sq and Sk not multiples of 128 both ways, a window
-    smaller than a tile, not causal, rows that see no key (Sk < Sq with a
-    window: 0), and two runs bit-equal; the launch is the wgmma kernel's."""
+    """D 64 and 128, and 160 to 256 padded to whole 64-column boxes, Sq
+    and Sk not multiples of 128 both ways, a window smaller than a tile,
+    not causal, rows that see no key (Sk < Sq with a window: 0), and two
+    runs bit-equal; the launch is the wgmma kernel's."""
     b, sq, sk, hq, hkv, d, causal, window = case
     cfg = dict(b=b, s=sq, hq=hq, hkv=hkv, d=d)
     q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
@@ -399,3 +625,37 @@ def test_cuda_bf16_gate_rejects_planted_faults(cuda_device, tmp_path, fault):
     torch.cuda.synchronize()
     with pytest.raises(AssertionError):
         _assert_close(bad, want, 3e-2)
+
+
+TF32_CARD = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window)
+    (2, 2048, 2048, 8, 2, 128, True, 0),   # the reference bench's full row
+    (1, 512, 512, 4, 2, 64, True, 0),      # and its quick row
+    (1, 300, 200, 4, 2, 160, True, 7),
+    (1, 150, 333, 2, 1, 256, False, 0),
+    (2, 130, 130, 2, 1, 16, True, 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TF32_CARD, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_cuda_tf32_path_matches_plain(cuda_device, case):
+    """float32 on TF32 tensor cores with split operands: the unchanged
+    1e-4 gate against the plain version (TF32 off), rows that see no key
+    give 0, two runs bit-equal, the launch as the host-side model has it."""
+    b, sq, sk, hq, hkv, d, causal, window = case
+    cfg = dict(b=b, s=sq, hq=hq, hkv=hkv, d=d)
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(cfg, sk=sk))
+    p = FA.plan(b, sq, sk, hq, hkv, d, torch.float32)
+    assert (p["threads"], p["stages"], p["smem_bytes"]) == (
+        FA.TF_THREADS, FA.TF_STAGES, FA.tf32_smem(d))
+    assert p["CTAs"] == hq * b * -(-sq // FA.TF_BM)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _assert_close(got, want, 1e-4)
+    assert torch.equal(got, again)
+    if window and sk < sq:
+        blind = [i for i in range(sq) if i - window + 1 >= sk]
+        assert blind and got[:, blind].abs().max().item() == 0.0

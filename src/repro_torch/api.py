@@ -3,6 +3,15 @@
     import numpy as np
     from repro_torch import api
 
+    bb = api.backbone("mcunet", batch_size=64)             # in_res 84
+    session = api.TinyTrainSession(bb, max_way=8, seed=0)   # on the card
+    task = api.sample_task(np.random.default_rng(0), "glyphs", res=84)
+    adaptation = session.adapt(task, api.STM32F746.scaled(mem=1.6))
+    print(adaptation.policy.describe(), adaptation.accuracy())
+    served = adaptation.fold_into(session.params)           # base cost
+
+The LM backbones adapt the same way and fold into the serving engine:
+
     bb = api.backbone("qwen2-1.5b", preset="full", batch_size=48, seq=64)
     session = api.TinyTrainSession(bb, max_way=8, seed=0)   # on the card
     rng = np.random.default_rng(0)
@@ -22,9 +31,10 @@ refreshes each user's deltas from their own finished streams:
     pers = api.Personaliser(session, eng, adaptation.policy, profile=profile)
     pers.run_online(requests)
 
-Backbones are a string-keyed registry of the LM configurations (dense
-family; the edge CNNs arrive with their slice).  Entry points run on the
-card unless the caller passes ``device="cpu"``.
+Backbones are a string-keyed registry: the paper's edge CNNs (``mcunet``,
+``mobilenetv2``, ``proxylessnas``) and the ``tiny-cnn`` demo, and the LM
+configurations (dense and ssm families).  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from . import configs
-from .core.backbones import Backbone, lm_backbone
+from .core.backbones import Backbone, cnn_backbone, lm_backbone
 from .core.criterion import Budget  # noqa: F401  (escape hatch)
 from .core.fisher import fisher_probe
 from .core.policy import SparseUpdatePolicy
@@ -42,6 +52,7 @@ from .core.session import (  # noqa: F401  (façade re-exports)
     Adaptation, DeviceProfile, JETSON_NANO, PROFILES, RPI_ZERO, STM32F746,
     Task, TinyTrainSession, criteria, device_profile, register_profile,
 )
+from .models import edge_cnn as _edge_cnn
 from .models.api import ArchConfig
 from .serving import (  # noqa: F401
     DeltaSet, Personaliser, Request, ServeEngine, SubmitResult,
@@ -52,7 +63,7 @@ __all__ = [
     "device_profile", "register_profile", "PROFILES",
     "STM32F746", "RPI_ZERO", "JETSON_NANO", "criteria",
     "ArchConfig", "Backbone", "backbone", "backbones", "register_backbone",
-    "sample_lm_task", "plan_sparse_update",
+    "sample_task", "sample_lm_task", "plan_sparse_update",
     "Request", "ServeEngine", "SubmitResult", "DeltaSet", "Personaliser",
     "Budget", "configs",
 ]
@@ -66,9 +77,10 @@ def register_backbone(name: str, factory: Callable[..., Backbone]) -> None:
 
 
 def backbone(name: str, **kwargs: Any) -> Backbone:
-    """Build a registered backbone: LM archs (``qwen2-1.5b``, ...) accept
-    ``preset`` (smoke|100m|full), ``batch_size`` and ``seq``; the generic
-    ``lm`` key an explicit ``cfg=ArchConfig``."""
+    """Build a registered backbone: edge CNNs (``mcunet``, ``tiny-cnn``,
+    ...) accept ``in_res`` and ``batch_size``; LM archs (``qwen2-1.5b``,
+    ...) ``preset`` (smoke|100m|full), ``batch_size`` and ``seq``; the
+    generic ``lm`` key an explicit ``cfg=ArchConfig``."""
     try:
         factory = _BACKBONES[name]
     except KeyError:
@@ -79,6 +91,14 @@ def backbone(name: str, **kwargs: Any) -> Backbone:
 
 def backbones() -> List[str]:
     return sorted(_BACKBONES)
+
+
+def _cnn_factory(builder: Callable[..., Any]) -> Callable[..., Backbone]:
+    def make(in_res: Optional[int] = None, batch_size: int = 64) -> Backbone:
+        cfg = builder() if in_res is None else builder(in_res=in_res)
+        return cnn_backbone(cfg, batch_size=batch_size)
+
+    return make
 
 
 def _lm_from_cfg(cfg: ArchConfig, batch_size: int = 8, seq: int = 128,
@@ -94,9 +114,31 @@ def _lm_factory(arch: str) -> Callable[..., Backbone]:
     return make
 
 
+for _name, _builder in _edge_cnn.EDGE_CNNS.items():
+    register_backbone(_name, _cnn_factory(_builder))
+register_backbone("tiny-cnn", _cnn_factory(_edge_cnn.tiny_cnn))
 for _arch in configs.lm_arch_ids():
     register_backbone(_arch, _lm_factory(_arch))
 register_backbone("lm", _lm_from_cfg)
+
+
+def sample_task(
+    rng: np.random.Generator,
+    domain: str,
+    *,
+    res: int = 48,
+    max_way: int = 8,
+    support_pad: int = 64,
+    query_pad: int = 80,
+    **episode_kw: Any,
+) -> Task:
+    """Sample a cross-domain vision episode and package it as a Task."""
+    from .data import sample_episode
+
+    ep = sample_episode(rng, domain, res=res, max_way=max_way,
+                        support_pad=support_pad, query_pad=query_pad,
+                        **episode_kw)
+    return Task.from_episode(ep, rng, max_way, name=domain)
 
 
 def sample_lm_task(

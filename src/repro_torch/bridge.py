@@ -11,15 +11,23 @@ compressor's trees (int8 codes, 0-d float32 scales, float32 residuals)
 cross the same way in both directions, so tests compare them leaf for
 leaf.  Paged KV stores cross
 with :func:`page_store_from_numpy`, which keeps the port's arena layout.
+
+The edge CNNs' trees (params as a list of ``{"w", "b"}``, delta packs
+``{"L{i}": {"conv": {"w"}}}`` and Adam states over them) cross with
+:func:`cnn_tree_from_numpy` / :func:`cnn_tree_to_numpy`: every 4-d leaf
+is a conv kernel, HWIO in the JAX package and OIHW in the port (a
+depthwise ``(k, k, 1, C)`` is ``(C, 1, k, k)``), and the other leaves
+cross unchanged.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Union
 
 import numpy as np
 import torch
 
 from .models.api import ArchConfig
+from .models.edge_cnn import CnnConfig
 from .models.transformer import check_supported
 from .serving import paging as PG
 from .utils import DeviceLike, resolve_device, tree_map
@@ -36,11 +44,49 @@ def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(cfg: ArchConfig, tree: Any, *,
+def params_from_numpy(cfg: Union[ArchConfig, CnnConfig], tree: Any, *,
                       device: DeviceLike = "cuda") -> Any:
-    """The JAX parameter tree, as numpy arrays, as the port's params."""
+    """The JAX parameter tree, as numpy arrays, as the port's params (an
+    LM's or an edge CNN's, by the config's type)."""
+    if isinstance(cfg, CnnConfig):
+        return cnn_params_from_numpy(cfg, tree, device=device)
     check_supported(cfg)
     return tree_from_numpy(tree, device=device)
+
+
+def cnn_params_from_numpy(cfg: CnnConfig, tree: Any, *,
+                          device: DeviceLike = "cuda") -> Any:
+    """An edge CNN's JAX params (a list of ``{"w": HWIO, "b"}``) as the
+    port's OIHW params, checked layer by layer against ``cfg``."""
+    if len(tree) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(tree)} layers of params for "
+                         f"{cfg.n_layers} conv layers")
+    out = cnn_tree_from_numpy(tree, device=device)
+    for i, (spec, p) in enumerate(zip(cfg.layers, out)):
+        c_in = 1 if spec.kind == "dw" else spec.c_in
+        if tuple(p["w"].shape) != (spec.c_out, c_in, spec.k, spec.k):
+            raise ValueError(f"{cfg.name} layer {i}: weight of shape "
+                             f"{tuple(p['w'].shape)} for {spec}")
+    return out
+
+
+def cnn_tree_from_numpy(tree: Any, *, device: DeviceLike = "cuda") -> Any:
+    """An edge CNN's numpy tree (params, delta packs, Adam states) as
+    tensors, every 4-d leaf HWIO -> OIHW."""
+    dev = resolve_device(device)
+
+    def one(a):
+        t = tensor_from_numpy(a, dev)
+        return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
+
+    return tree_map(one, tree)
+
+
+def cnn_tree_to_numpy(tree: Any) -> Any:
+    """The inverse of :func:`cnn_tree_from_numpy`: every 4-d leaf OIHW ->
+    HWIO, as numpy."""
+    return tree_map(lambda a: (np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+                               if a.ndim == 4 else a), tree_to_numpy(tree))
 
 
 def tree_from_numpy(tree: Any, *, device: DeviceLike = "cuda") -> Any:

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` for every assigned config.
 
 Each module exposes ``config()`` (exact published dims) and ``reduced()``
-(same family, CPU-smoke scale).  A copy of ``repro.configs``: the port
-imports nothing of the JAX package.  The edge-CNN lookup (``get_cnn``)
-arrives with the CNN slice.
+(same family, CPU-smoke scale).  The paper's own edge CNNs are looked up
+by name with :func:`get_cnn`.  A copy of ``repro.configs``: the port
+imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ _LM_ARCHS = {
     "whisper-base": "whisper_base",
 }
 
+_CNN_ARCHS = ("mcunet", "mobilenetv2", "proxylessnas")
+
 
 def lm_arch_ids() -> List[str]:
     return list(_LM_ARCHS)
@@ -39,6 +41,13 @@ def get_config(arch: str) -> ArchConfig:
 def get_reduced(arch: str) -> ArchConfig:
     mod = importlib.import_module(f".{_LM_ARCHS[arch]}", __name__)
     return mod.reduced()
+
+
+def get_cnn(arch: str):
+    """The edge CNN ``arch`` (one of ``_CNN_ARCHS``) at its builder's own
+    resolution."""
+    from ..models import edge_cnn
+    return edge_cnn.EDGE_CNNS[arch]()
 
 
 def preset_config(arch: str, preset: str = "smoke") -> ArchConfig:

@@ -1,14 +1,15 @@
 """Backbone adapters: the port of ``repro.core.backbones`` for the dense
-and ssm LM families.
+and ssm LM families and the paper's edge CNNs.
 
 A :class:`Backbone` bundles what the sparse-update engine needs from a
 model family: unit costs (the Eq. 3 denominators), Fisher tap
 construction, tap-gradient -> Fisher reduction, delta initialisation and
 the feature/loss closures.  A layer group has a ``mixer`` tap group
 (attention or SSD heads) and, where its layers have an MLP, an ``ffn``
-group (d_ff neurons); mamba2's layers have none.  The edge-CNN backbone
-arrives with its slice; the MoE, hybrid and encoder-decoder LMs with
-ROADMAP queue 1, item 9.
+group (d_ff neurons); mamba2's layers have none.  An edge CNN's unit is
+one conv layer with its output channels, tapped per layer as a (B, C_i)
+tensor (the layers' widths differ, so the taps do not stack).  The MoE,
+hybrid and encoder-decoder LMs arrive with ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models import edge_cnn as E
 from ..models import overlay as OV
 from ..models import transformer as T
 from ..models.api import ArchConfig
@@ -30,7 +32,7 @@ Params = Any
 
 @dataclasses.dataclass
 class Backbone:
-    kind: str  # lm
+    kind: str  # lm | cnn
     cfg: Any
     unit_costs: List[UnitCost]
     # init(generator) -> params on the generator's device
@@ -140,5 +142,57 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
         kind="lm", cfg=cfg, unit_costs=costs,
         init=lambda gen: T.init_params(cfg, gen, device=gen.device),
         features=features, loss=loss, make_taps=make_taps,
+        fisher_from_grads=fisher_from_grads, init_deltas=init_deltas,
+        fisher_reduce=fisher_reduce)
+
+
+def cnn_backbone(cfg: E.CnnConfig, batch_size: int) -> Backbone:
+    """The edge-CNN adapter: one unit a conv layer, with the reference's
+    unit costs at ``batch_size`` images of ``cfg.in_res``.  Eq. 2 reduces
+    each layer's (B, C_i) tap gradient in plain torch, as the JAX package
+    does (no Pallas kernel there)."""
+    layer_costs = E.cnn_layer_costs(cfg)
+    costs = [
+        UnitCost(
+            layer=i, kind="conv", n_channels=c["c_out"],
+            n_params=c["params"], macs=c["macs"] * batch_size,
+            # B4: the input activation map dW needs (exact for a conv)
+            act_in_bytes=4 * batch_size * c["act"] * (
+                cfg.layers[i].c_in / max(c["c_out"], 1)),
+            dx_macs=c["macs"] * batch_size)
+        for i, c in enumerate(layer_costs)
+    ]
+
+    def make_taps(n: int, device: DeviceLike):
+        return [torch.ones((n, spec.c_out), device=device)
+                for spec in cfg.layers]
+
+    def fisher_from_grads(tg, n: int):
+        chans = {(i, "conv"): np.sum(np.asarray(g, np.float64) ** 2, axis=0)
+                 / (2.0 * n) for i, g in enumerate(tg)}
+        potentials = np.array([chans[(i, "conv")].sum()
+                               for i in range(cfg.n_layers)])
+        return potentials, chans
+
+    def init_deltas(policy: SparseUpdatePolicy, device: DeviceLike):
+        return {f"L{u.layer}": {"conv": E.cnn_delta_init(
+                    cfg, u.layer, u.n_channels, device)}
+                for u in policy.units}
+
+    def fisher_reduce(tg, n, mask=None):
+        # mask-weighted: padded support rows drop out of Eq. 2 exactly
+        w = 1.0 if mask is None else mask.float()[:, None]
+        return {(i, "conv"): torch.sum(g.float().square() * w, dim=0)
+                / (2.0 * n) for i, g in enumerate(tg)}
+
+    def features(params, batch, *, deltas=None, plan=None, taps=None,
+                 chan_idx=None):
+        return E.cnn_features(cfg, params, batch["images"], deltas=deltas,
+                              plan=plan, taps=taps, chan_idx=chan_idx)
+
+    return Backbone(
+        kind="cnn", cfg=cfg, unit_costs=costs,
+        init=lambda gen: E.cnn_init(cfg, gen),
+        features=features, loss=None, make_taps=make_taps,
         fisher_from_grads=fisher_from_grads, init_deltas=init_deltas,
         fisher_reduce=fisher_reduce)

@@ -19,19 +19,30 @@ from ..utils import tree_leaves, tree_map
 from .backbones import Backbone
 
 
+def _leaf(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().clone().requires_grad_()
+
+
 def leaf_taps(taps: Any) -> Any:
-    """The taps as per-layer leaves that require grad: every (L, B, C) tap
-    becomes a list of L (B, C) tensors, so the gradient of each layer's
-    tap is its own tensor (no full-size zero-fill per layer)."""
-    return tree_map(lambda t: [x.detach().clone().requires_grad_()
-                               for x in t.unbind(0)], taps)
+    """The taps as per-layer leaves that require grad.  An LM's stacked
+    taps ({group: {kind: (L, B, C)}}) become lists of L (B, C) tensors, so
+    the gradient of each layer's tap is its own tensor (no full-size
+    zero-fill per layer); an edge CNN's list of per-layer (B, C_i) taps is
+    already one leaf a layer, and its leaves stay as they are."""
+    if isinstance(taps, list):
+        return [_leaf(t) for t in taps]
+    return tree_map(lambda t: [_leaf(x) for x in t.unbind(0)], taps)
 
 
 def tap_grads(loss: torch.Tensor, taps: Any) -> Any:
-    """∂loss/∂taps for :func:`leaf_taps` leaves ({group: {kind: [L x
-    (B, C)]}}), restacked to {group: {kind: (L, B, C)}}."""
-    grads = iter(torch.autograd.grad(loss, tree_leaves(taps)))
-    return {g: {k: torch.stack([next(grads) for _ in v])
+    """∂loss/∂taps for :func:`leaf_taps` leaves, in the taps' own shape:
+    an LM's {group: {kind: [L x (B, C)]}} restacked to {group: {kind: (L,
+    B, C)}}, an edge CNN's list as a list of (B, C_i)."""
+    grads = list(torch.autograd.grad(loss, tree_leaves(taps)))
+    if isinstance(taps, list):
+        return grads
+    it = iter(grads)
+    return {g: {k: torch.stack([next(it) for _ in v])
                 for k, v in grp.items()}
             for g, grp in taps.items()}
 

@@ -1,5 +1,6 @@
 """Session layer behind the port's ``api`` façade: the port of
-``repro.core.session`` for dynamic-channel criteria.
+``repro.core.session`` for dynamic-channel criteria, on the LM backbones
+and the edge CNNs.
 
 - :class:`DeviceProfile`: a named resource envelope (memory / compute)
   lowered to the Algorithm-1 :class:`~.criterion.Budget`, with presets.
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ..optim import Optimizer, adam
-from ..utils import DeviceLike, resolve_device, tree_map
+from ..utils import DeviceLike, resolve_device, tree_leaves, tree_map
 from .adapt import AdaptResult, _fetch, _fetch_scalar, adapt_task
 from .backbones import Backbone
 from .criterion import Budget
@@ -182,17 +183,17 @@ class Task:
     @classmethod
     def from_episode(cls, ep, rng: np.random.Generator, max_way: int,
                      name: str = "") -> "Task":
-        """A Task from a ``data`` Episode of token sequences."""
-        from ..data import augment_lm_support
+        """A Task from a ``data`` Episode of images or token sequences."""
+        from ..data import augment_lm_support, augment_support
 
-        if "images" in ep.support:
-            raise _later("vision episodes", "6")
         if "frames" in ep.support or "image_embeds" in ep.support:
             raise _later("encoder-decoder episodes", "14")
+        augment = (augment_support if "images" in ep.support
+                   else augment_lm_support)
         return cls(name=name or getattr(ep, "domain", "task"),
                    support={k: np.asarray(v) for k, v in ep.support.items()},
                    query={k: np.asarray(v) for k, v in ep.query.items()},
-                   pseudo_query=augment_lm_support(rng, ep.support),
+                   pseudo_query=augment(rng, ep.support),
                    max_way=max_way)
 
 
@@ -326,9 +327,10 @@ class Adaptation:
         """Fold channel deltas into serving weights: W ⊕ scatter(ΔW, idx).
 
         ``target`` is a ``serving.ServeEngine`` (its params are replaced
-        and the engine returned) or a raw parameter tree (a folded copy is
-        returned; untouched tensors are shared).  Adapted models then serve
-        at exactly base cost."""
+        and the engine returned) or a raw parameter tree, an LM's or an
+        edge CNN's (a folded copy is returned; untouched tensors are
+        shared).  Adapted models then serve at exactly base cost."""
+        from ..models.edge_cnn import cnn_fold_deltas
         from ..models.overlay import fold_deltas
 
         if self.policy is None or self.deltas is None:
@@ -338,8 +340,9 @@ class Adaptation:
             target.params = fold_deltas(target.cfg, target.params,
                                         self.deltas, self.policy)
             return target
-        return fold_deltas(self._session.backbone.cfg, target, self.deltas,
-                           self.policy)
+        bb = self._session.backbone
+        fold = cnn_fold_deltas if bb.kind == "cnn" else fold_deltas
+        return fold(bb.cfg, target, self.deltas, self.policy)
 
     def describe(self) -> str:
         pol = self.policy.describe() if self.policy is not None else "none"
@@ -380,7 +383,7 @@ class TinyTrainSession:
             dev = resolve_device(device)
             params = backbone.init(torch.Generator(device=dev).manual_seed(seed))
         self.params = params
-        self.device = params["embed"].device
+        self.device = tree_leaves(params)[0].device
         # delta packs start at zero -> slightly hotter lr than full tuning
         self.optimizer = optimizer or adam(lr)
         self.max_way = max_way

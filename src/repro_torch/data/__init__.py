@@ -1,4 +1,6 @@
-"""Synthetic data (numpy, host side)."""
+"""Synthetic data and its resumable loaders (numpy, host side)."""
+from .pipeline import EpisodeStream, TokenLoader  # noqa: F401
 from .synthetic import (  # noqa: F401
-    Episode, augment_lm_support, lm_episode, markov_tokens,
+    DOMAINS, Episode, augment_lm_support, augment_support, lm_episode,
+    markov_tokens, sample_episode,
 )

@@ -1,1 +1,2 @@
-"""Model definitions: the dense transformer of the serving slice."""
+"""Model definitions: the dense and ssm transformers of the serving slice
+and the paper's edge CNNs."""

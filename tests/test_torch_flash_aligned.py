@@ -157,7 +157,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-BF16_RMS_TOL = 0.1  # chip_smoke.py's ALIGNED_RMS_TOL
+BF16_RMS_TOL = 0.1  # chip_smoke.py's BF16_RMS_TOL
 
 
 def _assert_close(got, want, tol):

@@ -10,6 +10,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from test_torch_flash_aligned import _assert_close
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
@@ -206,8 +207,7 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, window, dtype, tol):
                                       window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    _assert_close(got, want, tol)
     assert torch.all(got[0] == 0)
     # stale non-finite rows that no query sees change nothing
     pk, pv = (torch.from_numpy(a).to(cuda_device, dtype) for a in
@@ -224,14 +224,18 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, window, dtype, tol):
 BN, MAX_SPLIT = 64, 8  # the kernels' logical tile rows and cluster size
 
 
-def _split_combine(q, k, v, q_off, kv_len, window, n_split=None):
+def _split_combine(q, k, v, q_off, kv_len, window, n_split=None,
+                   drop_rank=None, edge_unmasked=False):
     """The kernels' split-and-combine algebra in plain float32 torch, in
     their order: 64-row tiles from row 0; the band's n tiles dealt out in
     runs of ceil(n / 8) to ``n_split`` ranks (the kernels' cluster size by
     default); per rank an online softmax in base 2 from the sentinel (m =
     -1e30, l = 0, acc = 0), rows outside the band zero-filled; then M = max
     m_j, e_j = 2^(m_j - M), out = sum e_j acc_j / max(sum e_j l_j, 1e-30) in
-    rank order.  Causal."""
+    rank order.  Causal.  Two planted faults for the gate's tests:
+    ``drop_rank`` leaves that rank out of the combine's sums, and
+    ``edge_unmasked`` masks nothing below the window in the band's first
+    tile."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -261,12 +265,13 @@ def _split_combine(q, k, v, q_off, kv_len, window, n_split=None):
                 acc = torch.zeros(group * sq, d)
                 for t in range(t0, t1):
                     s = torch.arange(t * BN, (t + 1) * BN)
-                    inb = (s >= lo) & (s < hi)
+                    edge = edge_unmasked and t == t_lo
+                    inb = ((s >= lo) | edge) & (s < hi)
                     rows = s.clamp(max=sk - 1)
                     kt = torch.where(inb[:, None], k[bi, rows, h], 0.0)
                     vt = torch.where(inb[:, None], v[bi, rows, h], 0.0)
                     vis = inb[None] & (s[None] <= qpos[:, None])
-                    if window:
+                    if window and not edge:
                         vis = vis & (s[None] > qpos[:, None] - window)
                     sc = torch.where(vis, (qr @ kt.T) * scale, -math.inf)
                     m_new = torch.maximum(m, sc.amax(1))
@@ -278,7 +283,9 @@ def _split_combine(q, k, v, q_off, kv_len, window, n_split=None):
                 parts.append((m, l, acc))
             big_m = torch.stack([pt[0] for pt in parts]).amax(0)
             num, den = torch.zeros(group * sq, d), torch.zeros(group * sq)
-            for m, l, acc in parts:
+            for rank, (m, l, acc) in enumerate(parts):
+                if rank == drop_rank:
+                    continue
                 e = torch.exp2(m - big_m)
                 den = den + l * e
                 num = num + acc * e[:, None]
@@ -324,6 +331,57 @@ def test_split_combine_algebra_matches_the_plain_version():
                                           v[:, :512, :1], q_off.clip(0, 504),
                                           kv_len.clip(0, 512), window,
                                           n_split=2 * MAX_SPLIT))
+
+
+# chip_smoke.py's 4096-row cache (LONG) at qwen2-1.5b's block-prefill widths
+LONG_KV_LEN = [0, 8, 700, 1500, 2600, 3333, 4000, 4096]
+# (what, slots of LONG_KV_LEN, window, planted fault, whether the old fixed
+# gate 3e-2 + 3e-2 |want| rejects it too)
+GATE_FAULTS = [
+    ("split rank 3 dropped", slice(None), 0, dict(drop_rank=3), True),
+    ("window 1024 edge unmasked", slice(None), 1024,
+     dict(edge_unmasked=True), True),
+    ("window 2048 edge unmasked, two longest slots", slice(6, None), 2048,
+     dict(edge_unmasked=True), False),
+]
+
+
+@pytest.fixture
+def one_thread():
+    """The split loop's products are tiny: several CPU threads per op only
+    contend, and the parallel test run slows them most."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("case", GATE_FAULTS, ids=[c[0] for c in GATE_FAULTS])
+def test_bf16_gate_sees_a_dropped_split_rank_or_an_unmasked_window_edge(
+        case, one_thread):
+    """The CPU twin of the card's planted-fault test for kernels 2 and 4:
+    the split-KV combine at chip_smoke.py's 4096-row cache (Sq 8, Hq 12,
+    Hkv 2, D 128, blocks ending at each slot's last row), on bf16-rounded
+    inputs, with one split rank left out of the combine or the window's
+    edge tile left unmasked, fails the bf16 gate ``3e-2 |want| + min(3e-2,
+    0.1 rms(want))``; the exact output rounded to bf16 passes it.  Where
+    the old fixed gate passes the fault, the case says so."""
+    _, slots, window, fault, old_gate_sees = case
+    kv_len = np.asarray(LONG_KV_LEN, np.int32)[slots]
+    q_off = np.maximum(kv_len - 8, 0).astype(np.int32)
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .bfloat16().float() for shape in
+               ((8, 8, 12, 128), (8, 4096, 2, 128), (8, 4096, 2, 128)))
+    q, k, v = q[slots], k[slots], v[slots]
+    exact = _split_combine(q, k, v, q_off, kv_len, window)
+    _assert_close(exact.bfloat16(), exact, 3e-2)
+    bad = _split_combine(q, k, v, q_off, kv_len, window, **fault).bfloat16()
+    with pytest.raises(AssertionError):
+        _assert_close(bad, exact, 3e-2)
+    old_gate_passes = bool(np.allclose(bad.float().numpy(), exact.numpy(),
+                                       rtol=3e-2, atol=3e-2))
+    assert old_gate_passes != old_gate_sees
 
 
 # (what, shape, q_offset, kv_len, window); q_offset None: kv_len - Sq, from 0
@@ -386,8 +444,7 @@ def test_cuda_split_cases(cuda_device, case, dtype, tol):
     poisoned = ops.flash_attention_cached(q, pk, pv, q_offset=off, kv_len=kl,
                                           window=window)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    _assert_close(got, want, tol)
     assert blind and all(torch.all(got[i] == 0) for i in blind)
     assert torch.equal(got, again)
     assert torch.equal(poisoned, got)

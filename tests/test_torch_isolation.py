@@ -29,7 +29,8 @@ def test_scan_covers_the_package():
             "fisher.py", "session.py", "flash_paged.py", "paging.py",
             "serve_profile.py", "adapt_profile.py", "grad_quant.py",
             "personalise.py", "compress.py", "ssm.py",
-            "ssd_scan.py", "flash_aligned.py", "kernel_bench.py"} <= names
+            "ssd_scan.py", "flash_aligned.py", "kernel_bench.py",
+            "edge_cnn.py", "pipeline.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -10,6 +10,7 @@ tests run on a machine without it:
 import numpy as np
 import pytest
 import torch
+from test_torch_flash_aligned import _assert_close
 
 from repro_torch.kernels import flash_paged as FP
 from repro_torch.kernels import ops
@@ -237,8 +238,7 @@ def test_cuda_kernel_matches_plain_and_cached_kernel(cuda_device, shape, ps,
     cached = ops.flash_attention_cached(q, k, v, q_offset=off, kv_len=kl)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    _assert_close(got, want, tol)
     assert torch.equal(got, cached)
     assert torch.all(got[0] == 0)
 
@@ -328,8 +328,7 @@ def test_cuda_split_cases_equal_the_cached_kernel(cuda_device, case, ps,
     want = flash_attention_paged_ref(q, kp, vp, table, q_offset=off,
                                      kv_len=kl)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    _assert_close(got, want, tol)
     assert torch.equal(got, cached)
     assert torch.all(got[0] == 0)
     assert torch.equal(got, again)

@@ -31,10 +31,12 @@ the plain version on the same inputs and the bound (the larger of the
 bytes over 3.35 TB/s and the operations over the dtype's dense peak).
 Prints one line a row and, last, one JSON object with ``nvidia-smi``'s
 name and power limit.  It uses only the kernels' C entries and plain
-versions, whose signatures have not changed since PR 17, so a copy of
-this file in another checkout's ``benchmarks_torch/`` times that tree;
-run two trees alternately in one call to compare them.  Imports nothing
-of JAX or of the JAX package.
+versions, so a copy of this file in another checkout's
+``benchmarks_torch/`` times that tree when its entries have the same
+signatures (kernel 1's tap-gradient route is ``fisher_tapgrads_fwd``
+here; older trees take it through ``fisher_fwd``); run two trees
+alternately in one call to compare them.  Imports nothing of JAX or of
+the JAX package.
 """
 from __future__ import annotations
 
@@ -180,8 +182,9 @@ def fisher_row(dev, gen, stream) -> Dict[str, Any]:
     shape = (28, mask.numel(), 8960)
     gs = [torch.randn(shape, generator=gen, device=dev) for _ in range(4)]
     out = torch.empty(shape[::2], device=dev)
-    entry = fisher_kernel._entry()
+    entry = fisher_kernel._tap_entry()
     scale = 1.0 / (2.0 * n_valid)
+    n_one = torch.full((1,), float(n_valid), device=dev)
     it = [0]
 
     def nxt():
@@ -189,9 +192,9 @@ def fisher_row(dev, gen, stream) -> Dict[str, Any]:
         return gs[it[0]]
 
     def run():
-        check(entry(None, nxt().data_ptr(), mask.data_ptr(), out.data_ptr(),
-                    shape[0], shape[1], 1, shape[2], scale, 0, 0, stream),
-              "fisher_fwd")
+        check(entry(nxt().data_ptr(), mask.data_ptr(), n_one.data_ptr(),
+                    out.data_ptr(), 1, shape[0], shape[1], shape[2], 0,
+                    stream, None), "fisher_tapgrads_fwd")
 
     g = gs[0]
     g[:, mask == 0] = float("nan")  # a masked row is never read
@@ -209,7 +212,7 @@ def fisher_row(dev, gen, stream) -> Dict[str, Any]:
 
     lib = timed(einsum)
     cells = shape[0] * shape[2]
-    bms, by = bound(4 * (n_valid * cells + shape[1] + cells),
+    bms, by = bound(4 * (n_valid * cells + shape[1] + 1 + cells),
                     3 * n_valid * cells, PEAK["float32"])
     return {"name": "fisher_tapgrads", "shape": list(shape),
             "dtype": "float32", "valid_rows": n_valid, "ms": ms[0],

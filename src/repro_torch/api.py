@@ -24,6 +24,17 @@ The LM backbones adapt the same way and fold into the serving engine:
     adaptation.fold_into(eng)
     eng.run([api.Request(uid=0, prompt=prompt, max_new=12)])
 
+The paper's baselines and criteria share the session:
+
+    for name in ("none", "fulltrain", "lastlayer", "tinytl",
+                 "adapterdrop50", "sparseupdate"):
+        a = session.baseline(name, task, profile, proxy_task=proxy)
+    a = session.adapt(task, profile, criterion="l2norm")  # or "random", ...
+    fleet = session.adapt_many(tasks, profile)  # one policy per task
+
+``register_criterion(name, score_mode, channel_mode)`` adds a criterion
+under a name ``adapt(criterion=...)`` and ``baseline`` take.
+
 Online personalisation serves many users from one copy of the weights and
 refreshes each user's deltas from their own finished streams:
 
@@ -50,7 +61,8 @@ from .core.policy import SparseUpdatePolicy
 from .core.selection import select_policy
 from .core.session import (  # noqa: F401  (façade re-exports)
     Adaptation, DeviceProfile, JETSON_NANO, PROFILES, RPI_ZERO, STM32F746,
-    Task, TinyTrainSession, criteria, device_profile, register_profile,
+    Task, TinyTrainSession, criteria, device_profile, register_criterion,
+    register_profile,
 )
 from .models import edge_cnn as _edge_cnn
 from .models.api import ArchConfig
@@ -61,7 +73,7 @@ from .serving import (  # noqa: F401
 __all__ = [
     "Adaptation", "DeviceProfile", "Task", "TinyTrainSession",
     "device_profile", "register_profile", "PROFILES",
-    "STM32F746", "RPI_ZERO", "JETSON_NANO", "criteria",
+    "STM32F746", "RPI_ZERO", "JETSON_NANO", "criteria", "register_criterion",
     "ArchConfig", "Backbone", "backbone", "backbones", "register_backbone",
     "sample_task", "sample_lm_task", "plan_sparse_update",
     "Request", "ServeEngine", "SubmitResult", "DeltaSet", "Personaliser",

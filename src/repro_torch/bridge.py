@@ -17,7 +17,9 @@ The edge CNNs' trees (params as a list of ``{"w", "b"}``, delta packs
 :func:`cnn_tree_from_numpy` / :func:`cnn_tree_to_numpy`: every 4-d leaf
 is a conv kernel, HWIO in the JAX package and OIHW in the port (a
 depthwise ``(k, k, 1, C)`` is ``(C, 1, k, k)``), and the other leaves
-cross unchanged.
+cross unchanged.  TinyTL's adapters (``{"b{i}": {"w1", "w2"}}``, 4-d
+kernels) cross with :func:`tinytl_adapters_from_numpy`, checked against
+the port's own adapter shapes.
 """
 from __future__ import annotations
 
@@ -80,6 +82,25 @@ def cnn_tree_from_numpy(tree: Any, *, device: DeviceLike = "cuda") -> Any:
         return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
 
     return tree_map(one, tree)
+
+
+def tinytl_adapters_from_numpy(cfg: CnnConfig, tree: Any, *,
+                               device: DeviceLike = "cuda") -> Any:
+    """The JAX package's TinyTL adapters (``tinytl_adapter_init``: HWIO
+    ``w1`` (3, 3, c_in, r) and ``w2`` (1, 1, r, c_out) a block) as the
+    port's OIHW adapters, checked block by block against
+    ``core.baselines.tinytl_blocks``."""
+    from .core.baselines import tinytl_blocks
+
+    want = {f"b{b}": {"w1": (r, cin, 3, 3), "w2": (cout, r, 1, 1)}
+            for b, cin, r, cout in tinytl_blocks(cfg)}
+    out = cnn_tree_from_numpy(tree, device=device)
+    got = {k: {w: tuple(t.shape) for w, t in v.items()}
+           for k, v in out.items()}
+    if got != want:
+        raise ValueError(f"{cfg.name}: TinyTL adapters of shapes {got}, "
+                         f"expected {want}")
+    return out
 
 
 def cnn_tree_to_numpy(tree: Any) -> Any:

@@ -10,6 +10,12 @@ group (d_ff neurons); mamba2's layers have none.  An edge CNN's unit is
 one conv layer with its output channels, tapped per layer as a (B, C_i)
 tensor (the layers' widths differ, so the taps do not stack).  The MoE,
 hybrid and encoder-decoder LMs arrive with ROADMAP queue 1, item 9.
+
+``fisher_reduce_batch`` is Eq. 2 with a leading task axis, for a fleet's
+probe: an LM's (T, L, B, C) tap-gradient groups go through the Fisher
+kernel's task route, one launch a group; an edge CNN's (T, B, C_i) taps
+reduce in plain torch.  ``weight_l2`` gives the per-channel weight norms
+the ``l2norm`` criterion ranks channels by.
 """
 from __future__ import annotations
 
@@ -49,6 +55,12 @@ class Backbone:
     # {(layer, kind): Δ_o}; ``n`` the valid-sample count, ``mask`` an
     # optional (B,) validity mask so padded rows contribute exactly zero
     fisher_reduce: Callable[..., Dict]
+    # fisher_reduce_batch(tap_grads, ns, mask=None) -> {(layer, kind): (T,
+    # C)}: the task-stacked twin, ``ns`` a (T,) float32 tensor of valid
+    # counts and ``mask`` (T, B); task t's row is fisher_reduce's of task t
+    fisher_reduce_batch: Callable[..., Dict]
+    # weight_l2(params) -> {(layer, kind): per-channel L2 norms, float64}
+    weight_l2: Callable[[Params], Dict[Tuple[int, str], np.ndarray]]
 
     def cost_by_key(self) -> Dict[Tuple[int, str], UnitCost]:
         return {(c.layer, c.kind): c for c in self.unit_costs}
@@ -92,16 +104,17 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
                                                    device=device)
         return taps
 
-    def _per_unit(reduce_one, tg) -> Dict[Tuple[int, str], Any]:
+    def _per_unit(reduce_one, tg, tasks: bool = False
+                  ) -> Dict[Tuple[int, str], Any]:
         chans: Dict[Tuple[int, str], Any] = {}
         for gi, (_, ids) in enumerate(groups):
             mk, fk, _, _ = _lm_group_kinds(cfg, gi)
             for tap, kind in (("mixer", mk), ("ffn", fk)):
                 if kind == "none":
                     continue
-                d = reduce_one(tg[f"g{gi}"][tap])  # (L, C)
+                d = reduce_one(tg[f"g{gi}"][tap])  # (L, C) or (T, L, C)
                 for j, lid in enumerate(ids):
-                    chans[(lid, kind)] = d[j]
+                    chans[(lid, kind)] = d[:, j] if tasks else d[j]
         return chans
 
     def fisher_from_grads(tg, n: int):
@@ -119,6 +132,44 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
         from ..kernels import ops
 
         return _per_unit(lambda g: ops.fisher_tapgrads(g, n, mask), tg)
+
+    def fisher_reduce_batch(tg, ns, mask=None):
+        # one Fisher launch a (T, L, B, C) group: every task of a fleet's
+        # shape group at once, each masked and scaled by its own count
+        from ..kernels import ops
+
+        return _per_unit(lambda g: ops.fisher_tapgrads(g, ns, mask), tg,
+                         tasks=True)
+
+    def weight_l2(params) -> Dict[Tuple[int, str], np.ndarray]:
+        # float64 on the params' device; only the per-channel norms move
+        def sq(w, dims, shape=None):
+            w = w.detach().double()
+            return (w if shape is None else w.reshape(shape)).square().sum(
+                dims)
+
+        def host(t):
+            return t.sqrt().cpu().numpy()
+
+        out: Dict[Tuple[int, str], np.ndarray] = {}
+        for gi, (_, ids) in enumerate(groups):
+            st = params["stacks"][f"g{gi}"]
+            mk, fk, _, _ = _lm_group_kinds(cfg, gi)
+            for j, lid in enumerate(ids):
+                if mk == "attn":
+                    h, dh = cfg.n_heads, cfg.head_dim
+                    nq = sq(st["attn"]["wq"][j], (0, 2), (-1, h, dh))
+                    no = sq(st["attn"]["wo"][j], (1, 2), (h, dh, -1))
+                    out[(lid, "attn")] = host(nq + no)
+                else:
+                    h, p = cfg.n_ssm_heads, cfg.ssm_head_dim
+                    out[(lid, "ssm")] = host(
+                        sq(st["ssm"]["w_x"][j], (0, 2), (-1, h, p)))
+                if fk == "mlp":
+                    mlp = st["mlp"]
+                    out[(lid, "mlp")] = host(sq(mlp["w_up"][j], 0)
+                                             + sq(mlp["w_down"][j], 1))
+        return out
 
     def init_deltas(policy: SparseUpdatePolicy, device: DeviceLike):
         # deltas follow the model dtype (adam's moment math is f32 anyway)
@@ -143,7 +194,8 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
         init=lambda gen: T.init_params(cfg, gen, device=gen.device),
         features=features, loss=loss, make_taps=make_taps,
         fisher_from_grads=fisher_from_grads, init_deltas=init_deltas,
-        fisher_reduce=fisher_reduce)
+        fisher_reduce=fisher_reduce, fisher_reduce_batch=fisher_reduce_batch,
+        weight_l2=weight_l2)
 
 
 def cnn_backbone(cfg: E.CnnConfig, batch_size: int) -> Backbone:
@@ -185,6 +237,18 @@ def cnn_backbone(cfg: E.CnnConfig, batch_size: int) -> Backbone:
         return {(i, "conv"): torch.sum(g.float().square() * w, dim=0)
                 / (2.0 * n) for i, g in enumerate(tg)}
 
+    def fisher_reduce_batch(tg, ns, mask=None):
+        # the same sums with a leading task axis: tg[i] (T, B, C_i), ns (T,)
+        w = 1.0 if mask is None else mask.float()[:, :, None]
+        return {(i, "conv"): torch.sum(g.float().square() * w, dim=1)
+                / (2.0 * ns[:, None]) for i, g in enumerate(tg)}
+
+    def weight_l2(params) -> Dict[Tuple[int, str], np.ndarray]:
+        # per output channel of an OIHW kernel: the sum over I, H and W
+        return {(i, "conv"): p["w"].detach().double().square().sum(
+                    (1, 2, 3)).sqrt().cpu().numpy()
+                for i, p in enumerate(params)}
+
     def features(params, batch, *, deltas=None, plan=None, taps=None,
                  chan_idx=None):
         return E.cnn_features(cfg, params, batch["images"], deltas=deltas,
@@ -195,4 +259,5 @@ def cnn_backbone(cfg: E.CnnConfig, batch_size: int) -> Backbone:
         init=lambda gen: E.cnn_init(cfg, gen),
         features=features, loss=None, make_taps=make_taps,
         fisher_from_grads=fisher_from_grads, init_deltas=init_deltas,
-        fisher_reduce=fisher_reduce)
+        fisher_reduce=fisher_reduce, fisher_reduce_batch=fisher_reduce_batch,
+        weight_l2=weight_l2)

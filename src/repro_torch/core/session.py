@@ -1,6 +1,5 @@
 """Session layer behind the port's ``api`` façade: the port of
-``repro.core.session`` for dynamic-channel criteria, on the LM backbones
-and the edge CNNs.
+``repro.core.session`` on the LM backbones and the edge CNNs.
 
 - :class:`DeviceProfile`: a named resource envelope (memory / compute)
   lowered to the Algorithm-1 :class:`~.criterion.Budget`, with presets.
@@ -9,12 +8,16 @@ and the edge CNNs.
 - :class:`Adaptation`: the result: accuracy, memory accounting and
   deployment (``fold_into``).
 
-``TinyTrainSession.adapt_many`` fine-tunes a fleet of tasks under one
-given policy (``policy_override``), one program and one host fetch per
-(bucket, policy structure) group; its criterion route (a probe per task),
-``mesh=`` and ``hosts=``, ``baseline``, ``score_stream`` and the
-static-channel criteria (``random``, ``l2norm``) raise
-``NotImplementedError`` naming their ROADMAP item.
+``TinyTrainSession.adapt`` runs every registered criterion, the
+static-channel ones (``random``, ``l2norm``: the probe's layers, a static
+channel pick) too; ``baseline`` runs the paper's baseline zoo (none,
+fulltrain, lastlayer, sparseupdate, tinytl, adapterdrop<pct>).
+``adapt_many`` fine-tunes a fleet of tasks, one program and one host
+fetch per (bucket, policy structure) group, under one given policy
+(``policy_override``) or a policy per task from one batched Fisher probe
+per episode shape (one fetch of the scores per shape group).
+``mesh=``/``hosts=`` and ``score_stream`` raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,14 +33,17 @@ from ..utils import DeviceLike, resolve_device, tree_leaves, tree_map
 from .adapt import AdaptResult, _fetch, _fetch_scalar, adapt_task
 from .backbones import Backbone
 from .criterion import Budget
-from .policy import SparseUpdatePolicy
+from .fisher import potentials_from_chans
+from .policy import SparseUpdatePolicy, last_layer_policy
+from .protonet import episode_accuracy
+from .selection import select_policy, static_channel_policy
 from .sparse import (
     EpisodeStepCache, deltas_param_count, sparse_memory_report,
 )
 
 __all__ = [
     "Adaptation", "DeviceProfile", "PROFILES", "Task", "TinyTrainSession",
-    "criteria", "device_profile", "register_profile",
+    "criteria", "device_profile", "register_criterion", "register_profile",
     "JETSON_NANO", "RPI_ZERO", "STM32F746",
 ]
 
@@ -134,9 +140,16 @@ _CRITERIA: Dict[str, Tuple[str, str]] = {
     "fisher_only": ("fisher_only", "dynamic"),
     "fisher_mem": ("fisher_mem", "dynamic"),
     "fisher_compute": ("fisher_compute", "dynamic"),
+    # Fig. 4 ablations: TinyTrain layer selection, static channel choice
     "random": ("tinytrain", "random"),
     "l2norm": ("tinytrain", "l2norm"),
 }
+
+
+def register_criterion(name: str, score_mode: str,
+                       channel_mode: str = "dynamic") -> None:
+    """Register a selection criterion usable as ``adapt(criterion=name)``."""
+    _CRITERIA[name] = (score_mode, channel_mode)
 
 
 def criteria() -> List[str]:
@@ -374,6 +387,7 @@ class TinyTrainSession:
         *,
         optimizer: Optional[Optimizer] = None,
         lr: float = 3e-3,
+        baseline_lr: float = 1e-3,
         max_way: int = 16,
         seed: int = 0,
         device: DeviceLike = "cuda",
@@ -386,8 +400,15 @@ class TinyTrainSession:
         self.device = tree_leaves(params)[0].device
         # delta packs start at zero -> slightly hotter lr than full tuning
         self.optimizer = optimizer or adam(lr)
+        self.baseline_optimizer = adam(baseline_lr)
         self.max_way = max_way
         self.step_cache = EpisodeStepCache(backbone, self.optimizer, max_way)
+        self._static_policies: Dict[str, SparseUpdatePolicy] = {}
+        # ES baseline cache: one (proxy_task, policy) per budget/proxy/seed;
+        # holding the task pins its id() for the key's lifetime
+        self._es_cache: Dict[Any, Tuple[Task, SparseUpdatePolicy]] = {}
+        self._full_scans: Dict[int, Any] = {}
+        self._tinytl_scans: Dict[Tuple[int, int], Any] = {}
         self.last_fleet_report: Dict[str, Any] = {}
 
     def _on(self, tree: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -418,18 +439,33 @@ class TinyTrainSession:
         budget = _as_budget(profile)
         prof = profile if isinstance(profile, DeviceProfile) else None
         mode, channel_mode = _resolve_criterion(criterion)
+        sup, pq = self._on(task.support), self._on(task.pseudo_query)
+        kw = dict(step_cache=self.step_cache, criterion=mode,
+                  shard_channels=shard_channels, n_support=task.n_support)
+        probe = None
         if policy_override is None and channel_mode != "dynamic":
-            raise _later(f"criterion {criterion!r} (static channel choice)",
-                         "8")
-        res = adapt_task(self.backbone, self.params, self._on(task.support),
-                         self._on(task.pseudo_query), budget, self.optimizer,
-                         iters=iters, step_cache=self.step_cache, fused=fused,
-                         nan_loss_steps=nan_loss_steps, criterion=mode,
-                         shard_channels=shard_channels,
-                         policy_override=policy_override,
-                         n_support=task.n_support)
-        method = criterion if policy_override is None else (
-            f"override:{(policy_override.meta or {}).get('source', 'policy')}")
+            # probe + layer selection only, then a static channel pick at
+            # the same layers and K (the Fig. 4 ablations)
+            probe = adapt_task(self.backbone, self.params, sup, pq, budget,
+                               self.optimizer, iters=0, **kw)
+            l2 = (self.backbone.weight_l2(self.params)
+                  if channel_mode == "l2norm" else None)
+            policy_override = static_channel_policy(
+                probe.policy, self.backbone.unit_costs, channel_mode,
+                rng=np.random.default_rng(seed), weight_l2=l2)
+        res = adapt_task(self.backbone, self.params, sup, pq, budget,
+                         self.optimizer, iters=iters, fused=fused,
+                         nan_loss_steps=nan_loss_steps,
+                         policy_override=policy_override, **kw)
+        if probe is not None:
+            res = dataclasses.replace(
+                res, fisher_seconds=probe.fisher_seconds,
+                host_transfers=probe.host_transfers + res.host_transfers)
+            method = criterion
+        else:
+            method = criterion if policy_override is None else (
+                f"override:"
+                f"{(policy_override.meta or {}).get('source', 'policy')}")
         return self._wrap(method, task, prof, res, budget=budget)
 
     def evaluate(self, task: Task,
@@ -455,29 +491,29 @@ class TinyTrainSession:
         mesh: Optional[Any] = None,
         hosts: Optional[int] = None,
     ) -> List[Adaptation]:
-        """Fleet adaptation under one policy: N tasks in one fine-tune
-        program per (bucket, policy structure) group.
+        """Fleet adaptation: N tasks in one fine-tune program per (bucket,
+        policy structure) group.
 
-        The episodes and channel indices of a group are stacked along a
-        task axis and fine-tuned together (``vmap_scan_steps``) while the
-        frozen weights broadcast; one host fetch per group brings back its
-        losses and skip counts, and the deltas stay on the device.  Returns
-        one :class:`Adaptation` per task, in input order, each with
-        ``host_transfers`` of ``1/len(group)``.  ``bucket=True`` pads each
-        task's rows to the next power of two, so any way/shot mix inside a
-        bucket shares a group; padded rows carry label -1 and change no
-        result.  A summary of the grouping is kept in
-        ``self.last_fleet_report``.
-
-        ``policy_override`` is required here (the personalisation path
-        always passes one); the criterion route (a Fisher probe per task)
-        is ROADMAP queue 1, item 8, and ``mesh=``/``hosts=`` item 16."""
+        Without ``policy_override`` every task gets its own policy: the
+        tasks of one episode shape are probed together
+        (``probe_fisher_batch``: the group's rows through one probe, then
+        one Fisher reduction a tap group over the task stack), one host
+        fetch per shape group brings back their scores, and each task's
+        policy is selected from its own.  Static-channel criteria raise ``ValueError`` here, as in
+        the JAX package.  Then the episodes and channel indices of a group
+        are stacked along a task axis and fine-tuned together
+        (``vmap_scan_steps``) while the frozen weights broadcast; one host
+        fetch per group brings back its losses and skip counts, and the
+        deltas stay on the device.  Returns one :class:`Adaptation` per
+        task, in input order, each with ``host_transfers`` of its share of
+        its groups' fetches.  ``bucket=True`` pads each task's rows to the
+        next power of two, so any way/shot mix inside a bucket shares a
+        group; padded rows carry label -1 and change no result.  A summary
+        of the grouping is kept in ``self.last_fleet_report``.
+        ``mesh=``/``hosts=`` are ROADMAP item 16."""
         if mesh is not None or hosts not in (None, 1):
             raise _later("adapt_many(mesh=..., hosts=...) (sharded fleet "
                          "adaptation)", "16")
-        if policy_override is None:
-            raise _later("adapt_many's criterion route (one Fisher probe "
-                         "per task, probe_fisher_batch)", "8")
         if (getattr(self.backbone.cfg, "family", None) == "ssm"
                 and self.device.type != "cpu"):
             raise _later("adapt_many of the ssm family on the card (the SSD "
@@ -490,20 +526,64 @@ class TinyTrainSession:
             profile = device_profile(profile)
         budget = _as_budget(profile)
         prof = profile if isinstance(profile, DeviceProfile) else None
-        method = (f"override:"
-                  f"{(policy_override.meta or {}).get('source', 'policy')}")
-        policies = [policy_override] * len(tasks)
         eps = [_bucket_episode(t) if bucket else (t.support, t.pseudo_query)
                for t in tasks]
         keys = [_episode_shape_key(sup, pq) for sup, pq in eps]
         cache = self.step_cache
+        fisher_dt = [0.0] * len(tasks)
+        transfers = [0.0] * len(tasks)  # each task's share of group fetches
+        # the stacked episodes of a group of tasks, on the device once for
+        # the probe and the fine-tune
+        stack_cache: Dict[Tuple[int, ...], Tuple[Any, Any]] = {}
+
+        def stacked(idxs):
+            key = tuple(idxs)
+            if key not in stack_cache:
+                stack_cache[key] = (
+                    self._on(_stack_trees([eps[i][0] for i in idxs])),
+                    self._on(_stack_trees([eps[i][1] for i in idxs])))
+            return stack_cache[key]
+
+        if policy_override is not None:
+            policies = [policy_override] * len(tasks)
+            method = (f"override:"
+                      f"{(policy_override.meta or {}).get('source', 'policy')}")
+        else:
+            mode, channel_mode = _resolve_criterion(criterion)
+            if channel_mode != "dynamic":
+                raise ValueError(
+                    f"criterion {criterion!r} uses a static channel mode "
+                    f"({channel_mode}); adapt_many supports dynamic-channel "
+                    "criteria (or pass policy_override=)")
+            method = criterion
+            policies = [None] * len(tasks)
+            probe = cache.probe_fisher_batch()
+            costs = self.backbone.unit_costs
+            for idxs in _group_indices(keys).values():
+                sup, pq = stacked(idxs)
+                ns = torch.tensor([float(tasks[i].n_support) for i in idxs],
+                                  dtype=torch.float32, device=self.device)
+                taps = self.backbone.make_taps(
+                    sup["episode_labels"].shape[1], self.device)
+                t0 = time.perf_counter()
+                # the shape group's one fetch: O(T·L·C) scores
+                chans_all = _fetch(probe(self.params, sup, pq, taps, ns))
+                dt = (time.perf_counter() - t0) / len(idxs)
+                for j, i in enumerate(idxs):
+                    chans = {k: v[j] for k, v in chans_all.items()}
+                    policies[i] = select_policy(
+                        costs, potentials_from_chans(costs, chans), chans,
+                        budget, criterion=mode,
+                        shard_channels=shard_channels)
+                    fisher_dt[i] = dt
+                    transfers[i] = 1.0 / len(idxs)
+
         out: List[Optional[Adaptation]] = [None] * len(tasks)
         run_groups = _group_indices(
             [(k, cache._key(p)) for k, p in zip(keys, policies)])
         compiles_before = cache.fleet_scan_compiles()
         for idxs in run_groups.values():
-            sup = self._on(_stack_trees([eps[i][0] for i in idxs]))
-            pq = self._on(_stack_trees([eps[i][1] for i in idxs]))
+            sup, pq = stacked(idxs)
             ci = tree_map(lambda *xs: torch.stack(xs), *[
                 cache.chan_idx_arrays(policies[i], self.device) for i in idxs])
             run = cache.vmap_scan_steps(policies[idxs[0]], iters)
@@ -515,9 +595,9 @@ class TinyTrainSession:
             for j, i in enumerate(idxs):
                 res = AdaptResult(
                     deltas=tree_map(lambda x, _j=j: x[_j], d_stack),
-                    policy=policies[i], fisher_seconds=0.0, train_seconds=dt,
-                    losses=[float(x) for x in losses[j]],
-                    host_transfers=1.0 / len(idxs),
+                    policy=policies[i], fisher_seconds=fisher_dt[i],
+                    train_seconds=dt, losses=[float(x) for x in losses[j]],
+                    host_transfers=transfers[i] + 1.0 / len(idxs),
                     skipped_steps=int(np.sum(skips[j])))
                 out[i] = self._wrap(method, tasks[i], prof, res,
                                     budget=budget)
@@ -534,8 +614,59 @@ class TinyTrainSession:
         }
         return out
 
-    def baseline(self, *args, **kwargs):
-        raise _later("TinyTrainSession.baseline (the baseline zoo)", "8")
+    def baseline(
+        self,
+        name: str,
+        task: Task,
+        profile: Union[DeviceProfile, Budget, str],
+        *,
+        iters: int = 40,
+        proxy_task: Optional[Task] = None,
+        seed: int = 0,
+        fused: bool = True,
+    ) -> Adaptation:
+        """Run one on-device-training baseline on a task.
+
+        ``name``: none | fulltrain | lastlayer | sparseupdate | tinytl |
+        adapterdrop<pct> | any registered criterion (tinytrain, random,
+        ...).  ``sparseupdate`` searches its static policy offline on
+        ``proxy_task`` (never the target); the TinyTL family is CNN-only.
+        """
+        self._check_task(task)
+        if isinstance(profile, str):
+            profile = device_profile(profile)
+        if name in _CRITERIA:
+            return self.adapt(task, profile, criterion=name, iters=iters,
+                              seed=seed, fused=fused)
+        if name == "none":
+            return self._wrap(
+                "none", task,
+                profile if isinstance(profile, DeviceProfile) else None,
+                AdaptResult(None, None, 0.0, 0.0, []),
+                budget=_as_budget(profile))
+        if name == "lastlayer":
+            pol = self._static_policies.setdefault(
+                "lastlayer",
+                last_layer_policy(self.backbone.unit_costs,
+                                  len(self.backbone.unit_costs)))
+            return dataclasses.replace(
+                self.adapt(task, profile, policy_override=pol, iters=iters,
+                           fused=fused),
+                method="lastlayer")
+        if name == "sparseupdate":
+            pol = self._sparseupdate_policy(_as_budget(profile), proxy_task,
+                                            seed)
+            return dataclasses.replace(
+                self.adapt(task, profile, policy_override=pol, iters=iters,
+                           fused=fused),
+                method="sparseupdate")
+        if name == "fulltrain":
+            return self._fulltrain(task, iters, fused=fused)
+        if name.startswith("tinytl") or name.startswith("adapterdrop"):
+            return self._tinytl(name, task, iters, seed, fused=fused)
+        raise KeyError(
+            f"unknown baseline {name!r}; known: none, fulltrain, lastlayer, "
+            f"sparseupdate, tinytl, adapterdrop<pct>, {criteria()}")
 
     def score_stream(self, *args, **kwargs):
         raise _later("TinyTrainSession.score_stream", "10")
@@ -544,6 +675,119 @@ class TinyTrainSession:
         if task.max_way > self.max_way:
             raise ValueError(f"task {task.name!r} has way {task.max_way} > "
                              f"session max_way {self.max_way}")
+
+    def _sparseupdate_policy(self, budget: Budget,
+                             proxy_task: Optional[Task], seed: int
+                             ) -> SparseUpdatePolicy:
+        """The offline ES policy (Lin et al. 2022) from a *proxy* task."""
+        if proxy_task is None:
+            raise ValueError(
+                "baseline('sparseupdate') needs proxy_task= — the offline "
+                "evolutionary search runs on proxy data, never the target")
+        key = (budget.mem_bytes, budget.compute_frac,
+               budget.channel_ratio, budget.opt_slots, budget.param_bytes,
+               id(proxy_task), seed)
+        if key not in self._es_cache:
+            from .baselines import evolutionary_search_policy
+            from .fisher import fisher_probe
+            from .protonet import episode_loss
+
+            sup = self._on(proxy_task.support)
+            pq = self._on(proxy_task.pseudo_query)
+
+            def probe_loss(p, b, taps=None):
+                return episode_loss(self.backbone.features, p, sup, pq,
+                                    self.max_way, taps=taps)
+
+            potentials, _, _ = fisher_probe(self.backbone, self.params,
+                                            probe_loss, sup,
+                                            proxy_task.n_support)
+            self._es_cache[key] = (proxy_task, evolutionary_search_policy(
+                self.backbone.unit_costs, potentials, budget, iters=400,
+                seed=seed))
+        return self._es_cache[key][1]
+
+    def _trained(self, method: str, task: Task, x: Any, run, step,
+                 iters: int, fused: bool, features) -> Adaptation:
+        """A baseline that trains its own tree ``x`` (the whole backbone,
+        or TinyTL's adapters) with the baseline optimiser: ``run(x, st, sup,
+        pq)`` the fused loop (one fetch), ``step(x, st, sup, pq)`` one eager
+        update; ``features(x, batch)`` evaluates the trained tree."""
+        st = self.baseline_optimizer.init(x)
+        sup, pq = self._on(task.support), self._on(task.pseudo_query)
+        t0 = time.perf_counter()
+        if fused and iters > 0:
+            x, st, loss_arr, skip_arr = run(x, st, sup, pq)
+            loss_h, skip_h = _fetch((loss_arr, skip_arr))
+            losses = [float(v) for v in loss_h]
+            skipped = int(np.sum(skip_h))
+        else:
+            losses = []
+            for _ in range(iters):
+                x, st, loss = step(x, st, sup, pq)
+                losses.append(_fetch_scalar(loss))
+            skipped = sum(1 for v in losses if not np.isfinite(v))
+        dt = time.perf_counter() - t0
+        mw = self.max_way
+
+        def _eval(s, q, _x=x):
+            with torch.no_grad():
+                return _fetch_scalar(episode_accuracy(
+                    features, _x, self._on(s), self._on(q), mw))
+
+        return Adaptation(
+            method=method, task=task, profile=None, budget=None, deltas=x,
+            policy=None, fisher_seconds=0.0, train_seconds=dt, losses=losses,
+            host_transfers=1 if (fused and iters > 0) else iters,
+            _session=self, _eval=_eval, skipped_steps=skipped)
+
+    def _fulltrain(self, task: Task, iters: int,
+                   fused: bool = True) -> Adaptation:
+        """Every backbone parameter trained, on a private copy: the
+        session's frozen params stay as they are."""
+        from .baselines import make_full_episode_scan, make_full_episode_step
+
+        feats, opt, mw = (self.backbone.features, self.baseline_optimizer,
+                          self.max_way)
+        if fused and iters > 0 and iters not in self._full_scans:
+            self._full_scans[iters] = make_full_episode_scan(feats, opt, mw,
+                                                             iters)
+        p = tree_map(lambda t: t.detach().clone(), self.params)
+        return self._trained("fulltrain", task, p,
+                             self._full_scans.get(iters),
+                             make_full_episode_step(feats, opt, mw), iters,
+                             fused, feats)
+
+    def _tinytl(self, name: str, task: Task, iters: int, seed: int,
+                fused: bool = True) -> Adaptation:
+        from .baselines import (
+            adapter_dropped_blocks, make_tinytl_episode_scan,
+            make_tinytl_episode_step, tinytl_adapter_init, tinytl_features,
+        )
+
+        if self.backbone.kind != "cnn":
+            raise ValueError("tinytl/adapterdrop baselines are CNN-only")
+        cfg, params, opt = self.backbone.cfg, self.params, self.baseline_optimizer
+        dropped = adapter_dropped_blocks(cfg, name)
+        # drawn on the host: a card run and a CPU run of one seed start
+        # from the same adapters
+        adapters = tinytl_adapter_init(cfg, torch.Generator().manual_seed(seed),
+                                       device=self.device)
+        skey = (dropped, iters)
+        if fused and iters > 0 and skey not in self._tinytl_scans:
+            self._tinytl_scans[skey] = make_tinytl_episode_scan(
+                cfg, opt, self.max_way, dropped, iters)
+        scan = self._tinytl_scans.get(skey)
+        step = make_tinytl_episode_step(cfg, opt, self.max_way, dropped)
+
+        def run(a, st, s, q):
+            return scan(params, a, st, s, q)
+
+        return self._trained(
+            name, task, adapters, run,
+            lambda a, st, s, q: step(params, a, st, s, q), iters, fused,
+            lambda a, b: tinytl_features(cfg, params, a, b["images"],
+                                         dropped_blocks=dropped))
 
     def _wrap(self, method: str, task: Task, profile, res: AdaptResult,
               budget: Optional[Budget] = None) -> Adaptation:

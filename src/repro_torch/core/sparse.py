@@ -33,7 +33,7 @@ from ..utils import tree_leaves, tree_map
 from .backbones import Backbone
 from .fisher import leaf_taps, tap_grads
 from .policy import SparseUpdatePolicy
-from .protonet import episode_accuracy, episode_loss
+from .protonet import episode_accuracy, episode_loss, feature_loss
 
 
 def _finite_step(loss: torch.Tensor, grads: Any) -> torch.Tensor:
@@ -54,7 +54,11 @@ def _value_and_grad(loss_fn: Callable[..., torch.Tensor], x: Any, *ctx):
     it = iter(leaves)
     xg = tree_map(lambda _: next(it), x)
     loss = loss_fn(xg, *ctx)
-    grads = iter(torch.autograd.grad(loss, leaves)) if leaves else iter(())
+    # a leaf the loss never reads (an AdapterDrop-ped block's adapter) has
+    # a zero gradient, as under jax.grad
+    grads = iter([torch.zeros_like(t) if d is None else d for t, d in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        if leaves else ())
     return loss.detach(), tree_map(lambda _: next(grads), x)
 
 
@@ -159,6 +163,56 @@ class EpisodeStepCache:
             return reduce(tap_grads(loss, taps), n, mask)
 
         return pf
+
+    def probe_fisher_batch(self):
+        """The fleet's probe: pfb(params, supports, queries, taps, ns) ->
+        {(layer, kind): (T, C) Δ_o} for T tasks of one episode shape, the
+        episodes task-stacked, ``ns`` a (T,) float32 tensor of valid counts,
+        ``taps`` one task's.  The tasks ride the batch axis of one probe
+        (the JAX package vmaps its probe instead): the T episodes' rows go
+        through the backbone together under T copies of the taps, the loss
+        is the sum of the T episode losses, each from its own rows' features,
+        so one backward gives every task's own tap gradients, with one
+        task's activation memory a task.  The reduction then runs over the
+        (T, ...) stacks through the backbone's ``fisher_reduce_batch``: for
+        an LM one Fisher kernel launch a tap group, not one a task.
+        (``torch.func.vmap`` of ``torch.func.grad`` gives the same
+        gradients, but holds several times a task's activations: at
+        qwen2-1.5b's width two tasks of 64 rows ran out of an 80 GB
+        card.)"""
+        feature_fn, max_way = self.backbone.features, self.max_way
+        reduce = self.backbone.fisher_reduce_batch
+
+        def pfb(params, supports, queries, taps, ns):
+            t, b = supports["episode_labels"].shape
+
+            def rows(tree):
+                return {k: v.reshape(t * b, *v.shape[2:])
+                        for k, v in tree.items()}
+
+            # the task's taps repeated along the batch: an LM's (L, T*B, C)
+            # a tap group, an edge CNN's (T*B, C_i) a layer
+            big = leaf_taps([x.repeat(t, 1) for x in taps]
+                            if isinstance(taps, list) else
+                            tree_map(lambda x: x.repeat(1, t, 1), taps))
+            fs = feature_fn(params, rows(supports), taps=big)
+            fq = feature_fn(params, rows(queries), taps=big)
+            loss = sum(feature_loss(fs[i * b:(i + 1) * b],
+                                    supports["episode_labels"][i],
+                                    fq[i * b:(i + 1) * b],
+                                    queries["episode_labels"][i], max_way)
+                       for i in range(t))
+            g = tap_grads(loss, big)
+            if isinstance(g, list):  # an edge CNN's (T*B, C_i) a layer
+                g = [x.reshape(t, b, x.shape[-1]) for x in g]
+            else:  # an LM's (L, T*B, C) a tap group -> (T, L, B, C)
+                g = {gk: {k: v.reshape(v.shape[0], t, b, v.shape[-1])
+                          .transpose(0, 1).contiguous()
+                          for k, v in grp.items()} for gk, grp in g.items()}
+            mask = (supports["episode_labels"] >= 0).float()  # (T, B)
+            return reduce(g, ns, mask)
+
+        return pfb
 
     @staticmethod
     def chan_idx_arrays(policy: SparseUpdatePolicy, device="cpu"):

@@ -12,13 +12,19 @@
 //   out[c] = scale * sum_n w[n] * u[n]^2 / (mask_norm ? max(sum_n m[n], 1) : 1)
 // with w[n] = m[n]^2 for a mask m (nullptr: w = 1).  A row with m[n] == 0 is
 // skipped, never read, so garbage (even NaN) in a padded row cannot reach
-// the output.  Two layouts:
-//   * D == 1, the tap-gradient route: g (L, N, C) -> out (L, C), each of the
-//     L layers reduced over its own N rows.  The TPU route viewed (L, B, C)
-//     as (B, 1, L*C) through a transposed copy; this kernel reads (L, B, C)
-//     in place, and with a == nullptr reads no activation operand at all,
-//     which halves the bytes of the only route the main path takes.
-//   * D > 1, materialised activations: a, g (N, D, C) -> out (C,).
+// the output.  Two entries:
+//   * fisher_tapgrads_fwd, the tap-gradient route (D == 1, no activation
+//     operand): g (T, L, N, C), mask (T, N), n (T,) -> out (T, L, C), each
+//     task's L layers reduced over its own N rows and scaled by 1 / (2 n[t])
+//     read on the device, so a fleet's probe reduces every task of a group
+//     in one launch with no host read (the TPU route is a vmap of the
+//     pallas_call, which adds a grid axis), and one task's probe is T = 1.
+//     The TPU route viewed (L, B, C) as (B, 1, L*C) through a transposed
+//     copy; this kernel reads (T, L, B, C) in place and reads no activation
+//     operand, which halves the bytes of the only route the main path
+//     takes.  The task is the grid's y axis: a block never spans two tasks,
+//     so each block compacts its own task's valid rows.
+//   * fisher_fwd, materialised activations: a, g (N, D, C) -> out (C,).
 // Ragged edges in C and D are masked in the kernel, so every shape goes
 // through it: no block-divisor gate and no fallback to a plain version.
 //
@@ -89,11 +95,19 @@ __global__ void __launch_bounds__(RT)
 fisher_rows_kernel(const T* __restrict__ a, const T* __restrict__ g,
                    const float* __restrict__ mask, float* __restrict__ out,
                    long long L, int N, long long C, float scale,
-                   int mask_norm) {
+                   int mask_norm, const float* __restrict__ ntask) {
   __shared__ int s_row[RCH];   // the chunk's valid rows, in order
   __shared__ float s_w[RCH];   // their weights m^2 (1 without a mask)
   __shared__ int s_cnt;
   __shared__ float s_msum;
+  // task blockIdx.y of a (T, L, N, C) stack, scaled by 1 / (2 ntask[task])
+  // when ntask is given
+  const long long task = blockIdx.y;
+  g += task * L * (long long)N * C;
+  if (HAS_A) a += task * L * (long long)N * C;
+  if (mask != nullptr) mask += task * N;
+  out += task * L * C;
+  if (ntask != nullptr) scale = 1.f / (2.f * ntask[task]);
   const long long groups = C / VEC;  // VEC divides C
   const long long j = (long long)blockIdx.x * RT + threadIdx.x;
   const bool live = j < L * groups;
@@ -225,56 +239,57 @@ int rows_vec(const void* a, const void* g, long long C) {
   return ok ? V : 1;
 }
 
-template <typename T, int VEC>
+// The D == 1 kernel over `tasks` stacks of (L, N, C), grid (blocks of one
+// stack, tasks); with `plan`, writes the launch's plan[0..4] (blocks of one
+// stack, threads a block, columns a thread, rows loaded ahead a thread, rows
+// compacted a pass) instead of launching.
+template <typename T>
 int launch_rows(const T* a, const T* g, const float* m, float* o, long long L,
                 int N, long long C, float scale, int mask_norm,
-                cudaStream_t stream, int* plan) {
-  const long long blocks = (L * (C / VEC) + RT - 1) / RT;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+                cudaStream_t stream, int* plan, long long tasks,
+                const float* ntask) {
+  const int vec = rows_vec<T>(a, g, C);
+  const long long blocks = (L * (C / vec) + RT - 1) / RT;
+  if (blocks > 0x7fffffffLL || tasks > 65535)
+    return (int)cudaErrorInvalidConfiguration;
   if (plan) {
     plan[0] = (int)blocks;
     plan[1] = RT;
-    plan[2] = VEC;
+    plan[2] = vec;
     plan[3] = RU;
     plan[4] = RCH;
     return 0;
   }
-  if (a != nullptr) {
-    fisher_rows_kernel<T, VEC, true><<<(unsigned)blocks, RT, 0, stream>>>(
-        a, g, m, o, L, N, C, scale, mask_norm);
-  } else {
-    fisher_rows_kernel<T, VEC, false><<<(unsigned)blocks, RT, 0, stream>>>(
-        a, g, m, o, L, N, C, scale, mask_norm);
-  }
+  constexpr int V = 16 / sizeof(T);
+  const dim3 grid((unsigned)blocks, (unsigned)tasks);
+  if (a != nullptr && vec == V)
+    fisher_rows_kernel<T, V, true><<<grid, RT, 0, stream>>>(
+        a, g, m, o, L, N, C, scale, mask_norm, ntask);
+  else if (a != nullptr)
+    fisher_rows_kernel<T, 1, true><<<grid, RT, 0, stream>>>(
+        a, g, m, o, L, N, C, scale, mask_norm, ntask);
+  else if (vec == V)
+    fisher_rows_kernel<T, V, false><<<grid, RT, 0, stream>>>(
+        a, g, m, o, L, N, C, scale, mask_norm, ntask);
+  else
+    fisher_rows_kernel<T, 1, false><<<grid, RT, 0, stream>>>(
+        a, g, m, o, L, N, C, scale, mask_norm, ntask);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* a, const void* g, const void* mask, void* out,
-           long long L, int N, int D, long long C, float scale,
-           int mask_norm, cudaStream_t stream, int* plan) {
+int launch(const void* a, const void* g, const void* mask, void* out, int N,
+           int D, long long C, float scale, int mask_norm,
+           cudaStream_t stream) {
   const T* a_ = static_cast<const T*>(a);
   const T* g_ = static_cast<const T*>(g);
   const float* m_ = static_cast<const float*>(mask);
   float* o_ = static_cast<float*>(out);
-  if (D == 1) {
-    if (rows_vec<T>(a, g, C) == 1)
-      return launch_rows<T, 1>(a_, g_, m_, o_, L, N, C, scale, mask_norm,
-                               stream, plan);
-    return launch_rows<T, 16 / sizeof(T)>(a_, g_, m_, o_, L, N, C, scale,
-                                          mask_norm, stream, plan);
-  }
-  if (L != 1 || a_ == nullptr) return (int)cudaErrorInvalidValue;
+  if (D == 1)
+    return launch_rows<T>(a_, g_, m_, o_, 1, N, C, scale, mask_norm, stream,
+                          nullptr, 1, nullptr);
   const long long blocks = (C + GX - 1) / GX;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if (plan) {
-    plan[0] = (int)blocks;
-    plan[1] = GX * GY;
-    plan[2] = 1;
-    plan[3] = 1;
-    plan[4] = 0;
-    return 0;
-  }
   fisher_general_kernel<T><<<(unsigned)blocks, dim3(GX, GY), 0, stream>>>(
       a_, g_, m_, o_, N, D, C, scale, mask_norm);
   return (int)cudaGetLastError();
@@ -282,38 +297,48 @@ int launch(const void* a, const void* g, const void* mask, void* out,
 
 }  // namespace
 
-// a: nullptr or the activation operand, with g's dtype and shape; g: (L, N, C)
-// when D == 1, else (N, D, C) with L == 1; mask: nullptr or (N,) float32;
-// out: (L, C) float32.  dtype 0 = float32, 1 = bfloat16.  Launches on
-// `stream` without synchronising; returns the launch's cudaError_t.
+// The materialised-activation form: a, g (N, D, C) with one dtype, mask
+// nullptr or (N,) float32, out (C,) float32.  dtype 0 = float32, 1 =
+// bfloat16.  Launches on `stream` without synchronising; returns the
+// launch's cudaError_t.
 extern "C" int fisher_fwd(const void* a, const void* g, const void* mask,
-                          void* out, long long L, int N, int D, long long C,
-                          float scale, int mask_norm, int dtype,
-                          void* stream) {
-  if (L < 1 || N < 1 || D < 1 || C < 1) return (int)cudaErrorInvalidValue;
+                          void* out, int N, int D, long long C, float scale,
+                          int mask_norm, int dtype, void* stream) {
+  if (a == nullptr || N < 1 || D < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(a, g, mask, out, L, N, D, C, scale, mask_norm, s,
-                         nullptr);
+    return launch<float>(a, g, mask, out, N, D, C, scale, mask_norm, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(a, g, mask, out, L, N, D, C, scale,
-                                 mask_norm, s, nullptr);
+    return launch<__nv_bfloat16>(a, g, mask, out, N, D, C, scale, mask_norm,
+                                 s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The launch fisher_fwd would make for these shapes and pointers (a, g:
-// only their alignment is read), without making it: plan[0..4] = blocks,
-// threads a block, columns a thread, rows loaded ahead a thread, rows
-// compacted a pass (0 for the D > 1 kernel, which compacts none).
-extern "C" int fisher_plan(const void* a, const void* g, long long L, int N,
-                           int D, long long C, int dtype, int* plan) {
-  if (L < 1 || N < 1 || D < 1 || C < 1 || !plan)
+// The tap-gradient route: g (T, L, N, C) f32 or bf16, mask nullptr or (T, N)
+// float32, n (T,) float32 valid counts on the device, out (T, L, C) float32
+// = sum_n m[t, n]^2 g[t, l, n, c]^2 / (2 n[t]).  One launch, grid (blocks of
+// one task, T): a block never spans two tasks, so task t's scores are the
+// same launch's with T = 1 on g[t], bit for bit.  With `plan` non-null
+// (g: only its alignment is read), writes the launch's plan[0..4] for the
+// blocks of one task instead of launching.  Returns the launch's
+// cudaError_t.
+extern "C" int fisher_tapgrads_fwd(const void* g, const void* mask,
+                                   const void* n, void* out, long long T,
+                                   long long L, int N, long long C, int dtype,
+                                   void* stream, int* plan) {
+  if (T < 1 || L < 1 || N < 1 || C < 1 || (n == nullptr && plan == nullptr))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m_ = static_cast<const float*>(mask);
+  const float* n_ = static_cast<const float*>(n);
+  float* o_ = static_cast<float*>(out);
   if (dtype == 0)
-    return launch<float>(a, g, nullptr, nullptr, L, N, D, C, 0.f, 0, nullptr,
-                         plan);
+    return launch_rows<float>(nullptr, static_cast<const float*>(g), m_, o_,
+                              L, N, C, 0.f, 0, s, plan, T, n_);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(a, g, nullptr, nullptr, L, N, D, C, 0.f, 0,
-                                 nullptr, plan);
+    return launch_rows<__nv_bfloat16>(
+        nullptr, static_cast<const __nv_bfloat16*>(g), m_, o_, L, N, C, 0.f,
+        0, s, plan, T, n_);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .fisher import fisher_cuda
+from .fisher import fisher_cuda, tapgrads_cuda
 from .flash_aligned import flash_attention_aligned_cuda
 from .flash_attention import flash_attention_cached_cuda
 from .flash_paged import flash_attention_paged_cuda
@@ -75,16 +75,28 @@ def fisher_tapgrads(g, n, mask=None) -> torch.Tensor:
     """Eq. 2 channel scores from the probe's tap gradients, g (L, B, C) ->
     (L, C) float32: Δ = Σ_b g² / (2n), rows weighted by the optional (B,)
     validity ``mask``; ``n`` (a Python number) is the valid-sample count.
-    The kernel reads g in place with no activation operand."""
-    if g.dim() != 3:
-        raise ValueError(f"expected (L, B, C) tap gradients, got "
-                         f"{tuple(g.shape)}")
+    The kernel reads g in place with no activation operand.
+
+    With a task axis (a fleet's probe), g (T, L, B, C), mask (T, B) and n
+    a (T,) tensor of valid counts -> (T, L, C).  Either form is one launch
+    of the task-axis route, which reads n on the device (one task's is
+    T = 1); task t's scores equal a one-task call's on g[t]."""
+    if g.dim() not in (3, 4):
+        raise ValueError(f"expected (L, B, C) or (T, L, B, C) tap gradients, "
+                         f"got {tuple(g.shape)}")
     if not _on_card(g):
         return fisher_tapgrads_ref(g, n, mask)
-    out = fisher_cuda(g.contiguous(), mask=_mask_f32(mask),
-                      scale=1.0 / (2.0 * float(n)), per_layer=True)
+    one = g.dim() == 3
+    mask = _mask_f32(mask)
+    if one:
+        g, mask = g[None], None if mask is None else mask[None]
+        n = torch.full((1,), float(n), dtype=torch.float32, device=g.device)
+    else:
+        n = torch.as_tensor(n, device=g.device).to(torch.float32)
+    out = tapgrads_cuda(g.contiguous(), n.contiguous(),
+                        None if mask is None else mask.contiguous())
     fisher_tapgrads.launches += 1
-    return out
+    return out[0] if one else out
 
 
 fisher_tapgrads.launches = 0

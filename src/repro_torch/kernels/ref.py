@@ -12,16 +12,22 @@ from typing import Optional
 import torch
 
 
-def _sum_sq_rows(u: torch.Tensor, mask: Optional[torch.Tensor], scale: float,
+def _sum_sq_rows(u: torch.Tensor, mask: Optional[torch.Tensor], scale,
                  mask_norm: bool) -> torch.Tensor:
     """The Fisher kernel's reduction over rows: u (..., N, C) float32 ->
     (..., C) = scale · Σ_n m_n² u_n², divided by max(Σ m, 1) when
     ``mask_norm``.  Rows with m == 0 contribute exactly 0, whatever they
-    hold."""
+    hold.  A task axis rides in front: u (T, L, N, C) with a (T, N) mask
+    and a (T,) tensor ``scale``, each task reduced as it would be alone."""
     u2 = u * u
     if mask is not None:
         m = mask.float()
-        u2 = torch.where((m != 0)[:, None], u2 * (m * m)[:, None], 0.0)
+        # (N,) or (T, N) against u's rows: (..., N, 1)
+        w = m.reshape(*m.shape[:-1], *[1] * (u.dim() - m.dim() - 1),
+                      m.shape[-1], 1)
+        u2 = torch.where(w != 0, u2 * (w * w), 0.0)
+    if isinstance(scale, torch.Tensor):
+        scale = scale.reshape(-1, *[1] * (u.dim() - 2))
     out = u2.sum(dim=-2) * scale
     if mask is not None and mask_norm:
         out = out / torch.clamp(m.sum(), min=1.0)
@@ -41,11 +47,16 @@ def fisher_ref(a: torch.Tensor, g: torch.Tensor,
     return _sum_sq_rows(u, mask, 0.5, True)
 
 
-def fisher_tapgrads_ref(g: torch.Tensor, n: float,
+def fisher_tapgrads_ref(g: torch.Tensor, n,
                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Eq. 2 from tap gradients: g (L, B, C) is already the inner sum u, so
     Δ = Σ_b m_b² g² / (2n) -> (L, C) float32, ``n`` the valid-sample
-    count."""
+    count.  With a task axis, g (T, L, B, C), mask (T, B) and n (T,) ->
+    (T, L, C), task t scaled by the float32 1 / (2 n_t), which is the
+    one-task scale: each task's scores equal its own call's bit for bit."""
+    if g.dim() == 4:
+        n = torch.as_tensor(n, dtype=torch.float32, device=g.device)
+        return _sum_sq_rows(g.float(), mask, 1.0 / (2.0 * n), False)
     return _sum_sq_rows(g.float(), mask, 1.0 / (2.0 * float(n)), False)
 
 

@@ -1,2 +1,5 @@
-"""Optimisers for the sparse fine-tune (float32 moment math)."""
-from .optimizers import Optimizer, adam, apply_updates  # noqa: F401
+"""Optimisers for the sparse fine-tune and the baselines (float32 moment
+math)."""
+from .optimizers import (  # noqa: F401
+    Optimizer, adam, apply_updates, clip_by_global_norm, momentum, sgd,
+)

@@ -4,8 +4,8 @@ with the JAX weights bridged across and the same episodes from the same
 seeds: a mix of way/shot tasks in two buckets gives the same per-task
 losses, deltas, skipped steps, host transfers and fleet report.  Within
 the port: one task through ``adapt_many`` equals ``adapt`` under the same
-policy, and the criterion route, ``mesh=`` and ``hosts=`` raise naming
-their ROADMAP items."""
+policy; a static criterion raises ``ValueError`` as in the JAX package,
+and ``mesh=`` and ``hosts=`` raise naming their ROADMAP item."""
 import jax
 import numpy as np
 import pytest
@@ -154,8 +154,8 @@ def test_unbucketed_groups_by_exact_shape(ref):
 def test_routes_of_later_items_raise(ref):
     session, policy = ref["session"], ref["policy"]
     task = tasks(syn, Task, session.backbone.cfg.vocab)[0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        session.adapt_many([task], api.JETSON_NANO)
+    with pytest.raises(ValueError, match="static channel mode"):
+        session.adapt_many([task], api.JETSON_NANO, criterion="random")
     with pytest.raises(NotImplementedError, match="item 16"):
         session.adapt_many([task], api.JETSON_NANO, policy_override=policy,
                            mesh=object())

@@ -190,6 +190,38 @@ def test_cuda_tapgrads_match_plain(cuda_device, shape, dtype, masked):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 28, 48, 8960), (3, 28, 48, 12),
+                                   (2, 4, 3, 77), (1, 28, 48, 8960)])
+def test_cuda_task_axis_matches_plain_and_one_task_launches(cuda_device,
+                                                            shape, dtype):
+    """The task axis (a fleet's probe): one launch over (T, L, B, C) with a
+    ragged (T, B) mask (NaN in the masked rows) and (T,) counts on the
+    card, within tolerance of the plain version, each task bit-equal to a
+    one-task launch on its slice, and the launch held to ``rows_plan``."""
+    t, layers, b, c = shape
+    g = _t(_normal(shape, 0), dtype).to(cuda_device)
+    mask = torch.stack([_valid_mask(b, max(1, b - 2 * i))
+                        for i in range(t)]).to(cuda_device)
+    g[(mask == 0)[:, None, :, None].expand_as(g)] = float("nan")
+    n = mask.sum(1)
+    n0 = ops.fisher_tapgrads.launches
+    got = ops.fisher_tapgrads(g, n, mask)
+    assert ops.fisher_tapgrads.launches == n0 + 1
+    want = fisher_tapgrads_ref(g, n, mask)
+    ones = [ops.fisher_tapgrads(g[i].contiguous(), float(n[i]),
+                                mask[i].contiguous()) for i in range(t)]
+    torch.cuda.synchronize()
+    assert got.shape == (t, layers, c) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert all(torch.equal(got[i], ones[i]) for i in range(t))
+    plan = FK.plan(g)
+    model = FK.rows_plan(layers, b, c, g.dtype, tasks=t)
+    assert all(plan[k] == model[k] for k in (*FK.PLAN_KEYS, "tasks"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(4, 1024, 512), (6, 7, 77), (5, 1, 300)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_cuda_fisher_matches_plain(cuda_device, shape, dtype, masked):
@@ -303,15 +335,16 @@ def test_rows_model_matches_plain():
 ])
 def test_cuda_tapgrads_launch_matches_model(cuda_device, shape, dtype,
                                             offset):
-    """The launch the kernel makes (``fisher_plan``) is the host-side
-    model's, 16-byte loads where the shape and alignment allow them; the
-    result matches the plain version either way."""
+    """The launch the kernel makes (``fisher_tapgrads_fwd``'s plan, one
+    task) is the host-side model's, 16-byte loads where the shape and
+    alignment allow them; the result matches the plain version either
+    way."""
     numel = int(np.prod(shape))
     buf = _t(_normal((numel + offset,), 3), "float32").to(cuda_device, dtype)
     g = buf[offset:].view(shape)
-    plan = FK.plan(g, per_layer=True)
+    plan = FK.plan(g[None])
     model = FK.rows_plan(*shape, dtype, aligned=g.data_ptr() % 16 == 0)
-    assert plan == {k: model[k] for k in FK.PLAN_KEYS}
+    assert plan == {**{k: model[k] for k in FK.PLAN_KEYS}, "tasks": 1}
     mask = _valid_mask(shape[1], shape[1] - 1).to(cuda_device)
     got = ops.fisher_tapgrads(g, float(shape[1] - 1), mask)
     want = fisher_tapgrads_ref(g, float(shape[1] - 1), mask)

@@ -19,6 +19,19 @@ from repro_torch.kernels.ref import flash_attention_cached_ref
 B, SQ, HQ, HKV, D, SMAX = 3, 8, 4, 2, 32, 64
 
 
+def _assert_close_slots(got, want, tol):
+    """Kernels 2 and 4's gate: ``_assert_close`` on the whole output, and
+    in bf16 each slot (batch row) b also within ``tol |want| + min(tol,
+    0.1 rms(want[b]))``.  A slot with a few visible keys has rms near 1
+    and one with thousands near 0.02, so the whole output's rms is set by
+    the short slots; the per-slot term sees a fault confined to the long
+    ones (``test_per_slot_gate_sees_a_fault_in_the_longest_slot_only``)."""
+    _assert_close(got, want, tol)
+    if got.dtype == torch.bfloat16:
+        for b in range(got.shape[0]):
+            _assert_close(got[b], want[b], tol)
+
+
 def _qkv(seed=0, b=B, sq=SQ, hq=HQ, hkv=HKV, d=D, smax=SMAX):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, sq, hq, d)).astype(np.float32),
@@ -207,7 +220,7 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, window, dtype, tol):
                                       window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    _assert_close(got, want, tol)
+    _assert_close_slots(got, want, tol)
     assert torch.all(got[0] == 0)
     # stale non-finite rows that no query sees change nothing
     pk, pv = (torch.from_numpy(a).to(cuda_device, dtype) for a in
@@ -225,17 +238,21 @@ BN, MAX_SPLIT = 64, 8  # the kernels' logical tile rows and cluster size
 
 
 def _split_combine(q, k, v, q_off, kv_len, window, n_split=None,
-                   drop_rank=None, edge_unmasked=False):
+                   drop_rank=None, edge_unmasked=False, double_rank=None,
+                   drop_tile=None, double_tile=None, fault_slots=None):
     """The kernels' split-and-combine algebra in plain float32 torch, in
     their order: 64-row tiles from row 0; the band's n tiles dealt out in
     runs of ceil(n / 8) to ``n_split`` ranks (the kernels' cluster size by
     default); per rank an online softmax in base 2 from the sentinel (m =
     -1e30, l = 0, acc = 0), rows outside the band zero-filled; then M = max
     m_j, e_j = 2^(m_j - M), out = sum e_j acc_j / max(sum e_j l_j, 1e-30) in
-    rank order.  Causal.  Two planted faults for the gate's tests:
-    ``drop_rank`` leaves that rank out of the combine's sums, and
-    ``edge_unmasked`` masks nothing below the window in the band's first
-    tile."""
+    rank order.  Causal.  Planted faults for the gate's tests:
+    ``drop_rank`` leaves that rank out of the combine's sums,
+    ``double_rank`` adds that rank twice, ``drop_tile``/``double_tile``
+    skip or repeat that 64-row tile (an index into the band) in its rank's
+    loop, and ``edge_unmasked`` masks nothing below the window in the
+    band's first tile; ``fault_slots`` (default all) are the slots a fault
+    touches."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -263,9 +280,14 @@ def _split_combine(q, k, v, q_off, kv_len, window, n_split=None,
                 m = torch.full((group * sq,), -1e30)
                 l = torch.zeros(group * sq)
                 acc = torch.zeros(group * sq, d)
-                for t in range(t0, t1):
+                faulty = fault_slots is None or bi in fault_slots
+                walk = [t for t in range(t0, t1)
+                        if not (faulty and t - t_lo == drop_tile)
+                        for _ in range(2 if faulty and t - t_lo == double_tile
+                                       else 1)]
+                for t in walk:
                     s = torch.arange(t * BN, (t + 1) * BN)
-                    edge = edge_unmasked and t == t_lo
+                    edge = edge_unmasked and t == t_lo and faulty
                     inb = ((s >= lo) | edge) & (s < hi)
                     rows = s.clamp(max=sk - 1)
                     kt = torch.where(inb[:, None], k[bi, rows, h], 0.0)
@@ -284,11 +306,15 @@ def _split_combine(q, k, v, q_off, kv_len, window, n_split=None,
             big_m = torch.stack([pt[0] for pt in parts]).amax(0)
             num, den = torch.zeros(group * sq, d), torch.zeros(group * sq)
             for rank, (m, l, acc) in enumerate(parts):
-                if rank == drop_rank:
-                    continue
+                times = 1
+                if faulty and rank == drop_rank:
+                    times = 0
+                elif faulty and rank == double_rank:
+                    times = 2
                 e = torch.exp2(m - big_m)
-                den = den + l * e
-                num = num + acc * e[:, None]
+                for _ in range(times):
+                    den = den + l * e
+                    num = num + acc * e[:, None]
             o = num / den.clamp_min(1e-30)[:, None]
             out[bi, :, h * group:(h + 1) * group] = o.reshape(
                 group, sq, d).permute(1, 0, 2)
@@ -384,6 +410,47 @@ def test_bf16_gate_sees_a_dropped_split_rank_or_an_unmasked_window_edge(
     assert old_gate_passes != old_gate_sees
 
 
+# (what, fault, whether the whole-output gate rejects it too)
+SLOT_FAULTS = [
+    ("a dropped tile", dict(drop_tile=37), False),
+    ("a doubled tile", dict(double_tile=0), False),
+    ("a dropped split rank", dict(drop_rank=5), True),
+    ("a doubled split rank", dict(double_rank=2), True),
+]
+
+
+@pytest.mark.parametrize("case", SLOT_FAULTS, ids=[c[0] for c in SLOT_FAULTS])
+def test_per_slot_gate_sees_a_fault_in_the_longest_slot_only(case,
+                                                             one_thread):
+    """A split-KV combine fault confined to LONG's longest slot (4096 rows,
+    8 ranks of 8 tiles, outputs of rms ~0.02) on bf16-rounded inputs: the
+    per-slot gate rejects each; the exact output rounded to bf16 passes.
+    The whole-output gate's absolute term is set by the 8-key slot (rms
+    near 1, 0.024 here against the slot's own 0.0026): it passes a dropped
+    or doubled 64-row tile of the long slot (errors up to 0.017 and 0.018)
+    and sees a dropped or doubled rank of 512 rows (up to ~0.04)."""
+    _, fault, whole_sees = case
+    kv_len = np.asarray(LONG_KV_LEN, np.int32)
+    q_off = np.maximum(kv_len - 8, 0).astype(np.int32)
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .bfloat16().float() for shape in
+               ((8, 8, 12, 128), (8, 4096, 2, 128), (8, 4096, 2, 128)))
+    exact = _split_combine(q, k, v, q_off, kv_len, 0)
+    _assert_close_slots(exact.bfloat16(), exact, 3e-2)
+    bad = _split_combine(q, k, v, q_off, kv_len, 0, fault_slots={7},
+                         **fault).bfloat16()
+    assert torch.equal(bad[:7], exact[:7].bfloat16())
+    with pytest.raises(AssertionError):
+        _assert_close_slots(bad, exact, 3e-2)
+    try:
+        _assert_close(bad, exact, 3e-2)
+        whole_passes = True
+    except AssertionError:
+        whole_passes = False
+    assert whole_passes != whole_sees
+
+
 # (what, shape, q_offset, kv_len, window); q_offset None: kv_len - Sq, from 0
 SPLIT_CASES = [
     ("tile edges, cache 1024", dict(b=7, sq=8, hq=12, hkv=2, d=128, smax=1024),
@@ -444,7 +511,7 @@ def test_cuda_split_cases(cuda_device, case, dtype, tol):
     poisoned = ops.flash_attention_cached(q, pk, pv, q_offset=off, kv_len=kl,
                                           window=window)
     torch.cuda.synchronize()
-    _assert_close(got, want, tol)
+    _assert_close_slots(got, want, tol)
     assert blind and all(torch.all(got[i] == 0) for i in blind)
     assert torch.equal(got, again)
     assert torch.equal(poisoned, got)

@@ -30,7 +30,11 @@ def test_scan_covers_the_package():
             "serve_profile.py", "adapt_profile.py", "grad_quant.py",
             "personalise.py", "compress.py", "ssm.py",
             "ssd_scan.py", "flash_aligned.py", "kernel_bench.py",
-            "edge_cnn.py", "pipeline.py"} <= names
+            "edge_cnn.py", "pipeline.py", "baselines.py", "common.py",
+            "run.py", "accuracy_table.py", "memory_compute_table.py",
+            "criterion_ablation.py", "channel_selection.py",
+            "latency_breakdown.py", "layer_analysis.py",
+            "meta_training_effect.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -10,7 +10,7 @@ tests run on a machine without it:
 import numpy as np
 import pytest
 import torch
-from test_torch_flash_aligned import _assert_close
+from test_torch_flash_attention import _assert_close_slots
 
 from repro_torch.kernels import flash_paged as FP
 from repro_torch.kernels import ops
@@ -238,7 +238,7 @@ def test_cuda_kernel_matches_plain_and_cached_kernel(cuda_device, shape, ps,
     cached = ops.flash_attention_cached(q, k, v, q_offset=off, kv_len=kl)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    _assert_close(got, want, tol)
+    _assert_close_slots(got, want, tol)
     assert torch.equal(got, cached)
     assert torch.all(got[0] == 0)
 
@@ -328,7 +328,7 @@ def test_cuda_split_cases_equal_the_cached_kernel(cuda_device, case, ps,
     want = flash_attention_paged_ref(q, kp, vp, table, q_offset=off,
                                      kv_len=kl)
     torch.cuda.synchronize()
-    _assert_close(got, want, tol)
+    _assert_close_slots(got, want, tol)
     assert torch.equal(got, cached)
     assert torch.all(got[0] == 0)
     assert torch.equal(got, again)

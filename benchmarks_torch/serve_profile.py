@@ -15,7 +15,7 @@ tokens each, weights and prompts from seed 0), broken down three ways:
 
     python3 benchmarks_torch/serve_profile.py [--trace DIR]
         [--paging] [--page-budget N] [--kv-int8] [--arch mamba2-1.3b]
-        [--repeats N] [--issue-masked]
+        [--repeats N] [--issue-masked] [--temperature T --top-k K]
 
 ``--paging`` serves the same requests from the paged KV cache (page size
 16, the default budget of 256 pages unless ``--page-budget``; ``--kv-int8``
@@ -24,7 +24,10 @@ mamba2-1.3b`` serves phase 11's shape instead (4 slots, max_len 96, chunk
 16, 10 requests of 4-15 prompt tokens and 12 new ones) from random
 weights.  ``--issue-masked`` turns the engine's skip of work it knows to
 be masked off (every tick of a chunk's budget and both forward programs
-a tick: the predicated path alone).  Needs one NVIDIA card.  The profiled run is a last run
+a tick: the predicated path alone).  ``--temperature T`` (with
+``--top-k K``, seed 11) samples instead of the greedy pick, and the
+profile then also gives the sampler's device time and launches alone
+(``ServeEngine._pick`` over the serve's slots and vocabulary).  Needs one NVIDIA card.  The profiled run is a last run
 of the same requests; the unprofiled runs give the wall times.  The
 script runs against any checkout of the port: point it at another tree by
 copying it into that tree's ``benchmarks_torch/``.
@@ -72,6 +75,10 @@ def main() -> int:
     ap.add_argument("--issue-masked", action="store_true",
                     help="issue every tick of a chunk's budget and both "
                          "forward programs a tick (no skip of masked work)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample at this temperature (0: greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k filter of the sampled pick")
     args = ap.parse_args()
     paged = args.paging or args.kv_int8 or args.page_budget is not None
     import numpy as np
@@ -95,6 +102,9 @@ def main() -> int:
               else dict(slots=8, max_len=512, chunk=32))
     if args.issue_masked:
         kw["skip_masked"] = False
+    if args.temperature > 0:
+        kw.update(temperature=args.temperature, top_k=args.top_k,
+                  sample_seed=11)
     eng = ServeEngine(cfg, params, **kw)
     eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32), max_new=2)])
 
@@ -197,6 +207,28 @@ def main() -> int:
     print(f"[profile] attention kernels (flash_*): {attn_us / 1e6:.4f} s on "
           f"the device over {len(attn)} launches = "
           f"{100 * attn_us / max(busy_us, 1e-9):.1f}% of device busy time")
+    if args.temperature > 0:
+        # the sampler alone, at the serve's slots and vocabulary
+        lg = torch.randn((eng.n_slots, cfg.vocab), device="cuda",
+                         dtype=params["embed"].dtype)
+        sid = torch.arange(eng.n_slots, dtype=torch.int32, device="cuda")
+        idx = torch.full((eng.n_slots,), 5, dtype=torch.int32, device="cuda")
+        for _ in range(3):
+            eng._pick(lg, sid, idx)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pp:
+            for _ in range(10):
+                eng._pick(lg, sid, idx)
+            torch.cuda.synchronize()
+        dev_us = sum(e.time_range.end - e.time_range.start
+                     for e in pp.events()
+                     if e.device_type == DeviceType.CUDA)
+        n = sum(1 for e in pp.events()
+                if e.name.startswith("cudaLaunchKernel"))
+        print(f"[sampler] one pick over ({eng.n_slots}, {cfg.vocab}) "
+              f"logits: {dev_us / 10 / 1e3:.4f} ms of device time in "
+              f"{n / 10:.0f} kernel launches (torch.profiler, 10 picks); "
+              f"the serve's {rep['ticks']} live ticks pick once each")
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=15,
                        max_name_column_width=60))

@@ -61,6 +61,15 @@ exits non-zero:
    streams from the engine with the deltas folded in), and two users'
    deltas served per slot through the personalisation arena (the same
    streams as on the CPU and as each user's folded engine on the card);
+   sampled streams (T 0.7, top-k 8, seed 11) of the eager loop and the
+   fused engine at blocks 1 and 8, all equal on the card and the CPU and
+   unlike the greedy ones; one sampled paged run at half the pages with
+   backfill and a fault plan (forced preemption, an exhaustion window, NaN
+   logits), its streams and tally equal to the CPU's; a paged run whose
+   head waits on pages, in fewer ticks with ``admit_backfill=2`` than
+   with FIFO admission and with the same streams; the Threefry bits at
+   vocab 151,936 over a grid of (seed, sid, token) keys, bit-equal to the
+   CPU's;
    then TinyTrain on mamba2-smoke f32 through the SSD kernels, card
    against the CPU: the same policy of SSD units, losses within 1e-4, the
    same folded streams;
@@ -81,6 +90,26 @@ exits non-zero:
 9. int8 pages, phase 5's requests: every request ``done`` with 16 tokens
    and 59,637,760 bytes of pages and scales; block prefill gathers the
    int8 pages and runs the cached kernel;
+17. sampling, on phase 5's weights and requests: a sampled fused serve
+   at T 0.7, top-k 50, seed 11 (its streams counted against the greedy
+   ones, beside the greedy token's lead over its runner-up, which makes
+   them the argmax on these random weights), then at T 3 twice: every
+   request ``done`` with 16 tokens, the two runs bit-equal, no stream
+   equal to its greedy one, the cached flash kernel launched a positive
+   multiple of 28 times in each serve, one sync a chunk; the streams of
+   fused B1 and the eager loop (on the four shortest prompts) and of a
+   run evacuated once a stream holds 8 tokens and resubmitted to a fresh
+   engine, counted equal to fused B8's (printed, not gated: a bf16
+   recompute may round otherwise); phase 5's greedy serve again with the
+   sampler's functions refusing to run: its streams and its flash
+   launches a live tick equal phase 5's; one pick's time and kernel
+   launches, sampled and greedy; then phase 8's pressure run with
+   ``admit_backfill=2`` (phase 4 gates that a bypass happens) and a
+   fault plan (NaN logits at two (request, token) coordinates, one
+   forced preemption): every request ends with a
+   typed outcome, ``numerics`` exactly at the two coordinates and
+   ``done`` elsewhere, at least one requeue, the paged kernel launched,
+   one sync a chunk;
 6. adapt: the twin of ``examples/serve_batched.py`` at qwen2-1.5b's full
    width in bf16: ``TinyTrainSession.adapt`` (Fisher probe through the
    Fisher kernel, Eq. 3 selection, 10 fused fine-tune steps) under the
@@ -169,13 +198,14 @@ exits non-zero:
    unit's k-th score; then the same route on mcunet with phase 14's four
    users (plain reduction, no launch).
 
-Phases 7 to 9 run right after phase 5, on its weights.  The serves of
-phases 5 and 7 to 11 print ``host_syncs`` beside ``chunks`` and fail
-unless they are equal (one blocking read a chunk, none inside the tick
-loop); phases 5, 7, 8, 10 and 11 run their tick loops under
+Phases 7 to 9 and 17 run right after phase 5, on its weights.  The
+fused serves of phases 5, 7 to 11 and 17 print ``host_syncs`` beside
+``chunks`` and fail unless they are equal (one blocking read a chunk, none
+inside the tick loop; the eager loop reads every tick by design); phases
+5, 7, 8, 10, 11 and 17's fused serves run their tick loops under
 ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
 the run.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 16) and read
+counts are set to 0 just before each main path (phases 5 to 17) and read
 just after.  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -331,6 +361,11 @@ FLEET_SHOTS = (4, 4, 4)
 FLEET_ITERS = 4
 # kernel 1's task axis at the adapt's d_ff group, the masks ragged
 FISHER_TASKS = (1, 3, 4)
+# phase 17's sampling temperature: the random-weight qwen2-1.5b's next
+# token leads its runner-up by about 17 logits (phase 17 prints the lead
+# over requests 0 and 1), so at T 0.7 every draw is the argmax; at 3 the
+# draws leave it
+SAMPLE_T = 3.0
 # kernels 2 and 4 at gemma-2b's block prefill (D 256 on their FMA loops):
 # timed beside SDPA and a page gather + SDPA, 18 layers' buffers cycled
 WIDE_BLOCK = dict(B=8, Sq=8, Hq=8, Hkv=1, D=256, Sk=512, layers=18)
@@ -1049,8 +1084,10 @@ def main() -> int:
     from repro_torch.models.overlay import fold_deltas
     from repro_torch.optim import compress
     from repro_torch.serving import (
-        DeltaSet, Personaliser, Request, ServeEngine,
+        DeltaSet, FaultConfig, Personaliser, Request, ServeEngine,
     )
+    from repro_torch.serving import prng
+    from repro_torch.serving.engine import OUTCOME_NAMES
     from repro_torch.utils import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2214,6 +2251,110 @@ def main() -> int:
         if "page_budget" in kw and tally["cuda"].get("requeued", 0) < 1:
             fail(f"{what}: no stream was requeued ({tally['cuda']})")
 
+    # sampled decoding (the JAX engine's own Threefry draws, keyed on
+    # request and token): the eager loop and the fused engine at blocks 1
+    # and 8, card against CPU, all five equal
+    sampled = dict(temperature=0.7, top_k=8, sample_seed=11)
+    got = {}
+    for where, params in (("cpu", sp_cpu), ("cuda", sp_gpu)):
+        for mode, kw in (("eager", dict(fused=False)),
+                         ("fused B1", dict(prefill_block=1)),
+                         ("fused B8", dict(prefill_block=8))):
+            eng = ServeEngine(small, params, slots=3, max_len=48, chunk=4,
+                              device=where, **kw, **sampled)
+            if kw.get("fused", True):
+                eng.tick_sync_debug = "error"
+            reqs = [Request(uid=i, prompt=p, max_new=6)
+                    for i, p in enumerate(prompts)]
+            eng.run(reqs)
+            got[(where, mode)] = [(r.out, r.outcome) for r in reqs]
+            if kw.get("fused", True):
+                one_sync_a_chunk(eng.last_run_report, f"sampled {mode}")
+    same = all(v == got[("cpu", "eager")] for v in got.values())
+    print(f"[check] qwen2-smoke f32 sampled streams (T 0.7, top-k 8, seed "
+          f"11), eager, fused B1 and fused B8, card and CPU: "
+          f"{'identical' if same else 'DIFFERENT'} over {len(prompts)} "
+          f"requests; equal to the greedy streams: "
+          f"{got[('cuda', 'fused B8')] == streams['cuda']}", flush=True)
+    if not same:
+        fail(f"sampled streams differ: {got}")
+    if got[("cuda", "fused B8")] == streams["cuda"]:
+        fail("the sampled streams equal the greedy ones")
+    # one faulted paged run with backfill, half the pages, sampled: the
+    # plan's forced preemption, exhaustion window and NaN logits
+    fkw = dict(slots=4, max_len=32, chunk=8, kv_paging=True, kv_page_size=8,
+               page_budget=8, admit_backfill=2, faults=FaultConfig(
+                   force_preempt=((1, 2),), exhaust_ticks=(4, 8),
+                   nan_logits=((5, 1),)), **sampled)
+    got, tally = {}, {}
+    for where, params in (("cpu", sp_cpu), ("cuda", sp_gpu)):
+        eng = ServeEngine(small, params, device=where, **fkw)
+        eng.tick_sync_debug = "error"
+        reqs = [Request(uid=i, prompt=p, max_new=16)
+                for i, p in enumerate(short)]
+        eng.run(reqs)
+        got[where] = [(r.out, r.outcome, r.preempts) for r in reqs]
+        tally[where] = eng.last_run_report["outcomes"]
+        one_sync_a_chunk(eng.last_run_report, f"faulted paged run ({where})")
+    same = got["cpu"] == got["cuda"] and tally["cpu"] == tally["cuda"]
+    print(f"[check] qwen2-smoke f32 faulted paged run with backfill (half "
+          f"the pages, sampled, {fkw['faults']}): card vs CPU "
+          f"{'identical' if same else 'DIFFERENT'} over {len(short)} "
+          f"requests, outcomes {tally['cuda']}", flush=True)
+    if not same:
+        fail(f"faulted streams differ: cpu {got['cpu']} {tally['cpu']} "
+             f"cuda {got['cuda']} {tally['cuda']}")
+    if got["cuda"][5][1] != "numerics" or tally["cuda"].get("requeued",
+                                                             0) < 1:
+        fail(f"the fault plan did not land: {got['cuda']} {tally['cuda']}")
+    # page-demand backfill bypasses on the card: the two 16-token prompts
+    # hold the pool, so the head waits on pages while the 4-token prompts
+    # behind it fit; with admit_backfill they admit in its place, and the
+    # run takes fewer ticks than FIFO admission, with the same streams
+    bkw = dict(slots=2, max_len=24, chunk=8, prefill_block=4,
+               kv_paging=True, kv_page_size=4, page_budget=7,
+               reserve="asyougo")
+    brng = np.random.default_rng(21)
+    bprompts = [brng.integers(0, 64, size=n).astype(np.int32)
+                for n in (16, 16, 4, 4)]
+    bf_ticks, bf_got = {}, {}
+    for bf in (None, 2):
+        eng = ServeEngine(small, sp_gpu, device=dev, admit_backfill=bf,
+                          **bkw)
+        eng.tick_sync_debug = "error"
+        reqs = [Request(uid=i, prompt=p, max_new=4)
+                for i, p in enumerate(bprompts)]
+        eng.run(reqs)
+        one_sync_a_chunk(eng.last_run_report, f"admit_backfill={bf}")
+        bf_ticks[bf] = eng.last_run_report["ticks"]
+        bf_got[bf] = [(r.out, r.outcome) for r in reqs]
+    print(f"[check] qwen2-smoke f32 page-demand backfill (7 pages of 4 "
+          f"rows, prompts 16, 16, 4, 4): {bf_ticks[2]} ticks with "
+          f"admit_backfill=2, {bf_ticks[None]} with FIFO admission; "
+          f"streams {'identical' if bf_got[2] == bf_got[None] else 'DIFFERENT'}",
+          flush=True)
+    if bf_ticks[2] >= bf_ticks[None]:
+        fail(f"backfill bypassed no blocked head: {bf_ticks}")
+    if (bf_got[2] != bf_got[None]
+            or any(o != "done" for _, o in bf_got[2])):
+        fail(f"backfilled streams differ: {bf_got}")
+    # the sampler's bits at qwen2's vocabulary on a grid of keys
+    grid = [(seed, sid, tok) for seed in (0, 11, 2 ** 31 - 1)
+            for sid in (-1, 0, 7, 49) for tok in (0, 5, 1000)]
+    keys = torch.stack([prng.fold_in(prng.fold_in(
+        prng.key(seed)[None], torch.tensor([sid])), torch.tensor([tok]))[0]
+        for seed, sid, tok in grid])
+    bits_cpu = prng.bits(keys, cfg.vocab)
+    bits_gpu = prng.bits(keys.to(dev), cfg.vocab).cpu()
+    g_err = (prng.gumbel(keys, cfg.vocab)
+             - prng.gumbel(keys.to(dev), cfg.vocab).cpu()).abs().max().item()
+    print(f"[check] Threefry bits at vocab {cfg.vocab} over {len(grid)} "
+          f"(seed, sid, token) keys, card vs CPU: "
+          f"{'identical' if torch.equal(bits_cpu, bits_gpu) else 'DIFFERENT'}"
+          f"; Gumbel noise max abs diff {g_err:.3g}", flush=True)
+    if not torch.equal(bits_cpu, bits_gpu):
+        fail("the card's Threefry bits differ from the CPU's")
+
     # TinyTrain on qwen2-smoke: the card (Fisher kernel, flash kernel in
     # the folded engine) against the plain path on the CPU, same weights
     sbb = api.backbone("qwen2-1.5b", preset="smoke", batch_size=32, seq=16)
@@ -2389,6 +2530,8 @@ def main() -> int:
              f"of n_layers = {nl}")
     phase5 = [list(r.out) for r in reqs]
     prompts5 = [r.prompt for r in reqs]
+    phase5_ticks, phase5_wall = rep["ticks"], wall
+    phase5_rate = launches / phase5_ticks  # kernel 2 a live tick
     del eng
 
     def full_serve(reqs, sync_debug="error", **kw):
@@ -2530,7 +2673,205 @@ def main() -> int:
     one_sync_a_chunk(rep, "int8 pages")
     if pages_bytes != int8_bytes:
         fail(f"int8 pages hold {pages_bytes} B, not {int8_bytes}")
-    del eng, params
+    del eng
+
+    # -- phase 17: sampling, the eager loop, evacuate, faults and backfill --
+    t17 = time.perf_counter()
+
+    def requests5():
+        # sample ids fixed, so every engine below draws the same keys
+        return [Request(uid=i, prompt=p, max_new=16, sample_id=i)
+                for i, p in enumerate(prompts5)]
+
+    def sampled_serve(what, **kw):
+        reqs = requests5()
+        eng, wall, _, cached = full_serve(reqs, **kw)
+        rep = eng.last_run_report
+        all_done(reqs, 16, what)
+        one_sync_a_chunk(rep, what)
+        if cached <= 0 or cached % nl:
+            fail(f"{what}: flash_cached launches {cached} is not a "
+                 f"positive multiple of n_layers = {nl}")
+        return [list(r.out) for r in reqs], wall, rep, cached
+
+    # the random-weight model's next token leads its runner-up by
+    # ~15 logits: at T 0.7 the draws are its argmax (printed, not gated),
+    # and at SAMPLE_T they are not
+    cold = sampled_serve("sampled serve at T 0.7", temperature=0.7,
+                         top_k=50, sample_seed=11)
+    gaps = []
+    for p, out in zip(prompts5[:2], phase5[:2]):
+        seq = torch.tensor(np.concatenate([p, np.asarray(out, np.int32)]),
+                           device=dev).long()[None]
+        lg, _ = T.prefill_block(cfg, params, seq, T.init_caches(
+            cfg, 1, 512), torch.zeros(1, dtype=torch.int32, device=dev))
+        top = lg[0, len(p) - 1:-1].float().topk(2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+    gaps = torch.cat(gaps)
+    print(f"[sampled] qwen2-1.5b bf16 full width, fused B8, T 0.7, top-k "
+          f"50, seed 11: {cold[1]:.3f} s; streams equal to phase 5's greedy "
+          f"ones: {sum(a == b for a, b in zip(cold[0], phase5))} of 8 (the "
+          f"greedy token leads its runner-up by {gaps.min().item():.2f} to "
+          f"{gaps.max().item():.2f} logits over requests 0 and 1's 16 "
+          f"tokens)", flush=True)
+    samp = dict(temperature=SAMPLE_T, top_k=50, sample_seed=11)
+    runs17 = [sampled_serve("sampled serve", **samp) for _ in range(2)]
+    s8 = runs17[0][0]
+    samp_launches = cold[3] + sum(r[3] for r in runs17)
+    like_greedy = sum(a == b for a, b in zip(s8, phase5))
+    print(f"[sampled] fused B8, T {SAMPLE_T}, top-k 50, seed 11: "
+          f"{sum(map(len, s8))} new tokens in "
+          f"{runs17[0][1]:.3f} s and {runs17[1][1]:.3f} s (greedy, phase 5: "
+          f"{phase5_wall:.3f} s), {runs17[0][2]['ticks']} ticks "
+          f"({runs17[0][2]['ticks_issued']} issued), "
+          f"{runs17[0][2]['host_syncs']} host syncs for "
+          f"{runs17[0][2]['chunks']} chunks; two runs "
+          f"{'bit-equal' if s8 == runs17[1][0] else 'DIFFERENT'}; streams "
+          f"equal to phase 5's greedy ones: {like_greedy} of {len(s8)} "
+          f"({sum(x == y for a, b in zip(s8, phase5) for x, y in zip(a, b))}"
+          f" of {sum(map(len, s8))} tokens); flash_cached launches "
+          f"{runs17[0][3]} a run", flush=True)
+    if s8 != runs17[1][0]:
+        fail("two sampled serves of the same requests differ")
+    if like_greedy:
+        fail(f"{like_greedy} sampled streams equal their greedy ones")
+
+    def run_streams(reqs, **kw):
+        ServeEngine(cfg, params, slots=8, max_len=512, chunk=32, **samp,
+                    **kw).run(reqs)
+        return [list(r.out) for r in reqs]
+
+    # token-by-token prefill takes a tick a prompt token: fused B1 and the
+    # eager loop serve the four shortest prompts (35 to 92 tokens)
+    few = sorted(range(len(prompts5)), key=lambda i: len(prompts5[i]))[:4]
+
+    def requests_few():
+        return [r for i, r in enumerate(requests5()) if i in few]
+
+    s8_few = [s8[i] for i in sorted(few)]
+    t0 = time.perf_counter()
+    b1 = run_streams(requests_few(), prefill_block=1)
+    t_b1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager = run_streams(requests_few(), fused=False)
+    t_eager = time.perf_counter() - t0
+    # evacuate mid-run, once a stream holds half its tokens; a fresh
+    # engine finishes the orphans
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, slots=8, max_len=512, chunk=4, **samp)
+    reqs = requests5()
+    for r in reqs:
+        eng.submit(r)
+    eng.fused_begin()
+    while not any(len(r.out) >= 8 for r in reqs):
+        eng.fused_drain(eng.fused_dispatch())
+    orphans = eng.evacuate()
+    drawn = sum(len(r.out) for r in orphans)
+    del eng
+    ServeEngine(cfg, params, slots=8, max_len=512, chunk=32,
+                **samp).run(orphans)
+    evac = [list(r.out) for r in reqs]
+    t_evac = time.perf_counter() - t0
+    print(f"[sampled] streams equal to fused B8's (printed, not gated: a bf16 "
+          f"recompute may round otherwise): fused B1 "
+          f"{sum(a == b for a, b in zip(b1, s8_few))} of {len(few)} "
+          f"({t_b1:.3f} s), eager {sum(a == b for a, b in zip(eager, s8_few))}"
+          f" of {len(few)} ({t_eager:.3f} s; equal to fused B1's: "
+          f"{sum(a == b for a, b in zip(eager, b1))} of {len(few)}), "
+          f"evacuated mid-run with {len(orphans)} orphans "
+          f"holding {drawn} drawn tokens and resubmitted "
+          f"{sum(a == b for a, b in zip(evac, s8))} of 8 ({t_evac:.3f} s)",
+          flush=True)
+
+    # greedy: phase 5's serve again with every sampler function refusing,
+    # the flash kernel's launches a live tick as phase 5's
+    def refuse(*a, **k):
+        raise AssertionError("a greedy tick drew a sample")
+
+    saved = {n: getattr(prng, n) for n in ("fold_in", "bits", "uniform",
+                                           "gumbel")}
+    for n in saved:
+        setattr(prng, n, refuse)
+    try:
+        reqs = [Request(uid=i, prompt=p, max_new=16)
+                for i, p in enumerate(prompts5)]
+        eng, wall, _, cached = full_serve(reqs)
+    finally:
+        for n, f in saved.items():
+            setattr(prng, n, f)
+    rate = cached / eng.last_run_report["ticks"]
+    print(f"[greedy] phase 5's serve again: no sampler call, streams "
+          f"{'equal to' if [list(r.out) for r in reqs] == phase5 else 'DIFFERENT from'}"
+          f" phase 5's, flash_cached launches a live tick {rate:.3f} "
+          f"(phase 5: {phase5_rate:.3f})", flush=True)
+    if [list(r.out) for r in reqs] != phase5 or rate != phase5_rate:
+        fail("the greedy serve changed against phase 5")
+    del eng
+
+    # the sampler alone at the serve's shape: (8 slots, vocab) bf16 logits
+    from torch.profiler import ProfilerActivity, profile
+
+    lg8 = torch.randn((8, cfg.vocab), device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    sid8 = torch.arange(8, dtype=torch.int32, device=dev)
+    idx8 = torch.full((8,), 5, dtype=torch.int32, device=dev)
+    picks = {}
+    for what, kw in (("sampled", samp), ("greedy", {})):
+        e = ServeEngine(cfg, params, slots=8, max_len=16, **kw)
+        e._pick(lg8, sid8, idx8)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            e._pick(lg8, sid8, idx8)
+            torch.cuda.synchronize()
+        n_launch = sum(1 for ev in prof.events()
+                       if ev.name.startswith("cudaLaunchKernel"))
+        picks[what] = (time_ms(lambda e=e: e._pick(lg8, sid8, idx8), 20),
+                       n_launch)
+        del e
+    print(f"[sampler] one pick over (8, {cfg.vocab}) bf16 logits: sampled "
+          f"{picks['sampled'][0]:.4f} ms in {picks['sampled'][1]} kernel "
+          f"launches, greedy {picks['greedy'][0]:.4f} ms in "
+          f"{picks['greedy'][1]}; a sampled serve tick took "
+          f"{1e3 * runs17[0][1] / runs17[0][2]['ticks']:.2f} ms of wall, a "
+          f"greedy one {1e3 * phase5_wall / phase5_ticks:.2f} ms",
+          flush=True)
+
+    # faults and backfill on phase 8's pressure setup: NaN logits at two
+    # (request, token) coordinates and one forced preemption, the rids
+    # counted after full_serve's warm-up request (rid 0)
+    plan = FaultConfig(nan_logits=((3, 5), (7, 20)), force_preempt=((2, 8),))
+    reqs = requests8()
+    eng, wall, fault_launches, _ = full_serve(
+        reqs, kv_paging=True, kv_page_size=PAGE_SIZE,
+        page_budget=PRESSURE["pages"], admit_backfill=2, faults=plan)
+    rep = eng.last_run_report
+    del eng
+    typed = set(OUTCOME_NAMES.values())
+    nan_at = {i: len(r.out) for i, r in enumerate(reqs)
+              if r.outcome == "numerics"}
+    same = sum(list(a.out) == list(b.out) for a, b in zip(reqs, roomy)
+               if a.outcome == "done")
+    print(f"[faults] phase 8's pressure with admit_backfill=2 and {plan}: "
+          f"{sum(len(r.out) for r in reqs)} new tokens in {wall:.3f} s, "
+          f"{rep['ticks']} ticks, {rep['host_syncs']} host syncs for "
+          f"{rep['chunks']} chunks, outcomes {rep['outcomes']}, numerics at "
+          f"(request: tokens) {nan_at}, preemptions "
+          f"{sum(r.preempts for r in reqs)}; finished streams equal to the "
+          f"unpressured run: {same} (reported, not gated); flash_paged "
+          f"launches {fault_launches}", flush=True)
+    if any(r.outcome not in typed for r in reqs):
+        fail(f"faulted run: outcomes {[r.outcome for r in reqs]}")
+    if nan_at != {2: 5, 6: 20}:
+        fail(f"numerics at {nan_at}, not at the injected coordinates")
+    if any(r.outcome != "done" for i, r in enumerate(reqs) if i not in nan_at):
+        fail(f"faulted run: outcomes {[r.outcome for r in reqs]}")
+    if rep["outcomes"].get("requeued", 0) < 1 or reqs[1].preempts < 1:
+        fail(f"faulted run preempted nothing: {rep['outcomes']}")
+    if fault_launches <= 0:
+        fail("the faulted run never launched flash_paged")
+    one_sync_a_chunk(rep, "faulted run")
+    print(f"[phase17] {time.perf_counter() - t17:.1f} s", flush=True)
+    del params
     torch.cuda.empty_cache()
 
     # -- adapt: examples/serve_batched.py at qwen2-1.5b's full width --------
@@ -3099,14 +3440,14 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_cached.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
         "launches": (launches + int8_launches + adapt_flash_launches
-                     + pers_flash_launches),
+                     + pers_flash_launches + samp_launches),
         **flash,
     }, {
         "name": "flash_attention_paged",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_paged.cu",
         "replaces": "src/repro/kernels/flash_attention.py:157",
-        "launches": paged_launches + pressure_launches,
+        "launches": paged_launches + pressure_launches + fault_launches,
         **paged,
     }, {
         "name": "fisher_tapgrads",

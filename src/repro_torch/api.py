@@ -67,7 +67,7 @@ from .core.session import (  # noqa: F401  (façade re-exports)
 from .models import edge_cnn as _edge_cnn
 from .models.api import ArchConfig
 from .serving import (  # noqa: F401
-    DeltaSet, Personaliser, Request, ServeEngine, SubmitResult,
+    DeltaSet, FaultConfig, Personaliser, Request, ServeEngine, SubmitResult,
 )
 
 __all__ = [
@@ -76,8 +76,8 @@ __all__ = [
     "STM32F746", "RPI_ZERO", "JETSON_NANO", "criteria", "register_criterion",
     "ArchConfig", "Backbone", "backbone", "backbones", "register_backbone",
     "sample_task", "sample_lm_task", "plan_sparse_update",
-    "Request", "ServeEngine", "SubmitResult", "DeltaSet", "Personaliser",
-    "Budget", "configs",
+    "Request", "ServeEngine", "SubmitResult", "FaultConfig", "DeltaSet",
+    "Personaliser", "Budget", "configs",
 ]
 
 _BACKBONES: Dict[str, Callable[..., Backbone]] = {}

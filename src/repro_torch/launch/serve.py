@@ -32,11 +32,20 @@ window):
     PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke \
         --device cpu --personalise --users 4
 
+``--temperature T --top-k K`` samples (the JAX engine's own draws, keyed
+on request and token index), ``--eager`` runs the host-driven per-tick
+loop instead of chunks, and ``--inject SPEC`` injects faults
+(``serving.faults.parse_inject``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke \
+        --device cpu --temperature 0.8 --top-k 20 --inject nan:2:1
+
 Runs on the card unless ``--device cpu``.  Weights are random, from a
-seeded ``torch.Generator``.  The flags of ``repro.launch.serve`` that
-belong to later slices of the port are accepted by name and refused with
-the ROADMAP item that brings them.  (There ``--device`` names the profile;
-here it is the torch device, and ``--profile`` names the profile.)
+seeded ``torch.Generator``.  The flag of ``repro.launch.serve`` that
+belongs to a later slice of the port (``--fleet``) is accepted by name and
+refused with the ROADMAP item that brings it.  (There ``--device`` names
+the profile; here it is the torch device, and ``--profile`` names the
+profile.)
 """
 from __future__ import annotations
 
@@ -50,14 +59,10 @@ import torch
 from .. import api, configs
 from ..models import transformer as T
 from ..serving import Request, ServeEngine
+from ..serving.faults import parse_inject
 
 # flag -> (takes a value, ROADMAP queue 1 item that brings it)
-LATER_FLAGS = {
-    "--temperature": (True, "11.1"), "--top-k": (True, "11.1"),
-    "--eager": (False, "11.1"),
-    "--inject": (True, "13"),
-    "--fleet": (True, "16"),
-}
+LATER_FLAGS = {"--fleet": (True, "16")}
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -75,6 +80,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="prompt tokens ingested per prefilling slot per "
                          "tick (default: the arch's serve_prefill_block; "
                          "1 = token-by-token prefill)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k filter for sampled decoding (0 = off)")
+    ap.add_argument("--eager", action="store_true",
+                    help="host-driven per-tick loop instead of chunks")
     ap.add_argument("--paging", action="store_true",
                     help="paged KV cache: pages from one pool instead of "
                          "fixed per-slot stripes")
@@ -98,6 +109,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--queue-limit", type=int, default=None,
                     help="admission backpressure: shed submissions beyond "
                          "this backlog with outcome='rejected'")
+    ap.add_argument("--inject", default=None, metavar="SPEC",
+                    help="fault injection, e.g. "
+                         "'nan:3:2,pre:1:4,exhaust:10:20,qlimit:8' "
+                         "(see repro_torch.serving.faults.parse_inject)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain path)")
     ap.add_argument("--seed", type=int, default=0,
@@ -140,6 +155,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 raise SystemExit(f"[serve] {flag} is not in the port for the "
                                  f"ssm family ({args.arch}) yet: it arrives "
                                  f"with ROADMAP queue 1, item {item}")
+    faults = parse_inject(args.inject) if args.inject else None
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
@@ -172,13 +188,15 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"[serve] personalising {args.users} users under "
                   f"{profile.name}: {policy.describe()}")
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
-                      chunk=args.chunk, prefill_block=args.prefill_block,
+                      fused=not args.eager, chunk=args.chunk,
+                      prefill_block=args.prefill_block,
+                      temperature=args.temperature, top_k=args.top_k,
                       kv_paging=paging or None, kv_page_size=args.page_size,
                       kv_int8=args.kv_int8 or None, page_budget=page_budget,
                       reserve=args.reserve,
                       deadline_ticks=args.deadline_ticks,
-                      queue_limit=args.queue_limit, personalise=policy,
-                      device=device)
+                      queue_limit=args.queue_limit, faults=faults,
+                      personalise=policy, device=device)
     if args.adapt:
         bb = api.backbone(args.arch, preset=args.preset, batch_size=48,
                           seq=64)
@@ -222,14 +240,22 @@ def main(argv: Optional[List[str]] = None) -> None:
     rep = eng.last_run_report
     toks = sum(len(r.out) for r in reqs)
     prompt_toks = sum(len(r.prompt) for r in reqs)
+    mode = ("eager" if args.eager else
+            f"chunk={args.chunk} prefill_block={eng.prefill_block}")
     print(f"[serve] {args.requests} requests, {toks} new tokens "
           f"(+{prompt_toks} prompt tokens ingested) in {dt:.1f}s "
           f"({toks / dt:.1f} tok/s, {eng.ticks} engine ticks, "
-          f"{args.slots} slots, chunk={args.chunk} "
-          f"prefill_block={eng.prefill_block}, {rep['host_syncs']} host "
+          f"{args.slots} slots, {mode}, {rep['host_syncs']} host "
           f"syncs, device {device})")
+    print("[serve] decoding: " + (
+        f"sampled T={args.temperature} top-k {args.top_k}"
+        if args.temperature > 0 else "greedy")
+        + (f"; faults {args.inject}" if faults is not None else ""))
     print("[serve] outcomes: " + ", ".join(
         f"{k}={v}" for k, v in sorted(rep["outcomes"].items())))
+    preempts = sum(r.preempts for r in reqs)
+    if preempts:
+        print(f"[serve] {preempts} preempt-and-requeue recompute swaps")
     lost = [r.uid for r in reqs if r.outcome is None]
     if lost:
         raise SystemExit(f"[serve] ENGINE ERROR: requests {lost} reached no "

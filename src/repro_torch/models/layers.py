@@ -331,7 +331,7 @@ def attention_apply(
         if cfg.sliding_window > 0 and s_max == cfg.sliding_window:
             raise NotImplementedError(
                 "rolling sliding-window caches arrive with a later slice "
-                "(ROADMAP queue 1, item 11.1)")
+                "(ROADMAP queue 1, item 9)")
         if valid is not None:
             # block prefill: per-slot scatter of the valid rows only (the
             # serving engine's submit() validation guarantees they fit)

@@ -448,7 +448,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     if cfg.sliding_window and cfg.sliding_window <= max_len:
         raise NotImplementedError(
             "rolling sliding-window caches arrive with ROADMAP queue 1, "
-            "item 11.1")
+            "item 9 (with mixtral, the one config that has a window)")
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     feat = (cfg.n_kv_heads, cfg.head_dim)

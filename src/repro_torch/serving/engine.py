@@ -74,9 +74,41 @@ its block prefill and its decode are the sequential recurrence, so its
 serve launches no SSD kernel.  Paging and personalisation of that family
 arrive with ROADMAP items 12.2 and 15.2.
 
-Sampling, the eager loop, faults, backfill and encoder runs arrive with
-later slices; their knobs raise ``NotImplementedError`` naming the ROADMAP
-item.
+**Sampling** (``temperature`` > 0, ``top_k``): token ``t`` of a request
+draws from ``fold_in(fold_in(key(sample_seed), sid), t)`` through
+``serving.prng``, the JAX package's own Threefry draws, where ``sid`` is
+``Request.sample_id`` (the engine rid by default) and ``t`` counts the
+request's emitted tokens (``tok_base``, the tokens it had at staging, plus
+those since).  A draw is a function of what is sampled, never of when, so
+sampled streams are the same whatever the block size, the chunk, the batch
+neighbours, a preemption or an ``evacuate`` and resubmission, and equal the
+JAX engine's.  A greedy tick issues no sampler op.
+
+**The eager loop** (``fused=False``): :meth:`ServeEngine.step` runs one
+tick with the host in charge, as the JAX package's eager path does, and
+reads the device every tick (the picked tokens, and the free-page count
+when admission or page growth needs it); it is the debugging path and is
+not run under ``tick_sync_debug``.  It issues the fused tick's forward
+programs with host-built masks, so its streams equal the fused engine's
+bit for bit.
+
+**The fused split**: :meth:`fused_begin`, :meth:`fused_dispatch` (stage and
+issue one chunk, returning its undrained event rows), :meth:`fused_drain`
+(the chunk's one fetch) and :meth:`fused_finish`; ``run()`` composes them,
+and a caller may dispatch several engines before draining any.  Each
+engine counts its own fetches.  :meth:`evacuate` pulls every unfinished
+request off the engine in submission order, for resubmission elsewhere.
+
+**Fault injection** (``faults=FaultConfig(...)``, ``serving.faults``): NaN
+logits and forced preemption at (request, token) coordinates, a window of
+global ticks in which page growth is granted nothing, and a queue-limit
+override, on both loops.  **Page-demand backfill** (``admit_backfill=N``,
+paged engines): when the head of the pending buffer cannot be priced into
+the free pages, at most one later entry whose whole price fits admits in
+its place a tick, at most ``N`` times while the head waits.
+
+Encoder runs and rolling sliding-window caches arrive with later slices;
+they raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -94,7 +126,10 @@ from ..models import overlay as OV
 from ..models import transformer as T
 from ..models.api import ArchConfig
 from ..utils import DeviceLike, resolve_device, tree_leaves, tree_map
+from . import faults as FI
 from . import paging as PG
+from . import prng
+from .faults import FaultConfig
 
 # structured terminal outcomes, emitted through the per-tick event rows
 # (int32 codes) and surfaced as Request.outcome strings; the codes are the
@@ -183,6 +218,10 @@ class Request:
     # so preempt/requeue re-attaches the same set.  Rejected on engines
     # without personalisation
     delta_set: Optional[DeltaSet] = None
+    # sampling identity: draws key on (sample_id, token index); None = the
+    # engine rid.  A caller that resubmits a request elsewhere (a router,
+    # ``evacuate``) keeps it, so the stream samples the same tokens
+    sample_id: Optional[int] = None
 
     @property
     def terminal(self) -> bool:
@@ -194,6 +233,20 @@ class SubmitResult(NamedTuple):
 
     accepted: bool
     reason: str  # "ok" | "queue_full" | "unexpected_delta_set"
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One slot of the eager loop, on the host."""
+
+    req: Optional[Request] = None
+    cursor: int = 0    # next feed token; >= len(feed) => generating
+    rid: int = -1      # engine request id (scheduling identity, fault key)
+    sid: int = -1      # sampling identity (sample_id, default the rid)
+    budget: int = 0    # effective KV budget
+    feed: Optional[np.ndarray] = None  # prompt + generated prefix on resume
+    pages: int = 0     # pages held
+    tok_base: int = 0  # tokens emitted before this admission
 
 
 class SlotState(NamedTuple):
@@ -208,15 +261,18 @@ class SlotState(NamedTuple):
     budget: torch.Tensor      # (slots,) int32 per-request KV budget
     active: torch.Tensor      # (slots,) bool
     rid: torch.Tensor         # (slots,) int32 engine request id; -1 free
+    sid: torch.Tensor         # (slots,) int32 sampling identity
     pages: torch.Tensor       # (slots,) int32 pages held (as-you-go growth)
     ttl: torch.Tensor         # (slots,) int32 resident ticks until deadline
+    tok_base: torch.Tensor    # (slots,) int32 tokens emitted before admission
     preempt_left: torch.Tensor  # (slots,) int32 requeues left
 
 
 class PendingBuffer(NamedTuple):
     """Device-side admission queue, drained FIFO between host syncs.  The
-    cursor (``head``) is carried beside it through a chunk, so the buffer
-    itself is never modified and can be reused while nothing is admitted."""
+    cursor (``head``; under backfill the taken mask and the head's age) is
+    carried beside it through a chunk, so the buffer itself is never
+    modified and can be reused while nothing is admitted."""
 
     prompt: torch.Tensor   # (P, max_len) int32 feed (prompt + resumed prefix)
     length: torch.Tensor   # (P,) int32
@@ -224,13 +280,17 @@ class PendingBuffer(NamedTuple):
     budget: torch.Tensor   # (P,) int32 per-request KV budget
     n_pages: torch.Tensor  # (P,) int32 admission page demand (0 unpaged)
     rid: torch.Tensor      # (P,) int32
+    sid: torch.Tensor      # (P,) int32 sampling identity
     ttl: torch.Tensor      # (P,) int32 remaining deadline (resident ticks)
+    tok_base: torch.Tensor  # (P,) int32 tokens emitted before staging
     preempt_left: torch.Tensor  # (P,) int32 requeues left
     # staged per-request deltas, {layer: {kind: (pack, idx)}} with leaves
     # stacked along a leading axis of max(count, 1) entries ({} without a
     # personalise policy)
     delta: Any
     count: torch.Tensor    # () int32 valid entries
+    # backfill: the head's bypasses so far, carried across chunks
+    age: torch.Tensor      # () int32
 
 
 class TickPlan(NamedTuple):
@@ -250,6 +310,10 @@ class TickPlan(NamedTuple):
     pre_final: torch.Tensor    # (slots,) bool preempted, terminal
     live: torch.Tensor         # () bool the chunk has not exited yet
     block: torch.Tensor        # () bool this tick runs the block program
+    # backfill carry: (P,) bool entries admitted, () int32 head bypasses
+    # (None without backfill)
+    taken: Optional[torch.Tensor] = None
+    age: Optional[torch.Tensor] = None
 
 
 @contextlib.contextmanager
@@ -339,6 +403,7 @@ class ServeEngine:
         prefill_block: Optional[int] = None,
         temperature: float = 0.0,
         top_k: int = 0,
+        sample_seed: int = 0,
         kv_paging: Optional[bool] = None,
         kv_page_size: Optional[int] = None,
         kv_int8: Optional[bool] = None,
@@ -347,21 +412,12 @@ class ServeEngine:
         deadline_ticks: Optional[int] = None,
         preempt_budget: int = 4,
         queue_limit: Optional[int] = None,
-        faults: Optional[Any] = None,
+        faults: Optional[FaultConfig] = None,
         personalise: Optional[Any] = None,
         admit_backfill: Optional[int] = None,
         skip_masked: Optional[bool] = None,
         device: DeviceLike = "cuda",
     ):
-        if not fused:
-            raise _later("fused", "11.1", "the eager per-tick loop")
-        if temperature > 0 or top_k:
-            raise _later("temperature", "11.1",
-                         "sampled decoding (temperature / top-k)")
-        if faults is not None:
-            raise _later("faults", "13", "fault injection")
-        if admit_backfill is not None:
-            raise _later("admit_backfill", "13", "page-demand backfill")
         T.check_supported(cfg)
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
@@ -373,6 +429,7 @@ class ServeEngine:
         self.params = params
         self.n_slots = slots
         self.max_len = max_len
+        self.fused = bool(fused)
         self.chunk = chunk
         self.skip_masked = (self.device.type == "cuda" if skip_masked is None
                             else bool(skip_masked))
@@ -383,6 +440,12 @@ class ServeEngine:
         self.tick_sync_debug: Optional[str] = None
         self._forwards = 0  # forward programs issued (lifetime)
         self.deadline_ticks = deadline_ticks
+        # the fault plan (None: no tick issues a fault op); its queue limit
+        # tightens the engine's
+        self.faults = faults
+        if faults is not None and faults.queue_limit is not None:
+            queue_limit = (faults.queue_limit if queue_limit is None
+                           else min(queue_limit, faults.queue_limit))
         self.queue_limit = queue_limit
         self.preempt_budget = int(preempt_budget)
         if self.preempt_budget < 0:
@@ -417,6 +480,39 @@ class ServeEngine:
                 f"reserve must be 'asyougo' or 'worstcase', got {reserve!r}")
         self.reserve = reserve
         self.rayg = self.spec is not None and reserve == "asyougo"
+        # page-demand backfill: when the pending head cannot be priced into
+        # the free pages, at most one later entry that fits admits in its
+        # place a tick, at most `admit_backfill` times while the head waits.
+        # Demand differs between entries only under 'asyougo' (prompt
+        # pages); under 'worstcase' a blocked head means nothing fits
+        if admit_backfill is not None:
+            if self.spec is None:
+                raise ValueError(
+                    "admit_backfill requires paging (kv_paging=True): "
+                    "without a page pool admission never blocks on the "
+                    "head, so there is nothing to backfill past")
+            if int(admit_backfill) < 1:
+                raise ValueError(
+                    f"admit_backfill must be >= 1 bypasses, got "
+                    f"{admit_backfill} (None disables backfill)")
+        self._backfill = 0 if admit_backfill is None else int(admit_backfill)
+        self._head_age = 0  # bypasses since the head last admitted
+        self._eager_rids: Dict[int, int] = {}  # rids a backfill scan assigned
+        # sampling: greedy at temperature 0, else a Gumbel-max draw keyed on
+        # (sid, token index).  The JAX engine's jitted x / T compiles to
+        # x * (1 / T) in float32, so the port multiplies by that reciprocal
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self._key = prng.key(int(sample_seed), self.device)
+        # only a draw or a fault plan reads a slot's (sid, tok_base): a
+        # greedy faultless tick neither admits nor carries them
+        self._keyed = self.temperature > 0 or (
+            faults is not None
+            and bool(faults.nan_logits or faults.force_preempt))
+        self._inv_temp = (torch.tensor(1.0, dtype=torch.float32)
+                          / torch.tensor(self.temperature or 1.0,
+                                         dtype=torch.float32)
+                          ).to(self.device)
         # prompt tokens ingested per prefilling slot per tick; 1 = token by
         # token, the arch default otherwise
         self.prefill_block = int(
@@ -435,6 +531,12 @@ class ServeEngine:
                                     device=self.device)
         self.queue: Deque[Request] = collections.deque()
         self.ticks = 0  # lifetime tick count (stat, never a per-call budget)
+        # the eager loop's host state: its slots and their positions
+        self.slots = [_Slot() for _ in range(slots)]
+        self.pos = np.zeros(slots, np.int32)
+        self._eager_syncs = 0  # blocking reads of the eager loop (lifetime)
+        self._eager_toks = 0   # tokens the eager loop emitted (lifetime)
+        self._bf_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.last_run_report: Dict[str, Any] = {}
         # device lifecycle carry, staged-but-unadmitted requests (the host
         # mirror of the pending buffer) and the rid -> Request map that the
@@ -636,7 +738,8 @@ class ServeEngine:
             cursor=self._i32(s), pos=self._i32(s), last_tok=self._i32(s),
             remaining=self._i32(s), budget=self._i32(s),
             active=torch.zeros(s, dtype=torch.bool, device=self.device),
-            rid=self._i32(s) - 1, pages=self._i32(s), ttl=self._i32(s),
+            rid=self._i32(s) - 1, sid=self._i32(s) - 1, pages=self._i32(s),
+            ttl=self._i32(s), tok_base=self._i32(s),
             preempt_left=self._i32(s))
 
     def _make_pending(self) -> PendingBuffer:
@@ -646,8 +749,10 @@ class ServeEngine:
         P, maxp = self.pending_size, self.max_len
         prompt = np.zeros((P, maxp), np.int32)
         ints = {k: np.zeros((P,), np.int32) for k in (
-            "length", "max_new", "budget", "n_pages", "ttl", "preempt_left")}
+            "length", "max_new", "budget", "n_pages", "ttl", "tok_base",
+            "preempt_left")}
         rid = np.full((P,), -1, np.int32)
+        sid = np.full((P,), -1, np.int32)
         for j, (r, req) in enumerate(self._staged):
             # a restaged (preempted) entry re-prefills its whole history and
             # owes only the remaining emits; a fresh one is the degenerate
@@ -660,6 +765,8 @@ class ServeEngine:
             ints["n_pages"][j] = self._admit_pages(len(feed),
                                                    ints["budget"][j])
             rid[j] = r
+            sid[j] = r if req.sample_id is None else req.sample_id
+            ints["tok_base"][j] = len(req.out)
             # the deadline balance survives preemption: the deadline minus
             # the resident ticks already spent under this rid
             ints["ttl"][j] = min(self._deadline(req)
@@ -676,16 +783,19 @@ class ServeEngine:
                     for _, req in self._staged] or [self._delta_tmpl]
             delta = tree_map(lambda *xs: torch.stack(xs), *rows)
         self._pending_cache = PendingBuffer(
-            prompt=up(prompt), rid=up(rid), delta=delta,
+            prompt=up(prompt), rid=up(rid), sid=up(sid), delta=delta,
             **{k: up(a) for k, a in ints.items()},
             count=torch.tensor(len(self._staged), dtype=torch.int32,
-                               device=dev))
+                               device=dev),
+            age=torch.tensor(self._head_age, dtype=torch.int32, device=dev))
         self._pending_dirty = False
         return self._pending_cache
 
     def _plan(self, st: SlotState, pend: PendingBuffer, head: torch.Tensor,
               pool: Optional[PG.PagePool], backlog: bool,
-              live: torch.Tensor) -> TickPlan:
+              live: torch.Tensor, gt: int = 0,
+              bf: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> TickPlan:
         """Admission, page growth and preemption for one tick, on the
         device and functional.  ``live`` is the previous tick's flag; the
         plan's own latches False when the chunk loop's exit test holds on
@@ -693,21 +803,65 @@ class ServeEngine:
         active, or a free slot while the host holds more queued work), and
         every mask of the plan is predicated on it.  ``block`` chooses the
         block-prefill forward (some slot prefills, or a slot stalled for
-        want of a page)."""
-        P, spec = self.pending_size, self.spec
+        want of a page).  ``gt`` is the global tick (a host int: the fault
+        window reads no device value); ``bf`` the backfill carry (taken
+        mask, head age) of a backfilling engine."""
+        P, spec, faults = self.pending_size, self.spec, self.faults
         free = ~st.active
-        stop = ((head >= pend.count)
-                & (~st.active.any() | (free.any() & backlog)))
-        live = live & ~stop
         rank = torch.cumsum(free.to(torch.int32), 0) - 1
-        fifo = free & (head + rank < pend.count) & live
-        src = (head + rank).clamp(0, P - 1).long()
+        if bf is not None:
+            # backfill admits by a taken mask: the eligible entries (valid,
+            # not yet admitted) claim free slots in index order, the head
+            # cursor's order until a backfill skips past a blocked head
+            taken, age = bf
+            idxp = torch.arange(P, device=self.device)
+            elig = ~taken & (idxp < pend.count)
+            n_elig = elig.sum(dtype=torch.int32)
+            drained = n_elig == 0
+        else:
+            drained = head >= pend.count
+        stop = drained & (~st.active.any() | (free.any() & backlog))
+        live = live & ~stop
+        if bf is not None:
+            order = torch.argsort(torch.where(elig, idxp, P + idxp))
+            fifo = free & (rank < n_elig) & live
+            src = order[rank.clamp(0, P - 1)]
+        else:
+            fifo = free & (head + rank < pend.count) & live
+            src = (head + rank).clamp(0, P - 1).long()
         if spec is not None:
             # a candidate is admitted only if the demand up to and
             # including it fits the free-list: every request needs >= 1
             # page, so admission stays FIFO with head-of-line blocking
             need = torch.where(fifo, pend.n_pages[src], 0)
-            take = fifo & (torch.cumsum(need, 0) <= PG.free_page_count(pool))
+            avail = PG.free_page_count(pool)
+            take = fifo & (torch.cumsum(need, 0) <= avail)
+            if bf is not None:
+                # at most one backfill a tick: with the head blocked, the
+                # first later entry whose whole price fits the pages left
+                # admits into the first slot left free, while the head's
+                # bypasses stay under the bound
+                left = avail - torch.where(take, need, 0).sum()
+                taken = taken | ((src[:, None] == idxp[None, :])
+                                 & take[:, None]).any(dim=0)
+                cand = elig & ~taken & (pend.n_pages <= left)
+                head_blocked = (n_elig > 0) & ~taken.gather(0, order[:1])[0]
+                slots_left = free & ~take
+                first_left = slots_left & (
+                    torch.cumsum(slots_left.to(torch.int32), 0) == 1)
+                do_bf = (live & head_blocked & cand.any() & slots_left.any()
+                         & (age < self._backfill))
+                pick = torch.argmax(cand.to(torch.int32))
+                take2 = first_left & do_bf
+                src = torch.where(take2, pick, src)
+                take = take | take2
+                need = torch.where(take, pend.n_pages[src], 0)
+                taken = taken | ((idxp == pick) & do_bf)
+                age = torch.where(
+                    live, torch.where(do_bf, age + 1,
+                                      torch.where(head_blocked, age, 0)),
+                    age)
+                bf = (taken, age)
             pool = PG.reserve(pool, need, take)
         else:
             take = fifo
@@ -725,8 +879,11 @@ class ServeEngine:
             budget=sel(pend.budget[src], st.budget),
             active=st.active | take,
             rid=sel(pend.rid[src], st.rid),
+            sid=sel(pend.sid[src], st.sid) if self._keyed else st.sid,
             pages=sel(pend.n_pages[src], st.pages),
             ttl=sel(pend.ttl[src], st.ttl),
+            tok_base=(sel(pend.tok_base[src], st.tok_base) if self._keyed
+                      else st.tok_base),
             preempt_left=sel(pend.preempt_left[src], st.preempt_left))
         n_admit = take.sum(dtype=torch.int32)
         # event snapshots: a slot preempted this tick still reports its rid;
@@ -739,25 +896,43 @@ class ServeEngine:
         if self.rayg:
             # a generating slot crossing a page boundary claims its next
             # page; grants go oldest rid first while the free-list lasts
+            # (none inside a forced-exhaustion window)
             grow = (act & ~prefilling
                     & (spec.pages_for(st.pos + 1) > st.pages))
-            prio = torch.where(grow, st.rid, torch.iinfo(torch.int32).max)
-            before = (prio[None, :] < prio[:, None]).sum(
-                dim=1, dtype=torch.int32)
-            granted = grow & (before < PG.free_page_count(pool))
+            if (faults is not None and faults.exhaust_ticks is not None
+                    and FI.exhausted(faults, gt)):
+                granted = torch.zeros_like(grow)
+            else:
+                prio = torch.where(grow, st.rid,
+                                   torch.iinfo(torch.int32).max)
+                before = (prio[None, :] < prio[:, None]).sum(
+                    dim=1, dtype=torch.int32)
+                granted = grow & (before < PG.free_page_count(pool))
             pool = PG.extend(pool, granted.to(torch.int32), granted, st.pages)
             st = st._replace(pages=st.pages + granted.to(torch.int32))
             stalled = grow & ~granted
-            # pool exhaustion preempts the youngest resident: its pages go
-            # back, the slot frees, and the host requeues it (or ends it
+        force = faults is not None and bool(faults.force_preempt)
+        if self.rayg or force:
+            # preemption: pool exhaustion preempts the youngest resident,
+            # and the fault plan its targets; pages go back, the slot
+            # frees, and the host requeues the stream (or ends it
             # 'preempted' once its retry budget is spent)
-            vrid = torch.where(st.active, st.rid, -1)
-            youngest = ((torch.arange(self.n_slots, device=self.device)
-                         == torch.argmax(vrid)) & act)
-            victims = stalled.any() & youngest
+            victims = None
+            if force:
+                emitted = (torch.clamp(st.pos - st.prompt_len, min=0)
+                           + st.tok_base)
+                victims = act & FI.preempt_hit(faults, st.rid, emitted,
+                                               st.tok_base)
+            if self.rayg:
+                vrid = torch.where(st.active, st.rid, -1)
+                youngest = ((torch.arange(self.n_slots, device=self.device)
+                             == torch.argmax(vrid)) & act)
+                stall = stalled.any() & youngest
+                victims = stall if victims is None else victims | stall
             pre_final = victims & (st.preempt_left <= 0)
             pre_requeue = victims & ~pre_final
-            pool = PG.release(pool, victims)
+            if pool is not None:
+                pool = PG.release(pool, victims)
             st = st._replace(active=st.active & ~victims,
                              rid=torch.where(victims, -1, st.rid),
                              pages=torch.where(victims, 0, st.pages))
@@ -765,8 +940,10 @@ class ServeEngine:
             prefilling = prefilling & st.active
         block = ((prefilling.any() & (self.prefill_block > 1))
                  | stalled.any())
+        taken_c, age_c = bf if bf is not None else (None, None)
         return TickPlan(st, pool, take, src, n_admit, head + n_admit, rid_row,
-                        active_row, pre_requeue, pre_final, live, block)
+                        active_row, pre_requeue, pre_final, live, block,
+                        taken_c, age_c)
 
     def _forward(self, st: SlotState, act: torch.Tensor,
                  prefilling: torch.Tensor, block: torch.Tensor,
@@ -812,14 +989,19 @@ class ServeEngine:
                         prefilling: torch.Tensor, block: torch.Tensor):
         """The single-token decode over the ``act`` slots of a decode tick
         (every slot is masked in a block tick)."""
-        self._forwards += 1
         maxp = self.max_len
         ptok = st.prompt.gather(
             1, st.cursor.clamp(0, maxp - 1)[:, None].long())[:, 0]
         tok = torch.where(act, torch.where(prefilling, ptok, st.last_tok), 0)
-        step = act & ~block
+        return self._decode_fwd(tok, st.pos, act & ~block)
+
+    def _decode_fwd(self, tok: torch.Tensor, pos: torch.Tensor,
+                    step: torch.Tensor):
+        """``decode_step`` of one token a slot over the ``step`` slots:
+        (logits (slots, vocab), tokens consumed per slot)."""
+        self._forwards += 1
         logits, self.caches = T.decode_step(
-            self.cfg, self.params, tok[:, None].long(), self.caches, st.pos,
+            self.cfg, self.params, tok[:, None].long(), self.caches, pos,
             step, **self._fwd_kwargs())
         return logits[:, 0], step.to(torch.int32)
 
@@ -827,7 +1009,6 @@ class ServeEngine:
                        prefilling: torch.Tensor, block: torch.Tensor):
         """The block prefill over the prefilling slots of a block tick (every
         slot is masked in a decode tick)."""
-        self._forwards += 1
         B, maxp = self.prefill_block, self.max_len
         n_blk = torch.where(
             prefilling & block,
@@ -836,12 +1017,54 @@ class ServeEngine:
         valid = j < n_blk[:, None]
         gidx = (st.cursor[:, None] + j).clamp(0, maxp - 1)
         toks = torch.where(valid, st.prompt.gather(1, gidx), 0)
+        return self._block_fwd(toks, st.pos, valid, n_blk)
+
+    def _block_fwd(self, toks: torch.Tensor, pos: torch.Tensor,
+                   valid: torch.Tensor, n_blk: torch.Tensor):
+        """``prefill_block`` of a (slots, B) block with its left-aligned
+        ``valid`` mask: (each slot's last valid logits, ``n_blk``)."""
+        self._forwards += 1
+        B = toks.shape[1]
         logits, self.caches = T.prefill_block(
-            self.cfg, self.params, toks.long(), self.caches, st.pos, valid,
+            self.cfg, self.params, toks.long(), self.caches, pos, valid,
             **self._fwd_kwargs())
         last = (n_blk - 1).clamp(0, B - 1).long()
         idx = last[:, None, None].expand(-1, 1, logits.shape[-1])
         return logits.gather(1, idx)[:, 0], n_blk
+
+    def _pick(self, logits: torch.Tensor, sid: torch.Tensor,
+              tok_idx: torch.Tensor) -> torch.Tensor:
+        """Next token of each row of (slots, vocab) logits.  Greedy at
+        temperature 0: ``argmax`` returns the first maximum, as
+        ``jnp.argmax`` does, and no sampler op is issued.  Otherwise the
+        JAX engine's draw: ``argmax(gumbel + logits / T)`` with logits
+        below the k-th largest at -inf (ties at the k-th value kept, as
+        ``lax.top_k``'s threshold keeps them), the noise from
+        ``fold_in(fold_in(key, sid), tok_idx)``."""
+        if self.temperature <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        lg = logits.float() * self._inv_temp
+        if self.top_k > 0:
+            kth = torch.topk(lg, self.top_k, dim=-1).values[..., -1:]
+            lg = lg.masked_fill(lg < kth, float("-inf"))
+        keys = prng.fold_in(prng.fold_in(self._key.expand(len(sid), 2), sid),
+                            tok_idx)
+        g = prng.gumbel(keys, lg.shape[-1])
+        return torch.argmax(g + lg, dim=-1).to(torch.int32)
+
+    def _post(self, logits: torch.Tensor, rid: torch.Tensor,
+              sid: torch.Tensor, tok_idx) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both loops' step from logits to (picked token, finite row): the
+        fault plan's NaN rows, the finiteness guard, the pick.
+        ``tok_idx`` is a callable, evaluated only when a draw or a fault
+        needs it, so a greedy faultless tick issues exactly what it did."""
+        nan_on = self.faults is not None and bool(self.faults.nan_logits)
+        idx = tok_idx() if (nan_on or self.temperature > 0) else None
+        if nan_on:
+            hit = FI.nan_hit(self.faults, rid, idx)
+            logits = torch.where(hit[:, None], float("nan"), logits)
+        finite = torch.isfinite(logits).all(dim=-1)
+        return self._pick(logits, sid, idx), finite
 
     def _advance(self, plan: TickPlan, known=lambda: None,
                  block_first: bool = False):
@@ -856,13 +1079,16 @@ class ServeEngine:
         cursor = torch.where(prefilling, st.cursor + n_tok, st.cursor)
         emit = act & (n_tok > 0) & (~prefilling | (cursor >= st.prompt_len))
         pos = st.pos + n_tok
-        # numerics guard: a non-finite row on an emitting slot suppresses
-        # the emit and terminates the stream instead of feeding back garbage
-        finite = torch.isfinite(logits).all(dim=-1)
+        # each slot's next emit is token (pos - prompt_len) of its feed's
+        # generation plus the tokens it had at staging: the schedule-free
+        # coordinate the sampler and the fault plan key on.  A non-finite
+        # row on an emitting slot suppresses the emit and terminates the
+        # stream instead of feeding back garbage
+        next_tok, finite = self._post(
+            logits, st.rid, st.sid,
+            lambda: torch.clamp(pos - st.prompt_len, min=0) + st.tok_base)
         bad = emit & ~finite
         good_emit = emit & finite
-        # greedy pick: argmax returns the first maximum, as jnp.argmax does
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         remaining = st.remaining - good_emit.to(torch.int32)
         done = act & ~bad & ((remaining <= 0) | (pos >= st.budget - 1))
         trunc = done & (remaining > 0)
@@ -878,10 +1104,12 @@ class ServeEngine:
         outcome = torch.where(bad, OUTCOME_NUMERICS, outcome)
         outcome = torch.where(plan.pre_requeue, OUTCOME_REQUEUED, outcome)
         outcome = torch.where(plan.pre_final, OUTCOME_PREEMPTED, outcome)
-        row = torch.cat([
-            plan.rid_row, torch.where(good_emit, next_tok, -1), outcome,
-            plan.active_row.any().to(torch.int32)[None],
-            plan.n_admit[None], plan.live.to(torch.int32)[None]])
+        cols = [plan.rid_row, torch.where(good_emit, next_tok, -1), outcome,
+                plan.active_row.any().to(torch.int32)[None],
+                plan.n_admit[None], plan.live.to(torch.int32)[None]]
+        if plan.age is not None:
+            cols.append(plan.age[None])  # the head's age, fetched with the rows
+        row = torch.cat(cols)
         st = st._replace(
             cursor=cursor, pos=pos,
             last_tok=torch.where(good_emit, next_tok, st.last_tok),
@@ -904,14 +1132,28 @@ class ServeEngine:
         return bool(self.queue or self._staged or self._live
                     or self._requeue)
 
+    def _rid_for(self, req: Request) -> int:
+        """The rid of a request leaving the queue, in submission order: the
+        one an eager backfill scan assigned it when it skipped past it, or
+        the next."""
+        r = self._eager_rids.pop(id(req), None)
+        if r is None:
+            r = self._next_rid
+            self._next_rid += 1
+        return r
+
     def _tick(self, st: SlotState, pend: PendingBuffer, head: torch.Tensor,
               pool: Optional[PG.PagePool], backlog: bool,
               live: torch.Tensor, t: int = 0,
               probe: Optional[_FlagProbe] = None):
         """Tick ``t`` of the chunk loop, issued with no host read and
         predicated on ``live``; its flags go to ``probe``.  Returns (head,
-        live, state, pool, event row)."""
-        plan = self._plan(st, pend, head, pool, backlog, live)
+        live, state, pool, event row); a backfilling engine carries its
+        taken mask and head age in ``_bf_carry``."""
+        plan = self._plan(st, pend, head, pool, backlog, live,
+                          self.ticks + t, self._bf_carry)
+        if plan.taken is not None:
+            self._bf_carry = (plan.taken, plan.age)
         known, block_first = (lambda: None), False
         if probe is not None:
             probe.post(t, plan.live, plan.block)
@@ -946,8 +1188,7 @@ class ServeEngine:
             self._pending_dirty = True
         while self.queue and len(self._staged) < self.pending_size:
             req = self.queue.popleft()
-            rid = self._next_rid
-            self._next_rid += 1
+            rid = self._rid_for(req)
             self._attach_delta(req)
             self._by_rid[rid] = req
             self._staged.append((rid, req))
@@ -960,6 +1201,9 @@ class ServeEngine:
         pend = self._make_pending()
         head = torch.zeros((), dtype=torch.int32, device=self.device)
         live = torch.ones((), dtype=torch.bool, device=self.device)
+        if self._backfill:
+            self._bf_carry = (torch.zeros(self.pending_size, dtype=torch.bool,
+                                          device=self.device), pend.age)
         st, pool = self._state, self.pool
         rows: List[torch.Tensor] = []
         probe = _FlagProbe(self.device, budget) if self.skip_masked else None
@@ -980,6 +1224,7 @@ class ServeEngine:
         ev = _telemetry._fetch(torch.stack(rows))
         S = self.n_slots
         n_live = int(ev[:, 3 * S + 2].sum())
+        age = int(ev[-1, 3 * S + 3]) if self._backfill else None
         ev = ev[:n_live]
         rids, toks, outs = ev[:, :S], ev[:, S:2 * S], ev[:, 2 * S:3 * S]
         act, n_admit = ev[:, 3 * S], ev[:, 3 * S + 1]
@@ -988,10 +1233,28 @@ class ServeEngine:
             # map swap_deltas targets between chunks (terminal rids resolve
             # to no live request)
             self._slot_rids = rids[-1].copy()
-        for _ in range(int(n_admit.sum())):
-            rid, _req = self._staged.popleft()
-            self._live.add(rid)
-            self._pending_dirty = True
+        if self._backfill:
+            # admission by taken mask: a staged entry was admitted this
+            # chunk iff its rid is in the event rows (a staged entry is
+            # never resident when the chunk starts), and the head's age
+            # came back in the same fetch
+            seen = set(np.unique(rids[rids >= 0]).tolist())
+            kept: Deque[Tuple[int, Request]] = collections.deque()
+            for rid, req in self._staged:
+                if rid in seen:
+                    self._live.add(rid)
+                    self._pending_dirty = True
+                else:
+                    kept.append((rid, req))
+            self._staged = kept
+            if age != self._head_age:
+                self._head_age = age
+                self._pending_dirty = True
+        else:
+            for _ in range(int(n_admit.sum())):
+                rid, _req = self._staged.popleft()
+                self._live.add(rid)
+                self._pending_dirty = True
         # residency ledger for deadlines: each rid cell is one resident
         # tick, preemption and eviction ticks included
         res_rids, res_counts = np.unique(rids[rids >= 0], return_counts=True)
@@ -1029,34 +1292,419 @@ class ServeEngine:
         if n_live:
             fr["peak"] = max(fr["peak"], int((rids >= 0).sum(axis=1).max()))
 
-    def _run_fused(self, max_ticks: int, chunk: Optional[int]) -> None:
+    # -- the fused run, split: begin -> (dispatch -> drain)* -> finish.
+    # run() composes them for one engine; a caller driving several engines
+    # may dispatch each before draining any, and each engine books only
+    # its own fetches
+
+    def fused_begin(self, chunk: Optional[int] = None) -> None:
+        """Open a fused run: check the mode, build the carries, zero the
+        run's counters."""
+        if any(sl.req is not None for sl in self.slots):
+            raise RuntimeError(
+                "eager slots busy; drain step() work before a fused run")
         chunk = self.chunk if chunk is None else int(chunk)
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if self._state is None:
             self._state = self._init_state()
-        fr = {"used": 0, "chunks": 0, "dispatched": 0, "issued": 0, "peak": 0,
-              "toks": 0, "busy_s": 0.0}
-        forwards0 = self._forwards
-        syncs0 = _telemetry.host_sync_count()
-        while self.has_work() and fr["used"] < max_ticks:
-            t0 = time.perf_counter()
-            rows = self._dispatch(min(chunk, max_ticks - fr["used"]))
-            self._drain(rows, fr)
-            fr["busy_s"] += time.perf_counter() - t0
+        self._frun = {"chunk": chunk, "used": 0, "chunks": 0,
+                      "dispatched": 0, "issued": 0, "peak": 0, "syncs": 0,
+                      "toks": 0, "busy_s": 0.0, "forwards0": self._forwards}
+
+    def fused_dispatch(self, budget: Optional[int] = None
+                       ) -> Optional[List[torch.Tensor]]:
+        """Stage work and issue one chunk of at most ``budget`` ticks with
+        no host read; returns its event rows, undrained on the device, for
+        :meth:`fused_drain`, or None when the engine has no work."""
+        if not self.has_work():
+            return None
+        fr = self._frun
+        t0, s0 = time.perf_counter(), _telemetry.host_sync_count()
+        budget = (fr["chunk"] if budget is None
+                  else min(fr["chunk"], int(budget)))
+        rows = self._dispatch(budget)
+        fr["syncs"] += _telemetry.host_sync_count() - s0
+        fr["busy_s"] += time.perf_counter() - t0
+        return rows
+
+    def fused_drain(self, rows: List[torch.Tensor]) -> None:
+        """Fetch one dispatched chunk's event rows (the chunk's one host
+        sync) and book them."""
+        t0, s0 = time.perf_counter(), _telemetry.host_sync_count()
+        self._drain(rows, self._frun)
+        self._frun["syncs"] += _telemetry.host_sync_count() - s0
+        self._frun["busy_s"] += time.perf_counter() - t0
+
+    def fused_finish(self) -> None:
+        """Close the run: publish ``last_run_report``."""
+        fr = self._frun
         self.last_run_report = {
             "ticks": fr["used"], "chunks": fr["chunks"],
-            # every blocking device->host read of this run: the one event
-            # fetch of each chunk
-            "host_syncs": _telemetry.host_sync_count() - syncs0,
+            # every blocking device->host read made inside this engine's
+            # dispatch and drain calls (the host makes those calls one
+            # after another, so interleaved engines never share one): one
+            # event fetch a drained chunk, and any other read shows here
+            "host_syncs": fr["syncs"],
             "ticks_dispatched": fr["dispatched"],
             # ticks and forward programs the host issued, the masked ones
             # included (fewer under skip_masked)
             "ticks_issued": fr["issued"],
-            "forwards_issued": self._forwards - forwards0,
+            "forwards_issued": self._forwards - fr["forwards0"],
             "peak_resident": fr["peak"],
             "new_tokens": fr["toks"],
+            # host wall time inside this engine's dispatch and drain calls
             "busy_seconds": fr["busy_s"],
+            "outcomes": dict(self._tally),
+            "memory": self.memory_report(),
+        }
+
+    def _run_fused(self, max_ticks: int, chunk: Optional[int]) -> None:
+        self.fused_begin(chunk)
+        fr = self._frun
+        while self.has_work() and fr["used"] < max_ticks:
+            rows = self.fused_dispatch(max_ticks - fr["used"])
+            if rows is None:
+                break
+            self.fused_drain(rows)
+        self.fused_finish()
+
+    def evacuate(self) -> List[Request]:
+        """Pull every unfinished request off this engine (a failed
+        replica): queued, staged, requeued and resident alike, in
+        submission order, and clear the host's scheduling state.  The
+        device state is abandoned (the next run starts cold, with every
+        page free).  An orphan without a ``sample_id`` takes the rid it
+        drew (or would have drawn) under here as its own, so a
+        resubmission elsewhere resumes through the recompute swap (the
+        prompt plus the generated prefix) and draws the same tokens.  The deadline clock restarts on the adopting
+        engine."""
+        held: Dict[int, Request] = dict(self._by_rid)
+        held.update((rid, req) for rid, req in self._requeue)
+        held.update((sl.rid, sl.req) for sl in self.slots
+                    if sl.req is not None)
+        orphans = [req for _, req in sorted(held.items())]
+        for req in self.queue:  # the rids they would have drawn under
+            held[self._rid_for(req)] = req
+            orphans.append(req)
+        for rid, req in held.items():
+            if req.sample_id is None:
+                req.sample_id = rid
+        self.queue.clear()
+        self._staged.clear()
+        self._requeue.clear()
+        self._by_rid.clear()
+        self._live.clear()
+        self._resident.clear()
+        self._eager_rids.clear()
+        self.slots = [_Slot() for _ in range(self.n_slots)]
+        self._pending_dirty = True
+        self._pending_cache = None
+        self._slot_rids = np.full((self.n_slots,), -1, np.int32)
+        self._head_age = 0
+        self._state = None
+        if self.spec is not None:
+            self.pool = PG.make_pool(self.spec, self.n_slots, self.device)
+            PG.set_page_table(self.caches, self.pool.table)
+        return orphans
+
+    # ------------------------------------------------------------------
+    # The eager loop (fused=False): one tick a call, the host in charge
+    # ------------------------------------------------------------------
+
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _write_arena(self, mask: np.ndarray, rows: Any) -> None:
+        """Write one request's arena row into every ``mask`` slot with one
+        select per leaf."""
+        m = self._up(mask)
+
+        def one(a, v):
+            return torch.where(m.reshape((-1,) + (1,) * v.dim()), v[None], a)
+
+        self._arena = tree_map(one, self._arena, rows)
+
+    def _backfill_pick(self, free_pages: int):
+        """The first pending entry (requeued, then queued, each in order)
+        whose admission price fits ``free_pages``, taken off its deque:
+        (rid, req, resumed, feed, budget, pages) or None.  Queued entries
+        it skips get their rids now, so rids stay in submission order."""
+        for qi, (rid, req) in enumerate(self._requeue):
+            budget = self.request_budget(req)
+            feed = self._feed(req)
+            want = self._admit_pages(len(feed), budget)
+            if want <= free_pages:
+                del self._requeue[qi]
+                return rid, req, True, feed, budget, want
+        for qi, req in enumerate(self.queue):
+            if id(req) not in self._eager_rids:
+                self._eager_rids[id(req)] = self._next_rid
+                self._next_rid += 1
+            budget = self.request_budget(req)
+            feed = self._feed(req)
+            want = self._admit_pages(len(feed), budget)
+            if want <= free_pages:
+                rid = self._eager_rids.pop(id(req))
+                del self.queue[qi]
+                self._attach_delta(req)
+                return rid, req, False, feed, budget, want
+        return None
+
+    def _admit(self) -> None:
+        """Free slots take work, requeued streams before fresh ones, FIFO
+        with head-of-line blocking on pages (or one backfill past a
+        blocked head); the host reads the free-page count to price it."""
+        mask = np.zeros(self.n_slots, bool)
+        need = np.zeros(self.n_slots, np.int32)
+        free_pages = 0
+        if self.spec is not None and (self.queue or self._requeue):
+            free_pages = int(_telemetry._fetch(
+                PG.free_page_count(self.pool)))
+        backfilled = False
+        for i, sl in enumerate(self.slots):
+            if sl.req is not None or not (self._requeue or self.queue):
+                continue
+            if self._requeue:
+                rid, req = self._requeue[0]
+                resumed = True
+            else:
+                rid, req = -1, self.queue[0]
+                resumed = False
+            budget = self.request_budget(req)
+            feed = self._feed(req)
+            picked = None
+            if self.spec is not None:
+                want = self._admit_pages(len(feed), budget)
+                if want > free_pages:
+                    # head-of-line blocking, unless one later entry that
+                    # fits may backfill this tick
+                    if (self._backfill and not backfilled
+                            and self._head_age < self._backfill):
+                        picked = self._backfill_pick(free_pages)
+                    if picked is None:
+                        break
+                    rid, req, resumed, feed, budget, want = picked
+                    backfilled = True
+                    self._head_age += 1
+                free_pages -= want
+                need[i] = want
+            if picked is None:
+                if resumed:
+                    self._requeue.popleft()
+                else:
+                    self.queue.popleft()
+                    rid = self._rid_for(req)
+                    self._attach_delta(req)
+                self._head_age = 0
+            self.slots[i] = _Slot(
+                req=req, rid=rid,
+                sid=rid if req.sample_id is None else req.sample_id,
+                budget=budget, feed=feed, pages=int(need[i]),
+                tok_base=len(req.out))
+            self.pos[i] = 0
+            mask[i] = True
+            if backfilled:
+                break  # the head still waits; this tick's backfill is spent
+        if not mask.any():
+            return
+        m = self._up(mask)
+        if self.spec is not None:
+            self.pool = PG.reserve(self.pool, self._up(need), m)
+            PG.set_page_table(self.caches, self.pool.table)
+        T.reset_slot_state(self.caches, m)
+        if self.personalise is not None:
+            for i in np.nonzero(mask)[0]:
+                one = np.zeros(self.n_slots, bool)
+                one[i] = True
+                self._write_arena(
+                    one, self._delta_rows(self.slots[i].req.delta_set))
+
+    def _preempt_slot(self, i: int, freed: np.ndarray) -> int:
+        """Evict slot ``i`` mid-stream: requeue it (retries left) or end it
+        ``preempted``.  Returns the outcome code."""
+        sl = self.slots[i]
+        req = sl.req
+        if self._preempt_left(req) > 0:
+            req.preempts += 1
+            self._requeue.append((sl.rid, req))
+            code = OUTCOME_REQUEUED
+        else:
+            req.outcome = OUTCOME_NAMES[OUTCOME_PREEMPTED]
+            code = OUTCOME_PREEMPTED
+        freed[i] = True
+        self.slots[i] = _Slot()
+        return code
+
+    def step(self) -> None:
+        """One tick of the eager loop, the fused tick's lifecycle on the
+        host: admission, page growth oldest rid first, the youngest
+        resident preempted on a stall (and the fault plan's targets), the
+        stall tick's paused generating slots, then emits, budgets,
+        truncation, deadlines and the numerics guard, with the freed slots
+        refilled in the same tick.  The forward is the fused tick's:
+        ``decode_step`` over the live slots, or on a stall tick a
+        one-token ``prefill_block`` over the prefilling ones."""
+        if self._live or self._staged:
+            raise RuntimeError(
+                "fused run in flight; cannot interleave eager ticks")
+        s0 = _telemetry.host_sync_count()
+        try:
+            self._step()
+        finally:
+            # every blocking read made inside the tick, booked to this
+            # engine
+            self._eager_syncs += _telemetry.host_sync_count() - s0
+
+    def _step(self) -> None:
+        self._admit()
+        live = [i for i, sl in enumerate(self.slots) if sl.req is not None]
+        if not live:
+            return
+        tally = self._tally
+        # residency ledger: every live slot spends one resident tick, the
+        # stalled ones and this tick's victims included
+        for i in live:
+            rid = self.slots[i].rid
+            self._resident[rid] = self._resident.get(rid, 0) + 1
+        prefilling = {i: self.slots[i].cursor < len(self.slots[i].feed)
+                      for i in live}
+        stalled: List[int] = []
+        victims: List[int] = []
+        if self.rayg:
+            growers = [i for i in live if not prefilling[i]
+                       and self.spec.pages_for(int(self.pos[i]) + 1)
+                       > self.slots[i].pages]
+            if growers:
+                free = int(_telemetry._fetch(PG.free_page_count(self.pool)))
+                faults = self.faults
+                if (faults is not None and faults.exhaust_ticks is not None
+                        and FI.exhausted(faults, self.ticks)):
+                    free = 0
+                grant = np.zeros(self.n_slots, bool)
+                for i in sorted(growers, key=lambda i: self.slots[i].rid):
+                    if free > 0:
+                        free -= 1
+                        grant[i] = True
+                    else:
+                        stalled.append(i)
+                if grant.any():
+                    g = self._up(grant)
+                    held = np.asarray([sl.pages for sl in self.slots],
+                                      np.int32)
+                    self.pool = PG.extend(self.pool, g.to(torch.int32), g,
+                                          self._up(held))
+                    for i in np.nonzero(grant)[0]:
+                        self.slots[i].pages += 1
+                    PG.set_page_table(self.caches, self.pool.table)
+        if self.faults is not None and self.faults.force_preempt:
+            victims = [i for i in live if FI.preempt_hit(
+                self.faults, self.slots[i].rid, len(self.slots[i].req.out),
+                self.slots[i].tok_base)]
+        if stalled:
+            # the youngest resident pays for the stall (it may be the
+            # grower itself); a preemption frees at least one page
+            y = max(live, key=lambda i: self.slots[i].rid)
+            if y not in victims:
+                victims.append(y)
+        freed = np.zeros(self.n_slots, bool)
+        for i in victims:
+            code = self._preempt_slot(i, freed)
+            name = ("requeued" if code == OUTCOME_REQUEUED
+                    else OUTCOME_NAMES[code])
+            tally[name] = tally.get(name, 0) + 1
+        live = [i for i in live if self.slots[i].req is not None]
+        stall_tick = any(self.slots[i].req is not None for i in stalled)
+        if not live:
+            self._finish_tick(freed)
+            return
+        toks = np.zeros(self.n_slots, np.int32)
+        valid = np.zeros(self.n_slots, bool)
+        for i in live:
+            sl = self.slots[i]
+            if prefilling[i]:
+                toks[i] = int(sl.feed[sl.cursor])
+                valid[i] = True
+            else:
+                toks[i] = sl.req.out[-1]
+                valid[i] = not stall_tick
+        ids = np.asarray([[sl.rid, sl.sid, len(sl.req.out)]
+                          if sl.req is not None else [-1, -1, 0]
+                          for sl in self.slots], np.int32)
+        tok, v = self._up(toks), self._up(valid)
+        pos = self._up(self.pos.copy())
+        if stall_tick:
+            # generating slots pause; prefilling slots feed one token
+            logits, _ = self._block_fwd(tok[:, None], pos, v[:, None],
+                                        v.to(torch.int32))
+        else:
+            logits, _ = self._decode_fwd(tok, pos, v)
+        idt = self._up(ids)
+        next_tok, finite = self._post(logits, idt[:, 0], idt[:, 1],
+                                      lambda: idt[:, 2])
+        next_tok, finite = _telemetry._fetch((next_tok, finite))
+        for i in live:
+            sl = self.slots[i]
+            code = OUTCOME_NONE
+            if valid[i]:  # paused slots make no progress but still age
+                self.pos[i] += 1
+                if prefilling[i]:
+                    sl.cursor += 1
+                    emit = sl.cursor == len(sl.feed)
+                else:
+                    emit = True
+                if emit and not finite[i]:
+                    code = OUTCOME_NUMERICS
+                elif emit:
+                    sl.req.out.append(int(next_tok[i]))
+                    self._eager_toks += 1
+                    if len(sl.req.out) >= sl.req.max_new:
+                        code = OUTCOME_DONE
+                    elif self.pos[i] >= sl.budget - 1:
+                        code = OUTCOME_TRUNCATED
+            if code == OUTCOME_NONE and (
+                    self._resident.get(sl.rid, 0) >= self._deadline(sl.req)):
+                code = OUTCOME_EXPIRED
+            if code != OUTCOME_NONE:
+                sl.req.outcome = OUTCOME_NAMES[code]
+                if code in (OUTCOME_DONE, OUTCOME_TRUNCATED):
+                    sl.req.done = True
+                    sl.req.truncated = code == OUTCOME_TRUNCATED
+                tally[sl.req.outcome] = tally.get(sl.req.outcome, 0) + 1
+                self.slots[i] = _Slot()
+                freed[i] = True
+        self._finish_tick(freed)
+
+    def _finish_tick(self, freed: np.ndarray) -> None:
+        if freed.any():
+            if self.spec is not None:
+                # freed slots return their pages and their table rows go
+                # unmapped, so no stale write lands in a recycled page
+                self.pool = PG.release(self.pool, self._up(freed))
+                PG.set_page_table(self.caches, self.pool.table)
+            # freed slots take queued work in this tick, as the fused
+            # tick's admission at its top leaves them
+            self._admit()
+        self.ticks += 1
+
+    def _run_eager(self, max_ticks: int) -> None:
+        used = peak = 0
+        syncs0, toks0 = self._eager_syncs, self._eager_toks
+        while ((self.queue or self._requeue
+                or any(sl.req is not None for sl in self.slots))
+               and used < max_ticks):
+            self.step()
+            peak = max(peak, sum(sl.req is not None for sl in self.slots))
+            used += 1
+        self.last_run_report = {
+            # one tick a chunk; the syncs are this engine's reads: the
+            # picked tokens every tick, the free pages when admission or
+            # page growth prices them
+            "ticks": used, "chunks": used,
+            "host_syncs": self._eager_syncs - syncs0,
+            "peak_resident": peak,
+            "new_tokens": self._eager_toks - toks0,
             "outcomes": dict(self._tally),
             "memory": self.memory_report(),
         }
@@ -1090,24 +1738,23 @@ class ServeEngine:
                 req.delta_set = delta_set
                 self._pending_dirty = True
         for req in (*(r for _, r in self._requeue), *self.queue,
-                    *self._by_rid.values()):
+                    *self._by_rid.values(),
+                    *(sl.req for sl in self.slots if sl.req is not None)):
             if req.uid == uid:
                 req.delta_set = delta_set
+        # resident rows: the fused run's from the last chunk's event rows,
+        # the eager loop's from its slots
         mask = np.zeros(self.n_slots, bool)
         for i, r in enumerate(self._slot_rids):
             req = self._by_rid.get(int(r))
             if req is not None and req.uid == uid and int(r) in self._live:
                 mask[i] = True
+        for i, sl in enumerate(self.slots):
+            if sl.req is not None and sl.req.uid == uid:
+                mask[i] = True
         n = int(mask.sum())
         if n:
-            # broadcast the user's row into every masked slot
-            m = torch.from_numpy(mask).to(self.device)
-
-            def one(a, v):
-                return torch.where(m.reshape((-1,) + (1,) * v.dim()),
-                                   v[None], a)
-
-            self._arena = tree_map(one, self._arena, rows)
+            self._write_arena(mask, rows)  # the user's row in every slot
         return n
 
     # ------------------------------------------------------------------
@@ -1125,10 +1772,12 @@ class ServeEngine:
         stream claims on its next boundary crossing."""
         total, arena = PG.cache_bytes(self.caches)
         live = [self._by_rid[r] for r in self._live if r in self._by_rid]
+        eager = [sl for sl in self.slots if sl.req is not None]
+        resident = len(live) + len(eager)
         rep: Dict[str, Any] = {
             "kv_paging": self.spec is not None,
             "kv_cache_bytes": int(total),
-            "resident_streams": len(live),
+            "resident_streams": resident,
         }
         if self.personalise is not None:
             # the arena rows are the only per-user parameter state (the base
@@ -1144,11 +1793,11 @@ class ServeEngine:
             rep["kv_bytes_per_stream"] = int(total) // self.n_slots
             return rep
         if self.rayg:
-            in_use = sum(int(spec.pages_for(len(r.prompt) + len(r.out)))
-                         for r in live)
+            in_use = sum(sl.pages for sl in eager) + sum(
+                int(spec.pages_for(len(r.prompt) + len(r.out))) for r in live)
         else:
-            in_use = sum(int(spec.pages_for(self.request_budget(r)))
-                         for r in live)
+            in_use = sum(int(spec.pages_for(sl.budget)) for sl in eager) + sum(
+                int(spec.pages_for(self.request_budget(r))) for r in live)
         page_bytes = int(arena) // spec.n_pages  # all layers, one page
         rep.update({
             "kv_int8": spec.int8,
@@ -1161,7 +1810,7 @@ class ServeEngine:
             # bytes pinned per resident stream; an empty engine reports
             # the worst-case single-request cost
             "kv_bytes_per_stream": (
-                in_use * page_bytes // len(live) if live
+                in_use * page_bytes // resident if resident
                 else spec.max_pages * page_bytes),
         })
         return rep
@@ -1175,7 +1824,8 @@ class ServeEngine:
         """Serve ``requests`` until done or ``max_ticks`` engine ticks.
 
         ``max_ticks`` budgets this call; ``self.ticks`` is a lifetime
-        statistic."""
+        statistic.  The fused engine runs chunks, the eager one
+        (``fused=False``) one :meth:`step` a tick."""
         for r in requests:  # validate the whole batch before enqueuing any
             self._validate(r)
         self._tally = {}
@@ -1190,5 +1840,8 @@ class ServeEngine:
                 self._tally["rejected"] = self._tally.get("rejected", 0) + 1
             else:
                 self.queue.append(r)
-        self._run_fused(max_ticks, chunk)
+        if self.fused:
+            self._run_fused(max_ticks, chunk)
+        else:
+            self._run_eager(max_ticks)
         return requests

@@ -14,6 +14,7 @@ from repro.serving import Request as JRequest
 from repro.serving import ServeEngine as JServeEngine
 from repro_torch import bridge, configs
 from repro_torch.core import adapt as telemetry
+from repro_torch.models import transformer as T
 from repro_torch.serving import Request, ServeEngine
 
 PROMPT_LENS = (3, 5, 8, 9, 17, 20)
@@ -96,6 +97,30 @@ def test_host_syncs_are_counted(ref):
     assert rep["host_syncs"] == telemetry.host_sync_count() - before
     assert rep["host_syncs"] == rep["chunks"] == out["report8"]["chunks"]
     assert rep["ticks_dispatched"] == rep["ticks"]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_host_syncs_book_a_stray_read(ref, monkeypatch, fused):
+    """A blocking read anywhere in a tick is booked to the engine that
+    made it: one stray fetch per logits step raises ``host_syncs`` by the
+    number of steps, so a fused run no longer shows one sync a chunk."""
+    tcfg, tp, _ = ref
+    clean, want = run_port(tcfg, tp, fused=fused)
+    calls = [0]
+    post = ServeEngine._post
+
+    def stray(self, logits, *args):
+        calls[0] += 1
+        telemetry._fetch(logits[:, :1])
+        return post(self, logits, *args)
+
+    monkeypatch.setattr(ServeEngine, "_post", stray)
+    eng, got = run_port(tcfg, tp, fused=fused)
+    rep, base = eng.last_run_report, clean.last_run_report
+    assert got == want and calls[0] > 0
+    assert rep["host_syncs"] == base["host_syncs"] + calls[0]
+    if fused:
+        assert base["host_syncs"] == base["chunks"] < rep["host_syncs"]
 
 
 def test_non_finite_logits_end_the_stream_as_numerics(ref):
@@ -183,15 +208,54 @@ def test_submit_validates_and_sheds(ref):
     assert eng.submit(r) == (False, "queue_full") and r.outcome == "rejected"
 
 
-@pytest.mark.parametrize("knob", [
-    dict(faults=object()), dict(temperature=0.7, top_k=5),
-    dict(admit_backfill=1), dict(temperature=0.7), dict(top_k=5),
-    dict(fused=False),
-])
-def test_knobs_of_later_slices_raise(ref, knob):
+def _engine(arch, cfg=(), **kw):
+    """An engine on ``arch``'s smoke config (``cfg`` replaces its fields);
+    the knobs raise before the weights are read."""
+    cfg = dataclasses.replace(configs.get_reduced(arch), **dict(cfg))
+    return lambda tcfg, tp: ServeEngine(cfg, {"embed": tp["embed"]},
+                                        device="cpu", **{**ENGINE, **kw})
+
+
+def _fleet_exchange(tcfg, tp):
+    from types import SimpleNamespace
+
+    from repro_torch.serving import Personaliser
+
+    engine = SimpleNamespace(personalise=object(),
+                             push_delta_payload=lambda *a: None)
+    Personaliser(None, engine, None)
+
+
+def _rolling_cache(tcfg, tp):
+    T.init_caches(dataclasses.replace(tcfg, sliding_window=16), 2, 16,
+                  device="cpu")
+
+
+LATER = {
+    "ssm_paging": (_engine("mamba2-1.3b", kv_paging=True), "12.2"),
+    "ssm_personalise": (_engine("mamba2-1.3b", personalise=object()),
+                        "15.2"),
+    "rolling_window_engine": (
+        _engine("qwen2-1.5b", cfg=dict(sliding_window=16)), "9"),
+    "rolling_window_cache": (_rolling_cache, "9"),
+    "fleet_exchange": (_fleet_exchange, "16"),
+    "moe": (_engine("mixtral-8x7b"), "9"),
+    "vlm": (_engine("paligemma-3b"), "14"),
+}
+
+
+@pytest.mark.parametrize("what", list(LATER))
+def test_knobs_of_later_slices_raise(ref, what):
+    """What the port does not run yet raises, naming the ROADMAP item that
+    brings it: the ssm family's paged cache and per-slot overlay, rolling
+    sliding-window caches (a window below the cache length, through
+    ``init_caches``), the fleet's delta exchange, and the moe and vlm
+    families."""
     tcfg, tp, _ = ref
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        ServeEngine(tcfg, tp, device="cpu", **{**ENGINE, **knob})
+    build, item = LATER[what]
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP queue 1, item {item}\b"):
+        build(tcfg, tp)
 
 
 def test_serve_driver_runs_and_refuses_later_flags(capsys):
@@ -207,7 +271,15 @@ def test_serve_driver_runs_and_refuses_later_flags(capsys):
     text = capsys.readouterr().out
     assert "pressure 0.5x: 6 pages" in text and "done=6" in text
     assert "[serve] paged KV:" in text
-    with pytest.raises(SystemExit, match="item 13"):
-        serve.main(["--device", "cpu", "--inject", "nan:3:2"])
-    with pytest.raises(SystemExit, match="item 11.1"):
-        serve.main(["--device", "cpu", "--temperature", "0.8"])
+    serve.main(["--preset", "smoke", "--device", "cpu", "--requests", "4",
+                "--max-new", "4", "--slots", "2", "--inject", "nan:2:1",
+                "--temperature", "0.8", "--top-k", "20"])
+    text = capsys.readouterr().out
+    assert "4 requests, 13 new tokens" in text
+    assert "done=3, numerics=1" in text and "sampled T=0.8 top-k 20" in text
+    serve.main(["--preset", "smoke", "--device", "cpu", "--requests", "3",
+                "--max-new", "3", "--slots", "2", "--eager"])
+    text = capsys.readouterr().out
+    assert "3 requests, 9 new tokens" in text and "eager" in text
+    with pytest.raises(SystemExit, match="item 16"):
+        serve.main(["--device", "cpu", "--fleet", "2"])

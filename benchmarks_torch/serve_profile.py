@@ -14,7 +14,8 @@ tokens each, weights and prompts from seed 0), broken down three ways:
   profiled window.
 
     python3 benchmarks_torch/serve_profile.py [--trace DIR]
-        [--paging] [--page-budget N] [--kv-int8] [--arch mamba2-1.3b]
+        [--paging] [--page-budget N] [--kv-int8]
+        [--arch mamba2-1.3b | mixtral-8x7b | deepseek-v3-671b]
         [--repeats N] [--issue-masked] [--temperature T --top-k K]
 
 ``--paging`` serves the same requests from the paged KV cache (page size
@@ -22,7 +23,11 @@ tokens each, weights and prompts from seed 0), broken down three ways:
 stores the pages in int8), phase 7 of ``chip_smoke.py``.  ``--arch
 mamba2-1.3b`` serves phase 11's shape instead (4 slots, max_len 96, chunk
 16, 10 requests of 4-15 prompt tokens and 12 new ones) from random
-weights.  ``--issue-masked`` turns the engine's skip of work it knows to
+weights.  ``--arch mixtral-8x7b`` and ``--arch deepseek-v3-671b`` serve
+phase 5's traffic on the moe family at its published widths with the
+depth of ``chip_smoke.py`` phase 18 (16 of 32 layers, 4 of 61: what one
+80 GB card holds in bf16); deepseek's paged serve pages its MLA latent
+rows.  ``--issue-masked`` turns the engine's skip of work it knows to
 be masked off (every tick of a chunk's budget and both forward programs
 a tick: the predicated path alone).  ``--temperature T`` (with
 ``--top-k K``, seed 11) samples instead of the greedy pick, and the
@@ -42,6 +47,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from chip_smoke import MOE_LAYERS  # noqa: E402  the moe family's depth cut
 
 
 def requests(cfg, Request, np):
@@ -69,7 +76,7 @@ def main() -> int:
                     help="int8 pages with per-token scales (implies "
                          "--paging)")
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    choices=("qwen2-1.5b", "mamba2-1.3b"))
+                    choices=("qwen2-1.5b", "mamba2-1.3b", *MOE_LAYERS))
     ap.add_argument("--repeats", type=int, default=1,
                     help="unprofiled runs of the requests (walls)")
     ap.add_argument("--issue-masked", action="store_true",
@@ -95,6 +102,10 @@ def main() -> int:
     from repro_torch.serving import engine as E
 
     cfg = configs.get_config(args.arch)
+    if args.arch in MOE_LAYERS:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS[args.arch])
     params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     kw = (dict(kv_paging=True, page_budget=args.page_budget,
                kv_int8=args.kv_int8 or None) if paged else {})

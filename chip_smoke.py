@@ -197,6 +197,30 @@ exits non-zero:
    channels whose scores sit within the bf16 Fisher tolerance of the
    unit's k-th score; then the same route on mcunet with phase 14's four
    users (plain reduction, no launch).
+18. the moe family: (a) mixtral-smoke and deepseek-smoke in f32 (TF32
+   off), card against the plain path on the CPU from the same weights:
+   greedy streams on contiguous, paged and int8 caches and mixtral's
+   rolling window (prompts of 8, 30, 45 and 70 tokens at max_len 80),
+   TinyTrain's policy and losses (within 1e-4) and folded streams, and
+   two users' deltas over every unit kind served per slot (also against
+   the folded engines); (b) kernels 2 and 4 at mixtral's block prefill (8
+   slots, Hq 32, Hkv 8, D 128, max_len 512; f32 at 1e-4, bf16 under the
+   per-slot gate, paged equal to cached) and kernel 1 at both models' tap
+   groups (8 and 256 experts, 32 and 128 heads, deepseek's dense-head
+   d_ff of 18,432; f32 at 1e-5, the padding rows NaN), each timed beside
+   its bound, its plain version and SDPA, a page gather + SDPA or
+   ``torch.einsum``; (c) mixtral-8x7b at 16 of its 32 layers and
+   deepseek-v3-671b at 4 of its 61 (the 3 dense-head layers, one MoE
+   layer of 256 experts and the MTP block), published widths, bf16,
+   random weights from seed 0: ``TinyTrainSession.adapt`` on phase 6's
+   episode shape under phase 6's profile scaled to the width (one Fisher
+   launch a tap group, two host transfers, finite losses), ``fold_into``
+   and phase 5's traffic on contiguous and paged caches (every request
+   ``done`` with 16 tokens, one sync a chunk, mixtral's flash kernel a
+   positive multiple of its 16 layers, none for deepseek's MLA, paged
+   streams equal to contiguous ones), and mixtral's rolling serve (two
+   prompts of 4,150 and 4,200 tokens at max_len 4,224: every request
+   ``done``, a 4,096-row cache, one sync a chunk).
 
 Phases 7 to 9 and 17 run right after phase 5, on its weights.  The
 fused serves of phases 5, 7 to 11 and 17 print ``host_syncs`` beside
@@ -205,8 +229,9 @@ inside the tick loop; the eager loop reads every tick by design); phases
 5, 7, 8, 10, 11 and 17's fused serves run their tick loops under
 ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
 the run.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 17) and read
-just after.  The last three lines are the card's
+counts are set to 0 just before each main path (phases 5 to 18) and read
+just after; phase 18's fused serves also run under sync debug mode
+"error".  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -369,6 +394,31 @@ SAMPLE_T = 3.0
 # kernels 2 and 4 at gemma-2b's block prefill (D 256 on their FMA loops):
 # timed beside SDPA and a page gather + SDPA, 18 layers' buffers cycled
 WIDE_BLOCK = dict(B=8, Sq=8, Hq=8, Hkv=1, D=256, Sk=512, layers=18)
+# phase 18, the moe family at its published widths with the depth cut to
+# fit one 80 GB card: mixtral-8x7b at 16 of 32 layers (46.9 GB of bf16
+# weights), deepseek-v3-671b at 4 of 61 (its 3 dense-head layers and one
+# MoE layer of 256 experts, plus the MTP block, itself a MoE layer: 53.4 GB);
+# benchmarks_torch/serve_profile.py imports this cut
+MOE_LAYERS = {"mixtral-8x7b": 16, "deepseek-v3-671b": 4}
+# the least free device memory phase 18's adapt must leave at its peak
+# (mixtral's 16 layers peak about 2.5 GB below the card's 80 GB)
+MOE_HEADROOM = 1 << 30
+# mixtral's rolling serve: two prompts that wrap its 4096-row window
+MOE_ROLLING = dict(slots=2, max_len=4224, chunk=64, lens=(4150, 4200),
+                   max_new=16)
+# phase 18's card-vs-CPU checks on the smoke configs: contiguous, paged and
+# int8 caches (mixtral-smoke's 24 rows stay below its 32-row window) and
+# tests/test_serve_scan.py's rolling case at max_len 80
+MOE_SMOKE = dict(slots=3, max_len=24, chunk=4, page=4, max_new=6,
+                 lens=(3, 5, 8, 9, 17), rolling_lens=(8, 30, 45, 70),
+                 rolling=dict(slots=2, max_len=80, chunk=16))
+# kernels 2 and 4 at mixtral's block prefill (8 slots, prefill_block 8,
+# max_len 512, 32 query heads over 8 kv heads), its 16 layers' buffers
+# cycled; kernel 1 at the probe's tap groups of both models, with the
+# adapt task's 48 rows and their padding mask
+MOE_BLOCK = dict(B=8, Sq=8, Hq=32, Hkv=8, D=128, Sk=512, layers=16)
+MOE_TAPS = {"mixtral-8x7b": ((16, 32), (16, 8)),
+            "deepseek-v3-671b": ((3, 128), (1, 128), (3, 18432), (1, 256))}
 
 
 def fail(msg: str) -> None:
@@ -1047,6 +1097,550 @@ def _fleet_groups(session, tasks):
     return list(_group_indices(keys).values())
 
 
+def moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
+                    SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
+                    dev) -> None:
+    """Phase 18 (a): mixtral-smoke and deepseek-smoke in f32 (TF32 off),
+    the card against the plain path on the CPU from the same weights:
+    greedy streams on contiguous, paged and int8 caches and mixtral's
+    rolling window, TinyTrain's policy, losses and folded streams, and two
+    users' deltas (one unit of every kind) served per slot."""
+    import numpy as np
+    import torch
+
+    M = MOE_SMOKE
+    base = dict(slots=M["slots"], max_len=M["max_len"], chunk=M["chunk"])
+    paged = dict(base, kv_paging=True, kv_page_size=M["page"])
+
+    def serve(small, params, where, kw, prompts, uid=lambda i: i, pol=None,
+              deltas=None):
+        eng = ServeEngine(small, params, device=where, personalise=pol, **kw)
+        for u, d in (deltas or {}).items():
+            eng.swap_deltas(u, DeltaSet.from_policy(pol, tree_map(
+                lambda t: t.to(params["embed"].device), d)))
+        reqs = [Request(uid=uid(i), prompt=p, max_new=M["max_new"])
+                for i, p in enumerate(prompts)]
+        eng.run(reqs)
+        return [(r.out, r.outcome) for r in reqs], eng
+
+    for arch in MOE_LAYERS:
+        small = configs.get_reduced(arch)
+        p_cpu = T.init_params(small, torch.Generator().manual_seed(0),
+                              device="cpu")
+        p_gpu = tree_map(lambda t: t.to(dev), p_cpu)  # the same weights
+        both = (("cpu", p_cpu), ("cuda", p_gpu))
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, small.vocab, n).astype(np.int32)
+                   for n in M["lens"]]
+        cases = {"contiguous": (base, prompts), "paged": (paged, prompts),
+                 "int8 pages": (dict(paged, kv_int8=True), prompts)}
+        if small.sliding_window:
+            cases["rolling (window 32, max_len 80)"] = (M["rolling"], [
+                rng.integers(0, small.vocab, n).astype(np.int32)
+                for n in M["rolling_lens"]])
+        for what, (kw, ps) in cases.items():
+            got = {w: serve(small, p, w, kw, ps)[0] for w, p in both}
+            same = got["cpu"] == got["cuda"]
+            done = all(o == "done" for _, o in got["cuda"])
+            print(f"[moe] {small.name} f32 {what} greedy streams, card vs "
+                  f"CPU plain path: {'identical' if same else 'DIFFERENT'} "
+                  f"over {len(ps)} requests, "
+                  f"{'all done' if done else 'NOT ALL DONE'}", flush=True)
+            if not same or not done:
+                fail(f"{small.name} {what} streams: cpu {got['cpu']} cuda "
+                     f"{got['cuda']}")
+        # TinyTrain: the card's probe (the Fisher kernel at the MoE's
+        # expert taps) and fine-tune against the CPU's, then folded streams
+        sbb = api.backbone(arch, preset="smoke", batch_size=32, seq=16)
+        stask = api.sample_lm_task(np.random.default_rng(0), small.vocab,
+                                   seq=16, max_way=5, support_pad=32,
+                                   query_pad=32)
+        adapted = {}
+        for where, params in both:
+            ad = api.TinyTrainSession(sbb, params, max_way=5).adapt(
+                stask, api.JETSON_NANO, iters=4)
+            eng = ServeEngine(small, params, device=where, **base)
+            ad.fold_into(eng)
+            reqs = [Request(uid=i, prompt=p, max_new=M["max_new"])
+                    for i, p in enumerate(prompts)]
+            eng.run(reqs)
+            adapted[where] = (ad, [(r.out, r.outcome) for r in reqs])
+        (a_cpu, s_cpu), (a_gpu, s_gpu) = adapted["cpu"], adapted["cuda"]
+        loss_err = max(abs(x - y) for x, y in zip(a_cpu.losses,
+                                                  a_gpu.losses))
+        same_pol = a_cpu.policy.units == a_gpu.policy.units
+        print(f"[moe] {small.name} f32 TinyTrain, card vs CPU plain path: "
+              f"policy {'identical' if same_pol else 'DIFFERENT'} "
+              f"({a_gpu.policy.describe()}), max loss diff {loss_err:.3g} "
+              f"(tol 1e-4), folded-engine streams "
+              f"{'identical' if s_cpu == s_gpu else 'DIFFERENT'}", flush=True)
+        if not same_pol or not loss_err <= 1e-4 or s_cpu != s_gpu:
+            fail(f"{small.name} adapt differs: {a_cpu.policy.describe()} "
+                 f"{a_cpu.losses} vs {a_gpu.policy.describe()} "
+                 f"{a_gpu.losses}; streams {s_cpu} vs {s_gpu}")
+        # personalised: one unit of every kind (MLA heads, the dense head's
+        # MLP, a MoE unit's experts per slot), two users' random deltas
+        units, seen = [], set()
+        for c in reversed(sbb.unit_costs):
+            if c.kind not in seen:
+                seen.add(c.kind)
+                units.append(SelectedUnit(c.layer, c.kind,
+                                          tuple(sorted({0, c.n_channels - 1}))))
+        pol = SparseUpdatePolicy(horizon=0, units=tuple(
+            sorted(units, key=lambda u: (u.layer, u.kind))))
+        dgen = torch.Generator().manual_seed(7)
+        udeltas = {u: tree_map(lambda z: 0.05 * torch.randn(
+            z.shape, generator=dgen), sbb.init_deltas(pol, "cpu"))
+            for u in (0, 1)}
+        got = {w: serve(small, p, w, base, prompts, lambda i: i % 2, pol,
+                        udeltas)[0] for w, p in both}
+        folded = {u: serve(small, fold_deltas(small, p_gpu, tree_map(
+            lambda t: t.to(dev), d), pol), "cuda", base, prompts,
+            lambda i: i % 2)[0] for u, d in udeltas.items()}
+        oracle = [folded[i % 2][i] for i in range(len(prompts))]
+        print(f"[moe] {small.name} f32 personalised (2 users, "
+              f"{pol.describe()}): card vs CPU "
+              f"{'identical' if got['cpu'] == got['cuda'] else 'DIFFERENT'}"
+              f", card overlay vs card folded engines "
+              f"{'identical' if oracle == got['cuda'] else 'DIFFERENT'}",
+              flush=True)
+        if got["cpu"] != got["cuda"] or oracle != got["cuda"]:
+            fail(f"{small.name} personalised streams differ: cpu "
+                 f"{got['cpu']} cuda {got['cuda']} folded {oracle}")
+
+
+def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
+                cached_ref, tapgrads_ref, row_mask, n_valid, dev,
+                gen) -> dict:
+    """Phase 18 (b): kernels 2 and 4 at mixtral's block prefill (a GQA
+    group of 4), f32 at 1e-4 and bf16 under the per-slot gate, the paged
+    kernel equal to the cached one on the same rows; kernel 1 at both
+    models' tap groups, f32 at 1e-5 with the adapt task's padding rows
+    holding NaN.  Each timed beside its bound, its plain version and one
+    library call (SDPA, a page gather + SDPA, ``torch.einsum``).  Returns
+    the largest errors, keyed by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as kref
+
+    B, Sq, Hq, Hkv, D, Sk, nl = (MOE_BLOCK[k] for k in (
+        "B", "Sq", "Hq", "Hkv", "D", "Sk", "layers"))
+    qo = torch.tensor(Q_OFFSET, dtype=torch.int32, device=dev)
+    kl = torch.tensor(KV_LEN, dtype=torch.int32, device=dev)
+    mp = Sk // PAGE_SIZE
+    table = page_table(KV_LEN, PAGE_SIZE, mp, DEFAULT_PAGES, gen, dev)
+    worst = {"flash_cached": 0.0, "flash_paged": 0.0, "fisher": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
+        kp = fill_pages(torch.zeros((DEFAULT_PAGES, PAGE_SIZE, Hkv, D),
+                                    dtype=dtype, device=dev), k, table, KV_LEN)
+        vp = fill_pages(torch.zeros_like(kp), v, table, KV_LEN)
+        got = ops.flash_attention_cached(q, k, v, q_offset=qo, kv_len=kl,
+                                         causal=True)
+        pgot = ops.flash_attention_paged(q, kp, vp, table, q_offset=qo,
+                                         kv_len=kl)
+        want = cached_ref(q, k, v, q_offset=qo, kv_len=kl, causal=True)
+        pwant = kref.flash_attention_paged_ref(q, kp, vp, table,
+                                               q_offset=qo, kv_len=kl)
+        torch.cuda.synchronize()
+        tol = TOL[dname]
+        err = max_err(got, want, tol, f"flash_cached {dname} mixtral block")
+        perr = max_err(pgot, pwant, tol, f"flash_paged {dname} mixtral block")
+        bf16_gate(got, want, dname, "flash_cached mixtral block")
+        bf16_gate(pgot, pwant, dname, "flash_paged mixtral block")
+        same = torch.equal(pgot, got)
+        print(f"[moe-kernel] flash_cached / flash_paged {dname} at mixtral's "
+              f"block prefill (B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
+              f"Sk={Sk}): max abs err {err:.3g} / {perr:.3g} (tol {tol:g}"
+              f"{', per-slot bf16 gate' if dname == 'bfloat16' else ''}); "
+              f"paged {'equal to' if same else 'DIFFERS FROM'} cached on the "
+              f"same rows", flush=True)
+        if not same:
+            fail(f"flash_paged differs from flash_cached at mixtral's block "
+                 f"prefill ({dname})")
+        worst["flash_cached"] = max(worst["flash_cached"], err)
+        worst["flash_paged"] = max(worst["flash_paged"], perr)
+
+    # bf16 times, one buffer set a layer cycled (16 x 8 MiB of K and V)
+    bf = torch.bfloat16
+    q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(bf)
+    ks = torch.randn((nl, B, Sk, Hkv, D), generator=gen, device=dev).to(bf)
+    vs = torch.randn((nl, B, Sk, Hkv, D), generator=gen, device=dev).to(bf)
+    kps = torch.zeros((nl, DEFAULT_PAGES, PAGE_SIZE, Hkv, D), dtype=bf,
+                      device=dev)
+    vps = torch.zeros_like(kps)
+    for i in range(nl):
+        fill_pages(kps[i], ks[i], table, KV_LEN)
+        fill_pages(vps[i], vs[i], table, KV_LEN)
+    out = torch.empty_like(q)
+    c_entry, p_entry = flash_attention._entry(), flash_paged._entry()
+    stream = torch.cuda.current_stream().cuda_stream
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % nl
+        return it["i"]
+
+    def run_cached():
+        i = nxt()
+        rc = c_entry(q.data_ptr(), ks[i].data_ptr(), vs[i].data_ptr(),
+                     out.data_ptr(), qo.data_ptr(), kl.data_ptr(), B, Sq,
+                     Sk, Hq, Hkv, D, 1, 0, 1, stream)
+        if rc:
+            fail(f"flash_cached_fwd returned cudaError {rc}")
+
+    def run_paged():
+        i = nxt()
+        rc = p_entry(q.data_ptr(), kps[i].data_ptr(), vps[i].data_ptr(),
+                     out.data_ptr(), table.data_ptr(), qo.data_ptr(),
+                     kl.data_ptr(), B, Sq, Hq, Hkv, D, DEFAULT_PAGES,
+                     PAGE_SIZE, mp, 1, stream)
+        if rc:
+            fail(f"flash_paged_fwd returned cudaError {rc}")
+
+    pos = torch.arange(Sk, device=dev)
+    qpos = qo[:, None].long() + torch.arange(Sq, device=dev)[None, :]
+    mask = ((pos[None, None, :] < kl[:, None, None])
+            & (pos[None, None, :] <= qpos[..., None]))[:, None]
+    qt = q.transpose(1, 2)
+    rows_ok = (table >= 0).repeat_interleave(PAGE_SIZE, dim=1)
+    idx = table.long().clamp(min=0)
+
+    def run_sdpa():
+        i = nxt()
+        F.scaled_dot_product_attention(qt, ks[i].transpose(1, 2),
+                                       vs[i].transpose(1, 2),
+                                       attn_mask=mask, enable_gqa=True)
+
+    def run_gather_sdpa():
+        i = nxt()
+        kk = kps[i][idx].reshape(B, Sk, Hkv, D).transpose(1, 2)
+        vv = vps[i][idx].reshape(B, Sk, Hkv, D).transpose(1, 2)
+        F.scaled_dot_product_attention(
+            qt, kk, vv, attn_mask=mask & rows_ok[:, None, None],
+            enable_gqa=True)
+
+    def run_cached_plain():
+        i = nxt()
+        cached_ref(q, ks[i], vs[i], q_offset=qo, kv_len=kl, causal=True)
+
+    def run_paged_plain():
+        i = nxt()
+        kref.flash_attention_paged_ref(q, kps[i], vps[i], table,
+                                       q_offset=qo, kv_len=kl)
+
+    nbytes, nops = flash_work(Q_OFFSET, KV_LEN, Sq, Hq, Hkv, D, 2, 0)
+    times = {}
+    for what, run, lib, plain, extra in (
+            ("flash_cached", run_cached, run_sdpa, run_cached_plain, 0),
+            ("flash_paged", run_paged, run_gather_sdpa, run_paged_plain,
+             4 * table.numel())):
+        k_ms = time_ms(run, 4 * nl)
+        l_ms = time_ms(lib, 4 * nl)
+        p_ms = time_ms(plain, nl)
+        t_bytes = (nbytes + extra) / HBM_BYTES_PER_S
+        t_ops = nops / PEAK_OPS["bfloat16"]
+        times[what] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                           bound_ms=1e3 * max(t_bytes, t_ops))
+        print(f"[moe-time] {what} bf16 mixtral block prefill B={B} Sq={Sq} "
+              f"Hq={Hq} Hkv={Hkv} D={D} max_len={Sk}: kernel {k_ms:.4f} ms, "
+              f"bound {1e3 * max(t_bytes, t_ops):.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain "
+              f"{p_ms:.4f} ms, "
+              f"{'sdpa' if what == 'flash_cached' else 'page gather + sdpa'}"
+              f" {l_ms:.4f} ms", flush=True)
+    del ks, vs, kps, vps
+
+    # kernel 1 at the probe's new tap widths: experts, MLA and GQA heads,
+    # deepseek's dense-head d_ff
+    f_entry = fisher_kernel._tap_entry()
+    n_rows = row_mask.shape[0]
+    n_one = torch.full((1,), float(n_valid), device=dev)
+    scale = 1.0 / (2.0 * n_valid)
+    for arch, shapes in MOE_TAPS.items():
+        for nlay, c in shapes:
+            shape = (nlay, n_rows, c)
+            g = torch.randn(shape, generator=gen, device=dev)
+            gm = g.clone()
+            gm[:, row_mask == 0] = float("nan")
+            got = ops.fisher_tapgrads(gm, float(n_valid), row_mask)
+            want = tapgrads_ref(gm, float(n_valid), row_mask)
+            torch.cuda.synchronize()
+            err = max_err(got, want, FISHER_TOL["float32"],
+                          f"fisher_tapgrads f32 {arch} {shape}")
+            worst["fisher"] = max(worst["fisher"], err)
+            gs = [torch.randn(shape, generator=gen, device=dev)
+                  for _ in range(8)]
+            fout = torch.empty((nlay, c), device=dev)
+            it["i"] = 0
+
+            def next_g(gs=gs):
+                it["i"] = (it["i"] + 1) % len(gs)
+                return gs[it["i"]]
+
+            def run_fisher(shape=shape, fout=fout, next_g=next_g):
+                rc = f_entry(next_g().data_ptr(), row_mask.data_ptr(),
+                             n_one.data_ptr(), fout.data_ptr(), 1, shape[0],
+                             shape[1], shape[2], 0, stream, None)
+                if rc:
+                    fail(f"fisher_tapgrads_fwd returned cudaError {rc}")
+
+            def run_plain(next_g=next_g):
+                tapgrads_ref(next_g(), float(n_valid), row_mask)
+
+            def run_einsum(next_g=next_g):
+                x = next_g()
+                torch.einsum("lbc,lbc,b->lc", x, x, row_mask).mul_(scale)
+
+            f_ms = time_ms(run_fisher, 50)
+            p_ms = time_ms(run_plain, 10)
+            l_ms = time_ms(run_einsum, 20)
+            cells = nlay * c
+            f_bytes = 4 * (n_valid * cells + n_rows + 1 + cells)
+            f_ops = 3 * n_valid * cells
+            t_bytes = f_bytes / HBM_BYTES_PER_S
+            t_ops = f_ops / PEAK_OPS["float32"]
+            times[f"fisher {arch} {shape}"] = dict(
+                ms=f_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=1e3 * max(t_bytes, t_ops))
+            print(f"[moe-kernel] fisher_tapgrads f32 {arch} {shape} "
+                  f"({n_valid} of {n_rows} rows valid, the rest NaN): max "
+                  f"abs err {err:.3g} (tol {FISHER_TOL['float32']:g}); "
+                  f"kernel {f_ms:.4f} ms, bound "
+                  f"{1e3 * max(t_bytes, t_ops):.5f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain "
+                  f"{p_ms:.4f} ms, einsum {l_ms:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def moe_full(api, configs, ops, T, ServeEngine, Request, tree_leaves, dev,
+             arch: str) -> dict:
+    """Phase 18 (c): one model of the moe family at its published width in
+    bf16 (random weights from a seeded generator, depth cut to
+    MOE_LAYERS): TinyTrain on phase 6's episode shape under phase 6's
+    profile scaled to the width, ``fold_into`` an engine, phase 5's
+    traffic on contiguous and paged caches, and (mixtral) a rolling serve
+    past the window.  Returns the kernel launches of its main paths."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=MOE_LAYERS[arch])
+    nl = cfg.n_layers
+    bb = api.backbone("lm", cfg=cfg, batch_size=ADAPT["batch_size"],
+                      seq=ADAPT["seq"])
+    t0 = time.perf_counter()
+    session = api.TinyTrainSession(bb, max_way=ADAPT["max_way"], seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(session.params))
+    n_params = sum(t.numel() for t in tree_leaves(session.params))
+    task = api.sample_lm_task(np.random.default_rng(0), cfg.vocab,
+                              seq=ADAPT["seq"], max_way=ADAPT["task_way"],
+                              support_pad=ADAPT["pad"], query_pad=ADAPT["pad"])
+    # phase 6's profile scaled to this width: a unit's saved input grows
+    # with d_model
+    profile = api.DeviceProfile(name="edge-lm", mem_kb=4000,
+                                compute_frac=0.5).scaled(
+        mem=500 * cfg.d_model / 1536, compute=1.6)
+    groups = sum(len(grp) for grp in bb.make_taps(1, "cpu").values())
+    torch.cuda.empty_cache()  # earlier phases' cached blocks fragment it
+    base = peak_reset(dev)
+    others = base - weights  # what earlier phases still hold
+    total = torch.cuda.get_device_properties(0).total_memory
+    kernel_launches(ops, zero=True)
+    t0 = time.perf_counter()
+    try:
+        ad = session.adapt(task, profile, iters=ADAPT["iters"])
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as exc:
+        fail(f"{arch} at {nl} layers: the adapt ran out of the card's "
+             f"{total} B ({weights} B of weights, {others} B of other "
+             f"allocations); cut MOE_LAYERS: {exc}")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    counts = kernel_launches(ops)
+    fisher_n = counts["fisher_tapgrads.launches"] + counts["fisher.launches"]
+    losses = ad.losses
+    print(f"[moe-adapt] {arch} bf16 published width, {nl} of "
+          f"{configs.get_config(arch).n_layers} layers ({n_params} "
+          f"parameters, {weights} B of weights, initialised in "
+          f"{init_s:.1f} s), {profile.name} ({profile.budget().mem_bytes:.0f}"
+          f" B, compute {profile.compute_frac}): {ad.policy.describe()}",
+          flush=True)
+    print(f"[moe-adapt] {arch} fisher_seconds {ad.fisher_seconds:.4f}, "
+          f"train_seconds {ad.train_seconds:.4f} ({ADAPT['iters']} steps), "
+          f"adapt wall {wall:.4f} s, peak device memory {peak} B ({peak - base}"
+          f" B above the weights and {others} B of other allocations), "
+          f"host_transfers {ad.host_transfers:g}, "
+          f"fisher launches {fisher_n} ({groups} tap groups), losses "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    print(f"[moe-adapt] {arch} headroom at the peak: {total - peak} B of "
+          f"{total} B free of allocations, {total - reserved} B free of the "
+          f"allocator's reservation (peak reserved {reserved} B; gate "
+          f"{MOE_HEADROOM} B)", flush=True)
+    if total - peak < MOE_HEADROOM:
+        fail(f"{arch} at {nl} layers: the adapt's peak {peak} B leaves "
+             f"{total - peak} B of the card's {total} B, under the "
+             f"{MOE_HEADROOM} B margin; cut MOE_LAYERS")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{arch}: adaptation losses not finite: {losses}")
+    if ad.host_transfers != 2:
+        fail(f"{arch}: fused adapt made {ad.host_transfers} host transfers")
+    if fisher_n != groups:
+        fail(f"{arch}: the probe launched the Fisher kernel {fisher_n} "
+             f"times, not once per tap group ({groups})")
+    if ad.policy.n_units < 1:
+        fail(f"{arch}: the profile selected no unit")
+
+    launches = {"flash_cached": 0, "flash_paged": 0, "fisher": fisher_n}
+    served = {}
+    for what, kw in (("contiguous", {}),
+                     ("paged", dict(kv_paging=True, kv_page_size=PAGE_SIZE))):
+        eng = ServeEngine(cfg, session.params, slots=8, max_len=512,
+                          chunk=32, **kw)
+        ad.fold_into(eng)
+        eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
+                         max_new=2)])
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab, int(n)).astype(np.int32), max_new=16)
+            for i, n in enumerate(rng.integers(32, 257, 8))]
+        eng.tick_sync_debug = "error"
+        torch.cuda.synchronize()
+        kernel_launches(ops, zero=True)
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        counts = kernel_launches(ops)
+        rep, mem = eng.last_run_report, eng.memory_report()
+        new = sum(len(r.out) for r in reqs)
+        flash = (counts["flash_attention_cached.launches"]
+                 + counts["flash_attention_paged.launches"])
+        launches["flash_cached"] += counts["flash_attention_cached.launches"]
+        launches["flash_paged"] += counts["flash_attention_paged.launches"]
+        row = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.mla
+               else 2 * cfg.n_kv_heads * cfg.head_dim)
+        print(f"[moe-serve] {arch} bf16 {what}, 8 slots, max_len 512, chunk "
+              f"32, prefill_block {eng.prefill_block}: {len(reqs)} requests "
+              f"(prompts {sum(len(r.prompt) for r in reqs)} tokens), {new} "
+              f"new tokens in {swall:.3f} s = {new / swall:.2f} tok/s, "
+              f"{rep['ticks']} ticks ({rep['ticks_issued']} issued), "
+              f"{rep['host_syncs']} host syncs for {rep['chunks']} chunks, "
+              f"flash launches a live tick {flash / rep['ticks']:.3f} "
+              f"({counts['flash_attention_cached.launches']} cached, "
+              f"{counts['flash_attention_paged.launches']} paged), KV "
+              f"{mem['kv_bytes_per_stream']} B a stream ({row} values a row "
+              f"a layer), kv_cache_bytes {mem['kv_cache_bytes']}, outcomes "
+              f"{rep['outcomes']}", flush=True)
+        one_sync_a_chunk(rep, f"{arch} {what} serve")
+        bad = [(r.uid, r.outcome, len(r.out)) for r in reqs
+               if r.outcome != "done" or len(r.out) != 16]
+        if bad:
+            fail(f"{arch} {what}: requests not done with 16 tokens: {bad}")
+        kernel = ("flash_attention_cached" if what == "contiguous"
+                  else "flash_attention_paged")
+        n_k = counts[f"{kernel}.launches"]
+        if cfg.mla:
+            # MLA's cached attention is the absorbed einsum, as in the JAX
+            # package: no flash kernel on this path
+            if flash:
+                fail(f"{arch}: the MLA serve launched a flash kernel")
+        elif n_k <= 0 or n_k % nl or (what == "paged" and counts[
+                "flash_attention_cached.launches"]):
+            fail(f"{arch} {what}: {kernel} launches {n_k} (a positive "
+                 f"multiple of {nl} wanted), counts {counts}")
+        served[what] = [list(r.out) for r in reqs]
+        del eng
+    if served["paged"] != served["contiguous"]:
+        fail(f"{arch}: the paged serve's streams differ from the "
+             "contiguous one's")
+    print(f"[moe-serve] {arch}: the paged streams equal the contiguous "
+          f"ones over {len(served['paged'])} requests", flush=True)
+
+    if cfg.sliding_window:
+        R = MOE_ROLLING
+        eng = ServeEngine(cfg, session.params, slots=R["slots"],
+                          max_len=R["max_len"], chunk=R["chunk"])
+        rng = np.random.default_rng(5)
+        reqs = [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab, n).astype(np.int32), max_new=R["max_new"])
+            for i, n in enumerate(R["lens"])]
+        eng.tick_sync_debug = "error"
+        torch.cuda.synchronize()
+        kernel_launches(ops, zero=True)
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        rwall = time.perf_counter() - t0
+        counts = kernel_launches(ops)
+        rep = eng.last_run_report
+        rows = eng.caches["g0"]["attn"]["k"].shape[2]
+        new = sum(len(r.out) for r in reqs)
+        print(f"[moe-rolling] {arch} bf16, {R['slots']} slots, max_len "
+              f"{R['max_len']} over a {cfg.sliding_window}-row window, "
+              f"prompts {list(R['lens'])}: {new} new tokens in {rwall:.3f} s, "
+              f"{rep['ticks']} ticks ({rep['ticks_issued']} issued), "
+              f"{rep['host_syncs']} host syncs for {rep['chunks']} chunks, "
+              f"cache rows {rows}, outcomes {rep['outcomes']}, flash "
+              f"launches {counts['flash_attention_cached.launches']} (the "
+              f"rolling fold attends through plain torch, as the JAX "
+              f"package's dot_attention)", flush=True)
+        one_sync_a_chunk(rep, f"{arch} rolling serve")
+        if rows != cfg.sliding_window:
+            fail(f"{arch}: the rolling cache holds {rows} rows, not "
+                 f"{cfg.sliding_window}")
+        if not all(r.outcome == "done" and len(r.out) == R["max_new"]
+                   for r in reqs):
+            fail(f"{arch} rolling: {[(r.outcome, len(r.out)) for r in reqs]}")
+        del eng
+    del session, ad
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase18(api, configs, ops, T, ServeEngine, Request, DeltaSet,
+            SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
+            tree_leaves, flash_attention, flash_paged, fisher_kernel,
+            cached_ref, tapgrads_ref, dev, gen) -> dict:
+    """Phase 18, the moe family: (a) card against CPU on the smoke
+    configs, (b) kernels 1, 2 and 4 at the family's shapes, (c) the
+    full-width runs.  Returns the launches of the main paths by kernel and
+    the largest kernel errors of (b)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
+                    SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
+                    dev)
+    task = api.sample_lm_task(np.random.default_rng(0), 32000,
+                              seq=ADAPT["seq"], max_way=ADAPT["task_way"],
+                              support_pad=ADAPT["pad"], query_pad=ADAPT["pad"])
+    labels = torch.from_numpy(task.support["episode_labels"]).to(dev)
+    worst = moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
+                        cached_ref, tapgrads_ref, (labels >= 0).float(),
+                        task.n_support, dev, gen)
+    launches = {"flash_cached": 0, "flash_paged": 0, "fisher": 0}
+    for arch in MOE_LAYERS:
+        for k, n in moe_full(api, configs, ops, T, ServeEngine, Request,
+                             tree_leaves, dev, arch).items():
+            launches[k] += n
+    print(f"[phase18] {time.perf_counter() - t0:.1f} s; main-path launches "
+          f"{launches}; largest kernel errors {worst}", flush=True)
+    return {"launches": launches, "max_abs_err": worst}
+
+
 def main() -> int:
     try:
         import torch
@@ -1109,9 +1703,10 @@ def main() -> int:
           f"(compiled {built or 'none: cached'}; max {max(regs, default=0)} "
           f"registers/thread, {spills} bytes of spill stores)", flush=True)
 
+    gen = torch.Generator(device=dev).manual_seed(0)
+
     # -- kernel parity and timing -------------------------------------------
     B, Sq, Hq, Hkv, D, Sk = (MAIN[k] for k in ("B", "Sq", "Hq", "Hkv", "D", "Sk"))
-    gen = torch.Generator(device=dev).manual_seed(0)
     qo = torch.tensor(Q_OFFSET, dtype=torch.int32, device=dev)
     kl = torch.tensor(KV_LEN, dtype=torch.int32, device=dev)
     worst = 0.0
@@ -3425,6 +4020,14 @@ def main() -> int:
     if any(cnn_fleet_launches.values()):
         fail(f"the CNN fleet probe launched a kernel: {cnn_fleet_launches}")
     del session
+    torch.cuda.empty_cache()
+
+    # -- phase 18: the moe family (mixtral-8x7b, deepseek-v3-671b) ----------
+    moe = phase18(api, configs, ops, T, ServeEngine, Request, DeltaSet,
+                  SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
+                  tree_leaves, flash_attention, flash_paged, fisher_kernel,
+                  flash_attention_cached_ref, fisher_tapgrads_ref, dev, gen)
+    moe_launches = moe["launches"]
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -3440,21 +4043,23 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_cached.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
         "launches": (launches + int8_launches + adapt_flash_launches
-                     + pers_flash_launches + samp_launches),
+                     + pers_flash_launches + samp_launches
+                     + moe_launches["flash_cached"]),
         **flash,
     }, {
         "name": "flash_attention_paged",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_paged.cu",
         "replaces": "src/repro/kernels/flash_attention.py:157",
-        "launches": paged_launches + pressure_launches + fault_launches,
+        "launches": (paged_launches + pressure_launches + fault_launches
+                     + moe_launches["flash_paged"]),
         **paged,
     }, {
         "name": "fisher_tapgrads",
         "route": "cuda",
         "source": "src/repro_torch/csrc/fisher.cu",
         "replaces": "src/repro/kernels/fisher.py:66",
-        "launches": fisher_launches + m_fisher,
+        "launches": fisher_launches + m_fisher + moe_launches["fisher"],
         **fisher,
     }, {
         "name": "fisher_tapgrads_tasks",

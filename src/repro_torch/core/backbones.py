@@ -5,11 +5,13 @@ A :class:`Backbone` bundles what the sparse-update engine needs from a
 model family: unit costs (the Eq. 3 denominators), Fisher tap
 construction, tap-gradient -> Fisher reduction, delta initialisation and
 the feature/loss closures.  A layer group has a ``mixer`` tap group
-(attention or SSD heads) and, where its layers have an MLP, an ``ffn``
-group (d_ff neurons); mamba2's layers have none.  An edge CNN's unit is
-one conv layer with its output channels, tapped per layer as a (B, C_i)
-tensor (the layers' widths differ, so the taps do not stack).  The MoE,
-hybrid and encoder-decoder LMs arrive with ROADMAP queue 1, item 9.
+(attention, MLA or SSD heads) and, where its layers have an FFN, an
+``ffn`` group: d_ff neurons of an MLP (``dense_d_ff`` in a MoE model's
+dense head) or the experts of a MoE; mamba2's layers have none.  An edge
+CNN's unit is one conv layer with its output channels, tapped per layer
+as a (B, C_i) tensor (the layers' widths differ, so the taps do not
+stack).  The hybrid and encoder-decoder LMs arrive with ROADMAP queue 1,
+items 9 and 14.
 
 ``fisher_reduce_batch`` is Eq. 2 with a leading task axis, for a fleet's
 probe: an LM's (T, L, B, C) tap-gradient groups go through the Fisher
@@ -72,7 +74,7 @@ def _lm_group_kinds(cfg: ArchConfig, gi: int) -> Tuple[str, str, int, int]:
     T.check_supported(cfg)
     lid = T.stack_groups(cfg)[gi][1][0]
     fk = T.ffn_kind(cfg, lid)
-    fc = cfg.d_ff if fk == "mlp" else 0
+    fc = {"mlp": T.mlp_d_ff(cfg, lid), "moe": cfg.n_experts}.get(fk, 0)
     if T.block_kind(cfg, lid) == "ssm":
         return "ssm", fk, cfg.n_ssm_heads, fc
     return "attn", fk, cfg.n_heads, fc
@@ -156,7 +158,12 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
             st = params["stacks"][f"g{gi}"]
             mk, fk, _, _ = _lm_group_kinds(cfg, gi)
             for j, lid in enumerate(ids):
-                if mk == "attn":
+                if mk == "attn" and cfg.mla:
+                    h = cfg.n_heads
+                    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+                    out[(lid, "attn")] = host(
+                        sq(st["attn"]["w_uq"][j], (0, 2), (-1, h, qk)))
+                elif mk == "attn":
                     h, dh = cfg.n_heads, cfg.head_dim
                     nq = sq(st["attn"]["wq"][j], (0, 2), (-1, h, dh))
                     no = sq(st["attn"]["wo"][j], (1, 2), (h, dh, -1))
@@ -169,6 +176,9 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
                     mlp = st["mlp"]
                     out[(lid, "mlp")] = host(sq(mlp["w_up"][j], 0)
                                              + sq(mlp["w_down"][j], 1))
+                elif fk == "moe":
+                    out[(lid, "moe")] = host(sq(st["moe"]["w_up"][j],
+                                                (1, 2)))
         return out
 
     def init_deltas(policy: SparseUpdatePolicy, device: DeviceLike):

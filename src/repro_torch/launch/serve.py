@@ -22,6 +22,15 @@ arrive with later slices:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --preset full --adapt
 
+The moe family (``--arch mixtral-8x7b | deepseek-v3-671b``) runs every
+mode at the ``smoke`` and ``100m`` presets (its ``full`` presets do not
+fit one card; ``chip_smoke.py`` phase 18 runs them at their published
+widths with the depth cut); a ``--max-len`` above mixtral's window rolls
+its cache:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --preset 100m --adapt --paging
+
 With ``--personalise``, one probe adaptation fixes the policy, the engine
 keeps a per-slot delta arena, requests spread over ``--users`` users, and
 between chunks every user with enough finished streams is adapted on them

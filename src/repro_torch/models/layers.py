@@ -8,9 +8,17 @@ selected channel indices, as a tensor): the MLP's over d_ff neurons
 (``w_gate``/``w_up`` ``(D, K)``, ``w_down`` ``(K, D)``), attention's over
 query heads (``wq`` ``(D, K·Dh)``, ``wo`` ``(K·Dh, D)``), with the column
 math in ``models.overlay``.  The projections a serving overlay can
-replace (``wq``, ``wo`` and the MLP's) go through :func:`bmm`, which also
-takes per-slot weights.  MLA, MoE and cross-attention arrive with later
-slices.
+replace (``wq``, ``wo``, MLA's ``w_uq`` and the MLP's) go through
+:func:`bmm`, which also takes per-slot weights; the MoE's expert stacks
+take a per-slot ``(B, E, D, F)`` overlay through the per-row dispatch.
+MLA (deepseek-v3: a latent KV cache read in the absorbed form) and the
+MoE (sort-free capacity dispatch, a shared expert, the Switch aux loss)
+are here; cross-attention arrives with a later slice.
+
+A sliding-window config whose cache holds exactly the window rolls it:
+row ``len % window`` takes the next token, and a block prefill folds its
+tokens position by position (write, attend, advance), so a block that
+wraps never overwrites a row an earlier query of the block still reads.
 
 KV caches are updated **in place**: a per-layer cache holds views into the
 layer-stacked cache tensors, and the scatter writes land there, so a
@@ -205,6 +213,46 @@ def _scatter_block_rows(buf: torch.Tensor, vals: torch.Tensor,
     return buf
 
 
+def _write_token(ck: torch.Tensor, cv: torch.Tensor, k1: torch.Tensor,
+                 v1: torch.Tensor, pos: torch.Tensor,
+                 step_valid: Optional[torch.Tensor], n_new):
+    """Write one token a slot, ``k1``/``v1`` (B, ...), at row ``pos`` (B,)
+    of the caches ``ck``/``cv`` (B, S_max, ...), in place.  A slot masked
+    by ``step_valid`` rewrites the row it already holds.  Returns the
+    tokens each slot advances: ``n_new``, or the mask as int32."""
+    bidx = torch.arange(ck.shape[0], device=ck.device)
+    kr, vr = k1.to(ck.dtype), v1.to(cv.dtype)
+    if step_valid is not None:
+        m = step_valid.reshape((-1,) + (1,) * (kr.dim() - 1))
+        kr = torch.where(m, kr, ck[bidx, pos])
+        vr = torch.where(m, vr, cv[bidx, pos])
+        n_new = step_valid.to(torch.int32)
+    ck[bidx, pos] = kr
+    cv[bidx, pos] = vr
+    return n_new
+
+
+def _rolling_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   ck: torch.Tensor, cv: torch.Tensor, lens: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Block prefill into a rolling window cache, in place: the JAX
+    package's per-position fold.  Each position writes its valid token at
+    row ``cur % S_max``, attends to the buffer with ``kv_len = min(cur +
+    1, S_max)`` and advances ``cur``, exactly as token-by-token decode
+    does; a parallel write-then-attend would let a later token of a
+    wrapping block overwrite a row an earlier query still reads."""
+    s_max = ck.shape[1]
+    cur = lens
+    outs = []
+    for j in range(q.shape[1]):
+        _write_token(ck, cv, k[:, j], v[:, j], (cur % s_max).long(),
+                     valid[:, j], 0)
+        outs.append(dot_attention(q[:, j:j + 1], ck, cv, causal=False,
+                                  kv_len=torch.clamp(cur + 1, max=s_max)))
+        cur = cur + valid[:, j].to(cur.dtype)
+    return torch.cat(outs, dim=1)
+
+
 def _block_cached_attention(
     q: torch.Tensor,   # (B, S, H, D) query block
     ck: torch.Tensor,  # (B, S_max, Hkv, D) cache keys (block rows written)
@@ -328,11 +376,13 @@ def attention_apply(
     else:
         ck, cv, lens = cache["k"], cache["v"], cache["len"]
         s_max = ck.shape[1]
-        if cfg.sliding_window > 0 and s_max == cfg.sliding_window:
-            raise NotImplementedError(
-                "rolling sliding-window caches arrive with a later slice "
-                "(ROADMAP queue 1, item 9)")
-        if valid is not None:
+        # the JAX package's condition: a cache of exactly the window rolls
+        rolling = cfg.sliding_window > 0 and s_max == cfg.sliding_window
+        if valid is not None and rolling:
+            out = _rolling_block(q, k, v, ck, cv, lens, valid)
+            new_cache = {"k": ck, "v": cv,
+                         "len": lens + valid.sum(dim=1, dtype=torch.int32)}
+        elif valid is not None:
             # block prefill: per-slot scatter of the valid rows only (the
             # serving engine's submit() validation guarantees they fit)
             n_new = valid.sum(dim=1, dtype=torch.int32)
@@ -343,19 +393,15 @@ def attention_apply(
         else:
             n_new = s
             if s == 1:
-                pos = lens.clamp(max=s_max - 1).long()
-                bidx = torch.arange(b, device=x.device)
-                kr, vr = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
-                if step_valid is not None:
-                    # a masked slot rewrites the row it already holds
-                    m = step_valid[:, None, None]
-                    kr = torch.where(m, kr, ck[bidx, pos])
-                    vr = torch.where(m, vr, cv[bidx, pos])
-                    n_new = step_valid.to(torch.int32)
-                ck[bidx, pos] = kr
-                cv[bidx, pos] = vr
+                pos = (lens % s_max if rolling
+                       else lens.clamp(max=s_max - 1)).long()
+                n_new = _write_token(ck, cv, k[:, 0], v[:, 0], pos,
+                                     step_valid, n_new)
             else:  # batch-aligned prefill write, start clamped to fit
-                start = lens[0].clamp(0, s_max - s).long()
+                # (the JAX package's dynamic_update_slice clamps the
+                # start to fit, a rolling one included)
+                start = (lens[0] % s_max if rolling else lens[0]).clamp(
+                    0, s_max - s).long()
                 rows = start + torch.arange(s, device=x.device)
                 ck[:, rows] = k.to(ck.dtype)
                 cv[:, rows] = v.to(cv.dtype)
@@ -368,3 +414,324 @@ def attention_apply(
     if delta is not None:
         y = OV.delta_in_rows(y, out_flat, delta["wo"], cols)
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (deepseek-v3): low-rank latent KV + decoupled RoPE
+# ---------------------------------------------------------------------------
+
+
+def mla_delta_init(cfg, n_sel_heads: int, dtype: torch.dtype,
+                   device) -> Params:
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "w_uq": torch.zeros((cfg.q_lora_rank, n_sel_heads * qk), dtype=dtype,
+                            device=device),
+        "wo": torch.zeros((n_sel_heads * cfg.v_head_dim, cfg.d_model),
+                          dtype=dtype, device=device),
+    }
+
+
+def mla_apply(
+    p: Params,
+    x: torch.Tensor,
+    cfg,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Params] = None,
+    valid: Optional[torch.Tensor] = None,
+    step_valid: Optional[torch.Tensor] = None,
+    delta: Optional[Params] = None,
+    head_idx: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """MLA forward, as the JAX package's ``mla_apply``.  Without a cache
+    it materialises per-head K/V (query/key dim ``qk_nope + qk_rope``,
+    value dim ``v_head_dim``) and runs :func:`dot_attention`.  With one it
+    writes the compressed latent rows (``{"ckv": (B, S, kv_lora_rank),
+    "krope": (B, S, qk_rope_dim), "len"}``, or the same two as page
+    stores with a ``page_table``) in place and attends in the *absorbed*
+    form: ``W_uk`` folds into the query, the logits against the latent
+    cache are float32, and ``W_uv`` applies after the weighted sum.
+    ``valid`` (B, S) is block prefill (per-slot writes at each cursor, a
+    per-query causal mask); ``step_valid`` (B,) masks slots of a
+    single-token decode, which then write no row and keep their length.
+    The latent cache never rolls.  Rows at or past ``kv_len`` are zeroed
+    before the weighted sum, as :func:`dot_attention` does, so a stale
+    non-finite row cannot reach a live stream."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"])
+    q = bmm(cq, p["w_uq"])
+    if delta is not None:
+        q = OV.delta_out_cols(q, cq, delta["w_uq"],
+                              OV.head_cols(head_idx, dn + dr))
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+
+    ckv = rms_norm(x @ p["w_dkv"], p["kv_norm"])
+    k_rope = (x @ p["w_kr"]).reshape(b, s, 1, dr)
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    new_cache = None
+    if cache is None:
+        k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, dn)
+        v = (ckv @ p["w_uv"]).reshape(b, s, h, dv)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+        out = dot_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                            causal=True)
+        out_flat = out.reshape(b, s, h * dv)
+    else:
+        lens = cache["len"]
+        kr1 = k_rope[:, :, 0, :]
+        if "page_table" in cache:
+            from ..serving import paging as PG
+
+            spec = PG.spec_from(cache)
+            table, s_max = cache["page_table"], spec.cap
+            if valid is not None:
+                vmask = valid
+            elif step_valid is not None:
+                vmask = step_valid[:, None].expand(b, s)
+            else:
+                vmask = torch.ones((b, s), dtype=torch.bool, device=x.device)
+            n_new = vmask.sum(dim=1, dtype=torch.int32)
+            cst = PG.write_rows(cache["ckv"], table, spec, lens, ckv, vmask)
+            rst = PG.write_rows(cache["krope"], table, spec, lens, kr1, vmask)
+            new_cache = {"ckv": cst, "krope": rst, "page_table": table,
+                         "len": lens + n_new}
+            rdt = x.dtype if spec.int8 else cst["pages"].dtype
+            cckv = PG.read_rows(cst, table, spec, rdt)
+            ckr = PG.read_rows(rst, table, spec, rdt)
+            kv_len = torch.clamp(lens + n_new, max=s_max)
+        else:
+            cckv, ckr = cache["ckv"], cache["krope"]
+            s_max = cckv.shape[1]
+            if valid is not None:
+                n_new = valid.sum(dim=1, dtype=torch.int32)
+                _scatter_block_rows(cckv, ckv, lens, valid)
+                _scatter_block_rows(ckr, kr1, lens, valid)
+                kv_len = torch.clamp(lens + n_new, max=s_max)
+            elif s == 1:
+                pos = lens.clamp(max=s_max - 1).long()
+                n_new = _write_token(cckv, ckr, ckv[:, 0], kr1[:, 0], pos,
+                                     step_valid, s)
+                kv_len = torch.clamp(lens + s, max=s_max)
+            else:  # batch-aligned write, start clamped to fit
+                n_new = s
+                start = lens[0].clamp(0, s_max - s).long()
+                rows = start + torch.arange(s, device=x.device)
+                cckv[:, rows] = ckv.to(cckv.dtype)
+                ckr[:, rows] = kr1.to(ckr.dtype)
+                kv_len = torch.clamp(lens + s, max=s_max)
+            new_cache = {"ckv": cckv, "krope": ckr, "len": lens + n_new}
+        # absorbed attention: W_uk folds into the query, (B, S, H, r)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope,
+                             p["w_uk"].reshape(r, h, dn))
+        logits = (torch.einsum("bshr,btr->bhst", q_lat.float(),
+                               cckv.float())
+                  + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                                 ckr.float())) * scale
+        tpos = torch.arange(s_max, device=x.device)
+        seen = tpos[None, :] < kv_len[:, None]             # (B, T)
+        mask = seen[:, None, None, :]
+        if valid is not None:
+            # query j attends rows at positions <= lens + j (rows are
+            # positions here: the latent cache never rolls)
+            qpos = lens[:, None] + torch.arange(s, device=x.device)[None, :]
+            mask = mask & (tpos[None, None, None, :]
+                           <= qpos[:, None, :, None])
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        w = torch.softmax(logits, dim=-1)
+        cv = torch.where(seen[:, :, None], cckv, torch.zeros_like(cckv))
+        o_lat = torch.einsum("bhst,btr->bshr", w.to(cv.dtype), cv)
+        out = torch.einsum("bshr,rhd->bshd", o_lat,
+                           p["w_uv"].reshape(r, h, dv))
+        out_flat = out.reshape(b, s, h * dv)
+
+    y = bmm(out_flat, p["wo"])
+    if delta is not None:
+        y = OV.delta_in_rows(y, out_flat, delta["wo"],
+                             OV.head_cols(head_idx, dv))
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (sort-free capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_delta_init(cfg, n_sel_experts: int, dtype: torch.dtype,
+                   device) -> Params:
+    d, f = cfg.d_model, cfg.d_expert
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {"w_gate": z(n_sel_experts, d, f), "w_up": z(n_sel_experts, d, f),
+            "w_down": z(n_sel_experts, f, d)}
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of the last axis, largest first and equal values
+    by lower index, as ``lax.top_k`` orders them (``torch.topk`` promises
+    no order among ties, and float32 router probabilities of bf16 logits
+    tie often): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(logits: torch.Tensor, e: int, k: int):
+    """Router softmax -> (probs, normalised gates, selected experts, the
+    Switch load-balance aux) over the last axis of float32 ``logits``."""
+    probs = torch.softmax(logits, dim=-1)
+    gate, sel = top_k(probs, k)
+    gate = gate / gate.sum(dim=-1, keepdim=True)
+    experts = torch.arange(e, device=logits.device)
+    density = (sel[..., 0].reshape(-1, 1) == experts).float().mean(dim=0)
+    aux = e * torch.sum(density * probs.reshape(-1, e).mean(dim=0))
+    return gate, sel, aux
+
+
+def _queue_slots(sel: torch.Tensor, e: int, cap: int):
+    """Each (token, choice)'s slot in its expert's queue: the cumsum rank,
+    token-major and choice-minor, along axis -2 of the flattened choices.
+    ``sel`` (..., T, K) -> (slot (..., T*K), keep, flat_sel), the dropped
+    choices (rank >= cap) at the trash slot ``e * cap``.  No one-hot of
+    ``F.one_hot`` (it reads its input's range on the host)."""
+    flat_sel = sel.reshape(*sel.shape[:-2], -1)
+    onehot = (flat_sel[..., None]
+              == torch.arange(e, device=sel.device)).to(torch.int32)
+    pos = ((onehot.cumsum(dim=-2) - 1) * onehot).sum(dim=-1)
+    keep = pos < cap
+    slot = torch.where(keep, flat_sel * cap + pos,
+                       torch.full_like(pos, e * cap))
+    return slot, keep, flat_sel
+
+
+def _expert_ffn(buf: torch.Tensor, p: Params, delta: Optional[Params],
+                expert_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """SwiGLU of every expert queue of ``buf`` (B, E, C, D) against shared
+    (E, D, F) or per-slot (B, E, D, F) weights; with ``delta``, the K
+    selected experts' queues run again with their delta added (the JAX
+    package's form: the base products are reused, the down projection
+    split)."""
+    g = torch.matmul(buf, p["w_gate"])
+    u = torch.matmul(buf, p["w_up"])
+    y = torch.matmul(F.silu(g) * u, p["w_down"])
+    if delta is None:
+        return y
+    dt = buf.dtype
+    xs = buf.index_select(1, expert_idx)
+    g_full = g.index_select(1, expert_idx) + torch.matmul(
+        xs, delta["w_gate"].to(dt))
+    u_full = u.index_select(1, expert_idx) + torch.matmul(
+        xs, delta["w_up"].to(dt))
+    h_sel = F.silu(g_full) * u_full
+    w_down = p["w_down"].index_select(p["w_down"].dim() - 3, expert_idx)
+    y_sel = (torch.matmul(h_sel, w_down)
+             + torch.matmul(h_sel, delta["w_down"].to(dt)))
+    return y.index_copy(1, expert_idx, y_sel)
+
+
+def moe_apply(
+    p: Params,
+    x: torch.Tensor,
+    cfg,
+    *,
+    delta: Optional[Params] = None,
+    expert_idx: Optional[torch.Tensor] = None,
+    tap: Optional[torch.Tensor] = None,
+    drop_free: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based token dispatch -> batched expert FFN -> combine, the
+    JAX package's ``moe_apply``.  Returns (output, Switch aux loss).
+
+    One queue over all tokens: a (token, choice) takes the next slot of
+    its expert's queue (cumsum rank, token-major); past the capacity it
+    parks in a trash slot and contributes nothing.  ``drop_free`` sizes
+    every queue for the worst case (T: ``top_k`` picks distinct experts,
+    so one expert sees at most one choice a token), the serving contract:
+    a stream must not depend on which tokens share its dispatch.
+    Training keeps the capped queue ``max(int(cf * T * K / E), 4)``.
+    ``tap`` (B, E) scales each gathered (sample, expert) row: the probe's
+    Eq. 2 inner sum.  ``delta`` holds the K selected experts' FFN deltas
+    (``expert_idx``).  Per-slot expert weights (B, E, D, F), the serving
+    overlay, take the per-row dispatch (:func:`_moe_apply_rows`); the
+    global queue is that dispatch over one row of all B * S tokens (both
+    capacities agree at one row)."""
+    if p["w_gate"].dim() == 4:
+        return _moe_apply_rows(p, x, cfg, delta=delta,
+                               expert_idx=expert_idx, tap=tap,
+                               drop_free=drop_free)
+    b, s, d = x.shape
+    if tap is not None:
+        tap = tap[:, None].expand(b, s, tap.shape[-1]).reshape(1, b * s, -1)
+    y, aux = _moe_apply_rows(p, x.reshape(1, b * s, d), cfg, delta=delta,
+                             expert_idx=expert_idx, tap=tap,
+                             drop_free=drop_free)
+    return y.reshape(b, s, d), aux
+
+
+def _moe_apply_rows(
+    p: Params,
+    x: torch.Tensor,
+    cfg,
+    *,
+    delta: Optional[Params] = None,
+    expert_idx: Optional[torch.Tensor] = None,
+    tap: Optional[torch.Tensor] = None,
+    drop_free: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-batch-row MoE dispatch, the JAX package's ``_moe_apply_rows``:
+    each row has its own expert queues of capacity ``S`` (drop-free) or
+    ``max(4, int(cf * S * K / E))``, so a slot's tokens meet its own
+    expert stack when the weights carry a slot axis (B, E, D, F).  At
+    drop-free capacities it computes what the global dispatch does.
+    ``tap`` is (B, E), or (B, S, E) with a row per token."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    gate, sel, aux = _route((x @ p["router"]).float(), e, k)  # (b, s, k)
+    cap = s if drop_free else max(4, int(cfg.capacity_factor * s * k / e))
+    slot, keep, flat_sel = _queue_slots(sel, e, cap)          # (b, s*k)
+
+    # invert slot -> token; the dropped choices all land on the trash
+    # slot, which no kept row reads
+    tok = (torch.arange(s * k, device=x.device) // k).expand(b, s * k)
+    bidx = torch.arange(b, device=x.device)[:, None]
+    slot_tok = torch.zeros((b, e * cap + 1), dtype=torch.long,
+                           device=x.device).index_put_((bidx, slot), tok)
+    filled = torch.zeros((b, e * cap + 1), dtype=torch.bool,
+                         device=x.device).index_put_(
+        (bidx, slot), torch.ones_like(keep))
+    # indexing, not ``gather``: gather's backward keeps its whole source
+    # (the (E * cap, D) expert outputs of every layer), indexing only the
+    # indices
+    buf = torch.where(filled[:, :e * cap, None], x[bidx, slot_tok[:, :e * cap]],
+                      x.new_zeros(()))
+    y_buf = _expert_ffn(buf.reshape(b, e, cap, d), p, delta, expert_idx)
+
+    gathered = y_buf.reshape(b, e * cap, d)[bidx, slot.clamp(max=e * cap - 1)]
+    gathered = torch.where(keep[..., None], gathered,
+                           x.new_zeros(()))
+    if tap is not None:
+        if tap.dim() == 2:
+            tap = tap[:, None].expand(b, s, tap.shape[-1])
+        tap_val = tap.gather(2, sel).reshape(b, s * k)
+        gathered = gathered * tap_val[..., None].to(gathered.dtype)
+    y = (gathered.reshape(b, s, k, d) * gate[..., None].to(x.dtype)).sum(dim=2)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x.reshape(b * s, d),
+                          "swiglu").reshape(b, s, d)
+    return y, aux
+
+
+OV.set_delta_init("mla", lambda cfg, lid, k, dtype, device: mla_delta_init(
+    cfg, k, dtype, device))
+OV.set_delta_init("moe", lambda cfg, lid, k, dtype, device: moe_delta_init(
+    cfg, k, dtype, device))

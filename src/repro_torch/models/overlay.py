@@ -1,25 +1,31 @@
-"""Channel deltas of the dense unit kinds: the port of
+"""Channel deltas of every LM unit kind the port runs: the port of
 ``repro.models.overlay``.
 
 A TinyTrain delta edits a few columns or rows of a weight matrix,
 ``W ⊕ scatter(ΔW, idx)``.  The column math lives here once: the
-adaptation forward (``layers.attention_apply`` / ``mlp_apply``) adds the
-delta's contribution at the selected columns, and :func:`fold_deltas`
-adds the delta into a serving copy of the weights.
+adaptation forward (``layers.attention_apply`` / ``mla_apply`` /
+``mlp_apply`` / ``moe_apply``) adds the delta's contribution at the
+selected columns, and :func:`fold_deltas` adds the delta into a serving
+copy of the weights.
 
 Per edited weight, ``mode`` says what the selected channels index:
 ``"out"`` output columns (``ΔW`` is ``(D, K)``, added at ``W[:, cols]``),
-``"in"`` input rows (``ΔW`` is ``(K, D)``, added at ``W[cols, :]``).  An
-attention head expands to its ``head_dim`` contiguous columns, an SSD head
-to its ``ssm_head_dim``.
+``"in"`` input rows (``ΔW`` is ``(K, D)``, added at ``W[cols, :]``),
+``"lead"`` the leading axis (MoE experts: ``ΔW`` is ``(K, D, F)``, added
+at ``W[idx]``).  A head expands to its contiguous columns: ``head_dim``
+for attention, ``qk_nope + qk_rope`` (``w_uq``) and ``v_head_dim``
+(``wo``) for MLA, ``ssm_head_dim`` for an SSD head.  A policy names MLA's
+heads ``"attn"``; :func:`resolve_kind` maps them to ``"mla"`` on an MLA
+config, as the JAX package does.
 
 The serving engine's per-slot overlay (:func:`slot_params`) gives every
 slot its own effective weights ``W ⊕ scatter(ΔW_b, idx_b)`` through the
 same scatter-add as :func:`fold_deltas` (:func:`_add_at`), so a slot
 serving a user's deltas computes with exactly the weights a folded copy
-holds.  The SSD kind (``"ssm"``) folds but has no per-slot overlay yet
-(ROADMAP queue 1, item 15.2); the MLA, MoE and cross-attention kinds arrive
-with item 9.
+holds; a MoE unit's overlay is the slot's whole expert stack ``(B, E, D,
+F)``.  The SSD kind (``"ssm"``) folds but has no per-slot overlay yet
+(ROADMAP queue 1, item 15.2); the cross-attention kind arrives with item
+9.
 """
 from __future__ import annotations
 
@@ -51,16 +57,49 @@ def delta_in_rows(y: torch.Tensor, h: torch.Tensor, dw: torch.Tensor,
     return y + h.index_select(-1, idx) @ dw.to(h.dtype)
 
 
-# kind -> (param sub-dict, ((delta name, mode, channels are heads), ...));
-# edits named in a delta pack but absent from it (w_gate of a plain-GELU
-# MLP) are skipped
-EDITS: Dict[str, Tuple[str, Tuple[Tuple[str, str, bool], ...]]] = {
-    "attn": ("attn", (("wq", "out", True), ("wo", "in", True))),
-    "mlp": ("mlp", (("w_gate", "out", False), ("w_up", "out", False),
-                    ("w_down", "in", False))),
-    "ssm": ("ssm", (("w_z", "out", True), ("w_x", "out", True),
-                    ("w_out", "in", True))),
+def _head_dim(cfg) -> int:
+    return cfg.head_dim
+
+
+def _qk_dim(cfg) -> int:
+    return cfg.qk_nope_dim + cfg.qk_rope_dim
+
+
+def _v_dim(cfg) -> int:
+    return cfg.v_head_dim
+
+
+def _ssm_dim(cfg) -> int:
+    return cfg.ssm_head_dim
+
+
+# kind -> (param sub-dict, ((delta name, mode, head width or None), ...)):
+# the head width expands a channel to its columns (None: a channel is one
+# column, row or expert); edits named in a delta pack but absent from it
+# (w_gate of a plain-GELU MLP) are skipped
+EDITS: Dict[str, Tuple[str, Tuple[Tuple[str, str, Any], ...]]] = {
+    "attn": ("attn", (("wq", "out", _head_dim), ("wo", "in", _head_dim))),
+    "mla": ("attn", (("w_uq", "out", _qk_dim), ("wo", "in", _v_dim))),
+    "mlp": ("mlp", (("w_gate", "out", None), ("w_up", "out", None),
+                    ("w_down", "in", None))),
+    "moe": ("moe", (("w_gate", "lead", None), ("w_up", "lead", None),
+                    ("w_down", "lead", None))),
+    "ssm": ("ssm", (("w_z", "out", _ssm_dim), ("w_x", "out", _ssm_dim),
+                    ("w_out", "in", _ssm_dim))),
 }
+
+
+def resolve_kind(cfg, kind: str) -> str:
+    """A policy's unit kind -> its edits' key: attention heads are MLA's
+    on an MLA config."""
+    if kind == "attn" and getattr(cfg, "mla", False):
+        return "mla"
+    return kind
+
+
+def _cols(cfg, width, idx: torch.Tensor) -> torch.Tensor:
+    return idx if width is None else head_cols(idx, width(cfg))
+
 
 # kind -> delta_init(cfg, layer_id, n_channels, dtype, device), for kinds
 # whose shapes live in their model module (registered there at import)
@@ -73,21 +112,23 @@ def set_delta_init(kind: str, fn: Callable[..., Params]) -> None:
     _DELTA_INITS[kind] = fn
 
 
-def _edits(kind: str):
+def _edits(cfg, kind: str):
     try:
-        return EDITS[kind]
+        return EDITS[resolve_kind(cfg, kind)]
     except KeyError:
         raise NotImplementedError(
-            f"unit kind {kind!r}: only the dense kinds {sorted(EDITS)} are "
-            "ported; the others arrive with ROADMAP queue 1, item 9") from None
+            f"unit kind {kind!r}: only the kinds {sorted(EDITS)} are "
+            "ported; cross-attention arrives with ROADMAP queue 1, item 9"
+        ) from None
 
 
 def _add_at(w: torch.Tensor, dw: torch.Tensor, cols: torch.Tensor,
             mode: str) -> None:
     """``w[b] ⊕= scatter(dw[b], cols[b])`` for every b of the leading axis,
     in place and in ``w``'s dtype: ``"out"`` adds dw (N, D, K) at columns,
-    ``"in"`` adds dw (N, K, D) at rows.  The one scatter-add of the fold
-    and the per-slot overlay."""
+    ``"in"`` adds dw (N, K, D) at rows and ``"lead"`` dw (N, K, ...) at
+    the second axis (the experts).  The one scatter-add of the fold and
+    the per-slot overlay."""
     b = torch.arange(w.shape[0], device=w.device)[:, None]
     dw = dw.to(w.dtype)
     if mode == "out":
@@ -99,7 +140,8 @@ def _add_at(w: torch.Tensor, dw: torch.Tensor, cols: torch.Tensor,
 def delta_init(cfg, layer_id: int, kind: str, n_channels: int,
                dtype: torch.dtype, device) -> Params:
     """Zero delta pack for one selected unit."""
-    _edits(kind)
+    _edits(cfg, kind)
+    kind = resolve_kind(cfg, kind)
     if kind in _DELTA_INITS:
         return _DELTA_INITS[kind](cfg, layer_id, n_channels, dtype, device)
 
@@ -132,10 +174,10 @@ def fold_deltas(cfg, params: Any, deltas: Any, policy) -> Any:
     copied = set()
     for u in policy.units:
         gi, j = where[u.layer]
-        key, edits = _edits(u.kind)
+        key, edits = _edits(cfg, u.kind)
         sub = out["stacks"][f"g{gi}"][key]
         d = deltas[f"L{u.layer}"][u.kind]
-        for name, mode, heads in edits:
+        for name, mode, width in edits:
             if name not in d:
                 continue
             if (gi, key, name) not in copied:
@@ -144,9 +186,8 @@ def fold_deltas(cfg, params: Any, deltas: Any, policy) -> Any:
             w = sub[name]
             idx = torch.as_tensor(np.asarray(u.channels, np.int64),
                                   device=w.device)
-            hd = cfg.ssm_head_dim if u.kind == "ssm" else cfg.head_dim
-            cols = head_cols(idx, hd) if heads else idx
-            _add_at(w[j:j + 1], d[name].to(w.device)[None], cols[None], mode)
+            _add_at(w[j:j + 1], d[name].to(w.device)[None],
+                    _cols(cfg, width, idx)[None], mode)
     return out
 
 
@@ -160,20 +201,21 @@ def slot_params(cfg, kind: str, params: Params, d_stack: Params,
     ``idx_stack`` the slot-stacked channel indices (B, K).  Returns a copy
     of ``params`` in which every edited weight gains a leading slot axis:
     ``W_eff[b] = W ⊕ scatter(ΔW_b, cols(idx_b))``, the scatter-add
-    :func:`fold_deltas` performs.  A zero row gives ``W`` itself."""
+    :func:`fold_deltas` performs.  A zero row gives ``W`` itself.  ``kind``
+    is the policy's (``"attn"`` resolves to MLA's edits on an MLA
+    config)."""
     if kind == "ssm":
         raise NotImplementedError(
             "the per-slot delta overlay of SSD heads arrives with ROADMAP "
             "queue 1, item 15.2 (online personalisation of the ssm family)")
-    _, edits = _edits(kind)
+    _, edits = _edits(cfg, kind)
     out = dict(params)
     idx = idx_stack.long()
-    for name, mode, heads in edits:
+    for name, mode, width in edits:
         if name not in d_stack:
             continue
         w = params[name]
         w_eff = w.expand(idx.shape[0], *w.shape).clone()
-        cols = head_cols(idx, cfg.head_dim) if heads else idx
-        _add_at(w_eff, d_stack[name], cols, mode)
+        _add_at(w_eff, d_stack[name], _cols(cfg, width, idx), mode)
         out[name] = w_eff
     return out

@@ -1,4 +1,4 @@
-"""The decoder LM (dense and ssm families): the port of
+"""The decoder LM (dense, moe and ssm families): the port of
 ``repro.models.transformer``.
 
 Parameters are nested dicts of tensors in the JAX package's layout: layers
@@ -26,9 +26,19 @@ Modes of :func:`forward_hidden`, as in the JAX package:
 
 The ssm family (mamba2) stacks ``models.ssm`` blocks with no FFN: its
 selectable unit is the SSD block, channels its SSD heads, and its cache
-per slot is a conv window and a (H, P, N) state.  MoE, MLA, hybrid,
-encoder-decoder and VLM families and the remat option arrive with later
-slices (ROADMAP queue 1, item 9).
+per slot is a conv window and a (H, P, N) state.
+
+The moe family: mixtral-8x7b's layers are attention with a sliding
+window and a MoE FFN (units ``attn`` over heads, ``moe`` over experts);
+its cache rolls once ``max_len`` passes the window.  deepseek-v3's are
+MLA (its heads are the ``attn`` unit, its cache the compressed latent)
+over ``moe_start_layer`` dense-head MLP layers of ``dense_d_ff`` and MoE
+layers with a shared expert; its MTP head (``params["mtp"]``: a
+projection, one block of the last layer's kind, a norm) adds ``0.1 x``
+its loss to ``lm_loss``, and the MoE aux adds ``0.01 x``.  The serving
+programs run the MoE drop-free (``drop_free``), training capped.  The
+hybrid, encoder-decoder and VLM families and the remat option arrive with
+later slices (ROADMAP queue 1, items 9 and 14).
 """
 from __future__ import annotations
 
@@ -73,7 +83,7 @@ class UnitDesc:
     """One selectable unit: (layer, kind) with its channel axis size."""
 
     layer: int
-    kind: str  # mlp | attn | ssm
+    kind: str  # mlp | attn | moe | ssm
     n_channels: int
     n_params: int
     macs_per_token: int
@@ -85,18 +95,47 @@ def unit_descs(cfg: ArchConfig) -> List[UnitDesc]:
     out: List[UnitDesc] = []
     d = cfg.d_model
     for i in range(cfg.n_layers):
-        if block_kind(cfg, i) == "ssm":
+        bk, fk = block_kind(cfg, i), ffn_kind(cfg, i)
+        if bk == "ssm":
             di, n = cfg.d_inner, cfg.ssm_state
             np_ = d * (2 * di + 2 * n + cfg.n_ssm_heads) + di * d
             out.append(UnitDesc(i, "ssm", cfg.n_ssm_heads, np_, np_))
+        elif bk == "mla":
+            np_ = (d * cfg.q_lora_rank
+                   + cfg.q_lora_rank * cfg.n_heads
+                   * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+                   + d * cfg.kv_lora_rank
+                   + cfg.kv_lora_rank * cfg.n_heads
+                   * (cfg.qk_nope_dim + cfg.v_head_dim)
+                   + d * cfg.qk_rope_dim
+                   + cfg.n_heads * cfg.v_head_dim * d)
+            out.append(UnitDesc(i, "attn", cfg.n_heads, np_, np_))
         else:
             np_ = d * (cfg.q_dim * 2 + cfg.kv_dim * 2)
             out.append(UnitDesc(i, "attn", cfg.n_heads, np_, np_))
-        if ffn_kind(cfg, i) == "mlp":
+        if fk == "mlp":
+            f = mlp_d_ff(cfg, i)
             mult = 3 if cfg.act in ("swiglu", "geglu") else 2
-            np_ = mult * d * cfg.d_ff
-            out.append(UnitDesc(i, "mlp", cfg.d_ff, np_, np_))
+            np_ = mult * d * f
+            out.append(UnitDesc(i, "mlp", f, np_, np_))
+        elif fk == "moe":
+            np_ = cfg.n_experts * 3 * d * cfg.d_expert
+            macs = cfg.top_k * 3 * d * cfg.d_expert  # the active experts'
+            out.append(UnitDesc(i, "moe", cfg.n_experts, np_, macs))
     return out
+
+
+def mlp_d_ff(cfg: ArchConfig, layer: int) -> int:
+    """d_ff of a layer's MLP: ``dense_d_ff`` in a MoE model's dense head."""
+    if cfg.n_experts and layer < cfg.moe_start_layer:
+        return cfg.dense_d_ff
+    return cfg.d_ff
+
+
+def cache_kind(cfg: ArchConfig, layer: int) -> str:
+    """Key of a layer's serving cache: ``"ssm"``, else ``"attn"`` (MLA's
+    latent cache included, as in the JAX package)."""
+    return "ssm" if block_kind(cfg, layer) == "ssm" else "attn"
 
 
 def stack_groups(cfg: ArchConfig) -> List[Tuple[str, List[int]]]:
@@ -123,10 +162,10 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: hybrid layers (zamba2's shared attention block) "
             "arrive with ROADMAP queue 1, item 9 (the LM model stack)")
-    if cfg.family not in ("dense", "ssm") or cfg.mla or cfg.n_experts:
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and ssm families run in the port; "
-            f"{cfg.family} layers arrive with ROADMAP queue 1, item 9 "
+            f"{cfg.name}: only the dense, moe and ssm families run in the "
+            f"port; {cfg.family} layers arrive with ROADMAP queue 1, item 9 "
             "(the LM model stack)")
 
 
@@ -152,6 +191,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
 
     def dense(*shape):  # (..., d_in, d_out)
         s = 1.0 / math.sqrt(shape[-2])
+        if len(shape) == 4:
+            # an expert stack (L, E, d_in, d_out): filled a matrix at a
+            # time, so no float32 copy of the whole stack is ever held
+            out = torch.empty(shape, dtype=dtype, device=dev)
+            for m in out.view(-1, *shape[-2:]):
+                u = torch.rand(shape[-2:], generator=generator, device=dev)
+                m.copy_(u * (2 * s) - s)
+            return out
         u = torch.rand(shape, generator=generator, device=dev)
         return (u * (2 * s) - s).to(dtype)
 
@@ -164,33 +211,64 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
         return {"w": torch.ones(*lead, cfg.d_model, dtype=dtype, device=dev),
                 "b": zeros(*lead, cfg.d_model)}
 
+    def mlp(n, f, act):
+        if act in ("swiglu", "geglu"):
+            return {"w_gate": dense(n, d, f), "w_up": dense(n, d, f),
+                    "w_down": dense(n, f, d)}
+        return {"w_up": dense(n, d, f), "w_down": dense(n, f, d)}
+
+    def stack(ids):
+        n, lid = len(ids), ids[0]
+        if block_kind(cfg, lid) == "ssm":
+            return {"norm1": norm(n),
+                    "ssm": S.ssd_init(cfg, generator, dtype=dtype,
+                                      device=dev, lead=(n,))}
+        if block_kind(cfg, lid) == "mla":
+            h, r, q = cfg.n_heads, cfg.kv_lora_rank, cfg.q_lora_rank
+            attn = {"w_dq": dense(n, d, q), "q_norm": zeros(n, q),
+                    "w_uq": dense(n, q, h * (cfg.qk_nope_dim
+                                             + cfg.qk_rope_dim)),
+                    "w_dkv": dense(n, d, r), "kv_norm": zeros(n, r),
+                    "w_uk": dense(n, r, h * cfg.qk_nope_dim),
+                    "w_uv": dense(n, r, h * cfg.v_head_dim),
+                    "w_kr": dense(n, d, cfg.qk_rope_dim),
+                    "wo": dense(n, h * cfg.v_head_dim, d)}
+        else:
+            attn = {"wq": dense(n, d, cfg.q_dim),
+                    "wk": dense(n, d, cfg.kv_dim),
+                    "wv": dense(n, d, cfg.kv_dim),
+                    "wo": dense(n, cfg.q_dim, d)}
+            if cfg.qkv_bias:
+                attn.update(bq=zeros(n, cfg.q_dim), bk=zeros(n, cfg.kv_dim),
+                            bv=zeros(n, cfg.kv_dim))
+        out = {"norm1": norm(n), "attn": attn, "norm2": norm(n)}
+        if ffn_kind(cfg, lid) == "moe":
+            e, f = cfg.n_experts, cfg.d_expert
+            out["moe"] = {"router": dense(n, d, e),
+                          "w_gate": dense(n, e, d, f),
+                          "w_up": dense(n, e, d, f),
+                          "w_down": dense(n, e, f, d)}
+            if cfg.n_shared_experts:
+                out["moe"]["shared"] = mlp(n, f * cfg.n_shared_experts,
+                                           "swiglu")
+        else:
+            out["mlp"] = mlp(n, mlp_d_ff(cfg, lid), cfg.act)
+        return out
+
     d = cfg.d_model
     p: Params = {"embed": (torch.randn((cfg.vocab, d), generator=generator,
                                        device=dev) * 0.02).to(dtype),
                  "stacks": {}}
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
-        n = len(ids)
-        if block_kind(cfg, ids[0]) == "ssm":
-            p["stacks"][f"g{gi}"] = {
-                "norm1": norm(n),
-                "ssm": S.ssd_init(cfg, generator, dtype=dtype, device=dev,
-                                  lead=(n,))}
-            continue
-        attn = {"wq": dense(n, d, cfg.q_dim), "wk": dense(n, d, cfg.kv_dim),
-                "wv": dense(n, d, cfg.kv_dim), "wo": dense(n, cfg.q_dim, d)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(n, cfg.q_dim), bk=zeros(n, cfg.kv_dim),
-                        bv=zeros(n, cfg.kv_dim))
-        if cfg.act in ("swiglu", "geglu"):
-            mlp = {"w_gate": dense(n, d, cfg.d_ff), "w_up": dense(n, d, cfg.d_ff),
-                   "w_down": dense(n, cfg.d_ff, d)}
-        else:
-            mlp = {"w_up": dense(n, d, cfg.d_ff), "w_down": dense(n, cfg.d_ff, d)}
-        p["stacks"][f"g{gi}"] = {"norm1": norm(n), "attn": attn,
-                                 "norm2": norm(n), "mlp": mlp}
+        p["stacks"][f"g{gi}"] = stack(ids)
     p["final_norm"] = norm()
     if not cfg.tie_embeddings:
         p["unembed"] = dense(d, cfg.vocab)
+    if cfg.mtp:
+        # deepseek's multi-token-prediction head: one block of the last
+        # layer's kind
+        p["mtp"] = {"proj": dense(2 * d, d), "block": stack([cfg.n_layers - 1]),
+                    "norm": norm()}
     return p
 
 
@@ -208,14 +286,17 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  chan_idx: Optional[Dict[str, torch.Tensor]] = None,
                  taps: Optional[Dict[str, torch.Tensor]] = None,
                  overlay: Optional[Dict[str, Tuple[Any, Any]]] = None,
-                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One decoder layer (attention + MLP, or an SSD block alone).
-    Returns (x, new_cache).
+                 drop_free: bool = False,
+                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """One decoder layer (attention or MLA + an MLP or MoE, or an SSD
+    block alone).  Returns (x, new_cache, the MoE's aux loss or 0).
 
     ``deltas``/``chan_idx`` are this layer's delta packs and channel
     indices by unit kind; ``taps`` its (B, C) probe taps by group
-    (``mixer``, ``ffn``; the mixer tap's channels are attention or SSD
-    heads).  The taps are cast to the activation's dtype: the
+    (``mixer``, ``ffn``; the mixer tap's channels are attention, MLA or
+    SSD heads, the FFN's d_ff neurons or experts).  ``drop_free`` sizes
+    the MoE's queues so no routed token drops (the serving programs).
+    The taps are cast to the activation's dtype: the
     same ones either way, and in bf16 it keeps the residual stream in bf16
     where the JAX package's float32 mixer tap promotes it to float32.
 
@@ -235,7 +316,8 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
         return p[kind]
 
     h = L.apply_norm(cfg.norm, p["norm1"], x)
-    mk = block_kind(cfg, layer)
+    mk, ck = block_kind(cfg, layer), cache_kind(cfg, layer)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mk == "ssm":
         y, c = S.ssd_apply(eff("ssm"), h, cfg,
                            cache=cache["ssm"] if cache else None,
@@ -243,27 +325,33 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                            delta=deltas.get("ssm"),
                            head_idx=chan_idx.get("ssm"))
     else:
-        y, c = L.attention_apply(eff("attn"), h, cfg, positions=positions,
-                                 cache=cache["attn"] if cache else None,
-                                 valid=valid, step_valid=step_valid,
-                                 delta=deltas.get("attn"),
-                                 head_idx=chan_idx.get("attn"))
+        apply = L.mla_apply if mk == "mla" else L.attention_apply
+        y, c = apply(eff("attn"), h, cfg, positions=positions,
+                     cache=cache["attn"] if cache else None,
+                     valid=valid, step_valid=step_valid,
+                     delta=deltas.get("attn"), head_idx=chan_idx.get("attn"))
     if "mixer" in taps:
         # tap over per-head chunks of the output: scale (B, n_heads)
         tap = taps["mixer"]
         yb = y.reshape(y.shape[0], y.shape[1], tap.shape[-1], -1)
         y = (yb * tap[:, None, :, None].to(y.dtype)).reshape(y.shape)
     x = x + y
-    new_cache = {mk: c} if cache is not None else None
-    if ffn_kind(cfg, layer) == "none":
-        return x, new_cache
+    new_cache = {ck: c} if cache is not None else None
+    fk = ffn_kind(cfg, layer)
+    if fk == "none":
+        return x, new_cache, aux
     h = L.apply_norm(cfg.norm, p["norm2"], x)
-    if "ffn" in taps:
+    if fk == "moe":
+        y, aux = L.moe_apply(eff("moe"), h, cfg, delta=deltas.get("moe"),
+                             expert_idx=chan_idx.get("moe"),
+                             tap=taps.get("ffn"), drop_free=drop_free)
+        x = x + y
+    elif "ffn" in taps:
         x = x + _mlp_tapped(p["mlp"], h, cfg.act, taps["ffn"])
     else:
         x = x + L.mlp_apply(eff("mlp"), h, cfg.act, delta=deltas.get("mlp"),
                             idx=chan_idx.get("mlp"))
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _mlp_tapped(p: Params, x: torch.Tensor, act: str,
@@ -301,8 +389,11 @@ def forward_hidden(
     taps: Optional[Dict[str, Any]] = None,
     chan_idx: Optional[Dict[int, Dict[str, torch.Tensor]]] = None,
     overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
-) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Run the decoder stacks and the final norm.
+    drop_free: bool = False,
+    with_aux: bool = False,
+):
+    """Run the decoder stacks and the final norm: (x, caches), or (x,
+    caches, the MoE layers' summed aux loss) ``with_aux``.
 
     At most one of (``deltas`` + ``plan``), ``taps`` and ``caches`` is
     active.  ``taps`` is ``{"g{i}": {"mixer": (L, B, H), "ffn": (L, B,
@@ -319,13 +410,14 @@ def forward_hidden(
     ({layer: {kind: (delta_pack, channel_idx)}}, slot-stacked leaves) gives
     those layers per-slot effective weights: the serving engine's
     personalisation path, which passes its policy as ``plan`` with no
-    ``deltas``."""
+    ``deltas``.  ``drop_free`` runs every MoE layer drop-free."""
     if plan is not None and (plan.meta or {}).get("remat"):
         raise NotImplementedError(
             "rematerialised backprop spans (policy meta 'remat') arrive "
             "with ROADMAP queue 1, item 9")
     selected = set(plan.selected_layers()) if plan is not None else set()
     horizon = plan.horizon if plan is not None else 0
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
         stack = params["stacks"][f"g{gi}"]
         g_caches = caches.get(f"g{gi}") if caches else None
@@ -343,19 +435,23 @@ def forward_hidden(
             frozen = (torch.no_grad() if plan is not None and lid < horizon
                       else contextlib.nullcontext())
             with frozen:
-                x, nc = _apply_block(cfg, lp, x, positions, lid,
-                                     cache=cache_in, valid=seq_valid,
-                                     step_valid=step_valid,
-                                     deltas=d, chan_idx=ci, taps=tap,
-                                     overlay=(overlay or {}).get(lid))
+                x, nc, aux = _apply_block(cfg, lp, x, positions, lid,
+                                          cache=cache_in, valid=seq_valid,
+                                          step_valid=step_valid,
+                                          deltas=d, chan_idx=ci, taps=tap,
+                                          overlay=(overlay or {}).get(lid),
+                                          drop_free=drop_free)
+            aux_total = aux_total + aux
             if g_caches is not None:
-                # attention writes its K/V in place; the SSD block returns
-                # a new conv window and state
-                mk = block_kind(cfg, lid)
-                keys = ("conv", "ssm", "len") if mk == "ssm" else ("len",)
+                # attention and MLA write their rows in place; the SSD
+                # block returns a new conv window and state
+                ck = cache_kind(cfg, lid)
+                keys = ("conv", "ssm", "len") if ck == "ssm" else ("len",)
                 for key in keys:
-                    g_caches[mk][key][j] = nc[mk][key]
+                    g_caches[ck][key][j] = nc[ck][key]
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    if with_aux:
+        return x, caches, aux_total
     return x, caches
 
 
@@ -388,20 +484,50 @@ def build_inputs(cfg: ArchConfig, params: Params,
     return x, positions
 
 
-def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, deltas=None, plan=None, taps=None,
-            chan_idx=None) -> torch.Tensor:
-    """Next-token cross-entropy (mean over positions with label >= 0)."""
-    x, positions = build_inputs(cfg, params, batch)
-    h, _ = forward_hidden(cfg, params, x, positions, deltas=deltas,
-                          plan=plan, taps=taps, chan_idx=chan_idx)
-    labels = batch["labels"].long()
+def _ce(cfg: ArchConfig, params: Params, h: torch.Tensor,
+        labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of ``h``'s logits, the mean over labels >= 0."""
+    labels = labels.long()
     logits = unembed(cfg, params, h).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     return (((logz - gold) * mask).sum()
             / torch.clamp(mask.sum(), min=1.0))
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, deltas=None, plan=None, taps=None,
+            chan_idx=None) -> torch.Tensor:
+    """Next-token cross-entropy (mean over positions with label >= 0),
+    plus ``0.01 x`` the MoE aux loss on a MoE config and ``0.1 x`` the MTP
+    head's loss on an MTP config, as in the JAX package."""
+    x, positions = build_inputs(cfg, params, batch)
+    h, _, aux = forward_hidden(cfg, params, x, positions, deltas=deltas,
+                               plan=plan, taps=taps, chan_idx=chan_idx,
+                               with_aux=True)
+    loss = _ce(cfg, params, h, batch["labels"])
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    if cfg.mtp:
+        loss = loss + 0.1 * _mtp_loss(cfg, params, h, batch)
+    return loss
+
+
+def _mtp_loss(cfg: ArchConfig, params: Params, h: torch.Tensor,
+              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """deepseek's one-deep multi-token prediction: the hidden state at t
+    and the embedding of token t + 1 predict label t + 2 through the MTP
+    block (capped MoE dispatch, no taps or deltas)."""
+    nxt = embed_tokens(cfg, params, torch.roll(batch["tokens"].long(), -1, 1))
+    z = torch.cat([h[:, :-2], nxt[:, 1:-1].to(h.dtype)], dim=-1)
+    z = z @ params["mtp"]["proj"]
+    positions = torch.arange(z.shape[1], device=z.device)[None].expand(
+        z.shape[:2])
+    lp = tree_map(lambda a: a[0], params["mtp"]["block"])
+    z, _, _ = _apply_block(cfg, lp, z, positions, cfg.n_layers - 1)
+    z = L.apply_norm(cfg.norm, params["mtp"]["norm"], z)
+    return _ce(cfg, params, z, batch["labels"][:, 2:])
 
 
 def pooled_features(cfg: ArchConfig, params: Params,
@@ -427,14 +553,19 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     """Decode caches for a slot batch, in the JAX package's layout.
 
     Contiguous: ``caches["g{i}"]["attn"] = {"k", "v": (L, B, S_max, Hkv,
-    Dh), "len": (L, B) int32}``.  Paged (``paging``, a
-    ``serving.paging.PagingSpec``; built from the config's knobs when
-    omitted and ``cfg.kv_paging`` is set): ``"k"``/``"v"`` are page stores
-    ``{"pages": (L, n_pages, page_size, Hkv, Dh)[, "scale"]}`` and
-    ``"page_table"`` is a broadcast view ``(L, B, max_pages)`` of one
-    table, all -1.  An SSD layer group holds ``caches["g{i}"]["ssm"] =
-    {"conv": (L, B, d_conv-1, d_inner + 2N), "ssm": (L, B, H, P, N),
-    "len": (L, B) int32}`` (the ssm family has no paged cache yet)."""
+    Dh), "len": (L, B) int32}``, with ``S_max = min(max_len, window)`` on a
+    sliding-window config (the cache rolls when it holds exactly the
+    window).  MLA layers hold the latent ``{"ckv": (L, B, max_len,
+    kv_lora_rank), "krope": (L, B, max_len, qk_rope_dim), "len"}``.
+    Paged (``paging``, a ``serving.paging.PagingSpec``; built from the
+    config's knobs when omitted and ``cfg.kv_paging`` is set): the row
+    tensors are page stores ``{"pages": (L, n_pages, page_size, *feat)[,
+    "scale"]}`` and ``"page_table"`` is a broadcast view ``(L, B,
+    max_pages)`` of one table, all -1; a window below ``max_len`` keeps
+    its rolling cache contiguous, as in the JAX package.  An SSD layer
+    group holds ``caches["g{i}"]["ssm"] = {"conv": (L, B, d_conv-1,
+    d_inner + 2N), "ssm": (L, B, H, P, N), "len": (L, B) int32}`` (the ssm
+    family has no paged cache yet)."""
     from ..serving import paging as PG  # lazily: serving imports this module
 
     check_supported(cfg)
@@ -445,18 +576,18 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     if paging is None and cfg.kv_paging:
         paging = PG.PagingSpec.build(max_len, page_size=cfg.kv_page_size,
                                      slots=batch, int8=cfg.kv_int8)
-    if cfg.sliding_window and cfg.sliding_window <= max_len:
-        raise NotImplementedError(
-            "rolling sliding-window caches arrive with ROADMAP queue 1, "
-            "item 9 (with mixtral, the one config that has a window)")
+    # the JAX package's conditions: a window below max_len rolls (and
+    # stays contiguous); the cache holds min(max_len, window) rows
+    rolling = bool(cfg.sliding_window) and cfg.sliding_window < max_len
+    s_max = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+             else max_len)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
-    feat = (cfg.n_kv_heads, cfg.head_dim)
     caches: Dict[str, Any] = {}
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
-        n = len(ids)
+        n, mk = len(ids), block_kind(cfg, ids[0])
         lens = torch.zeros((n, batch), dtype=torch.int32, device=dev)
-        if block_kind(cfg, ids[0]) == "ssm":
+        if mk == "ssm":
             conv = (n, batch, cfg.d_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
             state = (n, batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
                      cfg.ssm_state)
@@ -466,22 +597,26 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
                 "len": lens,
             }}
             continue
-        if paging is not None:
+        if mk == "mla":
+            feats = {"ckv": (cfg.kv_lora_rank,), "krope": (cfg.qk_rope_dim,)}
+            rows = max_len
+        else:
+            feats = {"k": (cfg.n_kv_heads, cfg.head_dim),
+                     "v": (cfg.n_kv_heads, cfg.head_dim)}
+            rows = s_max
+        if paging is not None and (mk == "mla" or not rolling):
             table = torch.full((batch, paging.max_pages), -1,
                                dtype=torch.int32, device=dev)
-            caches[f"g{gi}"] = {"attn": {
-                "k": PG.store_init(paging, feat, dtype, dev, lead=(n,)),
-                "v": PG.store_init(paging, feat, dtype, dev, lead=(n,)),
-                "page_table": table[None].expand(n, *table.shape),
-                "len": lens,
-            }}
-            continue
-        shape = (n, batch, max_len) + feat
-        caches[f"g{gi}"] = {"attn": {
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "len": lens,
-        }}
+            c = {name: PG.store_init(paging, f, dtype, dev, lead=(n,))
+                 for name, f in feats.items()}
+            c.update(page_table=table[None].expand(n, *table.shape),
+                     len=lens)
+        else:
+            c = {name: torch.zeros((n, batch, rows) + f, dtype=dtype,
+                                   device=dev)
+                 for name, f in feats.items()}
+            c["len"] = lens
+        caches[f"g{gi}"] = {"attn": c}
     return caches
 
 
@@ -519,16 +654,19 @@ def decode_step(
     plan=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: new token -> logits (B, 1, vocab), caches updated
-    in place.  A slot masked by ``valid`` writes no K/V row and keeps its
-    cache length, SSD conv window and state bit for bit; its logits are
-    meaningless, and the other slots' are those of the unmasked call.
-    ``overlay`` + ``plan`` decode each slot against its own delta set (see
-    :func:`forward_hidden`)."""
+    in place.  A slot masked by ``valid`` writes no K/V (or latent) row
+    and keeps its cache length, SSD conv window and state bit for bit; its
+    logits are meaningless, and the other slots' are those of the unmasked
+    call.  ``overlay`` + ``plan`` decode each slot against its own delta
+    set (see :func:`forward_hidden`).  MoE layers run drop-free: no queue
+    drops a token, so a slot's stream does not depend on its batch
+    neighbours."""
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=tokens.device)
     positions = pos[:, None] if pos.dim() else pos.expand(tokens.shape)
     h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
-                               step_valid=valid, overlay=overlay, plan=plan)
+                               step_valid=valid, overlay=overlay, plan=plan,
+                               drop_free=True)
     return unembed(cfg, params, h), caches
 
 
@@ -546,7 +684,10 @@ def prefill_block(
     """Sequence-mode prompt ingestion: a whole (B, S) block per call.
 
     Each slot writes its ``valid`` tokens at its own cache cursor and
-    attends causally from its own offset through the cached flash kernel.
+    attends causally from its own offset through the cached flash kernel
+    (a rolling window cache folds the block position by position, an MLA
+    layer reads its latent cache in the absorbed form); MoE layers run
+    drop-free, as in :func:`decode_step`.
     ``valid`` must be a left-aligned prefix mask per slot (all-False rows
     are paused slots and advance nothing).  Returns (logits (B, S, vocab),
     caches); only logits at valid positions are meaningful."""
@@ -558,5 +699,6 @@ def prefill_block(
         valid = torch.ones(tokens.shape, dtype=torch.bool,
                            device=tokens.device)
     h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
-                               seq_valid=valid, overlay=overlay, plan=plan)
+                               seq_valid=valid, overlay=overlay, plan=plan,
+                               drop_free=True)
     return unembed(cfg, params, h), caches

@@ -107,8 +107,13 @@ paged engines): when the head of the pending buffer cannot be priced into
 the free pages, at most one later entry whose whole price fits admits in
 its place a tick, at most ``N`` times while the head waits.
 
-Encoder runs and rolling sliding-window caches arrive with later slices;
-they raise ``NotImplementedError`` naming the ROADMAP item.
+**The moe family**: every forward program runs its MoE layers drop-free
+(no token's expert choice ever drops, so a stream does not depend on its
+batch neighbours or the block size), as the JAX engine's do; mixtral's
+window cache rolls once ``max_len`` passes the window (and then stays
+contiguous under ``kv_paging``), and deepseek's MLA layers page their
+latent rows like K/V.  Encoder runs arrive with a later slice; they raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 

@@ -247,14 +247,17 @@ def store_init(spec: PagingSpec, feat_shape: Tuple[int, ...],
 
 
 def spec_from(cache: Dict[str, Any]) -> PagingSpec:
-    """The static geometry of a paged layer cache, from its shapes."""
-    store = cache.get("k")
-    if not (isinstance(store, dict) and "pages" in store):
-        raise ValueError("not a paged cache: no 'k' page store found")
-    pages = store["pages"]
-    return PagingSpec(page_size=pages.shape[1], n_pages=pages.shape[0],
-                      max_pages=cache[PAGE_TABLE_KEY].shape[-1],
-                      int8=pages.dtype == torch.int8)
+    """The static geometry of a paged layer cache (K/V or MLA latent),
+    from its shapes."""
+    for key in ("k", "ckv"):
+        store = cache.get(key)
+        if isinstance(store, dict) and "pages" in store:
+            pages = store["pages"]
+            return PagingSpec(page_size=pages.shape[1],
+                              n_pages=pages.shape[0],
+                              max_pages=cache[PAGE_TABLE_KEY].shape[-1],
+                              int8=pages.dtype == torch.int8)
+    raise ValueError("not a paged cache: no 'k'/'ckv' page store found")
 
 
 def _rows_with_spare(t: torch.Tensor) -> torch.Tensor:

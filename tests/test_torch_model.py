@@ -198,8 +198,8 @@ def test_default_device_raises_without_cuda(model):
             call()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-1.2b",
-                                  "whisper-base", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-base",
+                                  "paligemma-3b"])
 def test_families_of_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_caches(configs.get_reduced(arch), 2, 16, device="cpu")

@@ -286,7 +286,8 @@ def test_memory_report_counts_the_arena(ref):
 def test_slot_params_is_the_fold_per_slot(ref):
     """Per-slot effective weights equal a folded copy's weights exactly,
     a zero row is the base weights, bmm of broadcast weights equals the
-    shared product, and kinds of later slices raise naming item 9."""
+    shared product, and kinds of later slices (cross-attention) raise
+    naming item 9."""
     cfg, params, policy, deltas, _ = ref
     for u in policy.units:
         d_stack = {n: torch.stack([deltas[0][f"L{u.layer}"][u.kind][n],
@@ -305,8 +306,8 @@ def test_slot_params_is_the_fold_per_slot(ref):
             assert torch.equal(L.bmm(x, lp[n].expand(2, *lp[n].shape)),
                                x @ lp[n])
     with pytest.raises(NotImplementedError, match="item 9"):
-        OV.slot_params(cfg, "moe", {}, {}, torch.zeros((2, 1),
-                                                       dtype=torch.int64))
+        OV.slot_params(cfg, "xattn", {}, {}, torch.zeros((2, 1),
+                                                         dtype=torch.int64))
 
 
 def test_delta_set_keeps_tensors():

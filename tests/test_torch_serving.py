@@ -226,31 +226,22 @@ def _fleet_exchange(tcfg, tp):
     Personaliser(None, engine, None)
 
 
-def _rolling_cache(tcfg, tp):
-    T.init_caches(dataclasses.replace(tcfg, sliding_window=16), 2, 16,
-                  device="cpu")
-
-
 LATER = {
     "ssm_paging": (_engine("mamba2-1.3b", kv_paging=True), "12.2"),
     "ssm_personalise": (_engine("mamba2-1.3b", personalise=object()),
                         "15.2"),
-    "rolling_window_engine": (
-        _engine("qwen2-1.5b", cfg=dict(sliding_window=16)), "9"),
-    "rolling_window_cache": (_rolling_cache, "9"),
     "fleet_exchange": (_fleet_exchange, "16"),
-    "moe": (_engine("mixtral-8x7b"), "9"),
+    "hybrid": (_engine("zamba2-1.2b"), "9"),
     "vlm": (_engine("paligemma-3b"), "14"),
+    "audio": (_engine("whisper-base"), "14"),
 }
 
 
 @pytest.mark.parametrize("what", list(LATER))
 def test_knobs_of_later_slices_raise(ref, what):
     """What the port does not run yet raises, naming the ROADMAP item that
-    brings it: the ssm family's paged cache and per-slot overlay, rolling
-    sliding-window caches (a window below the cache length, through
-    ``init_caches``), the fleet's delta exchange, and the moe and vlm
-    families."""
+    brings it: the ssm family's paged cache and per-slot overlay, the
+    fleet's delta exchange, and the hybrid, vlm and audio families."""
     tcfg, tp, _ = ref
     build, item = LATER[what]
     with pytest.raises(NotImplementedError,

@@ -355,10 +355,8 @@ def test_later_features_raise_naming_their_item(ref):
         ServeEngine(cfg, params, personalise=pol, device="cpu")
     with pytest.raises(NotImplementedError, match="item 15.2"):
         OV.slot_params(cfg, "ssm", {}, {}, torch.zeros((1, 1)))
-    for arch, item in (("zamba2-1.2b", "item 9"), ("mixtral-8x7b", "item 9"),
-                       ("deepseek-v3-671b", "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.check_supported(configs.get_reduced(arch))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        T.check_supported(configs.get_reduced("zamba2-1.2b"))
     from repro_torch.launch import serve
 
     for flag in ("--paging", "--kv-int8", "--personalise"):

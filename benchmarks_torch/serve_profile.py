@@ -15,7 +15,7 @@ tokens each, weights and prompts from seed 0), broken down three ways:
 
     python3 benchmarks_torch/serve_profile.py [--trace DIR]
         [--paging] [--page-budget N] [--kv-int8]
-        [--arch mamba2-1.3b | mixtral-8x7b | deepseek-v3-671b]
+        [--arch mamba2-1.3b | zamba2-1.2b | mixtral-8x7b | deepseek-v3-671b]
         [--repeats N] [--issue-masked] [--temperature T --top-k K]
 
 ``--paging`` serves the same requests from the paged KV cache (page size
@@ -23,7 +23,10 @@ tokens each, weights and prompts from seed 0), broken down three ways:
 stores the pages in int8), phase 7 of ``chip_smoke.py``.  ``--arch
 mamba2-1.3b`` serves phase 11's shape instead (4 slots, max_len 96, chunk
 16, 10 requests of 4-15 prompt tokens and 12 new ones) from random
-weights.  ``--arch mixtral-8x7b`` and ``--arch deepseek-v3-671b`` serve
+weights.  ``--arch zamba2-1.2b`` serves phase 5's traffic on zamba2 at
+its published width and depth (``chip_smoke.py`` phase 19 (c)): the SSD
+recurrence, and the shared block's kernel 2 (kernel 4 under
+``--paging``) 6 times a block tick.  ``--arch mixtral-8x7b`` and ``--arch deepseek-v3-671b`` serve
 phase 5's traffic on the moe family at its published widths with the
 depth of ``chip_smoke.py`` phase 18 (16 of 32 layers, 4 of 61: what one
 80 GB card holds in bf16); deepseek's paged serve pages its MLA latent
@@ -76,7 +79,8 @@ def main() -> int:
                     help="int8 pages with per-token scales (implies "
                          "--paging)")
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    choices=("qwen2-1.5b", "mamba2-1.3b", *MOE_LAYERS))
+                    choices=("qwen2-1.5b", "mamba2-1.3b", "zamba2-1.2b",
+                             *MOE_LAYERS))
     ap.add_argument("--repeats", type=int, default=1,
                     help="unprofiled runs of the requests (walls)")
     ap.add_argument("--issue-masked", action="store_true",

@@ -140,7 +140,10 @@ exits non-zero:
    one Fisher launch (one tap group), forward SSD launches a positive
    multiple of 48, backward launches, each backward two device kernels
    (the fused backward and the cluster groups' sum; the forward is not
-   re-run), SSD units selected, every request ``done``.
+   re-run), SSD units selected, every request ``done``; then the folded
+   weights serve the same requests from a paged engine (``kv_paging``:
+   the pool and admission in pages, no page store), every request
+   ``done``, one sync a chunk, streams equal to the contiguous ones.
 
 12. kernel bench: ``benchmarks_torch/kernel_bench.py --full`` in this
    process (its record appended to ``build/BENCH_torch_kernels.json``),
@@ -221,6 +224,34 @@ exits non-zero:
    streams equal to contiguous ones), and mixtral's rolling serve (two
    prompts of 4,150 and 4,200 tokens at max_len 4,224: every request
    ``done``, a 4,096-row cache, one sync a chunk).
+19. the ssm-based families finished: (a) zamba2-smoke and mamba2-smoke
+   in f32 (TF32 off), card against the plain path on the CPU from the
+   same weights: greedy streams on contiguous, paged, int8 and pressured
+   (half the pages) caches, TinyTrain's policy and losses (within 1e-4)
+   and folded streams, and two users' SSD-head deltas served per slot
+   (also against the folded engines); (b) kernels 2 and 4 at zamba2's
+   shared-block prefill (8 slots, Hq = Hkv = 32, D 64, max_len 512; f32
+   at 1e-4, bf16 under the per-slot gate, paged equal to cached), kernels
+   5 and 5b at zamba2's adapt shape (48 rows of 64 tokens, 64 heads of
+   64, state 64) against the plain version, the same under
+   ``torch.func.vmap`` of a gradient over 4 tasks (each task's y and
+   gradients bit-equal to its own launch's, one launch each way), and
+   kernel 1 at zamba2's tap group (38, 48, 64), each timed beside its
+   bound, its plain version and SDPA, a page gather + SDPA or
+   ``torch.einsum``; (c) zamba2-1.2b at its published width and depth in
+   bf16 (38 SSD layers, d_model 2048, 64 SSD heads of 64, state 64,
+   one shared attention + MLP block of 32 heads of 64 and d_ff 8,192
+   after every 6th layer; random weights from seed 0):
+   ``TinyTrainSession.adapt`` on phase 6's episode shape under phase 6's
+   profile, ``fold_into`` and phase 5's traffic on contiguous and paged
+   caches (every request ``done`` with 16 tokens, one sync a chunk, the
+   flash kernel a positive multiple of the 6 shared-block applications,
+   paged streams equal to contiguous ones, the shared block's KV
+   25,165,824 B a slot in the engine's report); (d) phase 10's traffic
+   and ``Personaliser(iters=8, seq=32)`` on zamba2-1.2b with (c)'s
+   policy: at least one refresh, the SSD kernels launched under
+   ``torch.func.vmap`` (``adapt_many``), grad_quant once a leaf of every
+   refreshed delta set, every request ``done``, one sync a chunk.
 
 Phases 7 to 9 and 17 run right after phase 5, on its weights.  The
 fused serves of phases 5, 7 to 11 and 17 print ``host_syncs`` beside
@@ -229,9 +260,9 @@ inside the tick loop; the eager loop reads every tick by design); phases
 5, 7, 8, 10, 11 and 17's fused serves run their tick loops under
 ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
 the run.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 18) and read
-just after; phase 18's fused serves also run under sync debug mode
-"error".  The last three lines are the card's
+counts are set to 0 just before each main path (phases 5 to 19) and read
+just after; phase 18's and 19's fused serves also run under sync debug
+mode "error".  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -419,6 +450,18 @@ MOE_SMOKE = dict(slots=3, max_len=24, chunk=4, page=4, max_new=6,
 MOE_BLOCK = dict(B=8, Sq=8, Hq=32, Hkv=8, D=128, Sk=512, layers=16)
 MOE_TAPS = {"mixtral-8x7b": ((16, 32), (16, 8)),
             "deepseek-v3-671b": ((3, 128), (1, 128), (3, 18432), (1, 256))}
+# phase 19: the ssm-based families' smoke configs held card against CPU;
+# kernels 2 and 4 at zamba2's shared-block prefill (a group of 1, D 64,
+# the 6 applications' buffers cycled), kernels 5 and 5b at zamba2's adapt
+# shape and under vmap over VMAP_TASKS tasks, kernel 1 at its tap group
+HYBRID_SMOKE = ("zamba2-1.2b", "mamba2-1.3b")
+SHARED_BLOCK = dict(B=8, Sq=8, Hq=32, Hkv=32, D=64, Sk=512, layers=6)
+ZAMBA_SSD = dict(b=48, s=64, h=64, p=64, n=64, chunk=256)
+VMAP_TASKS = 4
+ZAMBA_TAPS = {"zamba2-1.2b": ((38, 64),)}
+# a zamba2-1.2b slot's shared-block KV at max_len 512: 6 applications x
+# K and V x 32 heads x 64 x 2 B (bf16) = 49,152 B a token
+SHARED_KV_BYTES = 6 * 2 * 32 * 64 * 2 * 512
 
 
 def fail(msg: str) -> None:
@@ -1097,20 +1140,23 @@ def _fleet_groups(session, tasks):
     return list(_group_indices(keys).values())
 
 
-def moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
-                    SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
-                    dev) -> None:
-    """Phase 18 (a): mixtral-smoke and deepseek-smoke in f32 (TF32 off),
-    the card against the plain path on the CPU from the same weights:
-    greedy streams on contiguous, paged and int8 caches and mixtral's
-    rolling window, TinyTrain's policy, losses and folded streams, and two
-    users' deltas (one unit of every kind) served per slot."""
+def smoke_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
+                      SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
+                      dev, archs=tuple(MOE_LAYERS), tag="moe",
+                      pressured=False) -> None:
+    """Phases 18 (a) and 19 (a): the smoke configs of ``archs`` in f32
+    (TF32 off), the card against the plain path on the CPU from the same
+    weights: greedy streams on contiguous, paged and int8 caches (and half
+    the pages, ``pressured``) and mixtral's rolling window, TinyTrain's
+    policy, losses and folded streams, and two users' deltas (one unit of
+    every kind) served per slot."""
     import numpy as np
     import torch
 
     M = MOE_SMOKE
     base = dict(slots=M["slots"], max_len=M["max_len"], chunk=M["chunk"])
     paged = dict(base, kv_paging=True, kv_page_size=M["page"])
+    stripe = M["slots"] * -(-M["max_len"] // M["page"])
 
     def serve(small, params, where, kw, prompts, uid=lambda i: i, pol=None,
               deltas=None):
@@ -1123,7 +1169,7 @@ def moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
         eng.run(reqs)
         return [(r.out, r.outcome) for r in reqs], eng
 
-    for arch in MOE_LAYERS:
+    for arch in archs:
         small = configs.get_reduced(arch)
         p_cpu = T.init_params(small, torch.Generator().manual_seed(0),
                               device="cpu")
@@ -1134,6 +1180,9 @@ def moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
                    for n in M["lens"]]
         cases = {"contiguous": (base, prompts), "paged": (paged, prompts),
                  "int8 pages": (dict(paged, kv_int8=True), prompts)}
+        if pressured:
+            cases[f"pressured ({stripe // 2} of {stripe} pages)"] = (
+                dict(paged, page_budget=stripe // 2), prompts)
         if small.sliding_window:
             cases["rolling (window 32, max_len 80)"] = (M["rolling"], [
                 rng.integers(0, small.vocab, n).astype(np.int32)
@@ -1142,7 +1191,7 @@ def moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
             got = {w: serve(small, p, w, kw, ps)[0] for w, p in both}
             same = got["cpu"] == got["cuda"]
             done = all(o == "done" for _, o in got["cuda"])
-            print(f"[moe] {small.name} f32 {what} greedy streams, card vs "
+            print(f"[{tag}] {small.name} f32 {what} greedy streams, card vs "
                   f"CPU plain path: {'identical' if same else 'DIFFERENT'} "
                   f"over {len(ps)} requests, "
                   f"{'all done' if done else 'NOT ALL DONE'}", flush=True)
@@ -1169,7 +1218,7 @@ def moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
         loss_err = max(abs(x - y) for x, y in zip(a_cpu.losses,
                                                   a_gpu.losses))
         same_pol = a_cpu.policy.units == a_gpu.policy.units
-        print(f"[moe] {small.name} f32 TinyTrain, card vs CPU plain path: "
+        print(f"[{tag}] {small.name} f32 TinyTrain, card vs CPU plain path: "
               f"policy {'identical' if same_pol else 'DIFFERENT'} "
               f"({a_gpu.policy.describe()}), max loss diff {loss_err:.3g} "
               f"(tol 1e-4), folded-engine streams "
@@ -1198,7 +1247,7 @@ def moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
             lambda t: t.to(dev), d), pol), "cuda", base, prompts,
             lambda i: i % 2)[0] for u, d in udeltas.items()}
         oracle = [folded[i % 2][i] for i in range(len(prompts))]
-        print(f"[moe] {small.name} f32 personalised (2 users, "
+        print(f"[{tag}] {small.name} f32 personalised (2 users, "
               f"{pol.describe()}): card vs CPU "
               f"{'identical' if got['cpu'] == got['cuda'] else 'DIFFERENT'}"
               f", card overlay vs card folded engines "
@@ -1213,24 +1262,37 @@ def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
                 cached_ref, tapgrads_ref, row_mask, n_valid, dev,
                 gen) -> dict:
     """Phase 18 (b): kernels 2 and 4 at mixtral's block prefill (a GQA
-    group of 4), f32 at 1e-4 and bf16 under the per-slot gate, the paged
-    kernel equal to the cached one on the same rows; kernel 1 at both
-    models' tap groups, f32 at 1e-5 with the adapt task's padding rows
-    holding NaN.  Each timed beside its bound, its plain version and one
-    library call (SDPA, a page gather + SDPA, ``torch.einsum``).  Returns
-    the largest errors, keyed by kernel."""
+    group of 4) and kernel 1 at both models' tap groups (see
+    :func:`block_kernels` and :func:`tap_kernels`).  Returns the largest
+    errors, keyed by kernel."""
+    worst = block_kernels(ops, flash_attention, flash_paged, cached_ref,
+                          MOE_BLOCK, "mixtral's", "moe", dev, gen)
+    worst["fisher"] = tap_kernels(ops, fisher_kernel, tapgrads_ref,
+                                  row_mask, n_valid, MOE_TAPS, "moe", dev,
+                                  gen)
+    return worst
+
+
+def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
+                  model: str, tag: str, dev, gen) -> dict:
+    """Kernels 2 and 4 at a model's block prefill ``blk`` (phase 3's
+    cursors), f32 at 1e-4 and bf16 under the per-slot gate, the paged
+    kernel equal to the cached one on the same rows; then each timed in
+    bf16 over ``blk["layers"]`` buffer sets cycled, beside its bound, its
+    plain version and SDPA or a page gather + SDPA.  Returns the largest
+    errors, keyed by kernel."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as kref
 
-    B, Sq, Hq, Hkv, D, Sk, nl = (MOE_BLOCK[k] for k in (
+    B, Sq, Hq, Hkv, D, Sk, nl = (blk[k] for k in (
         "B", "Sq", "Hq", "Hkv", "D", "Sk", "layers"))
     qo = torch.tensor(Q_OFFSET, dtype=torch.int32, device=dev)
     kl = torch.tensor(KV_LEN, dtype=torch.int32, device=dev)
     mp = Sk // PAGE_SIZE
     table = page_table(KV_LEN, PAGE_SIZE, mp, DEFAULT_PAGES, gen, dev)
-    worst = {"flash_cached": 0.0, "flash_paged": 0.0, "fisher": 0.0}
+    worst = {"flash_cached": 0.0, "flash_paged": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dtype)
@@ -1248,24 +1310,25 @@ def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
                                                q_offset=qo, kv_len=kl)
         torch.cuda.synchronize()
         tol = TOL[dname]
-        err = max_err(got, want, tol, f"flash_cached {dname} mixtral block")
-        perr = max_err(pgot, pwant, tol, f"flash_paged {dname} mixtral block")
-        bf16_gate(got, want, dname, "flash_cached mixtral block")
-        bf16_gate(pgot, pwant, dname, "flash_paged mixtral block")
+        err = max_err(got, want, tol, f"flash_cached {dname} {model} block")
+        perr = max_err(pgot, pwant, tol, f"flash_paged {dname} {model} block")
+        bf16_gate(got, want, dname, f"flash_cached {model} block")
+        bf16_gate(pgot, pwant, dname, f"flash_paged {model} block")
         same = torch.equal(pgot, got)
-        print(f"[moe-kernel] flash_cached / flash_paged {dname} at mixtral's "
+        print(f"[{tag}-kernel] flash_cached / flash_paged {dname} at {model} "
               f"block prefill (B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
               f"Sk={Sk}): max abs err {err:.3g} / {perr:.3g} (tol {tol:g}"
               f"{', per-slot bf16 gate' if dname == 'bfloat16' else ''}); "
               f"paged {'equal to' if same else 'DIFFERS FROM'} cached on the "
               f"same rows", flush=True)
         if not same:
-            fail(f"flash_paged differs from flash_cached at mixtral's block "
+            fail(f"flash_paged differs from flash_cached at {model} block "
                  f"prefill ({dname})")
         worst["flash_cached"] = max(worst["flash_cached"], err)
         worst["flash_paged"] = max(worst["flash_paged"], perr)
 
-    # bf16 times, one buffer set a layer cycled (16 x 8 MiB of K and V)
+    # bf16 times, one buffer set a layer cycled (mixtral: 16 x 8 MiB of K
+    # and V)
     bf = torch.bfloat16
     q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(bf)
     ks = torch.randn((nl, B, Sk, Hkv, D), generator=gen, device=dev).to(bf)
@@ -1334,7 +1397,6 @@ def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
                                        q_offset=qo, kv_len=kl)
 
     nbytes, nops = flash_work(Q_OFFSET, KV_LEN, Sq, Hq, Hkv, D, 2, 0)
-    times = {}
     for what, run, lib, plain, extra in (
             ("flash_cached", run_cached, run_sdpa, run_cached_plain, 0),
             ("flash_paged", run_paged, run_gather_sdpa, run_paged_plain,
@@ -1344,9 +1406,7 @@ def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
         p_ms = time_ms(plain, nl)
         t_bytes = (nbytes + extra) / HBM_BYTES_PER_S
         t_ops = nops / PEAK_OPS["bfloat16"]
-        times[what] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                           bound_ms=1e3 * max(t_bytes, t_ops))
-        print(f"[moe-time] {what} bf16 mixtral block prefill B={B} Sq={Sq} "
+        print(f"[{tag}-time] {what} bf16 {model} block prefill B={B} Sq={Sq} "
               f"Hq={Hq} Hkv={Hkv} D={D} max_len={Sk}: kernel {k_ms:.4f} ms, "
               f"bound {1e3 * max(t_bytes, t_ops):.5f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain "
@@ -1354,14 +1414,26 @@ def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
               f"{'sdpa' if what == 'flash_cached' else 'page gather + sdpa'}"
               f" {l_ms:.4f} ms", flush=True)
     del ks, vs, kps, vps
+    torch.cuda.empty_cache()
+    return worst
 
-    # kernel 1 at the probe's new tap widths: experts, MLA and GQA heads,
-    # deepseek's dense-head d_ff
+
+def tap_kernels(ops, fisher_kernel, tapgrads_ref, row_mask, n_valid, taps,
+                tag: str, dev, gen) -> float:
+    """Kernel 1 at the probe's tap groups ``taps`` ({model: ((layers,
+    channels), ...)}), f32 at 1e-5 with the adapt task's padding rows
+    holding NaN, each timed beside its bound, its plain version and
+    ``torch.einsum``.  Returns the largest error."""
+    import torch
+
+    worst = 0.0
+    it = {"i": 0}
+    stream = torch.cuda.current_stream().cuda_stream
     f_entry = fisher_kernel._tap_entry()
     n_rows = row_mask.shape[0]
     n_one = torch.full((1,), float(n_valid), device=dev)
     scale = 1.0 / (2.0 * n_valid)
-    for arch, shapes in MOE_TAPS.items():
+    for arch, shapes in taps.items():
         for nlay, c in shapes:
             shape = (nlay, n_rows, c)
             g = torch.randn(shape, generator=gen, device=dev)
@@ -1372,7 +1444,7 @@ def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
             torch.cuda.synchronize()
             err = max_err(got, want, FISHER_TOL["float32"],
                           f"fisher_tapgrads f32 {arch} {shape}")
-            worst["fisher"] = max(worst["fisher"], err)
+            worst = max(worst, err)
             gs = [torch.randn(shape, generator=gen, device=dev)
                   for _ in range(8)]
             fout = torch.empty((nlay, c), device=dev)
@@ -1404,10 +1476,7 @@ def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
             f_ops = 3 * n_valid * cells
             t_bytes = f_bytes / HBM_BYTES_PER_S
             t_ops = f_ops / PEAK_OPS["float32"]
-            times[f"fisher {arch} {shape}"] = dict(
-                ms=f_ms, plain_ms=p_ms, library_ms=l_ms,
-                bound_ms=1e3 * max(t_bytes, t_ops))
-            print(f"[moe-kernel] fisher_tapgrads f32 {arch} {shape} "
+            print(f"[{tag}-kernel] fisher_tapgrads f32 {arch} {shape} "
                   f"({n_valid} of {n_rows} rows valid, the rest NaN): max "
                   f"abs err {err:.3g} (tol {FISHER_TOL['float32']:g}); "
                   f"kernel {f_ms:.4f} ms, bound "
@@ -1621,9 +1690,9 @@ def phase18(api, configs, ops, T, ServeEngine, Request, DeltaSet,
     import torch
 
     t0 = time.perf_counter()
-    moe_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
-                    SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
-                    dev)
+    smoke_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
+                      SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
+                      dev)
     task = api.sample_lm_task(np.random.default_rng(0), 32000,
                               seq=ADAPT["seq"], max_way=ADAPT["task_way"],
                               support_pad=ADAPT["pad"], query_pad=ADAPT["pad"])
@@ -1638,6 +1707,467 @@ def phase18(api, configs, ops, T, ServeEngine, Request, DeltaSet,
             launches[k] += n
     print(f"[phase18] {time.perf_counter() - t0:.1f} s; main-path launches "
           f"{launches}; largest kernel errors {worst}", flush=True)
+    return {"launches": launches, "max_abs_err": worst}
+
+
+def ssd_kernels(ops, ssm, ssd_kernel, ssd_scan_ref, dev, gen) -> dict:
+    """Phase 19 (b): kernels 5 and 5b at zamba2's adapt shape (ZAMBA_SSD:
+    48 rows of 64 tokens, 64 heads of 64, state 64) in f32 at 1e-4 and
+    bf16 within SSD_TOL of the plain version, each timed beside its bound
+    and its plain version; then both under ``torch.func.vmap`` of
+    ``torch.func.grad_and_value`` over VMAP_TASKS tasks in bf16: each
+    task's y and gradients bit-equal to its own launch's, one launch each
+    way for all tasks, timed against the tasks' launches one by one.
+    Returns the largest errors, keyed by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, h, p, n, chunk = (ZAMBA_SSD[k] for k in ("b", "s", "h", "p", "n",
+                                                   "chunk"))
+
+    def inputs(dtype, lead=()):
+        x = (0.5 * torch.randn(lead + (b, s, h, p), generator=gen,
+                               device=dev)).to(dtype)
+        dt = F.softplus(torch.randn(lead + (b, s, h), generator=gen,
+                                    device=dev))
+        bm = (0.5 * torch.randn(lead + (b, s, n), generator=gen,
+                                device=dev)).to(dtype)
+        cm = (0.5 * torch.randn(lead + (b, s, n), generator=gen,
+                                device=dev)).to(dtype)
+        w = torch.randn(lead + (b, s, h, p), generator=gen, device=dev)
+        return x, dt, bm, cm, w
+
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    worst = {"ssd_scan": 0.0, "ssd_scan_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        x, dt, bm, cm, w = inputs(dtype)
+        leaves = [t.clone().requires_grad_() for t in (x, dt, bm, cm)]
+        y, _ = ssm.ssd_chunked(leaves[0], leaves[1], a, leaves[2], leaves[3],
+                               chunk, None, need_state=False)
+        got = torch.autograd.grad((y.float() * w).sum(), leaves)
+        refl = [t.float().clone().requires_grad_() for t in (x, dt, bm, cm)]
+        yp, _ = ssm.ssd_chunked_plain(refl[0], refl[1], a, refl[2], refl[3],
+                                      chunk)
+        want = torch.autograd.grad((yp * w).sum(), refl)
+        yr, _ = ssd_scan_ref(x.float(), dt, a, bm, cm)
+        torch.cuda.synchronize()
+        scale = max(1.0, yr.abs().max().item())
+        e_f = (y.float() - yr).abs().max().item()
+        if not math.isfinite(e_f) or e_f / scale > 1e-4:
+            fail(f"ssd_scan {dname} at zamba2's shape: error {e_f}")
+        e_b = 0.0
+        for name, g, wv in zip(("dx", "d(dt)", "dB", "dC"), got, want):
+            e = (g.float() - wv).abs().max().item()
+            if not math.isfinite(e) or e / max(1.0, wv.abs().max().item()) \
+                    > SSD_TOL[dname]:
+                fail(f"ssd_scan_bwd {name} {dname} at zamba2's shape: "
+                     f"error {e}")
+            e_b = max(e_b, e)
+        worst["ssd_scan"] = max(worst["ssd_scan"], e_f)
+        worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e_b)
+        print(f"[hybrid-kernel] ssd_scan / ssd_scan_bwd {dname} at zamba2's "
+              f"adapt shape (B={b} S={s} H={h} P={p} N={n}): max abs err "
+              f"{e_f:.3g} (tol 1e-4 of max(1, max |y|)) / {e_b:.3g} (tol "
+              f"{SSD_TOL[dname]:g})", flush=True)
+
+    # bf16 times, the kernels through their C entries (as phase 3 times
+    # mamba2's shape), two input sets cycled
+    sets = [inputs(torch.bfloat16) for _ in range(2)]
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(sets)
+        return sets[it["i"]]
+
+    geo = ssd_kernel.bwd_geometry(b, s, h)
+    f32 = dict(dtype=torch.float32, device=dev)
+    y_o, dx_o = torch.empty((b, s, h, p), **f32), torch.empty((b, s, h, p),
+                                                              **f32)
+    ddt_o, dbc_o = torch.empty((b, s, h), **f32), torch.empty((2, b, s, n),
+                                                              **f32)
+    part = (torch.empty((2, b, geo["groups"], s, n), **f32)
+            if geo["groups"] > 1 else None)
+    states = (torch.empty((b, h, geo["state_slots"], p, n), **f32)
+              if geo["state_slots"] else None)
+    launched = ctypes.c_int(0)
+    fwd_entry, bwd_entry = ssd_kernel._entry(), ssd_kernel._bwd_entry()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def run_fwd():
+        x, dt, bm, cm, _ = nxt()
+        rc = fwd_entry(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                       bm.data_ptr(), cm.data_ptr(), None, y_o.data_ptr(),
+                       None, b, s, h, p, n, 1, stream)
+        if rc:
+            fail(f"ssd_scan_fwd returned cudaError {rc}")
+
+    def run_bwd():
+        x, dt, bm, cm, w = nxt()
+        rc = bwd_entry(w.data_ptr(), x.data_ptr(), dt.data_ptr(),
+                       a.data_ptr(), bm.data_ptr(), cm.data_ptr(), None,
+                       ptr(states), dx_o.data_ptr(), ddt_o.data_ptr(),
+                       ptr(part), dbc_o.data_ptr(), b, s, h, p, n, 1, stream,
+                       ctypes.byref(launched))
+        if rc:
+            fail(f"ssd_scan_bwd returned cudaError {rc}")
+
+    def run_fwd_plain():
+        x, dt, bm, cm, _ = nxt()
+        ssd_scan_ref(x, dt, a, bm, cm)
+
+    def run_bwd_plain():
+        x, dt, bm, cm, w = nxt()
+        lv = [t.detach().requires_grad_() for t in (x, dt, bm, cm)]
+        y, _ = ssm.ssd_chunked_plain(lv[0], lv[1], a, lv[2], lv[3], chunk)
+        torch.autograd.grad(y, lv, w.to(y.dtype))
+
+    for what, run, plain, backward in (("forward", run_fwd, run_fwd_plain,
+                                        False),
+                                       ("backward", run_bwd, run_bwd_plain,
+                                        True)):
+        ms, p_ms = time_ms(run, 20 if backward else 50), time_ms(plain, 2)
+        nbytes, nops = ssd_work(b, s, h, p, n, 2, backward)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS["bfloat16"]
+        print(f"[hybrid-time] ssd_scan {what} bf16 at zamba2's adapt shape "
+              f"(B={b} S={s} H={h} P={p} N={n}): kernel {ms:.4f} ms, bound "
+              f"{1e3 * max(t_bytes, t_ops):.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain "
+              f"{p_ms:.4f} ms, no single library call", flush=True)
+    del y_o, dx_o, ddt_o, dbc_o, part, states
+
+    # under torch.func.vmap: the task axis folds into the kernels' batch
+    tv = VMAP_TASKS
+    x, dt, bm, cm, w = inputs(torch.bfloat16, (tv,))
+
+    def loss(x, dt, bm, cm, w):
+        y, _ = ssm.ssd_chunked(x, dt, a, bm, cm, chunk, None,
+                               need_state=False)
+        return (y.float() * w).sum()
+
+    def fwd(x, dt, bm, cm):
+        return ssm.ssd_chunked(x, dt, a, bm, cm, chunk, None,
+                               need_state=False)[0]
+
+    step = torch.func.grad(loss, argnums=(0, 1, 2, 3))
+    fleet = torch.func.vmap(step)
+    before = (ops.ssd_scan.launches, ops.ssd_scan.bwd_launches)
+    ys = torch.func.vmap(fwd)(x, dt, bm, cm)
+    torch.cuda.synchronize()
+    y_launches = ops.ssd_scan.launches - before[0]
+    before = (ops.ssd_scan.launches, ops.ssd_scan.bwd_launches)
+    grads = fleet(x, dt, bm, cm, w)
+    torch.cuda.synchronize()
+    folded = (ops.ssd_scan.launches - before[0],
+              ops.ssd_scan.bwd_launches - before[1])
+    same = True
+    for k in range(tv):
+        g_k = step(x[k], dt[k], bm[k], cm[k], w[k])
+        same = same and torch.equal(fwd(x[k], dt[k], bm[k], cm[k]),
+                                    ys[k]) and all(
+            torch.equal(g[k], gk) for g, gk in zip(grads, g_k))
+    torch.cuda.synchronize()
+    v_ms = time_ms(lambda: fleet(x, dt, bm, cm, w), 5)
+
+    def one_by_one():
+        for k in range(tv):
+            step(x[k], dt[k], bm[k], cm[k], w[k])
+
+    l_ms = time_ms(one_by_one, 5)
+    print(f"[hybrid-kernel] ssd_scan under vmap over {tv} tasks bf16 at "
+          f"zamba2's adapt shape: y in {y_launches} forward launch(es), "
+          f"vmap(grad) in {folded[0]} forward and {folded[1]} backward "
+          f"launch(es) for all tasks; each task's y and dx, d(dt), dB, dC "
+          f"{'bit-equal to' if same else 'DIFFER FROM'} its own launch's; "
+          f"vmap(grad) {v_ms:.4f} ms against {l_ms:.4f} ms for the tasks "
+          f"one by one", flush=True)
+    if y_launches != 1:
+        fail(f"the vmapped SSD forward launched {y_launches} times, not 1")
+    if folded != (1, 1):
+        fail(f"the vmapped SSD scan launched {folded}, not one each way")
+    if not same:
+        fail("a vmapped task's SSD scan differs from its own launch")
+    del sets, x, dt, bm, cm, w, grads, ys
+    torch.cuda.empty_cache()
+    return worst
+
+
+def zamba2_full(api, configs, ops, ServeEngine, Request, tree_leaves, dev,
+                profile):
+    """Phase 19 (c): zamba2-1.2b at its published width and depth in bf16
+    (random weights from a seeded generator): TinyTrain on phase 6's
+    episode shape under ``profile`` (phase 6's), ``fold_into`` an engine,
+    phase 5's traffic on contiguous and paged caches.  Returns (the kernel
+    launches of its main paths, the session, the adaptation)."""
+    import numpy as np
+    import torch
+
+    arch = "zamba2-1.2b"
+    cfg = configs.get_config(arch)
+    nl, every = cfg.n_layers, cfg.hybrid_attn_every
+    shared = nl // every
+    bb = api.backbone(arch, preset="full", batch_size=ADAPT["batch_size"],
+                      seq=ADAPT["seq"])
+    t0 = time.perf_counter()
+    session = api.TinyTrainSession(bb, max_way=ADAPT["max_way"], seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(session.params))
+    n_params = sum(t.numel() for t in tree_leaves(session.params))
+    task = api.sample_lm_task(np.random.default_rng(0), cfg.vocab,
+                              seq=ADAPT["seq"], max_way=ADAPT["task_way"],
+                              support_pad=ADAPT["pad"], query_pad=ADAPT["pad"])
+    groups = sum(len(grp) for grp in bb.make_taps(1, "cpu").values())
+    torch.cuda.empty_cache()
+    base = peak_reset(dev)
+    kernel_launches(ops, zero=True)
+    t0 = time.perf_counter()
+    ad = session.adapt(task, profile, iters=ADAPT["iters"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernel_launches(ops)
+    fisher_n = counts["fisher_tapgrads.launches"] + counts["fisher.launches"]
+    fwd, bwd = (counts["ssd_scan.launches"], counts["ssd_scan.bwd_launches"])
+    losses = ad.losses
+    print(f"[zamba2] zamba2-1.2b bf16 published width and depth ({nl} SSD "
+          f"layers, d_model {cfg.d_model}, {cfg.n_ssm_heads} SSD heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}; a shared block of "
+          f"{cfg.n_heads} heads of {cfg.head_dim} and d_ff {cfg.d_ff} after "
+          f"every {every}th layer, {shared} applications; {n_params} "
+          f"parameters, {weights} B of weights, initialised in "
+          f"{init_s:.1f} s), {profile.name}, task {task.n_support} support "
+          f"rows of {len(task.support['episode_labels'])}: "
+          f"{ad.policy.describe()}", flush=True)
+    print(f"[zamba2] fisher_seconds {ad.fisher_seconds:.4f}, train_seconds "
+          f"{ad.train_seconds:.4f} ({ADAPT['iters']} steps), adapt wall "
+          f"{wall:.4f} s, peak device memory {peak} B ({peak - base} B above "
+          f"the weights and earlier allocations), host_transfers "
+          f"{ad.host_transfers:g}, fisher launches {fisher_n} ({groups} tap "
+          f"group), ssd_scan launches {fwd} forward, {bwd} backward, flash "
+          f"launches {counts['flash_attention_cached.launches']} "
+          f"(the adapt's shared block attends through plain torch, as the "
+          f"JAX package's dot_attention), losses "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"zamba2: adaptation losses not finite: {losses}")
+    if ad.host_transfers != 2:
+        fail(f"zamba2: fused adapt made {ad.host_transfers} host transfers")
+    if fisher_n != groups or groups != 1:
+        fail(f"zamba2: the probe launched the Fisher kernel {fisher_n} times "
+             f"for {groups} tap groups (one wanted)")
+    if {u.kind for u in ad.policy.units} != {"ssm"}:
+        fail(f"zamba2: the profile selected no SSD unit only: "
+             f"{ad.policy.describe()}")
+    if fwd <= 0 or fwd % nl or bwd <= 0:
+        fail(f"zamba2: ssd_scan launches {fwd} forward (a positive multiple "
+             f"of {nl} wanted), {bwd} backward")
+
+    launches = {"flash_cached": 0, "flash_paged": 0, "fisher": fisher_n,
+                "ssd_scan": fwd, "ssd_scan_bwd": bwd}
+    served = {}
+    for what, kw in (("contiguous", {}),
+                     ("paged", dict(kv_paging=True, kv_page_size=PAGE_SIZE))):
+        eng = ServeEngine(cfg, session.params, slots=8, max_len=512,
+                          chunk=32, **kw)
+        ad.fold_into(eng)
+        eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
+                         max_new=2)])
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab, int(n)).astype(np.int32), max_new=16)
+            for i, n in enumerate(rng.integers(32, 257, 8))]
+        eng.tick_sync_debug = "error"
+        torch.cuda.synchronize()
+        kernel_launches(ops, zero=True)
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        counts = kernel_launches(ops)
+        rep, mem = eng.last_run_report, eng.memory_report()
+        new = sum(len(r.out) for r in reqs)
+        n_c = counts["flash_attention_cached.launches"]
+        n_p = counts["flash_attention_paged.launches"]
+        launches["flash_cached"] += n_c
+        launches["flash_paged"] += n_p
+        lens = sum(t.numel() * t.element_size() for g in eng.caches.values()
+                   for t in ([g["len"]] if "len" in g
+                             else [c["len"] for c in g.values()]))
+        if what == "paged":
+            kv_slot = mem["kv_bytes_per_stream"]  # worst case, engine empty
+        else:
+            kv_slot = ((mem["kv_cache_bytes"] - lens) // 8
+                       - eng.ssm_state_bytes_per_slot)
+        print(f"[zamba2-serve] zamba2-1.2b bf16 {what}, 8 slots, max_len "
+              f"512, chunk 32, prefill_block {eng.prefill_block}: "
+              f"{len(reqs)} requests (prompts "
+              f"{sum(len(r.prompt) for r in reqs)} tokens), {new} new tokens "
+              f"in {swall:.3f} s = {new / swall:.2f} tok/s, {rep['ticks']} "
+              f"ticks ({rep['ticks_issued']} issued), {rep['host_syncs']} "
+              f"host syncs for {rep['chunks']} chunks, flash launches "
+              f"{n_c} cached, {n_p} paged ({(n_c + n_p) / rep['ticks']:.3f} "
+              f"a live tick), shared-block KV {kv_slot} B a slot (want "
+              f"{SHARED_KV_BYTES}), SSD state "
+              f"{eng.ssm_state_bytes_per_slot} B a slot, kv_cache_bytes "
+              f"{mem['kv_cache_bytes']}, outcomes {rep['outcomes']}",
+              flush=True)
+        one_sync_a_chunk(rep, f"zamba2 {what} serve")
+        bad = [(r.uid, r.outcome, len(r.out)) for r in reqs
+               if r.outcome != "done" or len(r.out) != 16]
+        if bad:
+            fail(f"zamba2 {what}: requests not done with 16 tokens: {bad}")
+        n_k = n_c if what == "contiguous" else n_p
+        if n_k <= 0 or n_k % shared or (what == "paged" and n_c):
+            fail(f"zamba2 {what}: flash launches {counts} (a positive "
+                 f"multiple of {shared} of one kernel wanted)")
+        if kv_slot != SHARED_KV_BYTES:
+            fail(f"zamba2 {what}: the shared block's KV is {kv_slot} B a "
+                 f"slot, not {SHARED_KV_BYTES}")
+        served[what] = [list(r.out) for r in reqs]
+        del eng
+    if served["paged"] != served["contiguous"]:
+        fail("zamba2: the paged serve's streams differ from the contiguous "
+             "one's")
+    print(f"[zamba2-serve] the paged streams equal the contiguous ones over "
+          f"{len(served['paged'])} requests", flush=True)
+    torch.cuda.empty_cache()
+    return launches, session, ad
+
+
+def zamba2_personalise(api, ops, ServeEngine, Request, Personaliser,
+                       tree_leaves, session, policy, profile, dev) -> dict:
+    """Phase 19 (d): phase 10's traffic and ``Personaliser(iters=8,
+    seq=32)`` on zamba2-1.2b with (c)'s policy: each refresh's
+    ``adapt_many`` runs the SSD kernels under ``torch.func.vmap``, its
+    exchange kernel 6.  Returns the kernel launches of this path."""
+    import numpy as np
+    import torch
+
+    cfg = session.backbone.cfg
+    P = PERSONALISE
+    eng = ServeEngine(cfg, session.params, slots=P["slots"],
+                      max_len=P["max_len"], chunk=P["chunk"],
+                      personalise=policy)
+    eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
+                     max_new=2)])
+    eng.tick_sync_debug = "error"
+    pers = Personaliser(session, eng, policy, profile=profile,
+                        iters=P["iters"], seq=P["seq"])
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i % P["users"], prompt=rng.integers(
+        0, cfg.vocab, size=int(rng.integers(4, 24))).astype(np.int32),
+        max_new=P["max_new"]) for i in range(P["requests"])]
+    leaves_per_user = len(tree_leaves(session.backbone.init_deltas(policy,
+                                                                   dev)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_launches(ops, zero=True)
+    t0 = time.perf_counter()
+    online = pers.run_online(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_launches(ops)
+    peak = torch.cuda.max_memory_allocated()
+    refreshes = online["refreshes"]
+    refreshed = sum(len(r["users"]) for r in refreshes)
+    gq = counts["grad_quant.launches"]
+    fwd, bwd = counts["ssd_scan.launches"], counts["ssd_scan.bwd_launches"]
+    new = sum(len(r.out) for r in reqs)
+    print(f"[zamba2-personalise] zamba2-1.2b bf16, {P['slots']} slots, "
+          f"max_len {P['max_len']}, chunk {P['chunk']}, {P['users']} users, "
+          f"policy {policy.describe()} ({leaves_per_user} delta leaves a "
+          f"user): {len(reqs)} requests, {new} new tokens in {wall:.3f} s "
+          f"with {len(refreshes)} refreshes ({refreshed} users), "
+          f"{online['rounds']} rounds, {online['host_syncs']} host syncs for "
+          f"{online['chunks']} chunks, peak device memory {peak} B; "
+          f"launches: ssd_scan {fwd} forward / {bwd} backward (adapt_many "
+          f"under vmap), grad_quant {gq}, flash_cached "
+          f"{counts['flash_attention_cached.launches']}", flush=True)
+    for r in refreshes:
+        print(f"[zamba2-personalise] refresh {r['round']}: users "
+              f"{r['users']} (deferred {r['deferred_users']}), adapt_seconds "
+              f"{r['adapt_seconds']:.4f}, swap_seconds "
+              f"{r['swap_seconds']:.6f}, resident rows swapped "
+              f"{r['resident_rows_swapped']}, wire {r['payload_bytes_wire']}"
+              f" B vs f32 {r['payload_bytes_f32']} B", flush=True)
+    if not refreshes:
+        fail("the zamba2 personalised serve refreshed no user")
+    one_sync_a_chunk(online, "zamba2 personalise")
+    bad = [(r.uid, r.outcome) for r in reqs if r.outcome != "done"]
+    if bad:
+        fail(f"zamba2 personalise: requests not done: {bad}")
+    if fwd <= 0 or bwd <= 0:
+        fail(f"the zamba2 refreshes launched the SSD kernels {fwd} / {bwd} "
+             "times")
+    if gq <= 0 or gq != refreshed * leaves_per_user:
+        fail(f"grad_quant launched {gq} times for {refreshed} refreshed "
+             f"users of {leaves_per_user} leaves each")
+    del eng, pers
+    torch.cuda.empty_cache()
+    return {"ssd_scan": fwd, "ssd_scan_bwd": bwd, "grad_quant": gq,
+            "flash_cached": counts["flash_attention_cached.launches"]}
+
+
+def phase19(dev, gen, profile) -> dict:
+    """Phase 19, the ssm-based families finished: (a) card against CPU on
+    zamba2-smoke and mamba2-smoke, (b) kernels 2, 4, 5, 5b (and under
+    vmap) and 1 at zamba2's shapes, (c) zamba2-1.2b at full width and
+    depth, (d) its personalised serve.  Returns the launches of the main
+    paths by kernel and the largest kernel errors of (b)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api, configs
+    from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
+    from repro_torch.kernels import flash_attention, flash_paged, ops
+    from repro_torch.kernels import fisher as fisher_kernel
+    from repro_torch.kernels import ssd_scan as ssd_kernel
+    from repro_torch.kernels.ref import (
+        fisher_tapgrads_ref, flash_attention_cached_ref, ssd_scan_ref,
+    )
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.overlay import fold_deltas
+    from repro_torch.serving import (
+        DeltaSet, Personaliser, Request, ServeEngine,
+    )
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    smoke_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
+                      SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
+                      dev, archs=HYBRID_SMOKE, tag="hybrid", pressured=True)
+    t_a = time.perf_counter() - t0
+    worst = block_kernels(ops, flash_attention, flash_paged,
+                          flash_attention_cached_ref, SHARED_BLOCK,
+                          "zamba2's shared", "hybrid", dev, gen)
+    worst.update(ssd_kernels(ops, ssm, ssd_kernel, ssd_scan_ref, dev, gen))
+    task = api.sample_lm_task(np.random.default_rng(0), 32000,
+                              seq=ADAPT["seq"], max_way=ADAPT["task_way"],
+                              support_pad=ADAPT["pad"], query_pad=ADAPT["pad"])
+    labels = torch.from_numpy(task.support["episode_labels"]).to(dev)
+    worst["fisher"] = tap_kernels(ops, fisher_kernel, fisher_tapgrads_ref,
+                                  (labels >= 0).float(), task.n_support,
+                                  ZAMBA_TAPS, "hybrid", dev, gen)
+    t_b = time.perf_counter() - t0 - t_a
+    launches, session, ad = zamba2_full(api, configs, ops, ServeEngine,
+                                        Request, tree_leaves, dev, profile)
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    for k, v in zamba2_personalise(api, ops, ServeEngine, Request,
+                                   Personaliser, tree_leaves, session,
+                                   ad.policy, profile, dev).items():
+        launches[k] = launches.get(k, 0) + v
+    del session, ad
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t0
+    print(f"[phase19] {total:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) "
+          f"{t_c:.1f}, (d) {total - t_a - t_b - t_c:.1f}); main-path "
+          f"launches {launches}; largest kernel errors {worst}", flush=True)
     return {"launches": launches, "max_abs_err": worst}
 
 
@@ -3707,6 +4237,32 @@ def main() -> int:
         fail(f"mamba2 folded-engine requests not done: "
              f"{[(r.uid, r.outcome) for r in reqs]}")
     one_sync_a_chunk(rep, "mamba2 serve")
+    # the same folded weights and requests from a paged engine: the pool
+    # and admission in pages, and no page store (the SSD state is not paged)
+    del eng
+    eng = ServeEngine(mcfg, msession.params, slots=4, max_len=96, chunk=16,
+                      kv_paging=True, kv_page_size=PAGE_SIZE)
+    madapt.fold_into(eng)
+    eng.tick_sync_debug = "error"
+    preqs = [Request(uid=r.uid, prompt=r.prompt, max_new=12) for r in reqs]
+    t0 = time.perf_counter()
+    eng.run(preqs)
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t0
+    prep = eng.last_run_report
+    psame = [r.out for r in preqs] == [r.out for r in reqs]
+    print(f"[mamba2] paged folded engine ({eng.spec.n_pages} pages of "
+          f"{PAGE_SIZE}, no page store, SSD state "
+          f"{eng.ssm_state_bytes_per_slot} B a slot): {len(preqs)} requests "
+          f"in {pwall:.3f} s, {prep['ticks']} ticks, {prep['host_syncs']} "
+          f"host syncs for {prep['chunks']} chunks, outcomes "
+          f"{prep['outcomes']}, streams "
+          f"{'equal to' if psame else 'DIFFERENT FROM'} the contiguous ones",
+          flush=True)
+    if not all(r.outcome == "done" for r in preqs) or not psame:
+        fail(f"the paged mamba2 serve: {[(r.outcome, r.out) for r in preqs]}"
+             f" against {[r.out for r in reqs]}")
+    one_sync_a_chunk(prep, "mamba2 paged serve")
     del eng, msession, madapt
     torch.cuda.empty_cache()
 
@@ -4029,6 +4585,18 @@ def main() -> int:
                   flash_attention_cached_ref, fisher_tapgrads_ref, dev, gen)
     moe_launches = moe["launches"]
 
+    # -- phase 19: the ssm-based families finished (zamba2, paging and
+    # personalisation of mamba2 and zamba2) ------------------------------
+    hyb = phase19(dev, gen, profile)
+    hyb_launches, hyb_err = hyb["launches"], hyb["max_abs_err"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], hyb_err["flash_cached"])
+    paged["max_abs_err"] = max(paged["max_abs_err"], hyb_err["flash_paged"])
+    fisher["max_abs_err"] = max(fisher["max_abs_err"], hyb_err["fisher"])
+    for what in ("forward", "backward"):
+        key = "ssd_scan" if what == "forward" else "ssd_scan_bwd"
+        ssd_rec[what]["max_abs_err"] = max(ssd_rec[what]["max_abs_err"],
+                                           hyb_err[key])
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -4044,7 +4612,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:92",
         "launches": (launches + int8_launches + adapt_flash_launches
                      + pers_flash_launches + samp_launches
-                     + moe_launches["flash_cached"]),
+                     + moe_launches["flash_cached"]
+                     + hyb_launches["flash_cached"]),
         **flash,
     }, {
         "name": "flash_attention_paged",
@@ -4052,14 +4621,16 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_paged.cu",
         "replaces": "src/repro/kernels/flash_attention.py:157",
         "launches": (paged_launches + pressure_launches + fault_launches
-                     + moe_launches["flash_paged"]),
+                     + moe_launches["flash_paged"]
+                     + hyb_launches["flash_paged"]),
         **paged,
     }, {
         "name": "fisher_tapgrads",
         "route": "cuda",
         "source": "src/repro_torch/csrc/fisher.cu",
         "replaces": "src/repro/kernels/fisher.py:66",
-        "launches": fisher_launches + m_fisher + moe_launches["fisher"],
+        "launches": (fisher_launches + m_fisher + moe_launches["fisher"]
+                     + hyb_launches["fisher"]),
         **fisher,
     }, {
         "name": "fisher_tapgrads_tasks",
@@ -4073,14 +4644,14 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/grad_quant.cu",
         "replaces": "src/repro/kernels/grad_quant.py:57",
-        "launches": gq_launches,
+        "launches": gq_launches + hyb_launches["grad_quant"],
         **gquant,
     }, {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:22",
-        "launches": ssd_launches,
+        "launches": ssd_launches + hyb_launches["ssd_scan"],
         **ssd_rec["forward"],
     }, {
         "name": "ssd_scan_bwd",
@@ -4088,7 +4659,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "none: no TPU kernel (XLA autodiff of "
                     "src/repro/models/ssm.py:78 ssd_chunked)",
-        "launches": ssd_bwd_launches,
+        "launches": ssd_bwd_launches + hyb_launches["ssd_scan_bwd"],
         **ssd_rec["backward"],
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,8 @@ refreshes each user's deltas from their own finished streams:
 
 Backbones are a string-keyed registry: the paper's edge CNNs (``mcunet``,
 ``mobilenetv2``, ``proxylessnas``) and the ``tiny-cnn`` demo, and the LM
-configurations (dense, moe and ssm families).  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+configurations (dense, moe, ssm and hybrid families).  Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 

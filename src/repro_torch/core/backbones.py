@@ -1,5 +1,5 @@
-"""Backbone adapters: the port of ``repro.core.backbones`` for the dense
-and ssm LM families and the paper's edge CNNs.
+"""Backbone adapters: the port of ``repro.core.backbones`` for the dense,
+moe, ssm and hybrid LM families and the paper's edge CNNs.
 
 A :class:`Backbone` bundles what the sparse-update engine needs from a
 model family: unit costs (the Eq. 3 denominators), Fisher tap
@@ -7,11 +7,12 @@ construction, tap-gradient -> Fisher reduction, delta initialisation and
 the feature/loss closures.  A layer group has a ``mixer`` tap group
 (attention, MLA or SSD heads) and, where its layers have an FFN, an
 ``ffn`` group: d_ff neurons of an MLP (``dense_d_ff`` in a MoE model's
-dense head) or the experts of a MoE; mamba2's layers have none.  An edge
+dense head) or the experts of a MoE; the SSD layers of mamba2 and zamba2
+have none (zamba2's shared attention block is not a unit, so its one tap
+group is its SSD heads).  An edge
 CNN's unit is one conv layer with its output channels, tapped per layer
 as a (B, C_i) tensor (the layers' widths differ, so the taps do not
-stack).  The hybrid and encoder-decoder LMs arrive with ROADMAP queue 1,
-items 9 and 14.
+stack).  The encoder-decoder LMs arrive with ROADMAP queue 1, item 14.
 
 ``fisher_reduce_batch`` is Eq. 2 with a leading task axis, for a fleet's
 probe: an LM's (T, L, B, C) tap-gradient groups go through the Fisher

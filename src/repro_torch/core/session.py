@@ -514,10 +514,6 @@ class TinyTrainSession:
         if mesh is not None or hosts not in (None, 1):
             raise _later("adapt_many(mesh=..., hosts=...) (sharded fleet "
                          "adaptation)", "16")
-        if (getattr(self.backbone.cfg, "family", None) == "ssm"
-                and self.device.type != "cpu"):
-            raise _later("adapt_many of the ssm family on the card (the SSD "
-                         "kernels under torch.func.vmap)", "15.2")
         if not tasks:
             return []
         for t in tasks:

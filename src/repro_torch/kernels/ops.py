@@ -5,7 +5,9 @@ card launches the hand-written kernel and never the plain version (the
 kernel wrapper raises on what it does not take).  Each entry counts its
 kernel launches in a plain integer attribute, ``<entry>.launches``, so a
 run can show that its main path went through the kernel (``ssd_scan``
-also counts its backward's in ``ssd_scan.bwd_launches``).
+also counts its backward's in ``ssd_scan.bwd_launches``; its two
+``torch.autograd.Function`` classes count where they launch, so a launch
+that a ``torch.func.vmap`` folds for many tasks counts once).
 
 Entries: ``fisher``/``fisher_auto``/``fisher_tapgrads`` (Eq. 2),
 ``flash_attention`` (aligned: whole sequences, positions from 0),
@@ -177,7 +179,9 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk=256, init_state=None,
     x's dtype as ``ssd_scan_pallas`` returns it.  ``S % min(chunk, S)``
     must be 0, as ``ssd_chunked`` asserts.  On the card the forward and,
     under autograd, the backward are the hand-written kernels
-    (:class:`~.ssd_scan.SSDScanFn`); gradients reach x, dt, B and C."""
+    (:class:`~.ssd_scan.SSDScanFn`); gradients reach x, dt, B and C.
+    Under ``torch.func.vmap`` the task axis folds into the kernels' batch:
+    one launch each way for every task."""
     out_dtype = out_dtype or x.dtype
     if not _on_card(x):
         q = min(int(chunk), x.shape[1])
@@ -190,7 +194,6 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk=256, init_state=None,
         x.contiguous(), dt.contiguous(), a.contiguous(), bmat.contiguous(),
         cmat.contiguous(), None if init_state is None
         else init_state.float().contiguous(), int(chunk), bool(want_state))
-    ssd_scan.launches += 1
     return y.to(out_dtype), st
 
 

@@ -306,37 +306,130 @@ def ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat, *, chunk: int,
     return dx, ddt, dbc[0], dbc[1]
 
 
+def _fold(info, in_dims, tensors):
+    """A ``vmap`` rule's operands with the task axis folded into the batch
+    axis: each batched tensor's vmapped dim moves to the front and merges
+    with its batch dim, ``(T, B, ...) -> (T*B, ...)``; an unbatched one is
+    repeated for every task.  Returns (folded tensors, T)."""
+    t = info.batch_size
+    out = []
+    for x, d in zip(tensors, in_dims):
+        x = (x.expand(t, *x.shape) if d is None else x.movedim(d, 0))
+        out.append(x.reshape(t * x.shape[1], *x.shape[2:]).contiguous())
+    return out, t
+
+
+def _unbatched(in_dims, names, what: str) -> None:
+    for name, d in zip(names, in_dims):
+        if d is not None:
+            raise NotImplementedError(
+                f"{what} under vmap: {name} must be the same for every "
+                "task (the kernels take one a a head and fold the task axis "
+                "into the batch)")
+
+
+def _unfold(t: int, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.reshape(t, -1, *x.shape[1:])
+
+
+def _init_rows(init_state: Optional[torch.Tensor], t: int):
+    """An unbatched (B, H, P, N) initial state for the folded batch: task
+    k's rows are ``init_state`` again."""
+    return None if init_state is None else init_state.repeat(t, 1, 1, 1)
+
+
 class SSDScanFn(torch.autograd.Function):
     """y = SSD scan of (x, dt, a, B, C) from ``init_state``, through the
-    forward kernel; its backward is the backward kernel.  Returns (y
-    float32, final state float32 or None); the final state is not
-    differentiable.  ``a`` and ``init_state`` get no gradient: asking for
-    one raises instead of returning a wrong one (``a`` comes from
-    ``a_log``, which no TinyTrain delta touches)."""
+    forward kernel; its backward is :class:`SSDScanBwdFn`, the backward
+    kernel.  Returns (y float32, final state float32 or None); the final
+    state is not differentiable.  ``a`` and ``init_state`` get no
+    gradient: asking for one raises instead of returning a wrong one
+    (``a`` comes from ``a_log``, which no TinyTrain delta touches).
+
+    Under ``torch.func.vmap`` (a fleet's fine-tune, ``adapt_many``) the
+    ``vmap`` rule folds the task axis into the kernel's batch axis, ``(T,
+    B, S, H, P) -> (T*B, S, H, P)``, launches once for all T tasks and
+    unfolds y and the final state: the kernels' batch rows are
+    independent, so task k's rows are its own launch's.  ``a`` and
+    ``init_state`` must not be batched there (that raises).  Each launch
+    of the forward kernel adds one to ``ops.ssd_scan.launches``, a folded
+    one once."""
 
     @staticmethod
-    def forward(ctx, x, dt, a, bmat, cmat, init_state, chunk, want_state):
-        for name, t in (("a", a), ("init_state", init_state)):
-            if t is not None and t.requires_grad:
-                raise NotImplementedError(
-                    f"the SSD scan kernels give no gradient for {name}")
+    def forward(x, dt, a, bmat, cmat, init_state, chunk, want_state):
+        from . import ops  # late: ops imports this module
+
         y, fin = ssd_scan_fwd_cuda(x, dt, a, bmat, cmat, chunk=chunk,
                                    init_state=init_state,
                                    want_state=want_state)
-        ctx.save_for_backward(x, dt, a, bmat, cmat, init_state)
-        ctx.chunk = chunk
-        if fin is not None:
-            ctx.mark_non_differentiable(fin)
+        ops.ssd_scan.launches += 1
         return y, fin
 
     @staticmethod
-    def backward(ctx, dy, _dfin):
-        from . import ops  # late: ops imports this module
+    def setup_context(ctx, inputs, output):
+        x, dt, a, bmat, cmat, init_state, chunk, _ = inputs
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[5]:
+            raise NotImplementedError(
+                "the SSD scan kernels give no gradient for a or init_state")
+        ctx.save_for_backward(x, dt, a, bmat, cmat, init_state)
+        ctx.chunk = chunk
+        if output[1] is not None:
+            ctx.mark_non_differentiable(output[1])
 
+    @staticmethod
+    def backward(ctx, dy, _dfin):
         x, dt, a, bmat, cmat, init_state = ctx.saved_tensors
-        dx, ddt, db, dc = ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat,
-                                            chunk=ctx.chunk,
-                                            init_state=init_state)
-        ops.ssd_scan.bwd_launches += 1
+        dx, ddt, db, dc = SSDScanBwdFn.apply(dy, x, dt, a, bmat, cmat,
+                                             init_state, ctx.chunk)
         return (dx.to(x.dtype), ddt, None, db.to(bmat.dtype),
                 dc.to(cmat.dtype), None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, a, bmat, cmat, init_state, chunk,
+             want_state):
+        _unbatched((in_dims[2], in_dims[5]), ("a", "init_state"),
+                   "the SSD scan")
+        (x, dt, bmat, cmat), t = _fold(info, in_dims[:2] + in_dims[3:5],
+                                       (x, dt, bmat, cmat))
+        y, fin = SSDScanFn.apply(x, dt, a, bmat, cmat,
+                                 _init_rows(init_state, t), chunk,
+                                 want_state)
+        return (_unfold(t, y), _unfold(t, fin)), (0, None if fin is None
+                                                  else 0)
+
+
+class SSDScanBwdFn(torch.autograd.Function):
+    """The scan's backward as an operation of its own: (dx, d(dt), dB, dC),
+    float32, through the backward kernel.  Its ``vmap`` rule folds the
+    task axis as :class:`SSDScanFn`'s does, so ``torch.func.vmap`` of a
+    ``torch.func.grad`` launches the backward once for all tasks.  Each
+    launch adds one to ``ops.ssd_scan.bwd_launches``.  It has no
+    gradient: a double backward raises."""
+
+    @staticmethod
+    def forward(dy, x, dt, a, bmat, cmat, init_state, chunk):
+        from . import ops  # late: ops imports this module
+
+        out = ssd_scan_bwd_cuda(dy.float().contiguous(), x, dt, a, bmat, cmat,
+                                chunk=chunk, init_state=init_state)
+        ops.ssd_scan.bwd_launches += 1
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the SSD scan kernels have no double backward")
+
+    @staticmethod
+    def vmap(info, in_dims, dy, x, dt, a, bmat, cmat, init_state, chunk):
+        _unbatched((in_dims[3], in_dims[6]), ("a", "init_state"),
+                   "the SSD scan's backward")
+        (dy, x, dt, bmat, cmat), t = _fold(
+            info, in_dims[:3] + in_dims[4:6], (dy, x, dt, bmat, cmat))
+        out = SSDScanBwdFn.apply(dy, x, dt, a, bmat, cmat,
+                                 _init_rows(init_state, t), chunk)
+        return tuple(_unfold(t, g) for g in out), (0, 0, 0, 0)

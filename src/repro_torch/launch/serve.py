@@ -15,12 +15,13 @@ stores the pages in int8 with per-token scales:
 With ``--adapt``, first runs TinyTrain through the façade on a synthetic
 task (Fisher probe, Eq. 3 selection, sparse fine-tune) under the device
 profile ``--profile`` and folds the deltas into the engine before serving,
-as ``examples/serve_batched.py`` does.  The ssm family (mamba2) runs it
-through the SSD scan kernels; its paged, int8 and personalised serves
-arrive with later slices:
+as ``examples/serve_batched.py`` does.  The ssm and hybrid families
+(mamba2, zamba2) run it through the SSD scan kernels, and take every
+other flag too (their SSD state is never paged; zamba2's shared-block
+caches are):
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
-        --preset full --adapt
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --preset full --adapt --paging
 
 The moe family (``--arch mixtral-8x7b | deepseek-v3-671b``) runs every
 mode at the ``smoke`` and ``100m`` presets (its ``full`` presets do not
@@ -155,15 +156,6 @@ def main(argv: Optional[List[str]] = None) -> None:
                              f"it arrives with ROADMAP queue 1, item {item}")
 
     cfg = configs.preset_config(args.arch, args.preset)
-    if cfg.family == "ssm":
-        for flag, on, item in (
-                ("--paging", args.paging or args.pressure is not None, "12.2"),
-                ("--kv-int8", args.kv_int8, "12.2"),
-                ("--personalise", args.personalise, "15.2")):
-            if on:
-                raise SystemExit(f"[serve] {flag} is not in the port for the "
-                                 f"ssm family ({args.arch}) yet: it arrives "
-                                 f"with ROADMAP queue 1, item {item}")
     faults = parse_inject(args.inject) if args.inject else None
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -287,6 +279,10 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"MiB across {args.slots} slots "
               f"({mem['kv_bytes_per_stream'] / 2**10:.1f} KiB/stream), peak "
               f"{peak} resident streams")
+    if eng.ssm_state_bytes_per_slot and (mem["kv_paging"]
+                                         or cfg.family != "ssm"):
+        print(f"[serve] SSD state (conv windows and states, never paged): "
+              f"{eng.ssm_state_bytes_per_slot / 2**10:.1f} KiB a slot")
     if any(r.truncated for r in reqs):
         print(f"[serve] {sum(r.truncated for r in reqs)} requests truncated "
               f"at max_len={args.max_len}")

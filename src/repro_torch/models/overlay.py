@@ -23,9 +23,9 @@ slot its own effective weights ``W ⊕ scatter(ΔW_b, idx_b)`` through the
 same scatter-add as :func:`fold_deltas` (:func:`_add_at`), so a slot
 serving a user's deltas computes with exactly the weights a folded copy
 holds; a MoE unit's overlay is the slot's whole expert stack ``(B, E, D,
-F)``.  The SSD kind (``"ssm"``) folds but has no per-slot overlay yet
-(ROADMAP queue 1, item 15.2); the cross-attention kind arrives with item
-9.
+F)``, an SSD unit's the slot's ``w_z``/``w_x`` columns and ``w_out`` rows
+by SSD head, which ``ssm.ssd_apply`` takes through ``layers.bmm``.  The
+cross-attention kind arrives with ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -204,10 +204,6 @@ def slot_params(cfg, kind: str, params: Params, d_stack: Params,
     :func:`fold_deltas` performs.  A zero row gives ``W`` itself.  ``kind``
     is the policy's (``"attn"`` resolves to MLA's edits on an MLA
     config)."""
-    if kind == "ssm":
-        raise NotImplementedError(
-            "the per-slot delta overlay of SSD heads arrives with ROADMAP "
-            "queue 1, item 15.2 (online personalisation of the ssm family)")
     _, edits = _edits(cfg, kind)
     out = dict(params)
     idx = idx_stack.long()

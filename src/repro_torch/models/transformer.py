@@ -1,4 +1,4 @@
-"""The decoder LM (dense, moe and ssm families): the port of
+"""The decoder LM (dense, moe, ssm and hybrid families): the port of
 ``repro.models.transformer``.
 
 Parameters are nested dicts of tensors in the JAX package's layout: layers
@@ -28,6 +28,13 @@ The ssm family (mamba2) stacks ``models.ssm`` blocks with no FFN: its
 selectable unit is the SSD block, channels its SSD heads, and its cache
 per slot is a conv window and a (H, P, N) state.
 
+The hybrid family (zamba2) is the same SSD stack with one weight-shared
+attention + MLP block (``params["shared_attn"]``) applied after every
+layer ``lid`` with ``(lid + 1) % hybrid_attn_every == 0``, in every mode;
+each application has its own attention cache ``caches["shared{lid}"]``
+(contiguous or paged, unstacked, as in the JAX package).  The shared block
+is not a selectable unit: no tap, delta or overlay reaches it.
+
 The moe family: mixtral-8x7b's layers are attention with a sliding
 window and a MoE FFN (units ``attn`` over heads, ``moe`` over experts);
 its cache rolls once ``max_len`` passes the window.  deepseek-v3's are
@@ -37,8 +44,8 @@ layers with a shared expert; its MTP head (``params["mtp"]``: a
 projection, one block of the last layer's kind, a norm) adds ``0.1 x``
 its loss to ``lm_loss``, and the MoE aux adds ``0.01 x``.  The serving
 programs run the MoE drop-free (``drop_free``), training capped.  The
-hybrid, encoder-decoder and VLM families and the remat option arrive with
-later slices (ROADMAP queue 1, items 9 and 14).
+encoder-decoder and VLM families and the remat option arrive with later
+slices (ROADMAP queue 1, items 9 and 14).
 """
 from __future__ import annotations
 
@@ -158,15 +165,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} serving arrives with ROADMAP queue 1, "
             "item 14 (encoder-decoder and multimodal serving)")
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid layers (zamba2's shared attention block) "
-            "arrive with ROADMAP queue 1, item 9 (the LM model stack)")
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, moe and ssm families run in the "
-            f"port; {cfg.family} layers arrive with ROADMAP queue 1, item 9 "
-            "(the LM model stack)")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -211,11 +209,22 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
         return {"w": torch.ones(*lead, cfg.d_model, dtype=dtype, device=dev),
                 "b": zeros(*lead, cfg.d_model)}
 
-    def mlp(n, f, act):
+    def mlp(lead, f, act):
         if act in ("swiglu", "geglu"):
-            return {"w_gate": dense(n, d, f), "w_up": dense(n, d, f),
-                    "w_down": dense(n, f, d)}
-        return {"w_up": dense(n, d, f), "w_down": dense(n, f, d)}
+            return {"w_gate": dense(*lead, d, f), "w_up": dense(*lead, d, f),
+                    "w_down": dense(*lead, f, d)}
+        return {"w_up": dense(*lead, d, f), "w_down": dense(*lead, f, d)}
+
+    def gqa(*lead):
+        attn = {"wq": dense(*lead, d, cfg.q_dim),
+                "wk": dense(*lead, d, cfg.kv_dim),
+                "wv": dense(*lead, d, cfg.kv_dim),
+                "wo": dense(*lead, cfg.q_dim, d)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(*lead, cfg.q_dim),
+                        bk=zeros(*lead, cfg.kv_dim),
+                        bv=zeros(*lead, cfg.kv_dim))
+        return attn
 
     def stack(ids):
         n, lid = len(ids), ids[0]
@@ -234,13 +243,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                     "w_kr": dense(n, d, cfg.qk_rope_dim),
                     "wo": dense(n, h * cfg.v_head_dim, d)}
         else:
-            attn = {"wq": dense(n, d, cfg.q_dim),
-                    "wk": dense(n, d, cfg.kv_dim),
-                    "wv": dense(n, d, cfg.kv_dim),
-                    "wo": dense(n, cfg.q_dim, d)}
-            if cfg.qkv_bias:
-                attn.update(bq=zeros(n, cfg.q_dim), bk=zeros(n, cfg.kv_dim),
-                            bv=zeros(n, cfg.kv_dim))
+            attn = gqa(n)
         out = {"norm1": norm(n), "attn": attn, "norm2": norm(n)}
         if ffn_kind(cfg, lid) == "moe":
             e, f = cfg.n_experts, cfg.d_expert
@@ -249,10 +252,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                           "w_up": dense(n, e, d, f),
                           "w_down": dense(n, e, f, d)}
             if cfg.n_shared_experts:
-                out["moe"]["shared"] = mlp(n, f * cfg.n_shared_experts,
+                out["moe"]["shared"] = mlp((n,), f * cfg.n_shared_experts,
                                            "swiglu")
         else:
-            out["mlp"] = mlp(n, mlp_d_ff(cfg, lid), cfg.act)
+            out["mlp"] = mlp((n,), mlp_d_ff(cfg, lid), cfg.act)
         return out
 
     d = cfg.d_model
@@ -261,6 +264,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                  "stacks": {}}
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
         p["stacks"][f"g{gi}"] = stack(ids)
+    if _shared_every(cfg):
+        # zamba2's one weight-shared attention + MLP block
+        p["shared_attn"] = {"norm1": norm(), "attn": gqa(), "norm2": norm(),
+                            "mlp": mlp((), cfg.d_ff, cfg.act)}
     p["final_norm"] = norm()
     if not cfg.tie_embeddings:
         p["unembed"] = dense(d, cfg.vocab)
@@ -365,6 +372,28 @@ def _mlp_tapped(p: Params, x: torch.Tensor, act: str,
     return h @ p["w_down"]
 
 
+def _shared_every(cfg: ArchConfig) -> int:
+    """Layers between two applications of the hybrid family's shared
+    block (0: no shared block)."""
+    return cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+
+
+def _shared_attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                       positions: torch.Tensor, *,
+                       cache: Optional[Params] = None,
+                       valid: Optional[torch.Tensor] = None,
+                       step_valid: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """zamba2's weight-shared block: attention, then an MLP, each behind
+    its own norm and residual.  Returns (x, the attention's cache)."""
+    h = L.apply_norm(cfg.norm, p["norm1"], x)
+    y, c = L.attention_apply(p["attn"], h, cfg, positions=positions,
+                             cache=cache, valid=valid, step_valid=step_valid)
+    x = x + y
+    h = L.apply_norm(cfg.norm, p["norm2"], x)
+    return x + L.mlp_apply(p["mlp"], h, cfg.act), c
+
+
 def _layer_chan_idx(plan, chan_idx, lid: int, device) -> Dict[str, Any]:
     """A selected layer's channel indices by kind: the caller's tensors
     (``chan_idx``) where given, else the plan's static numpy indices."""
@@ -410,13 +439,17 @@ def forward_hidden(
     ({layer: {kind: (delta_pack, channel_idx)}}, slot-stacked leaves) gives
     those layers per-slot effective weights: the serving engine's
     personalisation path, which passes its policy as ``plan`` with no
-    ``deltas``.  ``drop_free`` runs every MoE layer drop-free."""
+    ``deltas``.  ``drop_free`` runs every MoE layer drop-free.  On a hybrid
+    config the shared block runs after every ``hybrid_attn_every``-th
+    layer, in every mode, against ``caches["shared{lid}"]`` when
+    serving."""
     if plan is not None and (plan.meta or {}).get("remat"):
         raise NotImplementedError(
             "rematerialised backprop spans (policy meta 'remat') arrive "
             "with ROADMAP queue 1, item 9")
     selected = set(plan.selected_layers()) if plan is not None else set()
     horizon = plan.horizon if plan is not None else 0
+    every = _shared_every(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
         stack = params["stacks"][f"g{gi}"]
@@ -449,6 +482,15 @@ def forward_hidden(
                 keys = ("conv", "ssm", "len") if ck == "ssm" else ("len",)
                 for key in keys:
                     g_caches[ck][key][j] = nc[ck][key]
+            if every and (lid + 1) % every == 0:
+                sc = caches.get(f"shared{lid}") if caches else None
+                with frozen:
+                    x, c = _shared_attn_apply(cfg, params["shared_attn"], x,
+                                              positions, cache=sc,
+                                              valid=seq_valid,
+                                              step_valid=step_valid)
+                if sc is not None:
+                    sc["len"].copy_(c["len"])
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     if with_aux:
         return x, caches, aux_total
@@ -564,15 +606,16 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     max_pages)`` of one table, all -1; a window below ``max_len`` keeps
     its rolling cache contiguous, as in the JAX package.  An SSD layer
     group holds ``caches["g{i}"]["ssm"] = {"conv": (L, B, d_conv-1,
-    d_inner + 2N), "ssm": (L, B, H, P, N), "len": (L, B) int32}`` (the ssm
-    family has no paged cache yet)."""
+    d_inner + 2N), "ssm": (L, B, H, P, N), "len": (L, B) int32}``, never
+    paged (it is fixed-size; a pure-ssm config under paging has no page
+    store at all).  A hybrid config adds one unstacked attention cache an
+    application of its shared block, ``caches["shared{lid}"] = {"k", "v":
+    (B, max_len, Hkv, Dh), "len": (B,)}``, or paged ``{"k", "v": page
+    stores, "page_table": (B, max_pages), "len"}`` whose table is the one
+    tensor every paged layer views."""
     from ..serving import paging as PG  # lazily: serving imports this module
 
     check_supported(cfg)
-    if cfg.family == "ssm" and (paging is not None or cfg.kv_paging):
-        raise NotImplementedError(
-            "paged caches for the ssm family arrive with ROADMAP queue 1, "
-            "item 12.2")
     if paging is None and cfg.kv_paging:
         paging = PG.PagingSpec.build(max_len, page_size=cfg.kv_page_size,
                                      slots=batch, int8=cfg.kv_int8)
@@ -584,6 +627,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     caches: Dict[str, Any] = {}
+    table = (torch.full((batch, paging.max_pages), -1, dtype=torch.int32,
+                        device=dev) if paging is not None else None)
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
         n, mk = len(ids), block_kind(cfg, ids[0])
         lens = torch.zeros((n, batch), dtype=torch.int32, device=dev)
@@ -605,8 +650,6 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
                      "v": (cfg.n_kv_heads, cfg.head_dim)}
             rows = s_max
         if paging is not None and (mk == "mla" or not rolling):
-            table = torch.full((batch, paging.max_pages), -1,
-                               dtype=torch.int32, device=dev)
             c = {name: PG.store_init(paging, f, dtype, dev, lead=(n,))
                  for name, f in feats.items()}
             c.update(page_table=table[None].expand(n, *table.shape),
@@ -617,6 +660,18 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
                  for name, f in feats.items()}
             c["len"] = lens
         caches[f"g{gi}"] = {"attn": c}
+    every = _shared_every(cfg)
+    for lid in range(every - 1, cfg.n_layers, every) if every else ():
+        feat = (cfg.n_kv_heads, cfg.head_dim)
+        if paging is not None and not rolling:
+            c = {name: PG.store_init(paging, feat, dtype, dev)
+                 for name in ("k", "v")}
+            c["page_table"] = table
+        else:
+            c = {name: torch.zeros((batch, s_max) + feat, dtype=dtype,
+                                   device=dev) for name in ("k", "v")}
+        c["len"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        caches[f"shared{lid}"] = c
     return caches
 
 
@@ -632,6 +687,9 @@ def reset_slot_state(caches: Dict[str, Any],
     with a fill rather than a multiply by 0: a NaN left by a ``numerics``
     stream does not survive into the slot's next occupant."""
     for g in caches.values():
+        if "len" in g:  # a hybrid config's shared-block cache
+            g["len"].masked_fill_(mask, 0)
+            continue
         for kind, c in g.items():
             c["len"].masked_fill_(mask, 0)
             if kind == "ssm":

@@ -68,11 +68,15 @@ chunks with one masked select: no drain, no host read.  A request that
 carries deltas to an engine without a policy is rejected with the typed
 reason ``unexpected_delta_set``.
 
-**The ssm family** (mamba2) serves from per-slot recurrent state (a conv
-window and a (H, P, N) SSD state per layer) that admission zeroes; both
-its block prefill and its decode are the sequential recurrence, so its
-serve launches no SSD kernel.  Paging and personalisation of that family
-arrive with ROADMAP items 12.2 and 15.2.
+**The ssm and hybrid families** (mamba2, zamba2) serve from per-slot
+recurrent state (a conv window and a (H, P, N) SSD state per layer) that
+admission zeroes; both their block prefill and their decode are the
+sequential recurrence, so a serve launches no SSD kernel.  That state is
+fixed-size and never paged.  Under ``kv_paging`` the pool and admission
+in pages run as on the dense family, as in the JAX engine: mamba2 then
+has no page store at all, and zamba2's shared-block caches (one a
+``hybrid_attn_every`` layers) are page arenas under the engine's one
+table.  Their SSD heads take the per-slot overlay like any other unit.
 
 **Sampling** (``temperature`` > 0, ``top_k``): token ``t`` of a request
 draws from ``fold_in(fold_in(key(sample_seed), sid), t)`` through
@@ -388,12 +392,6 @@ class _FlagProbe:
         return bool(self.flags[t, 0]), bool(self.flags[t, 1])
 
 
-def _later(knob: str, item: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ServeEngine({knob}=...): {what} arrives with ROADMAP queue 1, "
-        f"item {item}")
-
-
 class ServeEngine:
     def __init__(
         self,
@@ -460,12 +458,6 @@ class ServeEngine:
         # (pages per layer arena) defaults to the fixed-stripe capacity
         # slots * ceil(max_len / page_size)
         paging_on = cfg.kv_paging if kv_paging is None else bool(kv_paging)
-        if cfg.family == "ssm" and paging_on:
-            raise _later("kv_paging", "12.2", "a paged cache for the ssm "
-                         "family (its per-slot state is fixed-size)")
-        if cfg.family == "ssm" and personalise is not None:
-            raise _later("personalise", "15.2", "the per-slot delta overlay "
-                         "of the ssm family")
         self.spec: Optional[PG.PagingSpec] = None
         self.pool: Optional[PG.PagePool] = None
         if paging_on:
@@ -534,6 +526,12 @@ class ServeEngine:
                 "no progress and the run loop would spin forever")
         self.caches = T.init_caches(cfg, slots, max_len, paging=self.spec,
                                     device=self.device)
+        # the SSD layers' conv windows and states: fixed-size, never paged
+        # and not part of memory_report (which stays the JAX engine's)
+        state = [g["ssm"][key] for g in self.caches.values() if "ssm" in g
+                 for key in ("conv", "ssm")]
+        self.ssm_state_bytes_per_slot = sum(
+            t.numel() * t.element_size() for t in state) // slots
         self.queue: Deque[Request] = collections.deque()
         self.ticks = 0  # lifetime tick count (stat, never a per-call budget)
         # the eager loop's host state: its slots and their positions

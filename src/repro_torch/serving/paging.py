@@ -27,9 +27,10 @@ Two things differ from the JAX package, neither in values:
   dropped write can neither land in a page owned by another slot nor
   race with a valid write.  The spare row is never read and is not
   counted by :func:`cache_bytes`.
-- All layers of a group share one page table: ``caches[g]["attn"]
-  ["page_table"]`` is a broadcast view of the pool's table, and
-  :func:`set_page_table` re-points it (no copy).
+- All layers share one page table: ``caches[g]["attn"]["page_table"]``
+  is a broadcast view of the pool's table (a hybrid config's unstacked
+  ``caches["shared{lid}"]["page_table"]`` is the table itself), and
+  :func:`set_page_table` re-points them (no copy).
 
 The pinned runs (``reserve_run``/``release_run``) back encoder-output
 page runs, which arrive with ROADMAP queue 1, item 14; they are ported now
@@ -323,8 +324,12 @@ def set_page_table(caches: Dict[str, Any],
                    table: torch.Tensor) -> Dict[str, Any]:
     """Point every paged layer cache at the pool's ``table``: each group's
     ``page_table`` becomes a broadcast view ``(L, slots, max_pages)`` of
-    it, with no copy.  Updates ``caches`` in place and returns it."""
+    it and each unstacked shared-block cache's the table itself, with no
+    copy.  Updates ``caches`` in place and returns it."""
     for g in caches.values():
+        if PAGE_TABLE_KEY in g:
+            g[PAGE_TABLE_KEY] = table
+            continue
         c = g.get("attn")
         if isinstance(c, dict) and PAGE_TABLE_KEY in c:
             c[PAGE_TABLE_KEY] = table[None].expand(

@@ -201,8 +201,20 @@ def test_default_device_raises_without_cuda(model):
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-base",
                                   "paligemma-3b"])
 def test_families_of_later_slices_raise(arch):
+    """The encoder-decoder and VLM families raise naming their item; the
+    hybrid family (zamba2) runs now, with one shared-block cache an
+    application (tests/test_torch_hybrid.py holds them to the JAX
+    package)."""
+    cfg = configs.get_reduced(arch)
+    if cfg.family == "hybrid":
+        caches = T.init_caches(cfg, 2, 16, device="cpu")
+        assert sorted(k for k in caches if k.startswith("shared")) == [
+            "shared2", "shared5"]
+        assert caches["shared2"]["k"].shape == (2, 16, cfg.n_kv_heads,
+                                                cfg.head_dim)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_caches(configs.get_reduced(arch), 2, 16, device="cpu")
+        T.init_caches(cfg, 2, 16, device="cpu")
 
 
 def test_init_params_layout_matches_reference(model):

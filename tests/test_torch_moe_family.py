@@ -433,9 +433,9 @@ def test_serve_launcher_runs_the_family(capsys, arch, flags):
 
 
 def test_moe_family_is_admitted_and_later_families_raise():
-    for arch in ARCHS:
+    for arch in ARCHS + ("zamba2-1.2b",):  # the hybrid family runs too
         T.check_supported(configs.get_reduced(arch))
-    for arch in ("zamba2-1.2b", "whisper-base", "paligemma-3b"):
+    for arch in ("whisper-base", "paligemma-3b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.check_supported(configs.get_reduced(arch))
     rolled = dataclasses.replace(configs.get_reduced("qwen2-1.5b"),

@@ -226,12 +226,39 @@ def _fleet_exchange(tcfg, tp):
     Personaliser(None, engine, None)
 
 
+def _remat(tcfg, tp):
+    import torch
+
+    from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
+
+    plan = SparseUpdatePolicy(horizon=1, units=(SelectedUnit(1, "mlp", (0,)),),
+                              meta={"remat": True})
+    x = tp["embed"][torch.zeros((1, 4), dtype=torch.long)]
+    T.forward_hidden(tcfg, tp, x, torch.arange(4)[None], plan=plan,
+                     deltas={})
+
+
+def _session(tcfg, tp):
+    from repro_torch import api
+    from repro_torch.core.backbones import lm_backbone
+
+    return api.TinyTrainSession(lm_backbone(tcfg, 64, 4), tp, max_way=2,
+                                device="cpu")
+
+
+def _score_stream(tcfg, tp):
+    _session(tcfg, tp).score_stream()
+
+
+def _mesh(tcfg, tp):
+    _session(tcfg, tp).adapt_many([], "jetson-nano", mesh=object())
+
+
 LATER = {
-    "ssm_paging": (_engine("mamba2-1.3b", kv_paging=True), "12.2"),
-    "ssm_personalise": (_engine("mamba2-1.3b", personalise=object()),
-                        "15.2"),
+    "remat": (_remat, "9"),
+    "score_stream": (_score_stream, "10"),
     "fleet_exchange": (_fleet_exchange, "16"),
-    "hybrid": (_engine("zamba2-1.2b"), "9"),
+    "mesh": (_mesh, "16"),
     "vlm": (_engine("paligemma-3b"), "14"),
     "audio": (_engine("whisper-base"), "14"),
 }
@@ -240,8 +267,11 @@ LATER = {
 @pytest.mark.parametrize("what", list(LATER))
 def test_knobs_of_later_slices_raise(ref, what):
     """What the port does not run yet raises, naming the ROADMAP item that
-    brings it: the ssm family's paged cache and per-slot overlay, the
-    fleet's delta exchange, and the hybrid, vlm and audio families."""
+    brings it: a policy's remat option, ``score_stream``, the fleet's delta
+    exchange and sharded ``adapt_many``, and the vlm and audio families.
+    (The ssm family's paged cache and per-slot overlay and the hybrid
+    family run now: ``tests/test_torch_ssm_paging.py``,
+    ``test_torch_ssm_personalise.py``, ``test_torch_hybrid.py``.)"""
     tcfg, tp, _ = ref
     build, item = LATER[what]
     with pytest.raises(NotImplementedError,

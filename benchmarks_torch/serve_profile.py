@@ -15,7 +15,8 @@ tokens each, weights and prompts from seed 0), broken down three ways:
 
     python3 benchmarks_torch/serve_profile.py [--trace DIR]
         [--paging] [--page-budget N] [--kv-int8]
-        [--arch mamba2-1.3b | zamba2-1.2b | mixtral-8x7b | deepseek-v3-671b]
+        [--arch mamba2-1.3b | zamba2-1.2b | mixtral-8x7b | deepseek-v3-671b
+                | gemma-2b | whisper-base | paligemma-3b]
         [--repeats N] [--issue-masked] [--temperature T --top-k K]
 
 ``--paging`` serves the same requests from the paged KV cache (page size
@@ -30,7 +31,16 @@ recurrence, and the shared block's kernel 2 (kernel 4 under
 phase 5's traffic on the moe family at its published widths with the
 depth of ``chip_smoke.py`` phase 18 (16 of 32 layers, 4 of 61: what one
 80 GB card holds in bf16); deepseek's paged serve pages its MLA latent
-rows.  ``--issue-masked`` turns the engine's skip of work it knows to
+rows.  ``--arch gemma-2b`` serves phase 5's traffic on gemma-2b at its
+published config (18 layers, 8 query heads of 256 over one kv head: the
+block flash kernels at D 256).  ``--arch whisper-base`` and ``--arch
+paligemma-3b`` serve phase 5's traffic with encoder inputs, as
+``chip_smoke.py`` phase 20 does (whisper: each request's 1500 frames
+encoded once at staging and cross-attended every tick; paligemma: a
+256-token image prefix inside max_len 768); a paged pool then holds eight
+residents' KV and encoder runs unless ``--page-budget``, and the run also
+gives the encoder's share (each staging's encode, synchronised, against
+the run's wall).  ``--issue-masked`` turns the engine's skip of work it knows to
 be masked off (every tick of a chunk's budget and both forward programs
 a tick: the predicated path alone).  ``--temperature T`` (with
 ``--top-k K``, seed 11) samples instead of the greedy pick, and the
@@ -51,10 +61,14 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import MOE_LAYERS  # noqa: E402  the moe family's depth cut
+from chip_smoke import (  # noqa: E402  the moe family's depth cut, and
+    ENC_MAX_LEN, MOE_LAYERS, enc_page_budget, enc_requests,  # phase 20's
+)                                                            # traffic
 
 
 def requests(cfg, Request, np):
+    if cfg.enc_feats_shape is not None:  # chip_smoke.py phase 20's serve
+        return enc_requests(cfg, Request, np)
     rng = np.random.default_rng(0)
     if cfg.family == "ssm":  # chip_smoke.py phase 11's folded serve
         return [Request(uid=i, prompt=rng.integers(
@@ -80,7 +94,7 @@ def main() -> int:
                          "--paging)")
     ap.add_argument("--arch", default="qwen2-1.5b",
                     choices=("qwen2-1.5b", "mamba2-1.3b", "zamba2-1.2b",
-                             *MOE_LAYERS))
+                             *MOE_LAYERS, "gemma-2b", *ENC_MAX_LEN))
     ap.add_argument("--repeats", type=int, default=1,
                     help="unprofiled runs of the requests (walls)")
     ap.add_argument("--issue-masked", action="store_true",
@@ -114,14 +128,20 @@ def main() -> int:
     kw = (dict(kv_paging=True, page_budget=args.page_budget,
                kv_int8=args.kv_int8 or None) if paged else {})
     kw.update(dict(slots=4, max_len=96, chunk=16) if cfg.family == "ssm"
-              else dict(slots=8, max_len=512, chunk=32))
+              else dict(slots=8, max_len=ENC_MAX_LEN.get(args.arch, 512),
+                        chunk=32))
+    if paged and args.page_budget is None and args.arch in ENC_MAX_LEN:
+        kw["page_budget"] = enc_page_budget(cfg, 8, kw["max_len"])
     if args.issue_masked:
         kw["skip_masked"] = False
     if args.temperature > 0:
         kw.update(temperature=args.temperature, top_k=args.top_k,
                   sample_seed=11)
     eng = ServeEngine(cfg, params, **kw)
-    eng.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32), max_new=2)])
+    # warm: one short request (an encoder config's carries its inputs)
+    eng.run(requests(cfg, Request, np)[:1]
+            if cfg.enc_feats_shape is not None else
+            [Request(uid=-1, prompt=np.arange(8, dtype=np.int32), max_new=2)])
 
     # host time blocked in reads, and wall time per tick kind
     fetch_s = [0.0]
@@ -179,13 +199,38 @@ def main() -> int:
     print(f"[walls] {', '.join(f'{w:.4f}' for w in walls)} s; median "
           f"{wall:.4f} s")
 
+    enc_s = []
+    encode = E.ServeEngine._encode_cached
+
+    def timed_encode(self, rid, req):
+        # an encode at staging (a cache hit costs nothing), synchronised
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit = rid in self._enc_rows
+        out = encode(self, rid, req)
+        torch.cuda.synchronize()
+        if not hit:
+            enc_s.append(time.perf_counter() - t0)
+        return out
+
     E.ServeEngine._advance = timed_advance
+    E.ServeEngine._encode_cached = timed_encode
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     eng.run(requests(cfg, Request, np))
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
     E.ServeEngine._advance = advance
+    E.ServeEngine._encode_cached = encode
     for kind, ts in sorted(tick_s.items()):
         print(f"[ticks] {kind}: {len(ts)} ticks, median "
               f"{1e3 * float(np.median(ts)):.3f} ms, total {sum(ts):.4f} s "
               "(forward + advance, synchronised)")
+    if enc_s:
+        print(f"[encode] {len(enc_s)} encodes at staging, median "
+              f"{1e3 * float(np.median(enc_s)):.3f} ms each, total "
+              f"{sum(enc_s):.4f} s = {100 * sum(enc_s) / twall:.1f}% of that "
+              f"run's wall {twall:.4f} s (synchronised)")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

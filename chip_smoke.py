@@ -252,6 +252,33 @@ exits non-zero:
    policy: at least one refresh, the SSD kernels launched under
    ``torch.func.vmap`` (``adapt_many``), grad_quant once a leaf of every
    refreshed delta set, every request ``done``, one sync a chunk.
+20. the encoder-decoder and VLM families: (a) whisper-smoke and
+   paligemma-smoke in f32 (TF32 off), card against the plain path on the
+   CPU from the same weights, every request with its own encoder inputs:
+   greedy streams on contiguous, paged, int8 and pressured (half the
+   pages: at least one preemption) caches, TinyTrain's policy and losses
+   (within 1e-4) on a conditioned task and folded streams, and two users'
+   deltas over every unit kind (whisper's cross-attention heads
+   included) served per slot (also against the folded engines); then per
+   model, (b) whisper-base and (c) paligemma-3b: kernels 2 and 4 at its
+   block prefill (8 slots, max_len 512; whisper Hq = Hkv = 8, D 64;
+   paligemma's gemma decoder Hq 8 over one kv head, D 256) and kernel 1
+   at its tap groups over 48 rows, against their plain versions and timed
+   beside the bound and SDPA, a page gather + SDPA or ``torch.einsum``;
+   whisper's encoder attention (``chunked_attention`` over 1500 frames,
+   plain torch) timed beside SDPA; then the model at its published
+   config, nothing cut, bf16, random weights from seed 0:
+   ``TinyTrainSession.adapt`` on phase 6's episode shape with encoder
+   inputs (``sample_encdec_task``; paligemma's rows cut from 48 to 24,
+   each with its 256-position prefix, for the probe's memory) under phase
+   6's profile scaled to the width (one Fisher launch a tap group, whisper's cross-attention group
+   included, two host transfers, finite losses), ``fold_into`` and phase
+   5's traffic with encoder inputs on contiguous and paged caches
+   (paligemma's 256-token prefix inside max_len 768; the paged pool sized
+   for eight residents' KV and encoder runs): every request ``done`` with
+   16 tokens, one sync a chunk, the flash kernel a positive multiple of
+   the decoder's layers, a run of 1,536,000 B (whisper) or 1,048,576 B
+   (paligemma) a resident, paged streams equal to contiguous ones.
 
 Phases 7 to 9 and 17 run right after phase 5, on its weights.  The
 fused serves of phases 5, 7 to 11 and 17 print ``host_syncs`` beside
@@ -260,9 +287,9 @@ inside the tick loop; the eager loop reads every tick by design); phases
 5, 7, 8, 10, 11 and 17's fused serves run their tick loops under
 ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
 the run.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 19) and read
-just after; phase 18's and 19's fused serves also run under sync debug
-mode "error".  The last three lines are the card's
+counts are set to 0 just before each main path (phases 5 to 20) and read
+just after; phase 18's, 19's and 20's fused serves also run under sync
+debug mode "error".  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -462,6 +489,47 @@ ZAMBA_TAPS = {"zamba2-1.2b": ((38, 64),)}
 # a zamba2-1.2b slot's shared-block KV at max_len 512: 6 applications x
 # K and V x 32 heads x 64 x 2 B (bf16) = 49,152 B a token
 SHARED_KV_BYTES = 6 * 2 * 32 * 64 * 2 * 512
+# phase 20: the encoder-decoder and VLM families.  (a) their smoke configs
+# card against CPU, every request with its own encoder inputs, at a size
+# where half the pages preempt; (b) and (c) whisper-base and paligemma-3b
+# at their published configs, nothing cut
+ENC_ARCHS = ("whisper-base", "paligemma-3b")
+ENC_SMOKE = dict(slots=3, max_len=48, chunk=4, page=4, max_new=14,
+                 lens=(3, 5, 8, 9, 17))
+# the serve's cache: paligemma's 256-row image prefix ahead of phase 5's
+# prompts (32-256 tokens) and 16 new tokens
+ENC_MAX_LEN = {"whisper-base": 512, "paligemma-3b": 768}
+# kernels 2 and 4 at each decoder's block prefill (8 slots, prefill_block
+# 8) over its serve's cache: whisper's 8 heads of 64 over 8 kv heads, 6
+# layers, at max_len 512 and phase 3's cursors; paligemma's heads are
+# gemma-2b's (8 of 256 over one kv head, 18 layers), at max_len 768 with
+# phase 3's cursors past the first block moved past the 256-row prefix,
+# so rows beyond 512 are read (8 x 48 pages of 16 rows)
+ENC_BLOCK = {"whisper-base": dict(B=8, Sq=8, Hq=8, Hkv=8, D=64, Sk=512,
+                                  layers=6),
+             "paligemma-3b": dict(
+                 WIDE_BLOCK, Sk=ENC_MAX_LEN["paligemma-3b"],
+                 pages=8 * ENC_MAX_LEN["paligemma-3b"] // PAGE_SIZE,
+                 q_offset=[o + 256 if o else o for o in Q_OFFSET],
+                 kv_len=[n + 256 if o else n
+                         for o, n in zip(Q_OFFSET, KV_LEN)])}
+# kernel 1 at their probe's tap groups over the adapt's support rows
+# (ENC_EPISODE, with that task's padding mask): whisper's heads (self-
+# and cross-attention alike) and d_ff, paligemma's heads and d_ff
+ENC_TAPS = {"whisper-base": ((6, 8), (6, 2048)),
+            "paligemma-3b": ((18, 8), (18, 16384))}
+# the adapt's episode: phase 6's (48 rows of 64 tokens) on whisper; on
+# paligemma every row also carries the 256-position image prefix, and the
+# probe's graph through 18 layers of 16,384-wide GeGLU MLPs over 96 such
+# rows (support and query) does not fit 80 GB (77 GB were held in the
+# query forward when it failed): cut to 4 shots a class, 24 rows, whose
+# adapt figures are not comparable with phase 6's
+ENC_EPISODE = {"whisper-base": dict(rows=ADAPT["pad"]),
+               "paligemma-3b": dict(rows=24, shots=4, query_per_class=4)}
+# a request's encoder run in bf16, its rows x d_model x 2 B (a stripe
+# when unpaged; paged, whole pages of 16 rows)
+ENC_RUN_BYTES = {"whisper-base": 1500 * 512 * 2,
+                 "paligemma-3b": 256 * 2048 * 2}
 
 
 def fail(msg: str) -> None:
@@ -1143,28 +1211,32 @@ def _fleet_groups(session, tasks):
 def smoke_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
                       SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
                       dev, archs=tuple(MOE_LAYERS), tag="moe",
-                      pressured=False) -> None:
-    """Phases 18 (a) and 19 (a): the smoke configs of ``archs`` in f32
-    (TF32 off), the card against the plain path on the CPU from the same
-    weights: greedy streams on contiguous, paged and int8 caches (and half
-    the pages, ``pressured``) and mixtral's rolling window, TinyTrain's
-    policy, losses and folded streams, and two users' deltas (one unit of
-    every kind) served per slot."""
+                      pressured=False, settings=None) -> None:
+    """Phases 18 (a), 19 (a) and 20 (a): the smoke configs of ``archs`` in
+    f32 (TF32 off), the card against the plain path on the CPU from the
+    same weights: greedy streams on contiguous, paged and int8 caches (and
+    half the pages, ``pressured``) and mixtral's rolling window,
+    TinyTrain's policy, losses and folded streams, and two users' deltas
+    (one unit of every kind) served per slot.  ``settings`` (default
+    MOE_SMOKE) sizes the engines; on an encoder-decoder or vlm config
+    every request carries its own encoder inputs, the adapt's task is a
+    conditioned one, and the pressured serve must preempt."""
     import numpy as np
     import torch
 
-    M = MOE_SMOKE
+    M = MOE_SMOKE if settings is None else settings
     base = dict(slots=M["slots"], max_len=M["max_len"], chunk=M["chunk"])
     paged = dict(base, kv_paging=True, kv_page_size=M["page"])
     stripe = M["slots"] * -(-M["max_len"] // M["page"])
 
     def serve(small, params, where, kw, prompts, uid=lambda i: i, pol=None,
-              deltas=None):
+              deltas=None, feats=None):
         eng = ServeEngine(small, params, device=where, personalise=pol, **kw)
         for u, d in (deltas or {}).items():
             eng.swap_deltas(u, DeltaSet.from_policy(pol, tree_map(
                 lambda t: t.to(params["embed"].device), d)))
-        reqs = [Request(uid=uid(i), prompt=p, max_new=M["max_new"])
+        reqs = [Request(uid=uid(i), prompt=p, max_new=M["max_new"],
+                        enc_feats=None if feats is None else feats[i])
                 for i, p in enumerate(prompts)]
         eng.run(reqs)
         return [(r.out, r.outcome) for r in reqs], eng
@@ -1178,6 +1250,10 @@ def smoke_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
         rng = np.random.default_rng(1)
         prompts = [rng.integers(0, small.vocab, n).astype(np.int32)
                    for n in M["lens"]]
+        shape = small.enc_feats_shape
+        feats = (None if shape is None else
+                 [rng.standard_normal(shape).astype(np.float32)
+                  for _ in prompts])
         cases = {"contiguous": (base, prompts), "paged": (paged, prompts),
                  "int8 pages": (dict(paged, kv_int8=True), prompts)}
         if pressured:
@@ -1188,29 +1264,42 @@ def smoke_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
                 rng.integers(0, small.vocab, n).astype(np.int32)
                 for n in M["rolling_lens"]])
         for what, (kw, ps) in cases.items():
-            got = {w: serve(small, p, w, kw, ps)[0] for w, p in both}
+            runs = {w: serve(small, p, w, kw, ps,
+                             feats=feats if ps is prompts else None)
+                    for w, p in both}
+            got = {w: r[0] for w, r in runs.items()}
             same = got["cpu"] == got["cuda"]
             done = all(o == "done" for _, o in got["cuda"])
+            requeued = runs["cuda"][1].last_run_report["outcomes"].get(
+                "requeued", 0)
             print(f"[{tag}] {small.name} f32 {what} greedy streams, card vs "
                   f"CPU plain path: {'identical' if same else 'DIFFERENT'} "
                   f"over {len(ps)} requests, "
-                  f"{'all done' if done else 'NOT ALL DONE'}", flush=True)
+                  f"{'all done' if done else 'NOT ALL DONE'}"
+                  + (f", {requeued} requeued" if "pressured" in what else ""),
+                  flush=True)
             if not same or not done:
                 fail(f"{small.name} {what} streams: cpu {got['cpu']} cuda "
                      f"{got['cuda']}")
+            if "pressured" in what and shape is not None and not requeued:
+                fail(f"{small.name} {what}: no request was preempted")
         # TinyTrain: the card's probe (the Fisher kernel at the MoE's
         # expert taps) and fine-tune against the CPU's, then folded streams
         sbb = api.backbone(arch, preset="smoke", batch_size=32, seq=16)
-        stask = api.sample_lm_task(np.random.default_rng(0), small.vocab,
-                                   seq=16, max_way=5, support_pad=32,
-                                   query_pad=32)
+        task_rng = np.random.default_rng(0)
+        stask = (api.sample_lm_task(task_rng, small.vocab, seq=16, max_way=5,
+                                    support_pad=32, query_pad=32)
+                 if shape is None else
+                 api.sample_encdec_task(task_rng, small, seq=16, max_way=5,
+                                        support_pad=32, query_pad=32))
         adapted = {}
         for where, params in both:
             ad = api.TinyTrainSession(sbb, params, max_way=5).adapt(
                 stask, api.JETSON_NANO, iters=4)
             eng = ServeEngine(small, params, device=where, **base)
             ad.fold_into(eng)
-            reqs = [Request(uid=i, prompt=p, max_new=M["max_new"])
+            reqs = [Request(uid=i, prompt=p, max_new=M["max_new"],
+                            enc_feats=None if feats is None else feats[i])
                     for i, p in enumerate(prompts)]
             eng.run(reqs)
             adapted[where] = (ad, [(r.out, r.outcome) for r in reqs])
@@ -1242,10 +1331,10 @@ def smoke_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
             z.shape, generator=dgen), sbb.init_deltas(pol, "cpu"))
             for u in (0, 1)}
         got = {w: serve(small, p, w, base, prompts, lambda i: i % 2, pol,
-                        udeltas)[0] for w, p in both}
+                        udeltas, feats)[0] for w, p in both}
         folded = {u: serve(small, fold_deltas(small, p_gpu, tree_map(
             lambda t: t.to(dev), d), pol), "cuda", base, prompts,
-            lambda i: i % 2)[0] for u, d in udeltas.items()}
+            lambda i: i % 2, feats=feats)[0] for u, d in udeltas.items()}
         oracle = [folded[i % 2][i] for i in range(len(prompts))]
         print(f"[{tag}] {small.name} f32 personalised (2 users, "
               f"{pol.describe()}): card vs CPU "
@@ -1275,8 +1364,9 @@ def moe_kernels(ops, flash_attention, flash_paged, fisher_kernel,
 
 def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
                   model: str, tag: str, dev, gen) -> dict:
-    """Kernels 2 and 4 at a model's block prefill ``blk`` (phase 3's
-    cursors), f32 at 1e-4 and bf16 under the per-slot gate, the paged
+    """Kernels 2 and 4 at a model's block prefill ``blk`` (its
+    ``q_offset`` / ``kv_len`` / ``pages`` where it has them, else phase 3's
+    cursors over 256 pages), f32 at 1e-4 and bf16 under the per-slot gate, the paged
     kernel equal to the cached one on the same rows; then each timed in
     bf16 over ``blk["layers"]`` buffer sets cycled, beside its bound, its
     plain version and SDPA or a page gather + SDPA.  Returns the largest
@@ -1288,19 +1378,22 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
 
     B, Sq, Hq, Hkv, D, Sk, nl = (blk[k] for k in (
         "B", "Sq", "Hq", "Hkv", "D", "Sk", "layers"))
-    qo = torch.tensor(Q_OFFSET, dtype=torch.int32, device=dev)
-    kl = torch.tensor(KV_LEN, dtype=torch.int32, device=dev)
+    q_off = blk.get("q_offset", Q_OFFSET)
+    kv_len = blk.get("kv_len", KV_LEN)
+    n_pages = blk.get("pages", DEFAULT_PAGES)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     mp = Sk // PAGE_SIZE
-    table = page_table(KV_LEN, PAGE_SIZE, mp, DEFAULT_PAGES, gen, dev)
+    table = page_table(kv_len, PAGE_SIZE, mp, n_pages, gen, dev)
     worst = {"flash_cached": 0.0, "flash_paged": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dtype)
         k = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
         v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
-        kp = fill_pages(torch.zeros((DEFAULT_PAGES, PAGE_SIZE, Hkv, D),
-                                    dtype=dtype, device=dev), k, table, KV_LEN)
-        vp = fill_pages(torch.zeros_like(kp), v, table, KV_LEN)
+        kp = fill_pages(torch.zeros((n_pages, PAGE_SIZE, Hkv, D),
+                                    dtype=dtype, device=dev), k, table, kv_len)
+        vp = fill_pages(torch.zeros_like(kp), v, table, kv_len)
         got = ops.flash_attention_cached(q, k, v, q_offset=qo, kv_len=kl,
                                          causal=True)
         pgot = ops.flash_attention_paged(q, kp, vp, table, q_offset=qo,
@@ -1317,7 +1410,7 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
         same = torch.equal(pgot, got)
         print(f"[{tag}-kernel] flash_cached / flash_paged {dname} at {model} "
               f"block prefill (B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
-              f"Sk={Sk}): max abs err {err:.3g} / {perr:.3g} (tol {tol:g}"
+              f"Sk={Sk}, kv_len {kv_len}): max abs err {err:.3g} / {perr:.3g} (tol {tol:g}"
               f"{', per-slot bf16 gate' if dname == 'bfloat16' else ''}); "
               f"paged {'equal to' if same else 'DIFFERS FROM'} cached on the "
               f"same rows", flush=True)
@@ -1333,12 +1426,12 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
     q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(bf)
     ks = torch.randn((nl, B, Sk, Hkv, D), generator=gen, device=dev).to(bf)
     vs = torch.randn((nl, B, Sk, Hkv, D), generator=gen, device=dev).to(bf)
-    kps = torch.zeros((nl, DEFAULT_PAGES, PAGE_SIZE, Hkv, D), dtype=bf,
+    kps = torch.zeros((nl, n_pages, PAGE_SIZE, Hkv, D), dtype=bf,
                       device=dev)
     vps = torch.zeros_like(kps)
     for i in range(nl):
-        fill_pages(kps[i], ks[i], table, KV_LEN)
-        fill_pages(vps[i], vs[i], table, KV_LEN)
+        fill_pages(kps[i], ks[i], table, kv_len)
+        fill_pages(vps[i], vs[i], table, kv_len)
     out = torch.empty_like(q)
     c_entry, p_entry = flash_attention._entry(), flash_paged._entry()
     stream = torch.cuda.current_stream().cuda_stream
@@ -1360,7 +1453,7 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
         i = nxt()
         rc = p_entry(q.data_ptr(), kps[i].data_ptr(), vps[i].data_ptr(),
                      out.data_ptr(), table.data_ptr(), qo.data_ptr(),
-                     kl.data_ptr(), B, Sq, Hq, Hkv, D, DEFAULT_PAGES,
+                     kl.data_ptr(), B, Sq, Hq, Hkv, D, n_pages,
                      PAGE_SIZE, mp, 1, stream)
         if rc:
             fail(f"flash_paged_fwd returned cudaError {rc}")
@@ -1396,7 +1489,7 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
         kref.flash_attention_paged_ref(q, kps[i], vps[i], table,
                                        q_offset=qo, kv_len=kl)
 
-    nbytes, nops = flash_work(Q_OFFSET, KV_LEN, Sq, Hq, Hkv, D, 2, 0)
+    nbytes, nops = flash_work(q_off, kv_len, Sq, Hq, Hkv, D, 2, 0)
     for what, run, lib, plain, extra in (
             ("flash_cached", run_cached, run_sdpa, run_cached_plain, 0),
             ("flash_paged", run_paged, run_gather_sdpa, run_paged_plain,
@@ -2168,6 +2261,287 @@ def phase19(dev, gen, profile) -> dict:
     print(f"[phase19] {total:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) "
           f"{t_c:.1f}, (d) {total - t_a - t_b - t_c:.1f}); main-path "
           f"launches {launches}; largest kernel errors {worst}", flush=True)
+    return {"launches": launches, "max_abs_err": worst}
+
+
+def enc_requests(cfg, Request, np, n: int = 8) -> list:
+    """Phase 5's traffic with encoder inputs: ``n`` requests of 32-256
+    prompt tokens and 16 new ones, each with its own random encoder inputs
+    (the config's stub frontend: whisper's (1500, 512) frames,
+    paligemma's (256, 1152) patch embeddings), from seed 0."""
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(m)).astype(
+        np.int32), max_new=16, enc_feats=rng.standard_normal(
+            cfg.enc_feats_shape).astype(np.float32))
+        for i, m in enumerate(rng.integers(32, 257, n))]
+
+
+def enc_page_budget(cfg, slots: int, max_len: int) -> int:
+    """Pages for ``slots`` residents of a paged encoder-decoder or vlm
+    engine: each holds its KV stripe and its encoder run (whisper's 1500
+    frames take 94 pages of 16 rows)."""
+    rows = cfg.enc_len if cfg.is_encoder_decoder else cfg.n_img_tokens
+    return slots * (-(-max_len // PAGE_SIZE) + -(-rows // PAGE_SIZE))
+
+
+def encoder_attention(L, dev, gen) -> None:
+    """The whisper encoder's attention (``layers.chunked_attention``, plain
+    torch as in the JAX package: 8 heads of 64 over 1500 frames, chunks of
+    500 and 750) at one request and at the adapt's 48 rows, bf16, beside
+    its bound and SDPA on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    h, s, d = 8, 1500, 64
+    for b in (1, ADAPT["batch_size"]):
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        got = L.chunked_attention(q, k, v, causal=False)
+        want = F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in (q, k, v))).transpose(1, 2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= TOL["bfloat16"]:
+            fail(f"chunked_attention at ({b}, {s}, {h}, {d}): max abs err "
+                 f"{err}")
+        c_ms = time_ms(lambda: L.chunked_attention(q, k, v, causal=False), 3)
+        l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in (q, k, v))), 10)
+        nbytes = 4 * b * s * h * d * 2
+        nops = 4 * b * h * s * s * d
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS["bfloat16"]
+        print(f"[encdec-time] whisper encoder attention (chunked_attention, "
+              f"plain torch) bf16 B={b} S={s} H={h} D={d}: {c_ms:.4f} ms, "
+              f"bound {1e3 * max(t_bytes, t_ops):.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), sdpa "
+              f"{l_ms:.4f} ms; max abs err vs sdpa {err:.3g}", flush=True)
+
+
+def enc_task(api, cfg, arch: str):
+    """Phase 20's adapt task for ``arch``: ``sample_encdec_task`` from seed
+    0 at phase 6's episode shape (48 rows of 64 tokens; paligemma's cut to
+    24 rows, ENC_EPISODE), with its encoder inputs."""
+    import numpy as np
+
+    episode = dict(ENC_EPISODE[arch])
+    rows = episode.pop("rows")
+    return api.sample_encdec_task(np.random.default_rng(0), cfg,
+                                  seq=ADAPT["seq"],
+                                  max_way=ADAPT["task_way"],
+                                  support_pad=rows, query_pad=rows,
+                                  **episode)
+
+
+def enc_full(api, configs, ops, L, T, ServeEngine, Request, tree_leaves,
+             dev, arch: str, task) -> dict:
+    """Phase 20 (b) and (c): ``arch`` (whisper-base or paligemma-3b) at its
+    published config, nothing cut, bf16, random weights from seed 0:
+    TinyTrain on ``task`` (:func:`enc_task`: phase 6's episode shape with
+    encoder inputs; paligemma's cut to 24 rows, ENC_EPISODE) under phase
+    6's profile scaled to the width,
+    ``fold_into`` an engine, phase 5's traffic with encoder inputs on
+    contiguous and paged caches (a paged pool sized for eight residents'
+    KV and encoder runs).  Returns the kernel launches of its main
+    paths."""
+    import numpy as np
+    import torch
+
+    cfg = configs.get_config(arch)
+    nl = cfg.n_layers
+    rows = ENC_EPISODE[arch]["rows"]
+    bb = api.backbone(arch, preset="full", batch_size=rows, seq=ADAPT["seq"])
+    t0 = time.perf_counter()
+    session = api.TinyTrainSession(bb, max_way=ADAPT["max_way"], seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(session.params))
+    n_params = sum(t.numel() for t in tree_leaves(session.params))
+    # phase 6's profile scaled to this width: a unit's saved input grows
+    # with d_model
+    profile = api.DeviceProfile(name="edge-lm", mem_kb=4000,
+                                compute_frac=0.5).scaled(
+        mem=500 * cfg.d_model / 1536, compute=1.6)
+    groups = sum(len(grp) for grp in bb.make_taps(1, "cpu").values())
+    torch.cuda.empty_cache()
+    base = peak_reset(dev)
+    kernel_launches(ops, zero=True)
+    t0 = time.perf_counter()
+    ad = session.adapt(task, profile, iters=ADAPT["iters"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernel_launches(ops)
+    fisher_n = counts["fisher_tapgrads.launches"] + counts["fisher.launches"]
+    losses = ad.losses
+    key = "frames" if cfg.is_encoder_decoder else "image_embeds"
+    print(f"[encdec] {arch} bf16 published config ({nl} decoder layers"
+          + (f", {cfg.n_enc_layers} encoder layers over {cfg.enc_len} "
+             f"frames" if cfg.is_encoder_decoder else
+             f", a {cfg.n_img_tokens}-token image prefix from "
+             f"{cfg.img_embed_dim}-wide patches")
+          + f", d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim} over {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}; {n_params} parameters, {weights} B of "
+          f"weights, initialised in {init_s:.1f} s), {profile.name} "
+          f"({profile.budget().mem_bytes:.0f} B, compute "
+          f"{profile.compute_frac}), task {task.n_support} support rows of "
+          f"{len(task.support['episode_labels'])} with {key} "
+          f"{tuple(task.support[key].shape[1:])}: {ad.policy.describe()}",
+          flush=True)
+    print(f"[encdec] {arch} fisher_seconds {ad.fisher_seconds:.4f}, "
+          f"train_seconds {ad.train_seconds:.4f} ({ADAPT['iters']} steps), "
+          f"adapt wall {wall:.4f} s, peak device memory {peak} B ({peak - base}"
+          f" B above the weights and earlier allocations), host_transfers "
+          f"{ad.host_transfers:g}, fisher launches {fisher_n} ({groups} tap "
+          f"groups), flash launches "
+          f"{counts['flash_attention_cached.launches']} (the adapt attends "
+          f"through plain torch, as the JAX package's dot_attention), losses "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{arch}: adaptation losses not finite: {losses}")
+    if ad.host_transfers != 2:
+        fail(f"{arch}: fused adapt made {ad.host_transfers} host transfers")
+    if fisher_n != groups:
+        fail(f"{arch}: the probe launched the Fisher kernel {fisher_n} times "
+             f"for {groups} tap groups (one a group wanted)")
+    if not ad.policy.units:
+        fail(f"{arch}: the profile selected no unit")
+
+    launches = {"flash_cached": 0, "flash_paged": 0, "fisher": fisher_n}
+    max_len, chunk = ENC_MAX_LEN[arch], 32
+    served = {}
+    for what, kw in (("contiguous", {}),
+                     ("paged", dict(kv_paging=True, kv_page_size=PAGE_SIZE,
+                                    page_budget=enc_page_budget(
+                                        cfg, 8, max_len)))):
+        eng = ServeEngine(cfg, session.params, slots=8, max_len=max_len,
+                          chunk=chunk, **kw)
+        ad.fold_into(eng)
+        eng.run(enc_requests(cfg, Request, np, n=1))  # warm
+        reqs = enc_requests(cfg, Request, np)
+        eng.tick_sync_debug = "error"
+        torch.cuda.synchronize()
+        kernel_launches(ops, zero=True)
+        t0 = time.perf_counter()
+        # one chunk, then the report of the resident streams' runs, then
+        # the rest: both runs hold one sync a chunk
+        eng.run(reqs, max_ticks=chunk)
+        mem = eng.memory_report()
+        rep1 = eng.last_run_report
+        eng.run([])
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        counts = kernel_launches(ops)
+        rep = eng.last_run_report
+        ticks = rep1["ticks"] + rep["ticks"]
+        new = sum(len(r.out) for r in reqs)
+        n_c = counts["flash_attention_cached.launches"]
+        n_p = counts["flash_attention_paged.launches"]
+        launches["flash_cached"] += n_c
+        launches["flash_paged"] += n_p
+        run_b = mem["enc_run_bytes"] // max(mem["resident_streams"], 1)
+        print(f"[encdec-serve] {arch} bf16 {what}, 8 slots, max_len "
+              f"{max_len}, chunk {chunk}, prefill_block {eng.prefill_block}"
+              + (f", {mem['n_pages']} pages of {PAGE_SIZE} rows"
+                 if what == "paged" else "")
+              + f": {len(reqs)} requests (prompts "
+              f"{sum(len(r.prompt) for r in reqs)} tokens), {new} new tokens "
+              f"in {swall:.3f} s = {new / swall:.2f} tok/s, {ticks} ticks, "
+              f"{rep1['host_syncs'] + rep['host_syncs']} host syncs for "
+              f"{rep1['chunks'] + rep['chunks']} chunks, flash launches "
+              f"{n_c} cached, {n_p} paged ({(n_c + n_p) / ticks:.3f} a live "
+              f"tick), enc_run_bytes {mem['enc_run_bytes']} over "
+              f"{mem['resident_streams']} resident streams ({run_b} B a "
+              f"run), kv_cache_bytes {mem['kv_cache_bytes']}, outcomes "
+              f"{rep['outcomes']}", flush=True)
+        one_sync_a_chunk(rep1, f"{arch} {what} serve, first chunk")
+        one_sync_a_chunk(rep, f"{arch} {what} serve")
+        bad = [(r.uid, r.outcome, len(r.out)) for r in reqs
+               if r.outcome != "done" or len(r.out) != 16]
+        if bad:
+            fail(f"{arch} {what}: requests not done with 16 tokens: {bad}")
+        n_k = n_c if what == "contiguous" else n_p
+        if n_k <= 0 or n_k % nl or (what == "paged" and n_c):
+            fail(f"{arch} {what}: flash launches {counts} (a positive "
+                 f"multiple of {nl} of one kernel wanted)")
+        want = ENC_RUN_BYTES[arch]
+        if what == "paged":
+            want = -(-want // (PAGE_SIZE * cfg.d_model * 2)) * (
+                PAGE_SIZE * cfg.d_model * 2)
+        if not mem["resident_streams"] or run_b != want:
+            fail(f"{arch} {what}: {mem['enc_run_bytes']} B of encoder runs "
+                 f"for {mem['resident_streams']} residents ({want} B a run "
+                 "wanted)")
+        served[what] = [list(r.out) for r in reqs]
+        del eng
+    if served["paged"] != served["contiguous"]:
+        fail(f"{arch}: the paged serve's streams differ from the contiguous "
+             "one's")
+    print(f"[encdec-serve] {arch}: the paged streams equal the contiguous "
+          f"ones over {len(served['paged'])} requests", flush=True)
+    del session, ad
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase20(dev, gen) -> dict:
+    """Phase 20, the encoder-decoder and VLM families: (a) card against CPU
+    on whisper-smoke and paligemma-smoke; then per model (b) whisper-base
+    and (c) paligemma-3b: kernels 2 and 4 at its block prefill and kernel
+    1 at its tap groups against their plain versions, each timed beside
+    its bound and library call, and the model at its published config
+    adapted, folded and served (whisper's encoder attention timed too).
+    Returns the launches of the main paths by kernel and the largest
+    kernel errors."""
+    import torch
+
+    from repro_torch import api, configs
+    from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
+    from repro_torch.kernels import flash_attention, flash_paged, ops
+    from repro_torch.kernels import fisher as fisher_kernel
+    from repro_torch.kernels.ref import (
+        fisher_tapgrads_ref, flash_attention_cached_ref,
+    )
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.overlay import fold_deltas
+    from repro_torch.serving import DeltaSet, Request, ServeEngine
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    smoke_card_vs_cpu(api, configs, T, ServeEngine, Request, DeltaSet,
+                      SelectedUnit, SparseUpdatePolicy, fold_deltas, tree_map,
+                      dev, archs=ENC_ARCHS, tag="encdec", pressured=True,
+                      settings=ENC_SMOKE)
+    times = {"(a)": time.perf_counter() - t0}
+    worst = {"flash_cached": 0.0, "flash_paged": 0.0, "fisher": 0.0}
+    launches = {"flash_cached": 0, "flash_paged": 0, "fisher": 0}
+    for part, arch in zip(("(b)", "(c)"), ENC_ARCHS):
+        t1 = time.perf_counter()
+        task = enc_task(api, configs.get_config(arch), arch)
+        labels = torch.from_numpy(task.support["episode_labels"]).to(dev)
+        err = block_kernels(ops, flash_attention, flash_paged,
+                            flash_attention_cached_ref, ENC_BLOCK[arch],
+                            f"{arch}'s", "encdec", dev, gen)
+        # kernel 1 over this model's own adapt task: its rows, its mask
+        err["fisher"] = tap_kernels(ops, fisher_kernel, fisher_tapgrads_ref,
+                                    (labels >= 0).float(), task.n_support,
+                                    {arch: ENC_TAPS[arch]}, "encdec", dev,
+                                    gen)
+        for k, v in err.items():
+            worst[k] = max(worst[k], v)
+        if arch == "whisper-base":
+            encoder_attention(L, dev, gen)
+        for k, v in enc_full(api, configs, ops, L, T, ServeEngine, Request,
+                             tree_leaves, dev, arch, task).items():
+            launches[k] += v
+        times[part] = time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    print(f"[phase20] {total:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+          + f"); main-path launches {launches}; largest kernel errors "
+          f"{worst}", flush=True)
     return {"launches": launches, "max_abs_err": worst}
 
 
@@ -4597,6 +4971,14 @@ def main() -> int:
         ssd_rec[what]["max_abs_err"] = max(ssd_rec[what]["max_abs_err"],
                                            hyb_err[key])
 
+    # -- phase 20: the encoder-decoder and VLM families (whisper-base,
+    # paligemma-3b) ------------------------------------------------------
+    enc = phase20(dev, gen)
+    enc_launches, enc_err = enc["launches"], enc["max_abs_err"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], enc_err["flash_cached"])
+    paged["max_abs_err"] = max(paged["max_abs_err"], enc_err["flash_paged"])
+    fisher["max_abs_err"] = max(fisher["max_abs_err"], enc_err["fisher"])
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -4613,7 +4995,8 @@ def main() -> int:
         "launches": (launches + int8_launches + adapt_flash_launches
                      + pers_flash_launches + samp_launches
                      + moe_launches["flash_cached"]
-                     + hyb_launches["flash_cached"]),
+                     + hyb_launches["flash_cached"]
+                     + enc_launches["flash_cached"]),
         **flash,
     }, {
         "name": "flash_attention_paged",
@@ -4622,7 +5005,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:157",
         "launches": (paged_launches + pressure_launches + fault_launches
                      + moe_launches["flash_paged"]
-                     + hyb_launches["flash_paged"]),
+                     + hyb_launches["flash_paged"]
+                     + enc_launches["flash_paged"]),
         **paged,
     }, {
         "name": "fisher_tapgrads",
@@ -4630,7 +5014,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/fisher.cu",
         "replaces": "src/repro/kernels/fisher.py:66",
         "launches": (fisher_launches + m_fisher + moe_launches["fisher"]
-                     + hyb_launches["fisher"]),
+                     + hyb_launches["fisher"] + enc_launches["fisher"]),
         **fisher,
     }, {
         "name": "fisher_tapgrads_tasks",

@@ -42,10 +42,20 @@ refreshes each user's deltas from their own finished streams:
     pers = api.Personaliser(session, eng, adaptation.policy, profile=profile)
     pers.run_online(requests)
 
+The encoder-decoder and VLM families take episodes whose rows carry their
+conditioning (whisper's frames, paligemma's patch embeddings) and serve
+requests that carry it as ``enc_feats``:
+
+    bb = api.backbone("whisper-base", preset="full", batch_size=48, seq=64)
+    task = api.sample_encdec_task(rng, bb.cfg, seq=64, max_way=5)
+    adaptation = session.adapt(task, profile, iters=10)
+    eng.run([api.Request(uid=0, prompt=prompt, max_new=12,
+                         enc_feats=frames)])              # (1500, 512)
+
 Backbones are a string-keyed registry: the paper's edge CNNs (``mcunet``,
 ``mobilenetv2``, ``proxylessnas``) and the ``tiny-cnn`` demo, and the LM
-configurations (dense, moe, ssm and hybrid families).  Entry points run on
-the card unless the caller passes ``device="cpu"``.
+configurations (dense, moe, ssm, hybrid, vlm and audio families).  Entry
+points run on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -75,7 +85,8 @@ __all__ = [
     "device_profile", "register_profile", "PROFILES",
     "STM32F746", "RPI_ZERO", "JETSON_NANO", "criteria", "register_criterion",
     "ArchConfig", "Backbone", "backbone", "backbones", "register_backbone",
-    "sample_task", "sample_lm_task", "plan_sparse_update",
+    "sample_task", "sample_lm_task", "sample_encdec_task",
+    "plan_sparse_update",
     "Request", "ServeEngine", "SubmitResult", "FaultConfig", "DeltaSet",
     "Personaliser", "Budget", "configs",
 ]
@@ -168,6 +179,36 @@ def sample_lm_task(
     ep = lm_episode(rng, vocab, seq, max_way=max_way,
                     support_pad=support_pad, query_pad=query_pad)
     return Task.from_episode(ep, rng, max_way, name="lm-task")
+
+
+def sample_encdec_task(
+    rng: np.random.Generator,
+    cfg: ArchConfig,
+    seq: int = 32,
+    *,
+    max_way: int = 5,
+    support_pad: int = 48,
+    query_pad: int = 48,
+    **episode_kw: Any,
+) -> Task:
+    """Sample a conditioned-decoder episode for whisper/paligemma backbones.
+
+    The conditioning key and feature shape come from the config
+    (``"frames"``/``(enc_len, d_model)`` for encoder-decoders,
+    ``"image_embeds"``/``(n_img_tokens, img_embed_dim)`` for VLM
+    prefixes), so the batches flow through the same ``build_inputs`` path
+    the serving engine uses."""
+    from .data import encdec_episode
+
+    shape = cfg.enc_feats_shape
+    if shape is None:
+        raise ValueError(
+            f"{cfg.name!r} takes no encoder conditioning; use sample_lm_task")
+    key = "frames" if cfg.is_encoder_decoder else "image_embeds"
+    ep = encdec_episode(rng, cfg.vocab, seq, feat_key=key, feat_shape=shape,
+                        max_way=max_way, support_pad=support_pad,
+                        query_pad=query_pad, **episode_kw)
+    return Task.from_episode(ep, rng, max_way, name=f"encdec-{cfg.name}")
 
 
 def plan_sparse_update(

@@ -7,8 +7,10 @@ tree)``); this module turns that numpy tree into tensors, keeping the
 ``stacks/g{i}`` grouping and the ``(d_in, d_out)`` layout so ``x @ W``
 matches leaf for leaf (the moe family's expert stacks ``(L, E, d_in,
 d_out)``, its shared expert, MLA's projections and norms and the MTP
-head's ``mtp`` tree and zamba2's unstacked ``shared_attn`` block, in the
-dense family's attention and MLP layouts, included).  Delta packs (``{"L{i}": {kind: {weight: ...}}}``),
+head's ``mtp`` tree, zamba2's unstacked ``shared_attn`` block, whisper's
+stacked ``encoder``, ``enc_norm`` and decoder ``norm_x``/``xattn``, and
+paligemma's ``img_proj``, in the dense family's attention and MLP
+layouts, included).  Delta packs (``{"L{i}": {kind: {weight: ...}}}``),
 optimiser states (``{"step", "m", "v"}``) and the error-feedback
 compressor's trees (int8 codes, 0-d float32 scales, float32 residuals)
 cross the same way in both directions, so tests compare them leaf for

@@ -1,5 +1,6 @@
-"""Backbone adapters: the port of ``repro.core.backbones`` for the dense,
-moe, ssm and hybrid LM families and the paper's edge CNNs.
+"""Backbone adapters: the port of ``repro.core.backbones`` for every LM
+family (dense, moe, ssm, hybrid, vlm and the encoder-decoder audio
+family) and the paper's edge CNNs.
 
 A :class:`Backbone` bundles what the sparse-update engine needs from a
 model family: unit costs (the Eq. 3 denominators), Fisher tap
@@ -9,10 +10,11 @@ the feature/loss closures.  A layer group has a ``mixer`` tap group
 ``ffn`` group: d_ff neurons of an MLP (``dense_d_ff`` in a MoE model's
 dense head) or the experts of a MoE; the SSD layers of mamba2 and zamba2
 have none (zamba2's shared attention block is not a unit, so its one tap
-group is its SSD heads).  An edge
-CNN's unit is one conv layer with its output channels, tapped per layer
-as a (B, C_i) tensor (the layers' widths differ, so the taps do not
-stack).  The encoder-decoder LMs arrive with ROADMAP queue 1, item 14.
+group is its SSD heads).  An encoder-decoder's decoder layers add an
+``xattn`` group, their cross-attention heads, scored by Eq. 2 like the
+others (the encoder is frozen and has no taps).  An edge CNN's unit is
+one conv layer with its output channels, tapped per layer as a (B, C_i)
+tensor (the layers' widths differ, so the taps do not stack).
 
 ``fisher_reduce_batch`` is Eq. 2 with a leading task axis, for a fleet's
 probe: an LM's (T, L, B, C) tap-gradient groups go through the Fisher
@@ -105,6 +107,10 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
             if fk != "none":
                 taps[f"g{gi}"]["ffn"] = torch.ones((len(ids), n, fc),
                                                    device=device)
+            if cfg.is_encoder_decoder:
+                # the cross-attention heads are Eq. 2 candidates too
+                taps[f"g{gi}"]["xattn"] = torch.ones(
+                    (len(ids), n, cfg.n_heads), device=device)
         return taps
 
     def _per_unit(reduce_one, tg, tasks: bool = False
@@ -112,7 +118,8 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
         chans: Dict[Tuple[int, str], Any] = {}
         for gi, (_, ids) in enumerate(groups):
             mk, fk, _, _ = _lm_group_kinds(cfg, gi)
-            for tap, kind in (("mixer", mk), ("ffn", fk)):
+            xk = "xattn" if cfg.is_encoder_decoder else "none"
+            for tap, kind in (("mixer", mk), ("ffn", fk), ("xattn", xk)):
                 if kind == "none":
                     continue
                 d = reduce_one(tg[f"g{gi}"][tap])  # (L, C) or (T, L, C)
@@ -180,6 +187,11 @@ def lm_backbone(cfg: ArchConfig, tokens_per_batch: int,
                 elif fk == "moe":
                     out[(lid, "moe")] = host(sq(st["moe"]["w_up"][j],
                                                 (1, 2)))
+                if cfg.is_encoder_decoder:
+                    h, dh = cfg.n_heads, cfg.head_dim
+                    nq = sq(st["xattn"]["wq"][j], (0, 2), (-1, h, dh))
+                    no = sq(st["xattn"]["wo"][j], (1, 2), (h, dh, -1))
+                    out[(lid, "xattn")] = host(nq + no)
         return out
 
     def init_deltas(policy: SparseUpdatePolicy, device: DeviceLike):

@@ -196,13 +196,20 @@ class Task:
     @classmethod
     def from_episode(cls, ep, rng: np.random.Generator, max_way: int,
                      name: str = "") -> "Task":
-        """A Task from a ``data`` Episode of images or token sequences."""
-        from ..data import augment_lm_support, augment_support
+        """A Task from a ``data`` Episode of images, token sequences, or
+        token sequences with per-row ``frames`` / ``image_embeds`` (an
+        encoder-decoder's or a VLM's conditioning, which rides with its
+        row through bucket padding and the batched probe)."""
+        from ..data import (
+            augment_encdec_support, augment_lm_support, augment_support,
+        )
 
-        if "frames" in ep.support or "image_embeds" in ep.support:
-            raise _later("encoder-decoder episodes", "14")
-        augment = (augment_support if "images" in ep.support
-                   else augment_lm_support)
+        if "images" in ep.support:
+            augment = augment_support
+        elif "frames" in ep.support or "image_embeds" in ep.support:
+            augment = augment_encdec_support
+        else:
+            augment = augment_lm_support
         return cls(name=name or getattr(ep, "domain", "task"),
                    support={k: np.asarray(v) for k, v in ep.support.items()},
                    query={k: np.asarray(v) for k, v in ep.query.items()},
@@ -510,10 +517,18 @@ class TinyTrainSession:
         next power of two, so any way/shot mix inside a bucket shares a
         group; padded rows carry label -1 and change no result.  A summary
         of the grouping is kept in ``self.last_fleet_report``.
-        ``mesh=``/``hosts=`` are ROADMAP item 16."""
+        ``mesh=``/``hosts=`` are ROADMAP item 16.  A ``policy_override``
+        asking for remat raises ``ValueError``: the fleet fine-tune runs
+        under ``torch.func``, which refuses the checkpoint."""
         if mesh is not None or hosts not in (None, 1):
             raise _later("adapt_many(mesh=..., hosts=...) (sharded fleet "
                          "adaptation)", "16")
+        if policy_override is not None and (
+                policy_override.meta or {}).get("remat"):
+            raise ValueError(
+                "adapt_many: a remat policy cannot run in the fleet "
+                "fine-tune (torch.func refuses torch.utils.checkpoint); "
+                "adapt each task with adapt(), which recomputes its layers")
         if not tasks:
             return []
         for t in tasks:

@@ -1,13 +1,14 @@
 """Synthetic episodes: the port of ``repro.data.synthetic``'s vision half
 (nine procedural image domains, the Meta-Dataset B.1 various-way
 various-shot sampler ``sample_episode`` and the pseudo-query augmentation
-``augment_support``) and its token half (``markov_tokens``,
-``lm_episode``, ``augment_lm_support``).
+``augment_support``), its token half (``markov_tokens``,
+``lm_episode``, ``augment_lm_support``) and its conditioned-decoder half
+(``encdec_episode``, ``augment_encdec_support``: token episodes whose
+rows carry whisper frames or SigLIP patch embeddings).
 
 Host-side numpy, copied as it is so that the same seed gives the same
 arrays in both packages; images stay NHWC float32 here and become tensors
-at the task boundary (``core.session.Task``).  The encoder-decoder sampler
-arrives with its slice.
+at the task boundary (``core.session.Task``).
 """
 from __future__ import annotations
 
@@ -263,3 +264,83 @@ def augment_lm_support(
         pos = rng.integers(0, s, size=n_cut)
         toks[i, pos] = rng.integers(0, toks.max() + 1, size=n_cut)
     return {"tokens": toks, "episode_labels": support["episode_labels"].copy()}
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder / multimodal synthetic data
+# ---------------------------------------------------------------------------
+
+
+def encdec_episode(
+    rng: np.random.Generator,
+    vocab: int,
+    seq: int,
+    *,
+    feat_key: str,
+    feat_shape: Tuple[int, int],
+    max_way: int = 8,
+    min_way: int = 4,
+    shots: int = 8,
+    query_per_class: int = 8,
+    support_pad: Optional[int] = None,
+    query_pad: Optional[int] = None,
+) -> Episode:
+    """Few-shot episodes for conditioned decoders (whisper / paligemma).
+
+    Each class is a distinct (token distribution, conditioning prototype)
+    pair: tokens come from a per-class bigram chain (as in
+    :func:`lm_episode`) and every sample additionally carries a noisy copy
+    of the class's conditioning features — ``"frames"`` of shape
+    ``(enc_len, d_model)`` for whisper-style encoders, ``"image_embeds"``
+    of shape ``(n_img_tokens, img_embed_dim)`` for SigLIP-style prefixes
+    (``feat_key``/``feat_shape`` per ``ArchConfig.enc_feats_shape``).
+    Padding rows (label -1) carry all-zero features.
+    """
+    if feat_key not in ("frames", "image_embeds"):
+        raise ValueError(
+            f"feat_key must be 'frames' or 'image_embeds', got {feat_key!r}")
+    way = int(rng.integers(min(min_way, max_way), max_way + 1))
+    seeds = rng.integers(0, 2**31 - 1, size=way)
+    protos = rng.normal(0, 1.0, (way,) + tuple(feat_shape)).astype(np.float32)
+
+    def gen(k, n):
+        toks = markov_tokens(rng, vocab, n, seq, order_seed=int(seeds[k]))
+        feats = protos[k][None] + 0.1 * rng.normal(
+            0, 1.0, (n,) + tuple(feat_shape)).astype(np.float32)
+        return toks, feats
+
+    def batch(n_per):
+        toks, feats = zip(*(gen(k, n_per) for k in range(way)))
+        return (np.concatenate(toks), np.concatenate(feats),
+                np.repeat(np.arange(way, dtype=np.int32), n_per))
+
+    def pack(toks, feats, lbl, pad):
+        if pad is not None and len(lbl) < pad:
+            extra = pad - len(lbl)
+            toks = np.concatenate([toks, np.zeros((extra, seq), np.int32)])
+            feats = np.concatenate([
+                feats, np.zeros((extra,) + tuple(feat_shape), np.float32)])
+            lbl = np.concatenate([lbl, -np.ones(extra, np.int32)])
+        return {"tokens": toks, feat_key: feats, "episode_labels": lbl}
+
+    return Episode(pack(*batch(shots), support_pad),
+                   pack(*batch(query_per_class), query_pad), way,
+                   f"encdec:{feat_key}")
+
+
+def augment_encdec_support(
+    rng: np.random.Generator, support: Dict[str, np.ndarray]
+) -> Dict[str, np.ndarray]:
+    """Pseudo-queries for conditioned decoders: token spans re-rolled as in
+    :func:`augment_lm_support` plus Gaussian jitter on the conditioning
+    features (the class prototype survives; the sample noise is re-drawn)."""
+    out = augment_lm_support(rng, {
+        "tokens": support["tokens"],
+        "episode_labels": support["episode_labels"],
+    })
+    for key in ("frames", "image_embeds"):
+        if key in support:
+            feats = support[key]
+            out[key] = (feats + 0.05 * rng.normal(
+                0, 1.0, feats.shape)).astype(feats.dtype)
+    return out

@@ -32,6 +32,17 @@ its cache:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --preset 100m --adapt --paging
 
+The encoder-decoder and VLM families (``--arch whisper-base |
+paligemma-3b``) take every flag but ``--personalise``: each request carries
+random ``enc_feats`` (whisper's frames, paligemma's patch embeddings, drawn
+per request as ``repro.launch.serve`` draws them), encoded once and pinned
+as the slot's encoder run; ``--adapt`` samples a conditioned task
+(``api.sample_encdec_task``).  paligemma's 256-token image prefix counts
+in ``--max-len``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --preset full --max-len 320 --adapt --paging
+
 With ``--personalise``, one probe adaptation fixes the policy, the engine
 keeps a per-slot delta arena, requests spread over ``--users`` users, and
 between chunks every user with enough finished streams is adapted on them
@@ -156,6 +167,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                              f"it arrives with ROADMAP queue 1, item {item}")
 
     cfg = configs.preset_config(args.arch, args.preset)
+    enc = cfg.enc_feats_shape  # None on a decoder-only config
+    if args.personalise and enc is not None:
+        raise SystemExit(
+            f"[serve] --personalise on {cfg.name}: the Personaliser builds "
+            "token-only episodes, as the JAX package's does; serve per-slot "
+            "deltas through ServeEngine(personalise=...).swap_deltas")
     faults = parse_inject(args.inject) if args.inject else None
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -202,7 +219,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         bb = api.backbone(args.arch, preset=args.preset, batch_size=48,
                           seq=64)
         session = api.TinyTrainSession(bb, params, max_way=8)
-        task = api.sample_lm_task(rng, cfg.vocab, seq=64, max_way=5)
+        task = (api.sample_lm_task(rng, cfg.vocab, seq=64, max_way=5)
+                if enc is None else
+                api.sample_encdec_task(rng, cfg, seq=64, max_way=5))
         profile = api.device_profile(args.profile)
         adaptation = session.adapt(task, profile, iters=args.adapt_iters)
         if adaptation.policy.n_units == 0:
@@ -212,11 +231,17 @@ def main(argv: Optional[List[str]] = None) -> None:
             adaptation.fold_into(eng)
             print(f"[serve] adapted under {profile.name}: "
                   f"{adaptation.describe()}")
+    def enc_feats() -> Optional[np.ndarray]:
+        # the encoder-decoder and vlm families' precomputed frontend
+        # embeddings (whisper frames, SigLIP patches), one draw a request
+        return (None if enc is None
+                else rng.standard_normal(enc).astype(np.float32))
+
     reqs = [Request(uid=i % args.users if policy is not None else i,
                     prompt=rng.integers(0, cfg.vocab,
                                         size=int(rng.integers(4, 24))
                                         ).astype(np.int32),
-                    max_new=args.max_new)
+                    max_new=args.max_new, enc_feats=enc_feats())
             for i in range(args.requests)]
     t0 = time.perf_counter()
     if policy is not None:
@@ -279,6 +304,17 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"MiB across {args.slots} slots "
               f"({mem['kv_bytes_per_stream'] / 2**10:.1f} KiB/stream), peak "
               f"{peak} resident streams")
+    if "enc_run_bytes" in mem:
+        if mem["kv_paging"]:
+            pages = mem["enc_pages_per_stream"]
+            where = f"{pages} pages of the pool a run"
+            run = pages * (mem["enc_arena_bytes"] // mem["n_pages"])
+        else:
+            where = "a fixed stripe a slot"
+            run = mem["enc_arena_bytes"] // args.slots
+        print(f"[serve] encoder runs: {mem['enc_tokens']} rows a request "
+              f"({where}, {run} B a run, "
+              f"{mem['enc_arena_bytes'] / 2**20:.2f} MiB arena)")
     if eng.ssm_state_bytes_per_slot and (mem["kv_paging"]
                                          or cfg.family != "ssm"):
         print(f"[serve] SSD state (conv windows and states, never paged): "

@@ -13,7 +13,17 @@ replace (``wq``, ``wo``, MLA's ``w_uq`` and the MLP's) go through
 take a per-slot ``(B, E, D, F)`` overlay through the per-row dispatch.
 MLA (deepseek-v3: a latent KV cache read in the absorbed form) and the
 MoE (sort-free capacity dispatch, a shared expert, the Switch aux loss)
-are here; cross-attention arrives with a later slice.
+are here, and so is cross-attention (``attention_apply(cross_hidden=)``:
+K and V from the encoder's output through the layer's own ``wk``/``wv``,
+no RoPE, no cache), which the encoder-decoder family's decoder runs.
+
+Cache-free attention switches to :func:`chunked_attention`, an online
+softmax over query and key chunks, at the JAX package's thresholds
+(``S·Sk > 1024²`` for self- and cross-attention, ``S² > 4096²`` for MLA),
+so its float32 rounding is the JAX package's on both sides of them; the
+whisper encoder's 1500 frames take it.  Where autograd records, each
+query chunk is recomputed in the backward (:func:`remat`), as the JAX
+package's ``jax.checkpoint`` does.
 
 A sliding-window config whose cache holds exactly the window rolls it:
 row ``len % window`` takes the next token, and a block prefill folds its
@@ -32,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..kernels import ops
 from . import overlay as OV
@@ -192,6 +203,122 @@ def dot_attention(
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 
 
+def under_func_transform() -> bool:
+    """Whether a ``torch.func`` transform (``vmap``, ``grad``) is running,
+    as in the fleet fine-tune and the batched probe."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward (a
+    non-reentrant ``torch.utils.checkpoint``): the port of
+    ``jax.checkpoint``.  Under ``no_grad`` it is ``fn(*args)``: there is
+    no backward.  A ``torch.func`` transform refuses the checkpoint's
+    saved-tensor hooks, so there it raises rather than keep every
+    activation unasked."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if under_func_transform():
+        raise RuntimeError(
+            "remat: torch.utils.checkpoint cannot run under a torch.func "
+            "transform (the fleet fine-tune of adapt_many); adapt each task "
+            "with adapt(), or drop the policy's meta['remat'] / lm_loss's "
+            "logit_chunk there")
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _pick(s: int, target: int) -> int:
+    """The largest divisor of ``s`` at or below ``target``."""
+    c = min(target, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int = 0,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash-style online-softmax attention in plain torch, the JAX
+    package's ``chunked_attention``: q (B, Sq, H, D), k (B, Sk, Hkv, D), v
+    (B, Sk, Hkv, Dv) (MLA's value dim may differ) -> (B, Sq, H, Dv).
+
+    Chunk sizes are the largest divisors of Sq and Sk at or below
+    ``q_chunk`` / ``kv_chunk`` (whisper's 1500 frames: 500 and 750).  Each
+    query chunk runs a float32 online softmax over the key chunks with the
+    -1e30 mask and ``acc / max(l, 1e-30)``, so scores are O(S · chunk)
+    and never S × S.  Query i sits at position i, key j at j (causal: j
+    <= i; a window keeps j > i - window).  Where autograd records, each
+    query chunk's scores are recomputed in the backward (:func:`remat`)."""
+    b, sq, h, d = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    n_rep = h // hkv
+    q_chunk, kv_chunk = _pick(sq, q_chunk), _pick(sk, kv_chunk)
+    nk = sk // kv_chunk
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    kr = k.reshape(b, nk, kv_chunk, hkv, d)
+    vr = v.reshape(b, nk, kv_chunk, hkv, dv)
+    kpos0 = torch.arange(kv_chunk, device=dev)
+
+    def q_step(qc, q0: int):
+        qpos = q0 + torch.arange(q_chunk, device=dev)
+        acc = torch.zeros((b, h, q_chunk, dv), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, h, q_chunk), float("-inf"), dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kc = _repeat_kv(kr[:, ki], n_rep)
+            vc = _repeat_kv(vr[:, ki], n_rep)
+            s = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() * scale
+            kpos = ki * kv_chunk + kpos0
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
+            if window > 0:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(mask, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vc.dtype), vc).float()
+            m = m_new
+        return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+
+    # recompute in the backward only where plain autograd records: the
+    # encoder of a frozen model records nothing, and under torch.func,
+    # which refuses the checkpoint, each chunk keeps its scores for the
+    # backward (O(S·Sk) saved; cache-free attention takes this path only
+    # past 1024² scores)
+    grad = (torch.is_grad_enabled() and not under_func_transform()
+            and (q.requires_grad or k.requires_grad or v.requires_grad))
+    outs = [remat(q_step, q[:, q0:q0 + q_chunk], q0) if grad
+            else q_step(q[:, q0:q0 + q_chunk], q0)
+            for q0 in range(0, sq, q_chunk)]
+    # (B, H, Sq, Dv) -> (B, Sq, H, Dv)
+    return torch.cat(outs, dim=2).transpose(1, 2)
+
+
+def _cache_free_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool, window: int = 0,
+                          limit: int = 1024 * 1024) -> torch.Tensor:
+    """Cache-free attention, chunked past ``Sq · Sk > limit`` as in the JAX
+    package (1024² for self- and cross-attention, 4096² for MLA)."""
+    if q.shape[1] * k.shape[1] > limit:
+        return chunked_attention(q, k, v, causal=causal, window=window)
+    return dot_attention(q, k, v, causal=causal, window=window)
+
+
 def _scatter_block_rows(buf: torch.Tensor, vals: torch.Tensor,
                         lens: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Write slot b's valid block rows into ``buf`` at its own cursor, in
@@ -306,6 +433,7 @@ def attention_apply(
     positions: torch.Tensor,
     cache: Optional[Params] = None,
     causal: bool = True,
+    cross_hidden: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
     step_valid: Optional[torch.Tensor] = None,
     delta: Optional[Params] = None,
@@ -313,6 +441,10 @@ def attention_apply(
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Multi-head attention with GQA/MQA, RoPE, a contiguous or paged KV
     cache and an optional channel delta over the query heads ``head_idx``.
+    ``cross_hidden`` (B, Se, D) makes it cross-attention, as in the JAX
+    package: K and V are the encoder's hidden states through this layer's
+    ``wk``/``wv`` (no bias, no RoPE, RoPE on no query either), no mask, no
+    cache (``cache`` is returned as it came).
 
     Returns (output, updated_cache).  A contiguous cache is {"k": (B,
     S_max, Hkv, Dh), "v": ..., "len": (B,)}; a paged one is {"k": store,
@@ -329,14 +461,23 @@ def attention_apply(
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     q = bmm(x, p["wq"])
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     if delta is not None:
         cols = OV.head_cols(head_idx, dh)
         q = OV.delta_out_cols(q, x, delta["wq"], cols)
     q = q.reshape(b, s, h, dh)
+    if cross_hidden is not None:
+        se = cross_hidden.shape[1]
+        k = (cross_hidden @ p["wk"]).reshape(b, se, hkv, dh)
+        v = (cross_hidden @ p["wv"]).reshape(b, se, hkv, dh)
+        out = _cache_free_attention(q, k, v, causal=False)
+        new_cache = cache
+        return _attn_out(p, out, delta, head_idx, dh), new_cache
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
     if cfg.rope_theta > 0:
@@ -345,7 +486,8 @@ def attention_apply(
         k = apply_rope(k, cos, sin)
     if cache is None:
         new_cache = None
-        out = dot_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+        out = _cache_free_attention(q, k, v, causal=causal,
+                                    window=cfg.sliding_window)
     elif "page_table" in cache:
         # paged cache: write rows through the page table in place, attend
         # on the pages (block prefill) or on their gathered view (decode)
@@ -408,12 +550,20 @@ def attention_apply(
             new_cache = {"k": ck, "v": cv, "len": lens + n_new}
             kv_len = (lens + s).clamp(max=s_max)
             out = dot_attention(q, ck, cv, causal=False, kv_len=kv_len)
+    return _attn_out(p, out, delta, head_idx, dh), new_cache
 
-    out_flat = out.reshape(b, s, h * dh)
+
+def _attn_out(p: Params, out: torch.Tensor, delta: Optional[Params],
+              head_idx: Optional[torch.Tensor], dh: int) -> torch.Tensor:
+    """The output projection of (B, S, H, Dh) heads, with the delta's
+    ``wo`` rows at the selected heads."""
+    b, s = out.shape[:2]
+    out_flat = out.reshape(b, s, -1)
     y = bmm(out_flat, p["wo"])
     if delta is not None:
-        y = OV.delta_in_rows(y, out_flat, delta["wo"], cols)
-    return y, new_cache
+        y = OV.delta_in_rows(y, out_flat, delta["wo"],
+                             OV.head_cols(head_idx, dh))
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +596,8 @@ def mla_apply(
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """MLA forward, as the JAX package's ``mla_apply``.  Without a cache
     it materialises per-head K/V (query/key dim ``qk_nope + qk_rope``,
-    value dim ``v_head_dim``) and runs :func:`dot_attention`.  With one it
+    value dim ``v_head_dim``) and runs :func:`dot_attention`, chunked past
+    ``S² > 4096²``.  With one it
     writes the compressed latent rows (``{"ckv": (B, S, kv_lora_rank),
     "krope": (B, S, qk_rope_dim), "len"}``, or the same two as page
     stores with a ``page_table``) in place and attends in the *absorbed*
@@ -483,8 +634,8 @@ def mla_apply(
         k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, dn)
         v = (ckv @ p["w_uv"]).reshape(b, s, h, dv)
         k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
-        out = dot_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                            causal=True)
+        out = _cache_free_attention(torch.cat([q_nope, q_rope], dim=-1), k,
+                                    v, causal=True, limit=4096 * 4096)
         out_flat = out.reshape(b, s, h * dv)
     else:
         lens = cache["len"]

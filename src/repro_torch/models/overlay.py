@@ -25,7 +25,9 @@ serving a user's deltas computes with exactly the weights a folded copy
 holds; a MoE unit's overlay is the slot's whole expert stack ``(B, E, D,
 F)``, an SSD unit's the slot's ``w_z``/``w_x`` columns and ``w_out`` rows
 by SSD head, which ``ssm.ssd_apply`` takes through ``layers.bmm``.  The
-cross-attention kind arrives with ROADMAP queue 1, item 9.
+encoder-decoder family's cross-attention heads (``xattn``) take
+attention's edit tuple on the layer's ``xattn`` weights, in the fold and
+the per-slot overlay alike.
 """
 from __future__ import annotations
 
@@ -79,6 +81,7 @@ def _ssm_dim(cfg) -> int:
 # (w_gate of a plain-GELU MLP) are skipped
 EDITS: Dict[str, Tuple[str, Tuple[Tuple[str, str, Any], ...]]] = {
     "attn": ("attn", (("wq", "out", _head_dim), ("wo", "in", _head_dim))),
+    "xattn": ("xattn", (("wq", "out", _head_dim), ("wo", "in", _head_dim))),
     "mla": ("attn", (("w_uq", "out", _qk_dim), ("wo", "in", _v_dim))),
     "mlp": ("mlp", (("w_gate", "out", None), ("w_up", "out", None),
                     ("w_down", "in", None))),
@@ -116,10 +119,8 @@ def _edits(cfg, kind: str):
     try:
         return EDITS[resolve_kind(cfg, kind)]
     except KeyError:
-        raise NotImplementedError(
-            f"unit kind {kind!r}: only the kinds {sorted(EDITS)} are "
-            "ported; cross-attention arrives with ROADMAP queue 1, item 9"
-        ) from None
+        raise ValueError(
+            f"no unit kind {kind!r} (known: {sorted(EDITS)})") from None
 
 
 def _add_at(w: torch.Tensor, dw: torch.Tensor, cols: torch.Tensor,
@@ -149,7 +150,7 @@ def delta_init(cfg, layer_id: int, kind: str, n_channels: int,
         return torch.zeros(shape, dtype=dtype, device=device)
 
     d = cfg.d_model
-    if kind == "attn":
+    if kind in ("attn", "xattn"):  # cross-attention: attention's shapes
         k = n_channels * cfg.head_dim
         return {"wq": z(d, k), "wo": z(k, d)}
     if cfg.act in ("swiglu", "geglu"):

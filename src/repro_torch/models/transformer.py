@@ -43,9 +43,27 @@ over ``moe_start_layer`` dense-head MLP layers of ``dense_d_ff`` and MoE
 layers with a shared expert; its MTP head (``params["mtp"]``: a
 projection, one block of the last layer's kind, a norm) adds ``0.1 x``
 its loss to ``lm_loss``, and the MoE aux adds ``0.01 x``.  The serving
-programs run the MoE drop-free (``drop_free``), training capped.  The
-encoder-decoder and VLM families and the remat option arrive with later
-slices (ROADMAP queue 1, items 9 and 14).
+programs run the MoE drop-free (``drop_free``), training capped.
+
+The encoder-decoder family (whisper): :func:`encode` runs a stack of
+``n_enc_layers`` non-causal attention + MLP layers (``params["encoder"]``,
+then ``enc_norm``) over precomputed frame embeddings; every decoder layer
+runs self-attention, its MLP, then cross-attention over the encoder's
+output (``norm_x`` + ``xattn``), a unit of its own (``xattn``, over
+heads, with a tap group of its own).  A decoder layer with
+cross-attention weights and no encoder output refuses to run
+(``ValueError``), as the JAX package's does.  The VLM family
+(paligemma): ``img_proj`` maps precomputed patch embeddings to a prefix
+of ``n_img_tokens`` positions ahead of the tokens; ``lm_loss`` and
+``pooled_features`` read the hidden states past it (the pooled mask
+counts the prefix).  Serving feeds placeholder tokens there and swaps
+their embeddings for the request's prefix rows (``embed_prefix``), and
+passes an encoder-decoder request's encoder output as ``enc_out``.
+
+A policy's ``meta["remat"]`` recomputes the layers of the backprop span
+in the backward (``layers.remat``), and ``lm_loss(logit_chunk=)`` takes
+the cross-entropy over sequence chunks, each chunk's logits recomputed in
+the backward, so the (B, S, vocab) logits never exist whole.
 """
 from __future__ import annotations
 
@@ -120,6 +138,10 @@ def unit_descs(cfg: ArchConfig) -> List[UnitDesc]:
         else:
             np_ = d * (cfg.q_dim * 2 + cfg.kv_dim * 2)
             out.append(UnitDesc(i, "attn", cfg.n_heads, np_, np_))
+            if cfg.is_encoder_decoder:
+                # the decoder's cross-attention heads: the same projection
+                # shapes, K/V over the encoder's tokens
+                out.append(UnitDesc(i, "xattn", cfg.n_heads, np_, np_))
         if fk == "mlp":
             f = mlp_d_ff(cfg, i)
             mult = 3 if cfg.act in ("swiglu", "geglu") else 2
@@ -159,12 +181,15 @@ def stack_groups(cfg: ArchConfig) -> List[Tuple[str, List[int]]]:
     return groups
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a configuration this slice cannot run."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} serving arrives with ROADMAP queue 1, "
-            "item 14 (encoder-decoder and multimodal serving)")
+    """Raise ``ValueError`` for a family the port does not know: every
+    family of the JAX package runs."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
+                         f"(known: {FAMILIES})")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -256,6 +281,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                                            "swiglu")
         else:
             out["mlp"] = mlp((n,), mlp_d_ff(cfg, lid), cfg.act)
+        if cfg.is_encoder_decoder:
+            # the decoder's cross-attention, after its MLP
+            out.update(norm_x=norm(n), xattn=gqa(n))
         return out
 
     d = cfg.d_model
@@ -268,6 +296,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
         # zamba2's one weight-shared attention + MLP block
         p["shared_attn"] = {"norm1": norm(), "attn": gqa(), "norm2": norm(),
                             "mlp": mlp((), cfg.d_ff, cfg.act)}
+    if cfg.is_encoder_decoder:
+        ne = cfg.n_enc_layers
+        p["encoder"] = {"norm1": norm(ne), "attn": gqa(ne),
+                        "norm2": norm(ne), "mlp": mlp((ne,), cfg.d_ff,
+                                                      cfg.act)}
+        p["enc_norm"] = norm()
+    if cfg.family == "vlm":
+        p["img_proj"] = dense(cfg.img_embed_dim, d)
     p["final_norm"] = norm()
     if not cfg.tie_embeddings:
         p["unembed"] = dense(d, cfg.vocab)
@@ -287,6 +323,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
 def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, layer: int, *,
                  cache: Optional[Params] = None,
+                 enc_out: Optional[torch.Tensor] = None,
                  valid: Optional[torch.Tensor] = None,
                  step_valid: Optional[torch.Tensor] = None,
                  deltas: Optional[Dict[str, Params]] = None,
@@ -296,12 +333,16 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  drop_free: bool = False,
                  ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """One decoder layer (attention or MLA + an MLP or MoE, or an SSD
-    block alone).  Returns (x, new_cache, the MoE's aux loss or 0).
+    block alone; an encoder-decoder layer then cross-attends to
+    ``enc_out``).  Returns (x, new_cache, the MoE's aux loss or 0).
 
     ``deltas``/``chan_idx`` are this layer's delta packs and channel
     indices by unit kind; ``taps`` its (B, C) probe taps by group
-    (``mixer``, ``ffn``; the mixer tap's channels are attention, MLA or
-    SSD heads, the FFN's d_ff neurons or experts).  ``drop_free`` sizes
+    (``mixer``, ``ffn``, ``xattn``; the mixer tap's channels are
+    attention, MLA or SSD heads, the FFN's d_ff neurons or experts, the
+    xattn tap's cross-attention heads).  A layer with cross-attention
+    weights and no ``enc_out`` raises ``ValueError`` rather than skip
+    it.  ``drop_free`` sizes
     the MoE's queues so no routed token drops (the serving programs).
     The taps are cast to the activation's dtype: the
     same ones either way, and in bf16 it keeps the residual stream in bf16
@@ -337,28 +378,47 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                      cache=cache["attn"] if cache else None,
                      valid=valid, step_valid=step_valid,
                      delta=deltas.get("attn"), head_idx=chan_idx.get("attn"))
-    if "mixer" in taps:
-        # tap over per-head chunks of the output: scale (B, n_heads)
-        tap = taps["mixer"]
-        yb = y.reshape(y.shape[0], y.shape[1], tap.shape[-1], -1)
-        y = (yb * tap[:, None, :, None].to(y.dtype)).reshape(y.shape)
-    x = x + y
+    x = x + _head_tap(y, taps.get("mixer"))
     new_cache = {ck: c} if cache is not None else None
     fk = ffn_kind(cfg, layer)
-    if fk == "none":
-        return x, new_cache, aux
-    h = L.apply_norm(cfg.norm, p["norm2"], x)
-    if fk == "moe":
-        y, aux = L.moe_apply(eff("moe"), h, cfg, delta=deltas.get("moe"),
-                             expert_idx=chan_idx.get("moe"),
-                             tap=taps.get("ffn"), drop_free=drop_free)
-        x = x + y
-    elif "ffn" in taps:
-        x = x + _mlp_tapped(p["mlp"], h, cfg.act, taps["ffn"])
-    else:
-        x = x + L.mlp_apply(eff("mlp"), h, cfg.act, delta=deltas.get("mlp"),
-                            idx=chan_idx.get("mlp"))
+    if fk != "none":
+        h = L.apply_norm(cfg.norm, p["norm2"], x)
+        if fk == "moe":
+            y, aux = L.moe_apply(eff("moe"), h, cfg, delta=deltas.get("moe"),
+                                 expert_idx=chan_idx.get("moe"),
+                                 tap=taps.get("ffn"), drop_free=drop_free)
+            x = x + y
+        elif "ffn" in taps:
+            x = x + _mlp_tapped(p["mlp"], h, cfg.act, taps["ffn"])
+        else:
+            x = x + L.mlp_apply(eff("mlp"), h, cfg.act,
+                                delta=deltas.get("mlp"),
+                                idx=chan_idx.get("mlp"))
+    if "norm_x" in p:
+        # the encoder-decoder layer's cross-attention, gated on its own
+        # weights: without the encoder's output it must fail, not decode
+        # without its conditioning
+        if enc_out is None:
+            raise ValueError(
+                "encoder-decoder layer has cross-attention parameters but "
+                "no enc_out was supplied — refusing to silently skip xattn "
+                "(pass the encoder outputs / Request.enc_feats)")
+        h = L.apply_norm(cfg.norm, p["norm_x"], x)
+        y, _ = L.attention_apply(eff("xattn"), h, cfg, positions=positions,
+                                 cross_hidden=enc_out,
+                                 delta=deltas.get("xattn"),
+                                 head_idx=chan_idx.get("xattn"))
+        x = x + _head_tap(y, taps.get("xattn"))
     return x, new_cache, aux
+
+
+def _head_tap(y: torch.Tensor, tap: Optional[torch.Tensor]) -> torch.Tensor:
+    """``y`` (B, S, D) scaled per (sample, head chunk) by the probe's
+    ``tap`` (B, n_heads); ``y`` itself without one."""
+    if tap is None:
+        return y
+    yb = y.reshape(y.shape[0], y.shape[1], tap.shape[-1], -1)
+    return (yb * tap[:, None, :, None].to(y.dtype)).reshape(y.shape)
 
 
 def _mlp_tapped(p: Params, x: torch.Tensor, act: str,
@@ -411,6 +471,7 @@ def forward_hidden(
     positions: torch.Tensor,
     *,
     caches: Optional[Dict[str, Any]] = None,
+    enc_out: Optional[torch.Tensor] = None,
     seq_valid: Optional[torch.Tensor] = None,
     step_valid: Optional[torch.Tensor] = None,
     deltas: Optional[Dict[str, Params]] = None,
@@ -442,13 +503,17 @@ def forward_hidden(
     ``deltas``.  ``drop_free`` runs every MoE layer drop-free.  On a hybrid
     config the shared block runs after every ``hybrid_attn_every``-th
     layer, in every mode, against ``caches["shared{lid}"]`` when
-    serving."""
-    if plan is not None and (plan.meta or {}).get("remat"):
-        raise NotImplementedError(
-            "rematerialised backprop spans (policy meta 'remat') arrive "
-            "with ROADMAP queue 1, item 9")
+    serving.  ``enc_out`` (B, Se, D) is the encoder's output every
+    encoder-decoder layer cross-attends to.
+
+    A policy whose ``meta["remat"]`` is set recomputes in the backward
+    every layer of the backprop span that runs without a cache (the JAX
+    package checkpoints its selected layers and its tap-free scanned runs
+    above the horizon): the same values, with only each layer's input
+    kept (``layers.remat``, which raises under ``torch.func``)."""
     selected = set(plan.selected_layers()) if plan is not None else set()
     horizon = plan.horizon if plan is not None else 0
+    remat = plan is not None and bool((plan.meta or {}).get("remat", False))
     every = _shared_every(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (_, ids) in enumerate(stack_groups(cfg)):
@@ -465,15 +530,26 @@ def forward_hidden(
                 d = deltas.get(f"L{lid}")
                 ci = _layer_chan_idx(plan, chan_idx, lid, x.device)
             # below the backprop horizon: forward only, nothing saved
-            frozen = (torch.no_grad() if plan is not None and lid < horizon
-                      else contextlib.nullcontext())
+            below = plan is not None and lid < horizon
+            frozen = torch.no_grad() if below else contextlib.nullcontext()
+
+            def block(x_, lp=lp, cache_in=cache_in, tap=tap, d=d, ci=ci,
+                      lid=lid):
+                return _apply_block(cfg, lp, x_, positions, lid,
+                                    cache=cache_in, enc_out=enc_out,
+                                    valid=seq_valid, step_valid=step_valid,
+                                    deltas=d, chan_idx=ci, taps=tap,
+                                    overlay=(overlay or {}).get(lid),
+                                    drop_free=drop_free)
+
             with frozen:
-                x, nc, aux = _apply_block(cfg, lp, x, positions, lid,
-                                          cache=cache_in, valid=seq_valid,
-                                          step_valid=step_valid,
-                                          deltas=d, chan_idx=ci, taps=tap,
-                                          overlay=(overlay or {}).get(lid),
-                                          drop_free=drop_free)
+                # the JAX package remats its selected layers and its
+                # tap-free runs of unselected ones above the horizon
+                if (remat and not below and cache_in is None
+                        and (lid in selected or tap is None)):
+                    x, nc, aux = L.remat(block, x)
+                else:
+                    x, nc, aux = block(x)
             aux_total = aux_total + aux
             if g_caches is not None:
                 # attention and MLA write their rows in place; the SSD
@@ -514,53 +590,125 @@ def unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     return h @ w
 
 
+def encode(cfg: ArchConfig, params: Params,
+           frames: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over precomputed frame embeddings (B, Se, D):
+    ``n_enc_layers`` of non-causal attention and an MLP, each behind its
+    norm and residual, then ``enc_norm``.  Cache-free attention over 1500
+    frames is past ``1024²`` and takes ``layers.chunked_attention``."""
+    x = frames
+    positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[:2])
+    enc = params["encoder"]
+    for j in range(enc["norm1"]["w"].shape[0]):
+        lp = tree_map(lambda a: a[j], enc)
+        h = L.apply_norm(cfg.norm, lp["norm1"], x)
+        y, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions,
+                                 causal=False)
+        x = x + y
+        h = L.apply_norm(cfg.norm, lp["norm2"], x)
+        x = x + L.mlp_apply(lp["mlp"], h, cfg.act)
+    return L.apply_norm(cfg.norm, params["enc_norm"], x)
+
+
+def project_image(params: Params, feats: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Patch embeddings through ``img_proj`` in the two operands' promoted
+    dtype (float32 features against bf16 weights compute in float32, as
+    JAX promotes them), cast to ``dtype``."""
+    w = params["img_proj"]
+    dt = torch.promote_types(feats.dtype, w.dtype)
+    return (feats.to(dt) @ w.to(dt)).to(dtype)
+
+
 def build_inputs(cfg: ArchConfig, params: Params,
                  batch: Dict[str, torch.Tensor]):
-    """A plain token batch -> (x_embed, positions)."""
+    """A raw batch -> (x_embed, positions, enc_out).  A vlm batch's
+    ``image_embeds`` (B, P, img_embed_dim) become a prefix of P positions
+    ahead of the token embeddings; an encoder-decoder batch's ``frames``
+    (B, Se, D), cast to the model's dtype, go through :func:`encode`, whose
+    output every decoder layer cross-attends to (None elsewhere)."""
     tokens = batch["tokens"].long()
     x = embed_tokens(cfg, params, tokens)
+    enc_out = None
+    if cfg.family == "vlm":
+        img = project_image(params, batch["image_embeds"], x.dtype)
+        x = torch.cat([img, x], dim=1)
+    if cfg.is_encoder_decoder:
+        enc_out = encode(cfg, params, batch["frames"].to(x.dtype))
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
-    return x, positions
+    return x, positions, enc_out
 
 
-def _ce(cfg: ArchConfig, params: Params, h: torch.Tensor,
-        labels: torch.Tensor) -> torch.Tensor:
-    """Cross-entropy of ``h``'s logits, the mean over labels >= 0."""
+def _ce_sums(cfg: ArchConfig, params: Params, h: torch.Tensor,
+             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the NLL, count of labels >= 0) over one hidden chunk."""
     labels = labels.long()
     logits = unembed(cfg, params, h).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return (((logz - gold) * mask).sum()
-            / torch.clamp(mask.sum(), min=1.0))
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def ce_from_hidden(cfg: ArchConfig, params: Params, h: torch.Tensor,
+                   labels: torch.Tensor,
+                   logit_chunk: int = 0) -> torch.Tensor:
+    """Cross-entropy of ``h``'s logits, the mean over labels >= 0.  With
+    ``logit_chunk`` > 0 dividing S (and below it) the sums run over
+    sequence chunks, in order, each chunk's logits recomputed in the
+    backward (``layers.remat``), so the (B, S, vocab) logits never exist
+    whole, as in the JAX package's scan."""
+    b, s = h.shape[:2]
+    if logit_chunk and s > logit_chunk and s % logit_chunk == 0:
+        nll = h.new_zeros((), dtype=torch.float32)
+        m = h.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, s, logit_chunk):
+            n_c, m_c = L.remat(
+                lambda hc, lc: _ce_sums(cfg, params, hc, lc),
+                h[:, c0:c0 + logit_chunk], labels[:, c0:c0 + logit_chunk])
+            nll, m = nll + n_c, m + m_c
+    else:
+        nll, m = _ce_sums(cfg, params, h, labels)
+    return nll / torch.clamp(m, min=1.0)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, deltas=None, plan=None, taps=None,
-            chan_idx=None) -> torch.Tensor:
+            *, deltas=None, plan=None, taps=None, chan_idx=None,
+            logit_chunk: int = 0) -> torch.Tensor:
     """Next-token cross-entropy (mean over positions with label >= 0),
     plus ``0.01 x`` the MoE aux loss on a MoE config and ``0.1 x`` the MTP
-    head's loss on an MTP config, as in the JAX package."""
-    x, positions = build_inputs(cfg, params, batch)
-    h, _, aux = forward_hidden(cfg, params, x, positions, deltas=deltas,
-                               plan=plan, taps=taps, chan_idx=chan_idx,
-                               with_aux=True)
-    loss = _ce(cfg, params, h, batch["labels"])
+    head's loss on an MTP config, as in the JAX package.  On a vlm config
+    the labels cover the tokens only: the hidden states of the image
+    prefix are cut off first.  ``logit_chunk``: see
+    :func:`ce_from_hidden`."""
+    x, positions, enc_out = build_inputs(cfg, params, batch)
+    h, _, aux = forward_hidden(cfg, params, x, positions, enc_out=enc_out,
+                               deltas=deltas, plan=plan, taps=taps,
+                               chan_idx=chan_idx, with_aux=True)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        h = h[:, -labels.shape[1]:]
+    loss = ce_from_hidden(cfg, params, h, labels, logit_chunk)
     if cfg.n_experts:
         loss = loss + 0.01 * aux
     if cfg.mtp:
-        loss = loss + 0.1 * _mtp_loss(cfg, params, h, batch)
+        loss = loss + 0.1 * _mtp_loss(cfg, params, h, batch, logit_chunk)
     return loss
 
 
 def _mtp_loss(cfg: ArchConfig, params: Params, h: torch.Tensor,
-              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+              batch: Dict[str, torch.Tensor],
+              logit_chunk: int = 0) -> torch.Tensor:
     """deepseek's one-deep multi-token prediction: the hidden state at t
     and the embedding of token t + 1 predict label t + 2 through the MTP
-    block (capped MoE dispatch, no taps or deltas)."""
+    block (capped MoE dispatch, no taps or deltas); zero on a vlm
+    config, as in the JAX package."""
+    if cfg.family == "vlm":
+        return torch.zeros((), dtype=torch.float32, device=h.device)
     nxt = embed_tokens(cfg, params, torch.roll(batch["tokens"].long(), -1, 1))
     z = torch.cat([h[:, :-2], nxt[:, 1:-1].to(h.dtype)], dim=-1)
     z = z @ params["mtp"]["proj"]
@@ -569,18 +717,25 @@ def _mtp_loss(cfg: ArchConfig, params: Params, h: torch.Tensor,
     lp = tree_map(lambda a: a[0], params["mtp"]["block"])
     z, _, _ = _apply_block(cfg, lp, z, positions, cfg.n_layers - 1)
     z = L.apply_norm(cfg.norm, params["mtp"]["norm"], z)
-    return _ce(cfg, params, z, batch["labels"][:, 2:])
+    return ce_from_hidden(cfg, params, z, batch["labels"][:, 2:],
+                          logit_chunk)
 
 
 def pooled_features(cfg: ArchConfig, params: Params,
                     batch: Dict[str, torch.Tensor], *, deltas=None,
                     plan=None, taps=None, chan_idx=None) -> torch.Tensor:
     """Mean-pooled final hidden state: the feature map f(x) ProtoNet uses
-    for few-shot adaptation of an LM backbone (paper Sec. 2.1)."""
-    x, positions = build_inputs(cfg, params, batch)
-    h, _ = forward_hidden(cfg, params, x, positions, deltas=deltas,
-                          plan=plan, taps=taps, chan_idx=chan_idx)
+    for few-shot adaptation of an LM backbone (paper Sec. 2.1).  A vlm
+    batch's image prefix counts in the mean."""
+    x, positions, enc_out = build_inputs(cfg, params, batch)
+    h, _ = forward_hidden(cfg, params, x, positions, enc_out=enc_out,
+                          deltas=deltas, plan=plan, taps=taps,
+                          chan_idx=chan_idx)
     mask = (batch["tokens"] >= 0).to(h.dtype)
+    if cfg.family == "vlm":
+        pad = torch.ones((h.shape[0], h.shape[1] - mask.shape[1]),
+                         dtype=h.dtype, device=h.device)
+        mask = torch.cat([pad, mask], dim=1)
     return ((h * mask[..., None]).sum(dim=1)
             / torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0))
 
@@ -700,6 +855,21 @@ def reset_slot_state(caches: Dict[str, Any],
     return caches
 
 
+def _swap_prefix(x: torch.Tensor, positions: torch.Tensor,
+                 embed_prefix: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings at absolute positions < P replaced by rows of
+    ``embed_prefix`` (B, P, D): the serving twin of :func:`build_inputs`'s
+    image-prefix concat, applied by position so block prefill and decode
+    both take it (the rows enter without the gemma sqrt(d) scale)."""
+    if embed_prefix is None:
+        return x
+    n = embed_prefix.shape[1]
+    sel = positions.clamp(0, n - 1).long()
+    rows = torch.gather(embed_prefix.to(x.dtype), 1,
+                        sel[..., None].expand(*sel.shape, x.shape[-1]))
+    return torch.where((positions < n)[..., None], rows, x)
+
+
 def decode_step(
     cfg: ArchConfig,
     params: Params,
@@ -708,11 +878,16 @@ def decode_step(
     pos: torch.Tensor,     # () shared or (B,) per-slot positions
     valid: Optional[torch.Tensor] = None,  # (B,) bool; None = all valid
     *,
+    enc_out: Optional[torch.Tensor] = None,
+    embed_prefix: Optional[torch.Tensor] = None,
     overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
     plan=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: new token -> logits (B, 1, vocab), caches updated
-    in place.  A slot masked by ``valid`` writes no K/V (or latent) row
+    in place.  ``enc_out`` (B, Se, D) is each slot's encoder output (an
+    encoder-decoder config's cross-attention reads it), ``embed_prefix``
+    (B, P, D) each slot's image prefix (a vlm config's placeholder tokens
+    at positions < P take its rows).  A slot masked by ``valid`` writes no K/V (or latent) row
     and keeps its cache length, SSD conv window and state bit for bit; its
     logits are meaningless, and the other slots' are those of the unmasked
     call.  ``overlay`` + ``plan`` decode each slot against its own delta
@@ -722,9 +897,10 @@ def decode_step(
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=tokens.device)
     positions = pos[:, None] if pos.dim() else pos.expand(tokens.shape)
+    x = _swap_prefix(x, positions, embed_prefix)
     h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
-                               step_valid=valid, overlay=overlay, plan=plan,
-                               drop_free=True)
+                               enc_out=enc_out, step_valid=valid,
+                               overlay=overlay, plan=plan, drop_free=True)
     return unembed(cfg, params, h), caches
 
 
@@ -736,10 +912,13 @@ def prefill_block(
     pos: torch.Tensor,     # (B,) absolute position of tokens[:, 0]
     valid: Optional[torch.Tensor] = None,  # (B, S) bool; None = all valid
     *,
+    enc_out: Optional[torch.Tensor] = None,
+    embed_prefix: Optional[torch.Tensor] = None,
     overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
     plan=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Sequence-mode prompt ingestion: a whole (B, S) block per call.
+    """Sequence-mode prompt ingestion: a whole (B, S) block per call
+    (``enc_out`` and ``embed_prefix`` as in :func:`decode_step`).
 
     Each slot writes its ``valid`` tokens at its own cache cursor and
     attends causally from its own offset through the cached flash kernel
@@ -753,10 +932,11 @@ def prefill_block(
     s = tokens.shape[1]
     positions = (torch.as_tensor(pos, device=tokens.device)[:, None]
                  + torch.arange(s, device=tokens.device)[None, :])
+    x = _swap_prefix(x, positions, embed_prefix)
     if valid is None:
         valid = torch.ones(tokens.shape, dtype=torch.bool,
                            device=tokens.device)
     h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
-                               seq_valid=valid, overlay=overlay, plan=plan,
-                               drop_free=True)
+                               enc_out=enc_out, seq_valid=valid,
+                               overlay=overlay, plan=plan, drop_free=True)
     return unembed(cfg, params, h), caches

@@ -116,8 +116,28 @@ its place a tick, at most ``N`` times while the head waits.
 batch neighbours or the block size), as the JAX engine's do; mixtral's
 window cache rolls once ``max_len`` passes the window (and then stays
 contiguous under ``kv_paging``), and deepseek's MLA layers page their
-latent rows like K/V.  Encoder runs arrive with a later slice; they raise
-``NotImplementedError`` naming the ROADMAP item.
+latent rows like K/V.
+
+**Encoder-decoder and VLM serving** (whisper, paligemma): a request on
+such a config carries ``enc_feats`` (whisper's (enc_len, d_model) frame
+embeddings, paligemma's (n_img_tokens, img_embed_dim) patch embeddings).
+The engine encodes it **once**, at first staging (``models.transformer
+.encode`` or the ``img_proj`` product, on the device), keeps the rows in
+a host-held map by rid (the tensors stay on the device: no read back)
+and re-attaches them verbatim on every requeue, so a resumed stream is
+never re-encoded and equals the unpreempted one.  Admission parks them as
+the slot's read-only **encoder run** (:class:`EncRun`): pages drawn from
+the KV pool's free-list under ``kv_paging`` (``paging.reserve_run``, the
+run priced with the KV demand, released with the KV pages on eviction and
+preemption), else a fixed per-slot stripe.  Every tick gathers the runs
+through their table into the forward: cross-attention's ``enc_out`` on
+whisper, the ``embed_prefix`` swap on paligemma, whose feed leads with
+``n_img_tokens`` placeholder tokens (the prefix counts in positions, KV
+rows and the request's budget).  All of it runs inside the tick: one host
+sync a chunk still.  A request without ``enc_feats`` on such a config is
+rejected with the typed reason ``missing_enc_feats``, one with them on any
+other config with ``unexpected_enc_feats``, and features of the wrong
+shape raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -231,6 +251,12 @@ class Request:
     # engine rid.  A caller that resubmits a request elsewhere (a router,
     # ``evacuate``) keeps it, so the stream samples the same tokens
     sample_id: Optional[int] = None
+    # encoder inputs, required on encoder-decoder and vlm configs and
+    # rejected elsewhere: (enc_len, d_model) frame embeddings (audio),
+    # (n_img_tokens, img_embed_dim) patch embeddings (vlm).  Encoded once
+    # at first staging; the rows stay pinned for the stream's residency
+    # and are re-attached, not re-encoded, on preemption and requeue
+    enc_feats: Optional[np.ndarray] = None
 
     @property
     def terminal(self) -> bool:
@@ -241,7 +267,9 @@ class SubmitResult(NamedTuple):
     """Typed admission verdict from :meth:`ServeEngine.submit`."""
 
     accepted: bool
-    reason: str  # "ok" | "queue_full" | "unexpected_delta_set"
+    # "ok" | "queue_full" | "missing_enc_feats" | "unexpected_enc_feats"
+    # | "unexpected_delta_set"
+    reason: str
 
 
 @dataclasses.dataclass
@@ -297,9 +325,25 @@ class PendingBuffer(NamedTuple):
     # stacked along a leading axis of max(count, 1) entries ({} without a
     # personalise policy)
     delta: Any
+    # staged requests' encoded rows, (max(count, 1), enc_tokens, d_model)
+    # (None on a config without encoder runs)
+    enc: Optional[torch.Tensor]
     count: torch.Tensor    # () int32 valid entries
     # backfill: the head's bypasses so far, carried across chunks
     age: torch.Tensor      # () int32
+
+
+class EncRun(NamedTuple):
+    """The slots' pinned encoder-output runs: a run table over a page
+    store.  ``table`` is (slots, run pages) int32 (-1 unmapped) over the
+    KV pool's pages when paged, else the identity (slot s owns page s of
+    one ``enc_tokens``-row page); ``store`` a ``paging.store_init`` arena
+    of d_model rows in the model's dtype (never int8: every tick reads
+    it).  The table is replaced by each reserve and release; the store is
+    written in place."""
+
+    table: torch.Tensor
+    store: Dict[str, torch.Tensor]
 
 
 class TickPlan(NamedTuple):
@@ -323,6 +367,9 @@ class TickPlan(NamedTuple):
     # (None without backfill)
     taken: Optional[torch.Tensor] = None
     age: Optional[torch.Tensor] = None
+    # the encoder runs' table after this tick's reserve and release (None
+    # on a config without encoder runs)
+    enc_table: Optional[torch.Tensor] = None
 
 
 @contextlib.contextmanager
@@ -532,6 +579,40 @@ class ServeEngine:
                  for key in ("conv", "ssm")]
         self.ssm_state_bytes_per_slot = sum(
             t.numel() * t.element_size() for t in state) // slots
+        # encoder-decoder / vlm: each request's encoder output is pinned as
+        # a read-only run (whisper: cross-attention's enc_out; paligemma:
+        # the image prefix), drawn from the KV pool's free-list when paged
+        # and a fixed stripe a slot otherwise
+        if cfg.is_encoder_decoder:
+            self._enc_tokens = int(cfg.enc_len)
+        elif cfg.family == "vlm":
+            self._enc_tokens = int(cfg.n_img_tokens)
+        else:
+            self._enc_tokens = 0
+        # vlm feeds placeholder tokens for the image prefix; the forward
+        # swaps their embeddings for the run's rows
+        self._feed_prefix = self._enc_tokens if cfg.family == "vlm" else 0
+        self._enc_spec: Optional[PG.PagingSpec] = None
+        self._enc_pages = 0   # pages a run draws from the shared pool
+        self._enc: Optional[EncRun] = None
+        self._enc_kw: Dict[str, torch.Tensor] = {}  # this tick's rows
+        # rid -> encoded rows (on the device), from first staging until the
+        # request ends: every readmission re-attaches the same rows
+        self._enc_rows: Dict[int, torch.Tensor] = {}
+        if self._enc_tokens:
+            E = self._enc_tokens
+            if self.spec is not None:
+                self._enc_spec = PG.PagingSpec(
+                    page_size=self.spec.page_size,
+                    n_pages=self.spec.n_pages,
+                    max_pages=self.spec.pages_for(E))
+                self._enc_pages = self._enc_spec.max_pages
+            else:
+                self._enc_spec = PG.PagingSpec(page_size=E, n_pages=slots,
+                                               max_pages=1)
+            self._enc = EncRun(self._enc_table0(), PG.store_init(
+                self._enc_spec, (cfg.d_model,), T.torch_dtype(cfg),
+                self.device))
         self.queue: Deque[Request] = collections.deque()
         self.ticks = 0  # lifetime tick count (stat, never a per-call budget)
         # the eager loop's host state: its slots and their positions
@@ -601,6 +682,8 @@ class ServeEngine:
         n = int(len(req.prompt))
         if n == 0:
             raise ValueError("empty prompt: nothing to prefill")
+        # the image prefix (vlm) takes KV rows as prompt tokens do
+        n += self._feed_prefix
         if n >= budget - 1:
             raise ValueError(
                 f"prompt of length {n} cannot fit: the engine evicts at "
@@ -609,13 +692,20 @@ class ServeEngine:
                 f"{budget - 2})")
         if req.max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {req.max_new}")
+        if req.enc_feats is not None and self._enc_tokens:
+            shape = tuple(np.shape(req.enc_feats))
+            if shape != self.cfg.enc_feats_shape:
+                raise ValueError(
+                    f"enc_feats shape {shape} does not match the config's "
+                    f"encoder geometry {self.cfg.enc_feats_shape}")
         if req.delta_set is not None and self.personalise is not None:
             self._delta_rows(req.delta_set)  # shape/structure check
         if self.spec is not None:
-            need = self.spec.pages_for(budget)
+            need = self._price(self.spec.pages_for(budget))
             if need > self.spec.n_pages:
                 raise ValueError(
-                    f"request needs {need} pages but the pool holds only "
+                    f"request needs {need} pages (incl. {self._enc_pages} "
+                    f"encoder-run pages) but the pool holds only "
                     f"{self.spec.n_pages}: it could never be admitted")
 
     def backlog_size(self) -> int:
@@ -623,17 +713,23 @@ class ServeEngine:
         return len(self.queue) + len(self._staged) + len(self._requeue)
 
     def _reject_reason(self, req: Request) -> Optional[str]:
-        """A request the engine must not serve as it is: deltas for an
-        engine with no arena to park them in would be silently dropped."""
+        """A request the engine must not serve as it is: an
+        encoder-decoder or vlm config never decodes without its encoder
+        inputs, any other config must not silently ignore them, and deltas
+        for an engine with no arena to park them in would be dropped."""
+        if self._enc_tokens and req.enc_feats is None:
+            return "missing_enc_feats"
+        if not self._enc_tokens and req.enc_feats is not None:
+            return "unexpected_enc_feats"
         if self.personalise is None and req.delta_set is not None:
             return "unexpected_delta_set"
         return None
 
     def submit(self, req: Request) -> SubmitResult:
         """Enqueue one request.  A malformed request raises; a full queue
-        (``queue_limit``) or deltas sent to an engine without
-        personalisation return a typed rejection and mark the request
-        ``outcome='rejected'``."""
+        (``queue_limit``), missing or unexpected ``enc_feats``, or deltas
+        sent to an engine without personalisation return a typed
+        rejection and mark the request ``outcome='rejected'``."""
         self._validate(req)
         reason = self._reject_reason(req)
         if reason is not None:
@@ -659,11 +755,15 @@ class ServeEngine:
     def _feed(self, req: Request) -> np.ndarray:
         """The tokens a (re)admission prefills: the prompt plus any
         already-generated prefix (the recompute swap), so positions and
-        cache rows realign with the unpreempted run."""
-        prompt = np.asarray(req.prompt, np.int32)
-        if not req.out:
-            return prompt
-        return np.concatenate([prompt, np.asarray(req.out, np.int32)])
+        cache rows realign with the unpreempted run.  On a vlm config the
+        feed leads with ``n_img_tokens`` placeholder tokens, whose
+        embeddings the forward swaps for the image prefix."""
+        parts = [np.asarray(req.prompt, np.int32)]
+        if self._feed_prefix:
+            parts.insert(0, np.zeros(self._feed_prefix, np.int32))
+        if req.out:
+            parts.append(np.asarray(req.out, np.int32))
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def _attach_delta(self, req: Request) -> None:
         """First-staging attach: a request without an explicit set takes its
@@ -711,13 +811,67 @@ class ServeEngine:
                 out[lid][kind] = (row, idx.to(self.device))
         return out
 
-    def _fwd_kwargs(self) -> Dict[str, Any]:
-        """Forward kwargs of both tick kinds: under personalisation the
-        arena is the per-slot overlay and the policy names its layers;
-        without a policy, none."""
-        if self.personalise is None:
+    def _enc_table0(self) -> torch.Tensor:
+        """A fresh run table: all unmapped when paged, the identity (slot
+        s -> page s) when not."""
+        if self._enc_pages:
+            return torch.full((self.n_slots, self._enc_pages), -1,
+                              dtype=torch.int32, device=self.device)
+        return torch.arange(self.n_slots, dtype=torch.int32,
+                            device=self.device)[:, None]
+
+    def _encode_cached(self, rid: int, req: Request) -> torch.Tensor:
+        """Request ``rid``'s encoded rows (enc_tokens, d_model) in the
+        model's dtype on the engine's device: computed once, at first
+        staging (whisper's encoder, or paligemma's features cast to the
+        model's dtype through ``img_proj``), and the same tensor on every
+        readmission."""
+        hit = self._enc_rows.get(rid)
+        if hit is None:
+            dtype = T.torch_dtype(self.cfg)
+            feats = torch.from_numpy(np.ascontiguousarray(
+                req.enc_feats, dtype=np.float32)).to(self.device).to(dtype)
+            with torch.no_grad():
+                if self.cfg.is_encoder_decoder:
+                    hit = T.encode(self.cfg, self.params, feats[None])[0]
+                else:
+                    hit = feats @ self.params["img_proj"]
+            self._enc_rows[rid] = hit
+        return hit
+
+    def _write_enc(self, table: torch.Tensor, rows: torch.Tensor,
+                   mask: torch.Tensor) -> None:
+        """Park ``rows`` (slots, enc_tokens, d_model) in the ``mask``
+        slots' runs of ``table`` (in place) and adopt ``table``."""
+        E = self._enc_tokens
+        PG.write_rows(self._enc.store, table, self._enc_spec,
+                      torch.zeros_like(mask, dtype=torch.int32), rows,
+                      mask[:, None].expand(self.n_slots, E))
+        self._enc = self._enc._replace(table=table)
+
+    def _read_enc(self) -> Dict[str, torch.Tensor]:
+        """Gather every slot's run through its table into the forward's
+        kwargs: ``enc_out`` on an encoder-decoder config, ``embed_prefix``
+        on a vlm one ({} elsewhere).  An unmapped slot reads page 0,
+        finite rows whose outputs are never emitted."""
+        if not self._enc_tokens:
             return {}
-        return {"overlay": self._arena, "plan": self.personalise}
+        rows = PG.read_rows(self._enc.store, self._enc.table,
+                            self._enc_spec, T.torch_dtype(self.cfg))
+        rows = rows[:, :self._enc_tokens]
+        if self.cfg.is_encoder_decoder:
+            return {"enc_out": rows}
+        return {"embed_prefix": rows}
+
+    def _fwd_kwargs(self) -> Dict[str, Any]:
+        """Forward kwargs of both tick kinds: this tick's encoder rows
+        (:meth:`_read_enc`, gathered once a tick) and, under
+        personalisation, the arena as the per-slot overlay with the policy
+        that names its layers."""
+        kw = dict(self._enc_kw)
+        if self.personalise is not None:
+            kw.update(overlay=self._arena, plan=self.personalise)
+        return kw
 
     def _admit_pages(self, feed_len: int, budget: int) -> int:
         """Pages reserved at admission: the feed's own demand under
@@ -726,6 +880,12 @@ class ServeEngine:
         if self.spec is None:
             return 0
         return int(self.spec.pages_for(feed_len if self.rayg else budget))
+
+    def _price(self, kv_pages):
+        """A request's admission price in pages: its KV reservation plus
+        its encoder run (none without one), for an int or an int32 tensor
+        of reservations alike (the eager loop's and the fused plan's)."""
+        return kv_pages + self._enc_pages
 
     # ------------------------------------------------------------------
     # The tick body
@@ -785,8 +945,17 @@ class ServeEngine:
             rows = [self._delta_rows(req.delta_set)
                     for _, req in self._staged] or [self._delta_tmpl]
             delta = tree_map(lambda *xs: torch.stack(xs), *rows)
+        enc = None
+        if self._enc_tokens:
+            # each staged request's encoded rows, encoded at first staging
+            # and the same tensor on every restage
+            enc = torch.stack([self._encode_cached(r, req)
+                               for r, req in self._staged]
+                              or [self._enc.store["pages"].new_zeros(
+                                  (self._enc_tokens, self.cfg.d_model))])
         self._pending_cache = PendingBuffer(
             prompt=up(prompt), rid=up(rid), sid=up(sid), delta=delta,
+            enc=enc,
             **{k: up(a) for k, a in ints.items()},
             count=torch.tensor(len(self._staged), dtype=torch.int32,
                                device=dev),
@@ -832,22 +1001,25 @@ class ServeEngine:
         else:
             fifo = free & (head + rank < pend.count) & live
             src = (head + rank).clamp(0, P - 1).long()
+        enc_pages = self._enc_pages  # a request's run, priced with its KV
+        enc_table = self._enc.table if self._enc is not None else None
         if spec is not None:
             # a candidate is admitted only if the demand up to and
             # including it fits the free-list: every request needs >= 1
             # page, so admission stays FIFO with head-of-line blocking
             need = torch.where(fifo, pend.n_pages[src], 0)
+            price = torch.where(fifo, self._price(need), 0)
             avail = PG.free_page_count(pool)
-            take = fifo & (torch.cumsum(need, 0) <= avail)
+            take = fifo & (torch.cumsum(price, 0) <= avail)
             if bf is not None:
                 # at most one backfill a tick: with the head blocked, the
                 # first later entry whose whole price fits the pages left
                 # admits into the first slot left free, while the head's
                 # bypasses stay under the bound
-                left = avail - torch.where(take, need, 0).sum()
+                left = avail - torch.where(take, price, 0).sum()
                 taken = taken | ((src[:, None] == idxp[None, :])
                                  & take[:, None]).any(dim=0)
-                cand = elig & ~taken & (pend.n_pages <= left)
+                cand = elig & ~taken & (self._price(pend.n_pages) <= left)
                 head_blocked = (n_elig > 0) & ~taken.gather(0, order[:1])[0]
                 slots_left = free & ~take
                 first_left = slots_left & (
@@ -866,6 +1038,10 @@ class ServeEngine:
                     age)
                 bf = (taken, age)
             pool = PG.reserve(pool, need, take)
+            if enc_pages:
+                pool, enc_table = PG.reserve_run(
+                    pool, enc_table,
+                    torch.full_like(need, enc_pages), take)
         else:
             take = fifo
 
@@ -936,6 +1112,11 @@ class ServeEngine:
             pre_requeue = victims & ~pre_final
             if pool is not None:
                 pool = PG.release(pool, victims)
+                if enc_pages:
+                    # the victim's run goes back too; its readmission
+                    # reserves a fresh one and re-attaches the same rows
+                    pool, enc_table = PG.release_run(pool, enc_table,
+                                                     victims)
             st = st._replace(active=st.active & ~victims,
                              rid=torch.where(victims, -1, st.rid),
                              pages=torch.where(victims, 0, st.pages))
@@ -946,7 +1127,7 @@ class ServeEngine:
         taken_c, age_c = bf if bf is not None else (None, None)
         return TickPlan(st, pool, take, src, n_admit, head + n_admit, rid_row,
                         active_row, pre_requeue, pre_final, live, block,
-                        taken_c, age_c)
+                        taken_c, age_c, enc_table)
 
     def _forward(self, st: SlotState, act: torch.Tensor,
                  prefilling: torch.Tensor, block: torch.Tensor,
@@ -1123,6 +1304,9 @@ class ServeEngine:
             # finished slots release their pages and their table rows go
             # unmapped, so no write of theirs can land in a recycled page
             pool = PG.release(pool, term)
+            if self._enc_pages:
+                pool, table = PG.release_run(pool, self._enc.table, term)
+                self._enc = self._enc._replace(table=table)
             PG.set_page_table(self.caches, pool.table)
         return st, pool, row
 
@@ -1178,6 +1362,14 @@ class ServeEngine:
                     m, q[plan.src.clamp(max=q.shape[0] - 1)], a)
 
             self._arena = tree_map(admit, self._arena, pend.delta)
+        if self._enc_tokens:
+            # park each admitted request's encoded rows in its new run (a
+            # victim preempted in the same tick has no run left: its rows
+            # drop), then gather every slot's run for this tick's forward
+            self._write_enc(plan.enc_table,
+                            pend.enc[plan.src.clamp(
+                                max=pend.enc.shape[0] - 1)], plan.take)
+            self._enc_kw = self._read_enc()
         st, pool, row = self._advance(plan, known, block_first)
         return plan.head, plan.live, st, pool, row
 
@@ -1286,6 +1478,7 @@ class ServeEngine:
             self._tally[req.outcome] = self._tally.get(req.outcome, 0) + 1
             self._live.discard(rid)
             self._resident.pop(rid, None)
+            self._enc_rows.pop(rid, None)
         used = int(act.sum())
         fr["used"] += used
         self.ticks += used
@@ -1400,6 +1593,9 @@ class ServeEngine:
         self._live.clear()
         self._resident.clear()
         self._eager_rids.clear()
+        self._enc_rows.clear()
+        if self._enc is not None:
+            self._enc = self._enc._replace(table=self._enc_table0())
         self.slots = [_Slot() for _ in range(self.n_slots)]
         self._pending_dirty = True
         self._pending_cache = None
@@ -1438,7 +1634,7 @@ class ServeEngine:
             budget = self.request_budget(req)
             feed = self._feed(req)
             want = self._admit_pages(len(feed), budget)
-            if want <= free_pages:
+            if self._price(want) <= free_pages:
                 del self._requeue[qi]
                 return rid, req, True, feed, budget, want
         for qi, req in enumerate(self.queue):
@@ -1448,7 +1644,7 @@ class ServeEngine:
             budget = self.request_budget(req)
             feed = self._feed(req)
             want = self._admit_pages(len(feed), budget)
-            if want <= free_pages:
+            if self._price(want) <= free_pages:
                 rid = self._eager_rids.pop(id(req))
                 del self.queue[qi]
                 self._attach_delta(req)
@@ -1479,8 +1675,9 @@ class ServeEngine:
             feed = self._feed(req)
             picked = None
             if self.spec is not None:
+                # the price: the KV demand plus the pinned encoder run
                 want = self._admit_pages(len(feed), budget)
-                if want > free_pages:
+                if self._price(want) > free_pages:
                     # head-of-line blocking, unless one later entry that
                     # fits may backfill this tick
                     if (self._backfill and not backfilled
@@ -1491,7 +1688,7 @@ class ServeEngine:
                     rid, req, resumed, feed, budget, want = picked
                     backfilled = True
                     self._head_age += 1
-                free_pages -= want
+                free_pages -= self._price(want)
                 need[i] = want
             if picked is None:
                 if resumed:
@@ -1523,6 +1720,21 @@ class ServeEngine:
                 one[i] = True
                 self._write_arena(
                     one, self._delta_rows(self.slots[i].req.delta_set))
+        if self._enc_tokens:
+            # park each admitted request's encoded rows (the same rows on
+            # every readmission) in its run
+            rows = self._enc.store["pages"].new_zeros(
+                (self.n_slots, self._enc_tokens, self.cfg.d_model))
+            for i in np.nonzero(mask)[0]:
+                rows[i] = self._encode_cached(self.slots[i].rid,
+                                              self.slots[i].req)
+            table = self._enc.table
+            if self._enc_pages:
+                self.pool, table = PG.reserve_run(
+                    self.pool, table, torch.full(
+                        (self.n_slots,), self._enc_pages, dtype=torch.int32,
+                        device=self.device), m)
+            self._write_enc(table, rows, m)
 
     def _preempt_slot(self, i: int, freed: np.ndarray) -> int:
         """Evict slot ``i`` mid-stream: requeue it (retries left) or end it
@@ -1536,6 +1748,7 @@ class ServeEngine:
         else:
             req.outcome = OUTCOME_NAMES[OUTCOME_PREEMPTED]
             code = OUTCOME_PREEMPTED
+            self._enc_rows.pop(sl.rid, None)
         freed[i] = True
         self.slots[i] = _Slot()
         return code
@@ -1635,6 +1848,7 @@ class ServeEngine:
         ids = np.asarray([[sl.rid, sl.sid, len(sl.req.out)]
                           if sl.req is not None else [-1, -1, 0]
                           for sl in self.slots], np.int32)
+        self._enc_kw = self._read_enc()
         tok, v = self._up(toks), self._up(valid)
         pos = self._up(self.pos.copy())
         if stall_tick:
@@ -1675,6 +1889,7 @@ class ServeEngine:
                     sl.req.done = True
                     sl.req.truncated = code == OUTCOME_TRUNCATED
                 tally[sl.req.outcome] = tally.get(sl.req.outcome, 0) + 1
+                self._enc_rows.pop(sl.rid, None)
                 self.slots[i] = _Slot()
                 freed[i] = True
         self._finish_tick(freed)
@@ -1685,6 +1900,11 @@ class ServeEngine:
                 # freed slots return their pages and their table rows go
                 # unmapped, so no stale write lands in a recycled page
                 self.pool = PG.release(self.pool, self._up(freed))
+                if self._enc_pages:
+                    # the pinned encoder runs go back with the KV pages
+                    self.pool, table = PG.release_run(
+                        self.pool, self._enc.table, self._up(freed))
+                    self._enc = self._enc._replace(table=table)
                 PG.set_page_table(self.caches, self.pool.table)
             # freed slots take queued work in this tick, as the fused
             # tick's admission at its top leaves them
@@ -1791,6 +2011,18 @@ class ServeEngine:
             rep["delta_bytes_per_stream"] = arena_b // self.n_slots
             rep["params_bytes_folded_copy"] = sum(
                 t.numel() * t.element_size() for t in tree_leaves(self.params))
+        if self._enc_tokens:
+            # pinned encoder runs: every resident holds exactly one run
+            # (the arena's spare row is not counted)
+            enc_arena = sum(t.numel() * t.element_size()
+                            for t in self._enc.store.values())
+            rep["enc_tokens"] = self._enc_tokens
+            rep["enc_arena_bytes"] = enc_arena
+            if self.spec is not None:
+                rep["enc_pages_per_stream"] = self._enc_pages
+            rep["enc_run_bytes"] = (
+                resident * max(self._enc_pages, 1)
+                * (enc_arena // self._enc_spec.n_pages))
         spec = self.spec
         if spec is None:
             rep["kv_bytes_per_stream"] = int(total) // self.n_slots
@@ -1801,6 +2033,8 @@ class ServeEngine:
         else:
             in_use = sum(int(spec.pages_for(sl.budget)) for sl in eager) + sum(
                 int(spec.pages_for(self.request_budget(r))) for r in live)
+        # the pinned encoder runs share the free-list: one ledger for both
+        in_use += resident * self._enc_pages
         page_bytes = int(arena) // spec.n_pages  # all layers, one page
         rep.update({
             "kv_int8": spec.int8,

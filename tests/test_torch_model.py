@@ -201,20 +201,27 @@ def test_default_device_raises_without_cuda(model):
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-base",
                                   "paligemma-3b"])
 def test_families_of_later_slices_raise(arch):
-    """The encoder-decoder and VLM families raise naming their item; the
-    hybrid family (zamba2) runs now, with one shared-block cache an
-    application (tests/test_torch_hybrid.py holds them to the JAX
-    package)."""
+    """The families of the later slices run now: the hybrid family
+    (zamba2) with one shared-block cache an application, and the
+    encoder-decoder and VLM families (whisper, paligemma), whose decoder
+    caches hold self-attention K/V only (cross-attention reads each
+    request's encoder run) in the JAX package's layout
+    (tests/test_torch_hybrid.py, test_torch_encdec.py and test_torch_vlm.py
+    hold them to the JAX package)."""
     cfg = configs.get_reduced(arch)
+    caches = T.init_caches(cfg, 2, 16, device="cpu")
     if cfg.family == "hybrid":
-        caches = T.init_caches(cfg, 2, 16, device="cpu")
         assert sorted(k for k in caches if k.startswith("shared")) == [
             "shared2", "shared5"]
         assert caches["shared2"]["k"].shape == (2, 16, cfg.n_kv_heads,
                                                 cfg.head_dim)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_caches(cfg, 2, 16, device="cpu")
+    want = JT.init_caches(jconfigs.get_reduced(arch), 2, 16)
+    assert (jax.tree_util.tree_map(lambda a: (tuple(a.shape), str(a.dtype)),
+                                   bridge.tree_to_numpy(caches))
+            == jax.tree_util.tree_map(lambda a: (tuple(a.shape),
+                                                 str(a.dtype)), want))
+    assert list(caches) == ["g0"] and list(caches["g0"]) == ["attn"]
 
 
 def test_init_params_layout_matches_reference(model):

@@ -433,11 +433,16 @@ def test_serve_launcher_runs_the_family(capsys, arch, flags):
 
 
 def test_moe_family_is_admitted_and_later_families_raise():
-    for arch in ARCHS + ("zamba2-1.2b",):  # the hybrid family runs too
+    """Every family is admitted now: the moe family, the hybrid, and the
+    encoder-decoder and VLM families of the later slice (whose caches
+    build); an unknown family raises."""
+    for arch in ARCHS + ("zamba2-1.2b", "whisper-base", "paligemma-3b"):
         T.check_supported(configs.get_reduced(arch))
     for arch in ("whisper-base", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.check_supported(configs.get_reduced(arch))
+        T.init_caches(configs.get_reduced(arch), 2, 16, device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        T.check_supported(dataclasses.replace(
+            configs.get_reduced("qwen2-1.5b"), family="retnet"))
     rolled = dataclasses.replace(configs.get_reduced("qwen2-1.5b"),
                                  sliding_window=8)
     caches = T.init_caches(rolled, 2, 16, device="cpu")

@@ -286,8 +286,8 @@ def test_memory_report_counts_the_arena(ref):
 def test_slot_params_is_the_fold_per_slot(ref):
     """Per-slot effective weights equal a folded copy's weights exactly,
     a zero row is the base weights, bmm of broadcast weights equals the
-    shared product, and kinds of later slices (cross-attention) raise
-    naming item 9."""
+    shared product, and the cross-attention kind (``xattn``) edits its
+    heads' ``wq`` columns as attention's do."""
     cfg, params, policy, deltas, _ = ref
     for u in policy.units:
         d_stack = {n: torch.stack([deltas[0][f"L{u.layer}"][u.kind][n],
@@ -305,9 +305,18 @@ def test_slot_params_is_the_fold_per_slot(ref):
             x = torch.randn(2, 3, eff[n].shape[1])
             assert torch.equal(L.bmm(x, lp[n].expand(2, *lp[n].shape)),
                                x @ lp[n])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        OV.slot_params(cfg, "xattn", {}, {}, torch.zeros((2, 1),
-                                                         dtype=torch.int64))
+    # cross-attention heads take attention's edits on the xattn weights
+    # (tests/test_torch_encdec_personalise.py serves them per slot)
+    lp = {k: v[0] for k, v in params["stacks"]["g0"]["attn"].items()}
+    d = OV.delta_init(cfg, 0, "xattn", 1, torch.float32, "cpu")
+    eff = OV.slot_params(cfg, "xattn", lp,
+                         {n: torch.stack([a, a + 1]) for n, a in d.items()},
+                         torch.zeros((2, 1), dtype=torch.int64))
+    assert torch.equal(eff["wq"][0], lp["wq"])
+    assert torch.equal(eff["wq"][1][:, cfg.head_dim:],
+                       lp["wq"][:, cfg.head_dim:])
+    assert torch.equal(eff["wq"][1][:, :cfg.head_dim],
+                       lp["wq"][:, :cfg.head_dim] + 1)
 
 
 def test_delta_set_keeps_tensors():

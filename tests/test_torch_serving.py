@@ -21,6 +21,18 @@ PROMPT_LENS = (3, 5, 8, 9, 17, 20)
 ENGINE = dict(slots=3, max_len=48, chunk=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The smoke model's ops are tiny: several CPU threads per op only
+    contend under the parallel test run (the launcher's runs ~40x)."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def make_requests(make, vocab, max_new=6):
     """Six requests; the one with the 9-token prompt has a KV budget of 14
     rows, so it is truncated before its sixth token."""
@@ -208,14 +220,6 @@ def test_submit_validates_and_sheds(ref):
     assert eng.submit(r) == (False, "queue_full") and r.outcome == "rejected"
 
 
-def _engine(arch, cfg=(), **kw):
-    """An engine on ``arch``'s smoke config (``cfg`` replaces its fields);
-    the knobs raise before the weights are read."""
-    cfg = dataclasses.replace(configs.get_reduced(arch), **dict(cfg))
-    return lambda tcfg, tp: ServeEngine(cfg, {"embed": tp["embed"]},
-                                        device="cpu", **{**ENGINE, **kw})
-
-
 def _fleet_exchange(tcfg, tp):
     from types import SimpleNamespace
 
@@ -227,15 +231,41 @@ def _fleet_exchange(tcfg, tp):
 
 
 def _remat(tcfg, tp):
+    """A remat policy's forward equals the plain policy's bit for bit."""
     import torch
 
     from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
 
-    plan = SparseUpdatePolicy(horizon=1, units=(SelectedUnit(1, "mlp", (0,)),),
-                              meta={"remat": True})
+    plan = SparseUpdatePolicy(horizon=1, units=(SelectedUnit(1, "mlp", (0,)),))
+    remat = dataclasses.replace(plan, meta={"remat": True})
     x = tp["embed"][torch.zeros((1, 4), dtype=torch.long)]
-    T.forward_hidden(tcfg, tp, x, torch.arange(4)[None], plan=plan,
-                     deltas={})
+    out = [T.forward_hidden(tcfg, tp, x, torch.arange(4)[None], plan=p,
+                            deltas={})[0] for p in (plan, remat)]
+    assert torch.equal(out[0], out[1])
+
+
+def _serves(arch):
+    """An engine on ``arch``'s smoke config serves requests carrying their
+    encoder inputs to ``done`` (tests/test_torch_encdec_serving.py and
+    test_torch_vlm_serving.py hold the streams to the JAX engine)."""
+    def run(tcfg, tp):
+        import torch
+
+        cfg = configs.get_reduced(arch)
+        params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        eng = ServeEngine(cfg, params, device="cpu", **ENGINE)
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+            np.int32), max_new=3, enc_feats=rng.standard_normal(
+                cfg.enc_feats_shape).astype(np.float32))
+            for i, n in enumerate(PROMPT_LENS[:3])]
+        eng.run(reqs)
+        assert [r.outcome for r in reqs] == ["done"] * 3
+        rep = eng.last_run_report
+        assert rep["host_syncs"] == rep["chunks"]
+
+    return run
 
 
 def _session(tcfg, tp):
@@ -255,24 +285,29 @@ def _mesh(tcfg, tp):
 
 
 LATER = {
-    "remat": (_remat, "9"),
     "score_stream": (_score_stream, "10"),
     "fleet_exchange": (_fleet_exchange, "16"),
     "mesh": (_mesh, "16"),
-    "vlm": (_engine("paligemma-3b"), "14"),
-    "audio": (_engine("whisper-base"), "14"),
 }
+# what an earlier slice pinned as a raise and now runs
+NOW_RUN = {"remat": _remat, "vlm": _serves("paligemma-3b"),
+           "audio": _serves("whisper-base")}
 
 
-@pytest.mark.parametrize("what", list(LATER))
+@pytest.mark.parametrize("what", ["remat", "score_stream", "fleet_exchange",
+                                  "mesh", "vlm", "audio"])
 def test_knobs_of_later_slices_raise(ref, what):
     """What the port does not run yet raises, naming the ROADMAP item that
-    brings it: a policy's remat option, ``score_stream``, the fleet's delta
-    exchange and sharded ``adapt_many``, and the vlm and audio families.
-    (The ssm family's paged cache and per-slot overlay and the hybrid
-    family run now: ``tests/test_torch_ssm_paging.py``,
-    ``test_torch_ssm_personalise.py``, ``test_torch_hybrid.py``.)"""
+    brings it: ``score_stream``, the fleet's delta exchange and sharded
+    ``adapt_many``.  A policy's remat option and the vlm and audio families
+    run now, and their cases check that they do.  (The ssm family's paged
+    cache and per-slot overlay and the hybrid family run too:
+    ``tests/test_torch_ssm_paging.py``, ``test_torch_ssm_personalise.py``,
+    ``test_torch_hybrid.py``.)"""
     tcfg, tp, _ = ref
+    if what in NOW_RUN:
+        NOW_RUN[what](tcfg, tp)
+        return
     build, item = LATER[what]
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP queue 1, item {item}\b"):
@@ -298,6 +333,22 @@ def test_serve_driver_runs_and_refuses_later_flags(capsys):
     text = capsys.readouterr().out
     assert "4 requests, 13 new tokens" in text
     assert "done=3, numerics=1" in text and "sampled T=0.8 top-k 20" in text
+    # the encoder-decoder and vlm families: enc_feats drawn per request,
+    # adapted on a conditioned task, contiguous and paged; paligemma's
+    # prefix (8 positions at smoke size) counts in --max-len
+    for arch, extra in (("whisper-base", []),
+                        ("paligemma-3b", ["--paging", "--page-size", "4"])):
+        serve.main(["--arch", arch, "--preset", "smoke", "--device", "cpu",
+                    "--requests", "3", "--max-new", "3", "--slots", "2",
+                    "--max-len", "40", "--adapt", "--adapt-iters", "2"]
+                   + extra)
+        text = capsys.readouterr().out
+        assert "3 requests, 9 new tokens" in text and "done=3" in text
+        assert "adapted under jetson-nano" in text
+        assert "[serve] encoder runs:" in text
+    with pytest.raises(SystemExit, match="token-only episodes"):
+        serve.main(["--arch", "whisper-base", "--device", "cpu",
+                    "--personalise"])
     serve.main(["--preset", "smoke", "--device", "cpu", "--requests", "3",
                 "--max-new", "3", "--slots", "2", "--eager"])
     text = capsys.readouterr().out

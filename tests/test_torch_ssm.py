@@ -348,11 +348,13 @@ def test_fold_is_exact_on_reference_deltas(ref):
 
 def test_later_features_raise_naming_their_item(ref):
     """The items that brought the ssm family's paging (12.2), its per-slot
-    overlay and fleet adaptation (15.2) and the hybrid family (9) are
-    closed: those now run (tests/test_torch_ssm_paging.py,
-    test_torch_ssm_personalise.py and test_torch_hybrid.py hold them to the
-    JAX package).  What is still unported raises naming its item: a
-    policy's remat option (9) and sharded ``adapt_many`` (16)."""
+    overlay and fleet adaptation (15.2), the hybrid family and a policy's
+    remat option (9) are closed: those now run
+    (tests/test_torch_ssm_paging.py, test_torch_ssm_personalise.py,
+    test_torch_hybrid.py and test_torch_encdec.py hold them to the JAX
+    package; a remat policy's loss and delta gradients are the plain
+    policy's bit for bit here).  What is still unported raises naming its
+    item: sharded ``adapt_many`` (16)."""
     _, session, task, _ = ref
     cfg, params = session.backbone.cfg, session.params
     pol = SparseUpdatePolicy(horizon=0, units=(SelectedUnit(1, "ssm", (0,)),))
@@ -366,10 +368,17 @@ def test_later_features_raise_naming_their_item(ref):
     assert torch.equal(slot["w_z"][0], st["w_z"])
     T.check_supported(configs.get_reduced("zamba2-1.2b"))
     remat = dataclasses.replace(pol, meta={"remat": True})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        toks = torch.from_numpy(task.support["tokens"])
-        T.lm_loss(cfg, params, {"tokens": toks, "labels": toks}, deltas={},
-                  plan=remat)
+    toks = torch.from_numpy(task.support["tokens"][:4])
+    delta = {"L1": {"ssm": tree_map(lambda t: t + 0.01, OV.delta_init(
+        cfg, 1, "ssm", 1, torch.float32, "cpu"))}}
+    got = []
+    for plan in (pol, remat):
+        d = tree_map(lambda t: t.clone().requires_grad_(), delta)
+        loss = T.lm_loss(cfg, params, {"tokens": toks, "labels": toks},
+                         deltas=d, plan=plan)
+        got.append((loss, torch.autograd.grad(loss, d["L1"]["ssm"]["w_x"])))
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1][0], got[1][1][0])
     with pytest.raises(NotImplementedError, match="item 16"):
         session.adapt_many([task], api.JETSON_NANO, mesh=object())
 

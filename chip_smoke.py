@@ -221,9 +221,9 @@ exits non-zero:
    and phase 5's traffic on contiguous and paged caches (every request
    ``done`` with 16 tokens, one sync a chunk, mixtral's flash kernel a
    positive multiple of its 16 layers, none for deepseek's MLA, paged
-   streams equal to contiguous ones), and mixtral's rolling serve (two
-   prompts of 4,150 and 4,200 tokens at max_len 4,224: every request
-   ``done``, a 4,096-row cache, one sync a chunk).
+   streams equal to contiguous ones), and mixtral's rolling serve at 8
+   layers (two prompts of 4,150 and 4,200 tokens at max_len 4,224: every
+   request ``done``, a 4,096-row cache, one sync a chunk).
 19. the ssm-based families finished: (a) zamba2-smoke and mamba2-smoke
    in f32 (TF32 off), card against the plain path on the CPU from the
    same weights: greedy streams on contiguous, paged, int8 and pressured
@@ -279,6 +279,34 @@ exits non-zero:
    16 tokens, one sync a chunk, the flash kernel a positive multiple of
    the decoder's layers, a run of 1,536,000 B (whisper) or 1,048,576 B
    (paligemma) a resident, paged streams equal to contiguous ones.
+21. block scoring and the fleet, on qwen2-1.5b at its published width in
+   bf16 with phase 5's weights unless named: (a) kernel 2 at
+   ``block_score``'s block (8 sequences, 32 queries, 12 heads over 2 of
+   128, cursors to a full 512-row cache) against its plain version (f32
+   at 1e-4, bf16 under the per-slot gate, two runs bit-equal) and timed
+   beside its bound, plain version and SDPA; ``score_stream`` over 8
+   sequences of 512 tokens at block 32: one host fetch, kernel 2 once a
+   block a layer (448), each mean NLL within 1e-2 of max(1, |want|) of a
+   whole-sequence forward (``T.forward_hidden`` + ``unembed``);
+   qwen2-smoke f32 (TF32 off) scores card against CPU to 1e-5; (b)
+   ``FleetRouter(replicas=2)`` on the one card with phase 5's traffic,
+   contiguous then paged, greedy and sampled (T 3, top-k 50): every
+   request's stream equal to one engine's, the work on both replicas,
+   ``host_syncs == chunks`` on each; replica 1 failed after the first
+   round: its backlog re-routed, every request ``done`` with the engine's
+   stream; the router on qwen2-smoke f32, card against CPU; (c) the
+   ``Personaliser`` over ``FleetRouter(replicas=2, personalise=...)`` (8
+   slots each) with phase 10's traffic and phase 6's policy: every refresh
+   shipped as serialized bytes (kernel 6 once a delta leaf a refreshed
+   user, payload ratio above 3.9), the streams equal to one personalised
+   engine's of 16 slots; (d) ``adapt_many`` over phase 10's four users'
+   episodes on qwen2-1.5b in f32 (TF32 off), the probe route, with no
+   mesh, over ``make_debug_mesh(2)`` on the one card, with ``hosts=2``,
+   and with no mesh a shard's two tasks at a time: the same policies,
+   each mesh task bit for bit the single-device fleet of its shard's
+   tasks, ``hosts=2`` bit for bit with the global mesh, kernel 1 once a
+   tap group a shard; the losses' distance to the four-task single-device
+   fleet printed against rtol 1e-4 / atol 1e-5.
 
 Phases 7 to 9 and 17 run right after phase 5, on its weights.  The
 fused serves of phases 5, 7 to 11 and 17 print ``host_syncs`` beside
@@ -287,9 +315,9 @@ inside the tick loop; the eager loop reads every tick by design); phases
 5, 7, 8, 10, 11 and 17's fused serves run their tick loops under
 ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
 the run.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 20) and read
-just after; phase 18's, 19's and 20's fused serves also run under sync
-debug mode "error".  The last three lines are the card's
+counts are set to 0 just before each main path (phases 5 to 21) and read
+just after; phase 18's, 19's, 20's and 21's fused serves also run under
+sync debug mode "error".  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -461,9 +489,12 @@ MOE_LAYERS = {"mixtral-8x7b": 16, "deepseek-v3-671b": 4}
 # the least free device memory phase 18's adapt must leave at its peak
 # (mixtral's 16 layers peak about 2.5 GB below the card's 80 GB)
 MOE_HEADROOM = 1 << 30
-# mixtral's rolling serve: two prompts that wrap its 4096-row window
+# mixtral's rolling serve: two prompts that wrap its 4096-row window, on
+# 8 of its layers (from seed 0, after the 16-layer model is freed): its
+# ~520 block ticks fold the window position by position in every layer,
+# the script's longest serve
 MOE_ROLLING = dict(slots=2, max_len=4224, chunk=64, lens=(4150, 4200),
-                   max_new=16)
+                   max_new=16, layers=8)
 # phase 18's card-vs-CPU checks on the smoke configs: contiguous, paged and
 # int8 caches (mixtral-smoke's 24 rows stay below its 32-row window) and
 # tests/test_serve_scan.py's rolling case at max_len 80
@@ -530,6 +561,34 @@ ENC_EPISODE = {"whisper-base": dict(rows=ADAPT["pad"]),
 # when unpaged; paged, whole pages of 16 rows)
 ENC_RUN_BYTES = {"whisper-base": 1500 * 512 * 2,
                  "paligemma-3b": 256 * 2048 * 2}
+# phase 21: block scoring and the fleet on qwen2-1.5b's published width.
+# (a) score_stream over 8 sequences of 512 tokens at block 32
+SCORE = dict(n=8, seq=512, block=32)
+# the card-vs-CPU scoring check on qwen2-smoke in f32: a ragged tail
+SCORE_SMOKE = dict(n=4, seq=27, block=8)
+# score_stream against a whole-sequence forward in bf16, relative to
+# max(1, |want|): the two paths round the same products in other orders
+# (the block path's K/V through a bf16 cache and kernel 2, the forward's
+# through its cache-free attention), so the logits part by a few bf16
+# ulps (2^-9 = 0.2 % relative); a mean over 511 positions is held to five
+# of them
+SCORE_TOL = 1e-2
+# kernel 2 at block_score's shape: 8 sequences, a block of 32 queries,
+# qwen2's 12 heads over 2 of 128, a 512-row cache; cursors from an empty
+# cache to a full one
+SCORE_BLOCK = dict(B=8, Sq=32, Hq=12, Hkv=2, D=128, Sk=512,
+                   q_offset=[0, 32, 64, 128, 256, 320, 448, 480],
+                   kv_len=[32, 64, 96, 160, 288, 352, 480, 512])
+# (b) the router: two replicas on the one card, phase 5's traffic, its
+# engine settings, sampled at phase 17's settings
+FLEET_REPLICAS = 2
+FLEET_ENGINE = dict(slots=8, max_len=512, chunk=32)
+FLEET_SAMPLED = dict(temperature=SAMPLE_T, top_k=50, sample_seed=11)
+# the router on qwen2-smoke in f32, card against CPU
+FLEET_SMOKE = dict(slots=2, max_len=48, chunk=4, requests=8, max_new=6)
+# (d) the mesh fleet: two data positions on the one card
+MESH_POSITIONS = 2
+
 
 
 def fail(msg: str) -> None:
@@ -1730,10 +1789,14 @@ def moe_full(api, configs, ops, T, ServeEngine, Request, tree_leaves, dev,
     print(f"[moe-serve] {arch}: the paged streams equal the contiguous "
           f"ones over {len(served['paged'])} requests", flush=True)
 
+    del session, ad
+    torch.cuda.empty_cache()
     if cfg.sliding_window:
         R = MOE_ROLLING
-        eng = ServeEngine(cfg, session.params, slots=R["slots"],
-                          max_len=R["max_len"], chunk=R["chunk"])
+        cfg = dataclasses.replace(cfg, n_layers=R["layers"])
+        eng = ServeEngine(cfg, T.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0)),
+            slots=R["slots"], max_len=R["max_len"], chunk=R["chunk"])
         rng = np.random.default_rng(5)
         reqs = [Request(uid=i, prompt=rng.integers(
             0, cfg.vocab, n).astype(np.int32), max_new=R["max_new"])
@@ -1749,7 +1812,8 @@ def moe_full(api, configs, ops, T, ServeEngine, Request, tree_leaves, dev,
         rep = eng.last_run_report
         rows = eng.caches["g0"]["attn"]["k"].shape[2]
         new = sum(len(r.out) for r in reqs)
-        print(f"[moe-rolling] {arch} bf16, {R['slots']} slots, max_len "
+        print(f"[moe-rolling] {arch} bf16 at {cfg.n_layers} layers, "
+              f"{R['slots']} slots, max_len "
               f"{R['max_len']} over a {cfg.sliding_window}-row window, "
               f"prompts {list(R['lens'])}: {new} new tokens in {rwall:.3f} s, "
               f"{rep['ticks']} ticks ({rep['ticks_issued']} issued), "
@@ -1766,8 +1830,7 @@ def moe_full(api, configs, ops, T, ServeEngine, Request, tree_leaves, dev,
                    for r in reqs):
             fail(f"{arch} rolling: {[(r.outcome, len(r.out)) for r in reqs]}")
         del eng
-    del session, ad
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2543,6 +2606,559 @@ def phase20(dev, gen) -> dict:
           + f"); main-path launches {launches}; largest kernel errors "
           f"{worst}", flush=True)
     return {"launches": launches, "max_abs_err": worst}
+
+
+def phase5_requests(cfg, Request, np, **kw) -> list:
+    """Phase 5's traffic: 8 requests of 32-256 prompt tokens, 16 new each
+    (the same draws from seed 0)."""
+    rng = np.random.default_rng(0)
+    return [Request(uid=i,
+                    prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    max_new=16, **kw)
+            for i, n in enumerate(rng.integers(32, 257, 8))]
+
+
+def phase10_requests(cfg, Request, np) -> list:
+    """Phase 10's traffic: 16 requests from 4 users, 4-23 prompt tokens."""
+    P = PERSONALISE
+    rng = np.random.default_rng(0)
+    return [Request(uid=i % P["users"], prompt=rng.integers(
+        0, cfg.vocab, size=int(rng.integers(4, 24))).astype(np.int32),
+        max_new=P["max_new"]) for i in range(P["requests"])]
+
+
+def streams_of(reqs) -> list:
+    return [(list(r.out), r.outcome) for r in reqs]
+
+
+def score_kernel(ops, flash_attention, cached_ref, dev, gen) -> dict:
+    """Kernel 2 at block_score's shape (SCORE_BLOCK): f32 at 1e-4 and bf16
+    under the per-slot gate against the plain version, two runs bit-equal;
+    then timed in bf16 over one K/V buffer set a qwen2-1.5b layer cycled,
+    beside its bound, its plain version and SDPA.  Returns the kernel
+    record's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    blk = SCORE_BLOCK
+    B, Sq, Hq, Hkv, D, Sk = (blk[k] for k in ("B", "Sq", "Hq", "Hkv", "D",
+                                              "Sk"))
+    q_off, kv_len = blk["q_offset"], blk["kv_len"]
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
+        got = ops.flash_attention_cached(q, k, v, q_offset=qo, kv_len=kl,
+                                         causal=True)
+        again = ops.flash_attention_cached(q, k, v, q_offset=qo, kv_len=kl,
+                                           causal=True)
+        want = cached_ref(q, k, v, q_offset=qo, kv_len=kl, causal=True)
+        sync(dev)
+        err = max_err(got, want, TOL[dname], f"flash_cached {dname} Sq 32")
+        bf16_gate(got, want, dname, "flash_cached Sq 32")
+        same = torch.equal(got, again)
+        print(f"[score-kernel] flash_cached {dname} at block_score's block "
+              f"(B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} Sk={Sk}, q_offset "
+              f"{q_off}, kv_len {kv_len}): max abs err {err:.3g} (tol "
+              f"{TOL[dname]:g}"
+              f"{', per-slot bf16 gate' if dname == 'bfloat16' else ''}); a "
+              f"second run {'bit-equal' if same else 'DIFFERS'}", flush=True)
+        if not same:
+            fail(f"flash_cached {dname} at Sq 32: two runs differ")
+        worst = max(worst, err)
+
+    nl = 28  # qwen2-1.5b's layers: one K/V buffer set each, cycled
+    bf = torch.bfloat16
+    q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(bf)
+    ks = torch.randn((nl, B, Sk, Hkv, D), generator=gen, device=dev).to(bf)
+    vs = torch.randn((nl, B, Sk, Hkv, D), generator=gen, device=dev).to(bf)
+    out = torch.empty_like(q)
+    entry = flash_attention._entry()
+    stream = torch.cuda.current_stream().cuda_stream
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % nl
+        return it["i"]
+
+    def run_kernel():
+        i = nxt()
+        rc = entry(q.data_ptr(), ks[i].data_ptr(), vs[i].data_ptr(),
+                   out.data_ptr(), qo.data_ptr(), kl.data_ptr(), B, Sq, Sk,
+                   Hq, Hkv, D, 1, 0, 1, stream)
+        if rc:
+            fail(f"flash_cached_fwd returned cudaError {rc}")
+
+    def run_plain():
+        i = nxt()
+        cached_ref(q, ks[i], vs[i], q_offset=qo, kv_len=kl, causal=True)
+
+    pos = torch.arange(Sk, device=dev)
+    qpos = qo[:, None].long() + torch.arange(Sq, device=dev)[None, :]
+    mask = ((pos[None, None, :] < kl[:, None, None])
+            & (pos[None, None, :] <= qpos[..., None]))[:, None]
+    qt = q.transpose(1, 2)
+
+    def run_sdpa():
+        i = nxt()
+        F.scaled_dot_product_attention(qt, ks[i].transpose(1, 2),
+                                       vs[i].transpose(1, 2), attn_mask=mask,
+                                       enable_gqa=True)
+
+    ms = time_ms(run_kernel, 4 * nl)
+    plain_ms = time_ms(run_plain, nl)
+    library_ms = time_ms(run_sdpa, 4 * nl)
+    nbytes, nops = flash_work(q_off, kv_len, Sq, Hq, Hkv, D, 2, 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS["bfloat16"]
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[score-time] flash_cached bf16 B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} "
+          f"D={D} Sk={Sk}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {nbytes} B, {nops} ops), plain {plain_ms:.4f} ms, "
+          f"sdpa {library_ms:.4f} ms", flush=True)
+    del ks, vs
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": worst}
+
+
+def score_full(api, ops, T, telemetry, tree_map, session, dev) -> int:
+    """Phase 21 (a): ``score_stream`` on qwen2-1.5b (bf16, phase 5's
+    weights) over 8 sequences of 512 tokens at block 32, one host fetch,
+    kernel 2 once a block a layer, held to a whole-sequence forward; then
+    qwen2-smoke in f32, card against CPU to 1e-5.  Returns kernel 2's
+    launches."""
+    import numpy as np
+    import torch
+
+    cfg, params = session.backbone.cfg, session.params
+    n, s, blk = SCORE["n"], SCORE["seq"], SCORE["block"]
+    toks = np.random.default_rng(21).integers(0, cfg.vocab, (n, s)
+                                              ).astype(np.int32)
+    session.score_stream(toks[:, :2 * blk], block=blk)  # warm-up
+    sync(dev)
+    ops.flash_attention_cached.launches = 0
+    telemetry.reset_host_sync_count()
+    t0 = time.perf_counter()
+    got = session.score_stream(toks, block=blk)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = ops.flash_attention_cached.launches
+    fetches = telemetry.host_sync_count()
+    with torch.no_grad():
+        t = torch.as_tensor(toks, device=dev).long()
+        x, positions, _ = T.build_inputs(cfg, params, {"tokens": t})
+        h = T.forward_hidden(cfg, params, x, positions)[0]
+        lg = T.unembed(cfg, params, h)[:, :-1].float()
+        del h
+        want = (torch.logsumexp(lg, dim=-1) - torch.gather(
+            lg, -1, t[:, 1:, None])[..., 0]).mean(dim=-1).cpu().numpy()
+        del lg
+    gap = np.abs(got - want)
+    rel = float(np.max(gap / np.maximum(1.0, np.abs(want))))
+    nb = -(-s // blk)
+    print(f"[score] qwen2-1.5b bf16 score_stream of {n} x {s} tokens at "
+          f"block {blk}: {wall:.4f} s, {fetches} host fetch(es), "
+          f"flash_cached launches {launches} ({nb} blocks x "
+          f"{cfg.n_layers} layers); mean NLL {np.round(got, 4).tolist()}; "
+          f"against a whole-sequence forward max abs gap "
+          f"{float(gap.max()):.3g}, relative {rel:.3g} (tol {SCORE_TOL:g})",
+          flush=True)
+    if got.shape != (n,) or not np.isfinite(got).all():
+        fail(f"score_stream gave {got}")
+    if fetches != 1:
+        fail(f"score_stream made {fetches} host fetches, not 1")
+    if launches != nb * cfg.n_layers:
+        fail(f"score_stream launched flash_cached {launches} times, not "
+             f"{nb * cfg.n_layers}")
+    if rel > SCORE_TOL:
+        fail(f"score_stream parts from the whole-sequence forward by {rel}")
+
+    # qwen2-smoke in f32, TF32 off: the card's scores are the CPU's
+    sm = SCORE_SMOKE
+    sbb = api.backbone("qwen2-1.5b", preset="smoke", batch_size=sm["n"],
+                       seq=sm["seq"])
+    cpu = api.TinyTrainSession(sbb, max_way=4, seed=0, device="cpu")
+    card = api.TinyTrainSession(sbb, tree_map(lambda x: x.to(dev),
+                                              cpu.params), max_way=4)
+    stoks = np.random.default_rng(27).integers(
+        0, sbb.cfg.vocab, (sm["n"], sm["seq"])).astype(np.int32)
+    want = cpu.score_stream(stoks, block=sm["block"])
+    got = card.score_stream(stoks, block=sm["block"])
+    gap = float(np.abs(got - want).max())
+    print(f"[score] qwen2-smoke f32 {sm['n']} x {sm['seq']} at block "
+          f"{sm['block']} (a ragged tail): card against CPU max abs gap "
+          f"{gap:.3g} (tol 1e-5)", flush=True)
+    if not gap <= 1e-5:
+        fail(f"qwen2-smoke scores: card against CPU {gap}")
+    return launches
+
+
+def fleet_serves(configs, ops, T, FleetRouter, ServeEngine, Request,
+                 tree_map, params, cfg, dev) -> dict:
+    """Phase 21 (b): ``FleetRouter(replicas=2)`` on the one card with
+    phase 5's traffic, contiguous then paged, greedy and sampled: each
+    request's stream equal to one engine's, one host sync a chunk on each
+    replica; a replica killed after the first round (every request done
+    once, the resumed streams the engine's); then qwen2-smoke in f32, card
+    against CPU.  Returns the router runs' kernel 2 and 4 launches."""
+    import numpy as np
+    import torch
+
+    devs = [dev] * FLEET_REPLICAS
+    launches = {"flash_cached": 0, "flash_paged": 0}
+    layouts = (("contiguous", {}),
+               ("paged", dict(kv_paging=True, kv_page_size=PAGE_SIZE)))
+    one_greedy = None
+    for layout, lkw in layouts:
+        for decoding, dkw in (("greedy", {}), ("sampled", FLEET_SAMPLED)):
+            kw = dict(FLEET_ENGINE, **lkw, **dkw)
+            one = phase5_requests(cfg, Request, np)
+            sync(dev)
+            t0 = time.perf_counter()
+            ServeEngine(cfg, params, **kw).run(one)
+            sync(dev)
+            one_wall = time.perf_counter() - t0
+            if layout == "contiguous" and decoding == "greedy":
+                one_greedy = one
+            router = FleetRouter(cfg, params, replicas=FLEET_REPLICAS,
+                                 devices=devs, **kw)
+            for e in router.engines:
+                e.tick_sync_debug = "error"
+            reqs = phase5_requests(cfg, Request, np)
+            sync(dev)
+            ops.flash_attention_cached.launches = 0
+            ops.flash_attention_paged.launches = 0
+            t0 = time.perf_counter()
+            router.run(reqs)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches["flash_cached"] += ops.flash_attention_cached.launches
+            launches["flash_paged"] += ops.flash_attention_paged.launches
+            rep = router.last_run_report
+            same = sum(a == b for a, b in zip(streams_of(reqs),
+                                              streams_of(one)))
+            per = [(r["ticks"], r["chunks"], r["host_syncs"])
+                   for r in rep["replicas"]]
+            print(f"[fleet] {layout} {decoding}: {FLEET_REPLICAS} replicas "
+                  f"on {dev}, {len(reqs)} requests, "
+                  f"{sum(len(r.out) for r in reqs)} new tokens in "
+                  f"{wall:.3f} s (one engine: {one_wall:.3f} s), (ticks, "
+                  f"chunks, host syncs) a replica "
+                  f"{per}, outcomes {rep['outcomes']}; streams equal to one "
+                  f"engine's: {same} of {len(reqs)}; flash_cached / "
+                  f"flash_paged launches {ops.flash_attention_cached.launches}"
+                  f" / {ops.flash_attention_paged.launches}", flush=True)
+            for r in rep["replicas"]:
+                one_sync_a_chunk(r, f"fleet {layout} {decoding} replica "
+                                 f"{r['replica']}")
+            if sum(1 for r in rep["replicas"] if r["chunks"]) < 2:
+                fail(f"fleet {layout} {decoding}: the work did not spread")
+            if same != len(reqs):
+                fail(f"fleet {layout} {decoding}: streams differ from one "
+                     "engine's")
+            if any(r.outcome != "done" or len(r.out) != 16 for r in reqs):
+                fail(f"fleet {layout} {decoding}: outcomes "
+                     f"{[r.outcome for r in reqs]}")
+            count = (ops.flash_attention_paged if lkw
+                     else ops.flash_attention_cached).launches
+            if count <= 0 or count % cfg.n_layers:
+                fail(f"fleet {layout} {decoding}: the flash kernel launched "
+                     f"{count} times")
+
+    # a replica dies after the first round: its backlog re-routes
+    router = FleetRouter(cfg, params, replicas=FLEET_REPLICAS, devices=devs,
+                         **FLEET_ENGINE)
+    reqs = phase5_requests(cfg, Request, np)
+    for r in reqs:
+        if not router.submit(r).accepted:
+            fail("the fleet refused a request below its queue limit")
+    sync(dev)
+    ops.flash_attention_cached.launches = 0
+    router.scan_chunks(rounds=1)
+    moved = router.fail_replica(1)
+    router.scan_chunks()
+    sync(dev)
+    launches["flash_cached"] += ops.flash_attention_cached.launches
+    terminal = [r.outcome for r in reqs]
+    same = sum(a == b for a, b in zip(streams_of(reqs),
+                                      streams_of(one_greedy)))
+    print(f"[fleet] replica 1 failed after the first round: {moved}; "
+          f"outcomes {terminal}; resumed streams equal to one engine's: "
+          f"{same} of {len(reqs)}", flush=True)
+    if moved["rerouted"] < 1 or moved["shed"]:
+        fail(f"the failed replica's backlog: {moved}")
+    if any(o != "done" for o in terminal) or any(
+            len(r.out) != 16 for r in reqs):
+        fail(f"after the replica's failure: outcomes {terminal}")
+    if same != len(reqs):
+        fail("the resumed streams differ from one engine's")
+
+    # qwen2-smoke in f32: the router on the card serves the CPU's streams
+    sm = FLEET_SMOKE
+    scfg = configs.get_reduced("qwen2-1.5b")
+    sp = T.init_params(scfg, torch.Generator().manual_seed(0), device="cpu")
+    kw = dict(slots=sm["slots"], max_len=sm["max_len"], chunk=sm["chunk"])
+    for what, extra in (("contiguous greedy", {}),
+                        ("paged sampled", dict(kv_paging=True, kv_page_size=4,
+                                               **FLEET_SAMPLED))):
+        out = []
+        for d, p in (("cpu", sp), (dev, tree_map(lambda x: x.to(dev), sp))):
+            rng = np.random.default_rng(5)
+            reqs = [Request(uid=i % 3, prompt=rng.integers(
+                0, scfg.vocab, int(rng.integers(3, 13))).astype(np.int32),
+                max_new=sm["max_new"]) for i in range(sm["requests"])]
+            FleetRouter(scfg, p, replicas=FLEET_REPLICAS, devices=[d] * 2,
+                        **kw, **extra).run(reqs)
+            out.append(streams_of(reqs))
+        print(f"[fleet] qwen2-smoke f32 {what}: card against CPU "
+              f"{'identical' if out[0] == out[1] else 'DIFFERENT'}",
+              flush=True)
+        if out[0] != out[1]:
+            fail(f"qwen2-smoke fleet {what}: card streams differ from the "
+                 "CPU's")
+    return launches
+
+
+def personalised_fleet(api, ops, FleetRouter, ServeEngine, Personaliser,
+                       Request, tree_leaves, session, pol, profile,
+                       dev) -> tuple:
+    """Phase 21 (c): the ``Personaliser`` over ``FleetRouter(replicas=2,
+    personalise=pol)`` with phase 10's traffic: every refresh crosses as
+    serialized bytes (kernel 6 once a delta leaf), one sync a chunk, the
+    streams those of one personalised engine with both replicas' slots
+    (all 16 requests resident from the first tick in both, so each
+    refresh sees the same finished streams).  Returns (the router run's
+    grad_quant and flash_cached launches, the engine run's requests)."""
+    import numpy as np
+
+    P = PERSONALISE
+    cfg = session.backbone.cfg
+    kw = dict(max_len=P["max_len"], chunk=P["chunk"], personalise=pol)
+    pkw = dict(profile=profile, iters=P["iters"], seq=P["seq"])
+    one = ServeEngine(cfg, session.params, slots=FLEET_REPLICAS * P["slots"],
+                      **kw)
+    one_reqs = phase10_requests(cfg, Request, np)
+    one_rep = Personaliser(session, one, pol, **pkw).run_online(one_reqs)
+    router = FleetRouter(cfg, session.params, replicas=FLEET_REPLICAS,
+                         devices=[dev] * FLEET_REPLICAS, slots=P["slots"],
+                         **kw)
+    for e in router.engines:
+        e.tick_sync_debug = "error"
+    pers = Personaliser(session, router, pol, **pkw)
+    reqs = phase10_requests(cfg, Request, np)
+    leaves = len(tree_leaves(session.backbone.init_deltas(pol, dev)))
+    sync(dev)
+    ops.grad_quant.launches = ops.flash_attention_cached.launches = 0
+    t0 = time.perf_counter()
+    online = pers.run_online(reqs)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    gq, fc = ops.grad_quant.launches, ops.flash_attention_cached.launches
+    refreshes = online["refreshes"]
+    refreshed = sum(len(r["users"]) for r in refreshes)
+    same = sum(a == b for a, b in zip(streams_of(reqs), streams_of(one_reqs)))
+    print(f"[pfleet] Personaliser over {FLEET_REPLICAS} replicas "
+          f"({P['slots']} slots each), phase 10's traffic: {wall:.3f} s, "
+          f"{online['rounds']} rounds, {online['host_syncs']} host syncs for "
+          f"{online['chunks']} chunks, {len(refreshes)} refreshes of "
+          f"{refreshed} users (one engine of {FLEET_REPLICAS * P['slots']} "
+          f"slots: {len(one_rep['refreshes'])} of "
+          f"{sum(len(r['users']) for r in one_rep['refreshes'])}); "
+          f"grad_quant launches {gq} ({leaves} leaves a user), flash_cached "
+          f"launches {fc}; streams equal to the engine's: {same} of "
+          f"{len(reqs)}", flush=True)
+    for r in refreshes:
+        print(f"[pfleet] refresh {r['round']}: users {r['users']}, "
+              f"wire_serialized {r['wire_serialized']}, wire_bytes "
+              f"{r['payload_bytes_wire']} B vs f32 {r['payload_bytes_f32']} "
+              f"B, payload_ratio {r['payload_ratio']:.4f}, swap_seconds "
+              f"{r['swap_seconds']:.6f}, adapt_seconds "
+              f"{r['adapt_seconds']:.4f}", flush=True)
+    one_sync_a_chunk(online, "personalised fleet")
+    if not refreshes or not all(r["wire_serialized"] for r in refreshes):
+        fail("the personalised fleet's refreshes did not ship bytes")
+    if gq <= 0 or gq != refreshed * leaves:
+        fail(f"grad_quant launched {gq} times for {refreshed} refreshed "
+             f"users of {leaves} leaves each")
+    if min(r["payload_ratio"] for r in refreshes) <= 3.9:
+        fail(f"payload ratio {[r['payload_ratio'] for r in refreshes]} not "
+             "above 3.9")
+    if any(r.outcome != "done" for r in reqs) or same != len(reqs):
+        fail("the personalised fleet's streams differ from one engine's")
+    if fc <= 0 or fc % cfg.n_layers:
+        fail(f"the personalised fleet launched flash_cached {fc} times")
+    return gq, fc, one_reqs, one
+
+
+def mesh_fleet(api, ops, Personaliser, tree_leaves, session, pol, profile,
+               one_reqs, one_engine, dev) -> int:
+    """Phase 21 (d): ``adapt_many`` over phase 10's four users' episodes
+    (as the Personaliser builds them from the users' finished streams) on
+    qwen2-1.5b in f32, the probe route: with no mesh, over a mesh of two
+    positions on the one card, with ``hosts=2``, and with no mesh a
+    shard's tasks at a time.  Gates: the same policies; each mesh task's
+    losses and deltas those of the single-device fleet of its shard's
+    tasks, bit for bit (the mesh runs the single-device program a shard
+    a position); ``hosts=2`` the global mesh's bit for bit; kernel 1 once
+    a tap group a shard.  The losses' distance to the four-task
+    single-device fleet is printed against the JAX mesh test's rtol 1e-4
+    / atol 1e-5: a vmap of four tasks rounds its float32 products in
+    other orders than one of two (larger GEMMs), and Adam's first step,
+    g / (|g| + eps), carries that rounding at noise-level gradients into
+    the later losses.  Returns kernel 1's launches over the mesh runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backbones import lm_backbone
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    P = PERSONALISE
+    cfg32 = dataclasses.replace(session.backbone.cfg, dtype="float32")
+    bb = session.backbone
+    s32 = api.TinyTrainSession(
+        lm_backbone(cfg32, tokens_per_batch=ADAPT["batch_size"] * ADAPT["seq"],
+                    batch_size=ADAPT["batch_size"]),
+        max_way=ADAPT["max_way"], seed=0)
+    helper = Personaliser(session, one_engine, pol, seq=P["seq"])
+    helper.observe(one_reqs)
+    rng = np.random.default_rng(10)
+    tasks = [api.Task.from_episode(helper._episode(u), rng, s32.max_way,
+                                   name=f"user{u}")
+             for u in range(P["users"])]
+    # f32 activations are twice bf16's: twice the memory envelope keeps
+    # phase 6's selection
+    prof32 = profile.scaled(mem=2)
+    mesh = make_debug_mesh(MESH_POSITIONS, devices=[dev] * MESH_POSITIONS)
+    runs, counts, reports = {}, {}, {}
+    for name, kw in (("single", {}), ("mesh", dict(mesh=mesh)),
+                     ("hosts=2", dict(mesh=mesh, hosts=2))):
+        sync(dev)
+        ops.fisher_tapgrads.launches = ops.fisher.launches = 0
+        t0 = time.perf_counter()
+        runs[name] = s32.adapt_many(tasks, prof32, iters=P["iters"], **kw)
+        sync(dev)
+        counts[name] = ops.fisher_tapgrads.launches + ops.fisher.launches
+        reports[name] = dict(s32.last_fleet_report)
+        print(f"[mesh] qwen2-1.5b f32 adapt_many of {len(tasks)} users' "
+              f"episodes ({tasks[0].support['tokens'].shape[0]} support "
+              f"rows of {P['seq']} tokens), {name}: "
+              f"{time.perf_counter() - t0:.3f} s, mesh_axes "
+              f"{reports[name]['mesh_axes']}, hosts {reports[name]['hosts']}"
+              f", ingestion {reports[name]['ingestion']}, Fisher launches "
+              f"{counts[name]}; losses "
+              f"{[round(x, 6) for x in runs[name][0].losses]} (user 0)",
+              flush=True)
+    # the single-device fleet of each shard's tasks (the mesh's shards
+    # take contiguous blocks of the task axis)
+    per = len(tasks) // MESH_POSITIONS
+    runs["shards"] = [a for k in range(MESH_POSITIONS) for a in
+                      s32.adapt_many(tasks[k * per:(k + 1) * per], prof32,
+                                     iters=P["iters"])]
+
+    def same(a, b):
+        return a.policy.units == b.policy.units and a.losses == b.losses \
+            and all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a.deltas), tree_leaves(b.deltas)))
+
+    tap_groups = sum(len(g) for g in bb.make_taps(1, "cpu").values())
+    shape_groups = reports["single"]["buckets"]
+    pols = {n: [a.policy.units for a in r] for n, r in runs.items()}
+    gaps = [float(np.max(np.abs(np.asarray(m.losses) - np.asarray(s.losses))
+                         / (1e-5 + 1e-4 * np.abs(np.asarray(s.losses)))))
+            for m, s in zip(runs["mesh"], runs["single"])]
+    shard_bits = all(same(m, s) for m, s in zip(runs["mesh"],
+                                                 runs["shards"]))
+    bits = all(same(m, h) for m, h in zip(runs["mesh"], runs["hosts=2"]))
+    print(f"[mesh] policies: {[a.policy.describe() for a in runs['single']]}"
+          f"; mesh and hosts=2 equal to single: "
+          f"{pols['mesh'] == pols['single']} / "
+          f"{pols['hosts=2'] == pols['single']}; mesh bit for bit with the "
+          f"single-device fleets of its shards' tasks: {shard_bits}; "
+          f"hosts=2 bit for bit with the global mesh: {bits}; mesh losses "
+          f"against the four-task single-device fleet, largest |gap| / "
+          f"(1e-5 + 1e-4 |want|) by user {[round(g, 4) for g in gaps]} "
+          f"(printed: the vmap of four tasks rounds otherwise)", flush=True)
+    if not all(a.policy.n_units for a in runs["single"]):
+        fail("the f32 fleet selected no unit for a user")
+    if pols["mesh"] != pols["single"] or pols["hosts=2"] != pols["single"]:
+        fail("the mesh fleet's policies differ from the single-device run's")
+    if not shard_bits:
+        fail("a mesh shard differs from the single-device fleet of its tasks")
+    if not bits:
+        fail("hosts=2 differs from the global mesh")
+    if not all(math.isfinite(x) for a in runs["mesh"] for x in a.losses):
+        fail("the mesh fleet's losses are not finite")
+    want = tap_groups * shape_groups
+    if counts["single"] != want or any(
+            counts[n] != MESH_POSITIONS * want for n in ("mesh", "hosts=2")):
+        fail(f"Fisher launches {counts}: not {want} on one device and "
+             f"{MESH_POSITIONS * want} over {MESH_POSITIONS} shards")
+    if reports["mesh"]["mesh_axes"] != {"data": MESH_POSITIONS, "model": 1} \
+            or reports["hosts=2"]["ingestion"] != "per-host":
+        fail(f"mesh reports {reports}")
+    del s32
+    return counts["mesh"] + counts["hosts=2"]
+
+
+def phase21(dev, gen, pol, profile) -> dict:
+    """Phase 21, block scoring and the fleet, on qwen2-1.5b's published
+    width in bf16 with phase 5's weights unless named: (a) ``score_stream``
+    and kernel 2 at its block of 32; (b) the router's replicas; (c) the
+    personalised fleet (the refresh as payload bytes); (d) the mesh fleet.
+    ``pol`` and ``profile`` are phase 6's policy and profile.  Returns the
+    launches of the main paths by kernel, the largest kernel error and the
+    Sq-32 kernel record."""
+    import torch
+
+    from repro_torch import api, configs
+    from repro_torch.core import adapt as telemetry
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.kernels.ref import flash_attention_cached_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (
+        FleetRouter, Personaliser, Request, ServeEngine,
+    )
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    times = {}
+    rec = score_kernel(ops, flash_attention, flash_attention_cached_ref, dev,
+                       gen)
+    bb = api.backbone("qwen2-1.5b", preset="full",
+                      batch_size=ADAPT["batch_size"], seq=ADAPT["seq"])
+    session = api.TinyTrainSession(bb, max_way=ADAPT["max_way"], seed=0)
+    launches = {"score": score_full(api, ops, T, telemetry, tree_map,
+                                    session, dev)}
+    times["(a)"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    launches.update(fleet_serves(configs, ops, T, FleetRouter, ServeEngine,
+                                 Request, tree_map, session.params, bb.cfg,
+                                 dev))
+    times["(b)"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    gq, fc, one_reqs, one = personalised_fleet(
+        api, ops, FleetRouter, ServeEngine, Personaliser, Request,
+        tree_leaves, session, pol, profile, dev)
+    launches["grad_quant"] = gq
+    launches["flash_cached"] += fc
+    times["(c)"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    launches["fisher_tasks"] = mesh_fleet(api, ops, Personaliser, tree_leaves,
+                                          session, pol, profile, one_reqs,
+                                          one, dev)
+    times["(d)"] = time.perf_counter() - t1
+    del session, one
+    torch.cuda.empty_cache()
+    print(f"[phase21] {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+          + f"); main-path launches {launches}", flush=True)
+    return {"launches": launches, "score_kernel": rec}
 
 
 def main() -> int:
@@ -4979,6 +5595,11 @@ def main() -> int:
     paged["max_abs_err"] = max(paged["max_abs_err"], enc_err["flash_paged"])
     fisher["max_abs_err"] = max(fisher["max_abs_err"], enc_err["fisher"])
 
+    # -- phase 21: block scoring and the fleet (score_stream, FleetRouter,
+    # the delta payload exchange, the mesh fleet) -----------------------
+    fl = phase21(dev, gen, pol, profile)
+    fl_launches = fl["launches"]
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -4996,8 +5617,16 @@ def main() -> int:
                      + pers_flash_launches + samp_launches
                      + moe_launches["flash_cached"]
                      + hyb_launches["flash_cached"]
-                     + enc_launches["flash_cached"]),
+                     + enc_launches["flash_cached"]
+                     + fl_launches["flash_cached"]),
         **flash,
+    }, {
+        "name": "flash_attention_cached_sq32",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_cached.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:92",
+        "launches": fl_launches["score"],
+        **fl["score_kernel"],
     }, {
         "name": "flash_attention_paged",
         "route": "cuda",
@@ -5006,7 +5635,8 @@ def main() -> int:
         "launches": (paged_launches + pressure_launches + fault_launches
                      + moe_launches["flash_paged"]
                      + hyb_launches["flash_paged"]
-                     + enc_launches["flash_paged"]),
+                     + enc_launches["flash_paged"]
+                     + fl_launches["flash_paged"]),
         **paged,
     }, {
         "name": "fisher_tapgrads",
@@ -5021,14 +5651,15 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/fisher.cu",
         "replaces": "src/repro/kernels/fisher.py:66",
-        "launches": fleet_launches,
+        "launches": fleet_launches + fl_launches["fisher_tasks"],
         **fisher_tasks,
     }, {
         "name": "grad_quant",
         "route": "cuda",
         "source": "src/repro_torch/csrc/grad_quant.cu",
         "replaces": "src/repro/kernels/grad_quant.py:57",
-        "launches": gq_launches + hyb_launches["grad_quant"],
+        "launches": (gq_launches + hyb_launches["grad_quant"]
+                     + fl_launches["grad_quant"]),
         **gquant,
     }, {
         "name": "ssd_scan",

@@ -42,6 +42,21 @@ refreshes each user's deltas from their own finished streams:
     pers = api.Personaliser(session, eng, adaptation.policy, profile=profile)
     pers.run_online(requests)
 
+Many users are served from R engine replicas behind one router (sticky
+placement, least-loaded routing, a replica's failure re-routed), and the
+Personaliser ships each refresh to it as int8 payload bytes:
+
+    fleet = api.FleetRouter(bb.cfg, session.params, replicas=2,
+                            personalise=adaptation.policy)
+    api.Personaliser(session, fleet, adaptation.policy).run_online(requests)
+
+A token batch is scored on the serving block-prefill path, and a fleet of
+tasks adapts split over a mesh's data positions:
+
+    nll = session.score_stream(tokens, block=32)     # (N,) mean NLL
+    from repro_torch.launch.mesh import make_debug_mesh
+    fleet = session.adapt_many(tasks, profile, mesh=make_debug_mesh(2))
+
 The encoder-decoder and VLM families take episodes whose rows carry their
 conditioning (whisper's frames, paligemma's patch embeddings) and serve
 requests that carry it as ``enc_feats``:
@@ -77,7 +92,8 @@ from .core.session import (  # noqa: F401  (façade re-exports)
 from .models import edge_cnn as _edge_cnn
 from .models.api import ArchConfig
 from .serving import (  # noqa: F401
-    DeltaSet, FaultConfig, Personaliser, Request, ServeEngine, SubmitResult,
+    DeltaSet, FaultConfig, FleetRouter, Personaliser, Request, ServeEngine,
+    SubmitResult, decode_delta_payload, encode_delta_payload,
 )
 
 __all__ = [
@@ -88,7 +104,8 @@ __all__ = [
     "sample_task", "sample_lm_task", "sample_encdec_task",
     "plan_sparse_update",
     "Request", "ServeEngine", "SubmitResult", "FaultConfig", "DeltaSet",
-    "Personaliser", "Budget", "configs",
+    "Personaliser", "FleetRouter", "encode_delta_payload",
+    "decode_delta_payload", "Budget", "configs",
 ]
 
 _BACKBONES: Dict[str, Callable[..., Backbone]] = {}

@@ -15,9 +15,10 @@ fulltrain, lastlayer, sparseupdate, tinytl, adapterdrop<pct>).
 ``adapt_many`` fine-tunes a fleet of tasks, one program and one host
 fetch per (bucket, policy structure) group, under one given policy
 (``policy_override``) or a policy per task from one batched Fisher probe
-per episode shape (one fetch of the scores per shape group).
-``mesh=``/``hosts=`` and ``score_stream`` raise ``NotImplementedError``
-naming their ROADMAP item.
+per episode shape (one fetch of the scores per shape group), on one
+device or split over a mesh's data positions (``mesh=``, ``hosts=``).
+``score_stream`` scores LM token batches on the serving block-prefill
+path.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..dist import context as dist_context
+from ..dist.sharding import (
+    FleetShardingRules, TaskShards, gather_tasks, map_shards,
+)
 from ..optim import Optimizer, adam
 from ..utils import DeviceLike, resolve_device, tree_leaves, tree_map
 from .adapt import AdaptResult, _fetch, _fetch_scalar, adapt_task
@@ -164,11 +169,6 @@ def _resolve_criterion(name: str) -> Tuple[str, str]:
             f"unknown criterion {name!r}; known: {criteria()}") from None
 
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} arrives with ROADMAP queue 1, item {item}")
-
-
 # ---------------------------------------------------------------------------
 # Task
 # ---------------------------------------------------------------------------
@@ -239,6 +239,15 @@ def _episode_shape_key(sup: Dict[str, np.ndarray],
     exactly; with bucketing the key is computed on the padded episodes, so
     any way/shot mix inside one bucket shares it."""
     return (_tree_shape_key(sup), _tree_shape_key(pq))
+
+
+def _pad_task_axis(tree: Any, reps: int) -> Any:
+    """A task-stacked host tree's leading axis padded by repeating the last
+    task ``reps`` times (the mesh's divisibility padding)."""
+    if not reps:
+        return tree
+    return tree_map(lambda x: np.concatenate(
+        [x, np.repeat(np.asarray(x)[-1:], reps, axis=0)]), tree)
 
 
 def _group_indices(keys: List[Any]) -> Dict[Any, List[int]]:
@@ -506,23 +515,36 @@ class TinyTrainSession:
         (``probe_fisher_batch``: the group's rows through one probe, then
         one Fisher reduction a tap group over the task stack), one host
         fetch per shape group brings back their scores, and each task's
-        policy is selected from its own.  Static-channel criteria raise ``ValueError`` here, as in
-        the JAX package.  Then the episodes and channel indices of a group
-        are stacked along a task axis and fine-tuned together
-        (``vmap_scan_steps``) while the frozen weights broadcast; one host
-        fetch per group brings back its losses and skip counts, and the
-        deltas stay on the device.  Returns one :class:`Adaptation` per
-        task, in input order, each with ``host_transfers`` of its share of
-        its groups' fetches.  ``bucket=True`` pads each task's rows to the
-        next power of two, so any way/shot mix inside a bucket shares a
-        group; padded rows carry label -1 and change no result.  A summary
-        of the grouping is kept in ``self.last_fleet_report``.
-        ``mesh=``/``hosts=`` are ROADMAP item 16.  A ``policy_override``
-        asking for remat raises ``ValueError``: the fleet fine-tune runs
-        under ``torch.func``, which refuses the checkpoint."""
-        if mesh is not None or hosts not in (None, 1):
-            raise _later("adapt_many(mesh=..., hosts=...) (sharded fleet "
-                         "adaptation)", "16")
+        policy is selected from its own.  Static-channel criteria raise
+        ``ValueError`` here, as in the JAX package.  Then the episodes and
+        channel indices of a group are stacked along a task axis and
+        fine-tuned together (``vmap_scan_steps``) while the frozen weights
+        broadcast; one host fetch per group brings back its losses and skip
+        counts, and the deltas stay on the device.  Returns one
+        :class:`Adaptation` per task, in input order, each with
+        ``host_transfers`` of its share of its groups' fetches.
+        ``bucket=True`` pads each task's rows to the next power of two, so
+        any way/shot mix inside a bucket shares a group; padded rows carry
+        label -1 and change no result.
+
+        ``mesh``: a :class:`~..dist.mesh.Mesh`; each group's task axis,
+        probe and fine-tune alike, is padded to a multiple of the mesh's
+        data size by repeating the last task, split over its data positions
+        (``dist.FleetShardingRules``: every axis but 'model') and run a
+        shard a position on its device, the frozen weights copied once a
+        device; the copies' results are sliced off before anything returns,
+        and the deltas come back to the session's device.  ``hosts``
+        (default: the ``fleet_hosts`` context key): with ``hosts=H > 1``
+        each of H hosts builds, pads and places only its own contiguous
+        block of the task axis (global row ``p`` carries task ``min(p,
+        n_real - 1)``, the global padding exactly), and the shards are cut
+        from the blocks of the hosts that own them; ``H`` must divide the
+        mesh's data size and needs ``mesh``.
+
+        A summary of the grouping is kept in ``self.last_fleet_report``.
+        A ``policy_override`` asking for remat raises ``ValueError``: the
+        fleet fine-tune runs under ``torch.func``, which refuses the
+        checkpoint."""
         if policy_override is not None and (
                 policy_override.meta or {}).get("remat"):
             raise ValueError(
@@ -537,23 +559,77 @@ class TinyTrainSession:
             profile = device_profile(profile)
         budget = _as_budget(profile)
         prof = profile if isinstance(profile, DeviceProfile) else None
+
+        rules = None
+        params_run = self.params
+        if mesh is not None:
+            rules = FleetShardingRules(mesh)
+            params_run = rules.place_replicated(self.params)
+        if hosts is None:
+            hosts = dist_context.get("fleet_hosts")
+        hosts = 1 if hosts is None else int(hosts)
+        if hosts < 1:
+            raise ValueError(f"hosts must be >= 1, got {hosts}")
+        hosted = hosts > 1
+        if hosted:
+            if rules is None:
+                raise ValueError(
+                    "hosts > 1 requires mesh=; per-host ingestion shards "
+                    "the task axis over the mesh's data axes")
+            if rules.dp_size % hosts:
+                raise ValueError(
+                    f"hosts ({hosts}) must divide the mesh data size "
+                    f"({rules.dp_size}) so device shards never straddle "
+                    "host blocks")
+
         eps = [_bucket_episode(t) if bucket else (t.support, t.pseudo_query)
                for t in tasks]
         keys = [_episode_shape_key(sup, pq) for sup, pq in eps]
         cache = self.step_cache
         fisher_dt = [0.0] * len(tasks)
         transfers = [0.0] * len(tasks)  # each task's share of group fetches
-        # the stacked episodes of a group of tasks, on the device once for
-        # the probe and the fine-tune
+        # the stacked episodes of a group of tasks, built once for the probe
+        # and the fine-tune: on the session's device, or on a mesh as host
+        # arrays that mesh_pad places shard by shard
         stack_cache: Dict[Tuple[int, ...], Tuple[Any, Any]] = {}
 
         def stacked(idxs):
             key = tuple(idxs)
             if key not in stack_cache:
                 stack_cache[key] = (
-                    self._on(_stack_trees([eps[i][0] for i in idxs])),
-                    self._on(_stack_trees([eps[i][1] for i in idxs])))
+                    _stack_trees([eps[i][0] for i in idxs]),
+                    _stack_trees([eps[i][1] for i in idxs]))
+                if rules is None:
+                    stack_cache[key] = tuple(self._on(t)
+                                             for t in stack_cache[key])
             return stack_cache[key]
+
+        def mesh_pad(n_real, *trees):
+            """The host trees' task axes padded to the mesh's data size by
+            repeating the last task, split over its positions."""
+            reps = rules.padded_count(n_real) - n_real
+            return tuple(rules.place_tasks(_pad_task_axis(t, reps))
+                         for t in trees)
+
+        def host_ingest(idxs, extra_row):
+            """Each host's block of the padded task axis built on its own
+            (global row p carries task idxs[min(p, n_real - 1)]), then the
+            positions' shards cut from the blocks: placed (support,
+            pseudo-query, extra) task shards."""
+            n_real = len(idxs)
+            blocks = []
+            for lo, hi in rules.host_blocks(rules.padded_count(n_real),
+                                            hosts):
+                rows = [idxs[min(p, n_real - 1)] for p in range(lo, hi)]
+                blocks.append((_stack_trees([eps[i][0] for i in rows]),
+                               _stack_trees([eps[i][1] for i in rows]),
+                               _stack_trees([extra_row(i) for i in rows])))
+            return tuple(rules.assemble_tasks([b[k] for b in blocks])
+                         for k in range(3))
+
+        def chan_idx_host(policy):
+            return tree_map(lambda t: t.numpy(),
+                            cache.chan_idx_arrays(policy, "cpu"))
 
         if policy_override is not None:
             policies = [policy_override] * len(tasks)
@@ -571,14 +647,26 @@ class TinyTrainSession:
             probe = cache.probe_fisher_batch()
             costs = self.backbone.unit_costs
             for idxs in _group_indices(keys).values():
-                sup, pq = stacked(idxs)
-                ns = torch.tensor([float(tasks[i].n_support) for i in idxs],
-                                  dtype=torch.float32, device=self.device)
+                n_valid = [float(tasks[i].n_support) for i in idxs]
+                if hosted:
+                    sup, pq, ns = host_ingest(
+                        idxs, lambda i: np.float32(tasks[i].n_support))
+                elif rules is not None:
+                    sup, pq, ns = mesh_pad(len(idxs), *stacked(idxs),
+                                           np.asarray(n_valid, np.float32))
+                else:
+                    sup, pq = stacked(idxs)
+                    ns = torch.tensor(n_valid, dtype=torch.float32,
+                                      device=self.device)
                 taps = self.backbone.make_taps(
-                    sup["episode_labels"].shape[1], self.device)
+                    eps[idxs[0]][0]["episode_labels"].shape[0], self.device)
+                if rules is not None:
+                    taps = rules.place_replicated(taps)
                 t0 = time.perf_counter()
-                # the shape group's one fetch: O(T·L·C) scores
-                chans_all = _fetch(probe(self.params, sup, pq, taps, ns))
+                # the shape group's one fetch: O(T·L·C) scores (a shard's
+                # probe a mesh position)
+                chans_all = gather_tasks(_fetch(map_shards(
+                    probe, params_run, sup, pq, taps, ns)))
                 dt = (time.perf_counter() - t0) / len(idxs)
                 for j, i in enumerate(idxs):
                     chans = {k: v[j] for k, v in chans_all.items()}
@@ -594,12 +682,34 @@ class TinyTrainSession:
             [(k, cache._key(p)) for k, p in zip(keys, policies)])
         compiles_before = cache.fleet_scan_compiles()
         for idxs in run_groups.values():
-            sup, pq = stacked(idxs)
-            ci = tree_map(lambda *xs: torch.stack(xs), *[
-                cache.chan_idx_arrays(policies[i], self.device) for i in idxs])
-            run = cache.vmap_scan_steps(policies[idxs[0]], iters)
-            t0 = time.perf_counter()
-            d_stack, _, loss_stack, skip_stack = run(self.params, sup, pq, ci)
+            n_real = len(idxs)
+            if hosted:
+                sup, pq, ci = host_ingest(
+                    idxs, lambda i: chan_idx_host(policies[i]))
+            elif rules is not None:
+                sup, pq, ci = mesh_pad(n_real, *stacked(idxs), _stack_trees(
+                    [chan_idx_host(policies[i]) for i in idxs]))
+            else:
+                sup, pq = stacked(idxs)
+                ci = tree_map(lambda *xs: torch.stack(xs), *[
+                    cache.chan_idx_arrays(policies[i], self.device)
+                    for i in idxs])
+            # the published mesh sends vmap_scan_steps down its shard path
+            with dist_context.sharding_context(fleet_mesh=mesh):
+                run = cache.vmap_scan_steps(policies[idxs[0]], iters)
+                t0 = time.perf_counter()
+                res = run(params_run, sup, pq, ci)
+            if isinstance(res, TaskShards):
+                d_stack, loss_stack, skip_stack = gather_tasks(TaskShards(
+                    (d, loss, skip) for d, _, loss, skip in res),
+                    self.device)
+            else:
+                d_stack, _, loss_stack, skip_stack = res
+            if rules is not None:
+                d_stack = tree_map(lambda x: x[:n_real].to(self.device),
+                                   d_stack)
+                loss_stack = loss_stack[:n_real]
+                skip_stack = skip_stack[:n_real]
             # the group's one blocking fetch; the deltas stay on the device
             losses, skips = _fetch((loss_stack, skip_stack))
             dt = (time.perf_counter() - t0) / len(idxs)
@@ -619,9 +729,10 @@ class TinyTrainSession:
             "policy_structures": len({cache._key(p) for p in policies}),
             "groups": len(run_groups),
             "scan_compiles": cache.fleet_scan_compiles() - compiles_before,
-            "mesh_axes": None,
-            "hosts": 1,
-            "ingestion": "local",
+            "mesh_axes": dict(mesh.shape) if mesh is not None else None,
+            "hosts": hosts,
+            "ingestion": ("per-host" if hosted
+                          else "global" if mesh is not None else "local"),
         }
         return out
 
@@ -679,8 +790,18 @@ class TinyTrainSession:
             f"unknown baseline {name!r}; known: none, fulltrain, lastlayer, "
             f"sparseupdate, tinytl, adapterdrop<pct>, {criteria()}")
 
-    def score_stream(self, *args, **kwargs):
-        raise _later("TinyTrainSession.score_stream", "10")
+    def score_stream(self, tokens: Any, *, block: int = 32,
+                     params: Any = None) -> np.ndarray:
+        """Per-sequence mean next-token NLL of an (N, S) token batch, scored
+        on the serving block-prefill path (:meth:`EpisodeStepCache.
+        block_score`: the cached flash kernel on the card), with one host
+        fetch a call.  ``params`` defaults to the session's frozen weights;
+        pass a folded copy (``Adaptation.fold_into(session.params)``) to
+        score an adapted model."""
+        fn = self.step_cache.block_score(block)
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                               device=self.device)
+        return _fetch(fn(self.params if params is None else params, toks))
 
     def _check_task(self, task: Task) -> None:
         if task.max_way > self.max_way:

@@ -20,7 +20,11 @@ leading task axis of the episodes and channel indices, the frozen weights
 broadcast, gradients from ``torch.func.grad_and_value`` (``autograd.grad``
 cannot run under ``vmap``).  Each task's loss, guard and update see only
 its own rows, so a task's deltas and skip count are what it would get
-alone.
+alone.  On a mesh the task axis splits over its data positions, one vmap
+a shard on that position's device.
+
+:meth:`EpisodeStepCache.block_score` scores LM token batches on the
+serving block-prefill path (the cached flash kernel on the card).
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..dist import context as dist_context
+from ..dist.sharding import _dp_axes, map_shards
 from ..optim import Optimizer, apply_updates
 from ..utils import tree_leaves, tree_map
 from .backbones import Backbone
@@ -131,6 +137,8 @@ class EpisodeStepCache:
         # compiles once each
         self._vscans: Dict[Tuple, Callable] = {}
         self._fleet_variants: set = set()
+        # token-batch scorers by block size
+        self._block_scores: Dict[int, Callable] = {}
 
     @staticmethod
     def _key(policy: SparseUpdatePolicy) -> Tuple:
@@ -255,15 +263,36 @@ class EpisodeStepCache:
 
         return run
 
-    def vmap_scan_steps(self, policy: SparseUpdatePolicy, iters: int):
+    def vmap_scan_steps(self, policy: SparseUpdatePolicy, iters: int,
+                        mode: Optional[str] = None):
         """Fleet variant of :meth:`scan_steps`: run(params, supports,
         queries, chan_idxs) -> (deltas, opt_state, losses, skipped), the
         episodes and channel indices carrying a leading task axis and every
         result task-stacked.  The zero deltas and the optimiser state are
         made inside, so T same-structure tasks fine-tune in one call with
         no per-task set-up.  Episodes may be bucket-padded: rows labelled -1
-        drop out of the loss, so padding changes no result."""
-        key = (self._key(policy), int(iters))
+        drop out of the loss, so padding changes no result.
+
+        ``mode``: ``"vmap"`` batches the task axis through every op;
+        ``"map"`` runs the tasks one by one inside the call; ``"shard"``
+        splits the task axis over the data positions of the mesh published
+        as the ``fleet_mesh`` context key (``dist.context``): the inputs
+        come as :class:`~..dist.sharding.TaskShards`, the weights as
+        :class:`~..dist.sharding.Replicas`, each shard runs the vmap path on
+        its position's device and the results come back as task shards (a
+        pure-'model' mesh, or inputs that were not split, run locally).
+        Default: shard when a fleet mesh is published, else vmap.  (The
+        JAX package takes "map" on its CPU backend, where XLA lowers
+        batched-weight convolutions poorly; the port's vmap batches plain
+        matrix products on both devices.)"""
+        mesh = dist_context.get("fleet_mesh")
+        if mode is None:
+            mode = "shard" if mesh is not None else "vmap"
+        if mode not in ("vmap", "map", "shard"):
+            raise ValueError(f"unknown fleet mode {mode!r} (vmap, map or "
+                             "shard)")
+        key = (self._key(policy), int(iters), mode,
+               mesh if mode == "shard" else None)
         if key not in self._vscans:
             f, opt, n = self._loss(policy), self.optimizer, int(iters)
             init_deltas = self.backbone.init_deltas
@@ -280,7 +309,28 @@ class EpisodeStepCache:
                     skipped.append(~ok)
                 return d, st, torch.stack(losses), torch.stack(skipped)
 
-            fleet = torch.func.vmap(run_from_zero, in_dims=(None, 0, 0, 0))
+            vmap_fleet = torch.func.vmap(run_from_zero,
+                                         in_dims=(None, 0, 0, 0))
+
+            def map_fleet(params, support, query, chan_idx):
+                t = support["episode_labels"].shape[0]
+                outs = [run_from_zero(params, *tree_map(
+                    lambda x, _i=i: x[_i], (support, query, chan_idx)))
+                    for i in range(t)]
+                return tree_map(lambda *xs: torch.stack(xs), *outs)
+
+            if mode == "vmap":
+                fleet = vmap_fleet
+            elif mode == "map":
+                fleet = map_fleet
+            elif not _dp_axes(mesh)[0]:
+                # a pure-'model' mesh has no data axis to split the tasks
+                # over (FleetShardingRules replicates): run locally
+                fleet = vmap_fleet
+            else:
+                def fleet(params, support, query, chan_idx):
+                    return map_shards(vmap_fleet, params, support, query,
+                                      chan_idx)
 
             def run(params, support, query, chan_idx, _key=key):
                 self._fleet_variants.add((_key, tuple(
@@ -290,6 +340,67 @@ class EpisodeStepCache:
 
             self._vscans[key] = run
         return self._vscans[key]
+
+    def block_score(self, block: int = 32):
+        """LM token-batch scorer on the serving block-prefill path.
+
+        score(params, tokens (N, S) int) -> per-sequence mean next-token NLL
+        (N,) float32, computed by folding the batch through
+        ``models.transformer.prefill_block`` in ceil(S / block) blocks
+        against decode caches (``init_caches(cfg, N, S)``): the
+        sequence-mode path the serving engine ingests prompts with, the
+        cached flash kernel's on the card.  A ragged tail rides the validity
+        mask, as a prompt tail does in serving; sliding-window configs
+        score through their rolling cache, as a served request would.  Each
+        block's logits reduce to its positions' NLL as they come, so the
+        (N, S, vocab) logits are never held at once.  Scorers are kept per
+        block size."""
+        if self.backbone.kind != "lm":
+            raise ValueError(
+                "block_score is for LM token-batch workloads; "
+                f"backbone kind is {self.backbone.kind!r}")
+        key = int(block)
+        if key < 1:
+            raise ValueError(f"block must be >= 1, got {block}")
+        if key not in self._block_scores:
+            from ..models import transformer as T
+
+            cfg = self.backbone.cfg
+
+            @torch.no_grad()
+            def score(params, tokens):
+                n, s = tokens.shape
+                if s < 2:
+                    raise ValueError(
+                        f"need at least 2 tokens to score next-token NLL, "
+                        f"got sequences of length {s}")
+                dev = tokens.device
+                blk = min(key, s)
+                nb = -(-s // blk)  # the ragged tail rides a validity mask
+                tb = torch.nn.functional.pad(tokens, (0, nb * blk - s))
+                caches = T.init_caches(cfg, n, s, device=dev)
+                nll = torch.empty((n, s - 1), dtype=torch.float32,
+                                  device=dev)
+                for b in range(nb):
+                    lo = b * blk
+                    valid = (torch.arange(lo, lo + blk, device=dev) < s
+                             ).expand(n, blk)
+                    pos = torch.full((n,), lo, dtype=torch.int32,
+                                     device=dev)
+                    logits, caches = T.prefill_block(
+                        cfg, params, tb[:, lo:lo + blk], caches, pos, valid)
+                    m = min(blk, s - 1 - lo)  # positions with a next token
+                    if m <= 0:
+                        continue
+                    lg = logits[:, :m].float()
+                    gold = tokens[:, lo + 1:lo + 1 + m].long()
+                    nll[:, lo:lo + m] = (
+                        torch.logsumexp(lg, dim=-1)
+                        - torch.gather(lg, -1, gold[..., None])[..., 0])
+                return nll.mean(dim=-1)
+
+            self._block_scores[key] = score
+        return self._block_scores[key]
 
     def evaluate(self, policy: Optional[SparseUpdatePolicy]):
         """ev(params, deltas, support, query, chan_idx) -> accuracy tensor;

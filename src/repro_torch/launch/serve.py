@@ -61,10 +61,18 @@ loop instead of chunks, and ``--inject SPEC`` injects faults
     PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke \
         --device cpu --temperature 0.8 --top-k 20 --inject nan:2:1
 
+``--fleet R`` serves through R engine replicas behind one
+``FleetRouter`` (least-loaded routing, sticky user placement, typed
+shedding only when every replica is saturated), pinned round-robin over
+the visible cards, or all on ``--device`` when it names one; ``--adapt``
+folds into every replica, and ``--personalise`` ships each refresh to the
+router as serialized int8 payload bytes:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke \
+        --device cpu --fleet 2 --personalise --users 4
+
 Runs on the card unless ``--device cpu``.  Weights are random, from a
-seeded ``torch.Generator``.  The flag of ``repro.launch.serve`` that
-belongs to a later slice of the port (``--fleet``) is accepted by name and
-refused with the ROADMAP item that brings it.  (There ``--device`` names
+seeded ``torch.Generator``.  (In ``repro.launch.serve`` ``--device`` names
 the profile; here it is the torch device, and ``--profile`` names the
 profile.)
 """
@@ -79,11 +87,9 @@ import torch
 
 from .. import api, configs
 from ..models import transformer as T
-from ..serving import Request, ServeEngine
+from ..serving import FleetRouter, Request, ServeEngine
 from ..serving.faults import parse_inject
-
-# flag -> (takes a value, ROADMAP queue 1 item that brings it)
-LATER_FLAGS = {"--fleet": (True, "16")}
+from ..serving.fleet import params_on
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -157,14 +163,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="with --personalise: most users refreshed per "
                          "between-chunks window, ranked by stale-delta age "
                          "x banked streams (default: every eligible user)")
-    for flag, (takes_value, _) in LATER_FLAGS.items():
-        kind = {} if takes_value else {"action": "store_const", "const": True}
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kind)
+    ap.add_argument("--fleet", type=int, default=None, metavar="R",
+                    help="serve through R engine replicas behind one "
+                         "FleetRouter (least-loaded routing, sticky user "
+                         "placement, typed shedding only when every replica "
+                         "is saturated), pinned round-robin over the "
+                         "visible cards, or all on --device when it names "
+                         "one")
     args = ap.parse_args(argv)
-    for flag, (_, item) in LATER_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise SystemExit(f"[serve] {flag} is not in the PyTorch port yet: "
-                             f"it arrives with ROADMAP queue 1, item {item}")
+    if args.fleet is not None and args.fleet < 1:
+        raise SystemExit("[serve] --fleet must be >= 1")
+    if args.fleet and args.eager:
+        raise SystemExit("[serve] --fleet requires the fused engine "
+                         "(drop --eager)")
 
     cfg = configs.preset_config(args.arch, args.preset)
     enc = cfg.enc_feats_shape  # None on a decoder-only config
@@ -205,16 +216,25 @@ def main(argv: Optional[List[str]] = None) -> None:
             policy = probe.policy
             print(f"[serve] personalising {args.users} users under "
                   f"{profile.name}: {policy.describe()}")
-    eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
-                      fused=not args.eager, chunk=args.chunk,
-                      prefill_block=args.prefill_block,
-                      temperature=args.temperature, top_k=args.top_k,
-                      kv_paging=paging or None, kv_page_size=args.page_size,
-                      kv_int8=args.kv_int8 or None, page_budget=page_budget,
-                      reserve=args.reserve,
-                      deadline_ticks=args.deadline_ticks,
-                      queue_limit=args.queue_limit, faults=faults,
-                      personalise=policy, device=device)
+    engine_kw = dict(slots=args.slots, max_len=args.max_len,
+                     fused=not args.eager, chunk=args.chunk,
+                     prefill_block=args.prefill_block,
+                     temperature=args.temperature, top_k=args.top_k,
+                     kv_paging=paging or None, kv_page_size=args.page_size,
+                     kv_int8=args.kv_int8 or None, page_budget=page_budget,
+                     reserve=args.reserve,
+                     deadline_ticks=args.deadline_ticks,
+                     queue_limit=args.queue_limit, faults=faults,
+                     personalise=policy)
+    if args.fleet:
+        eng = FleetRouter(cfg, params, replicas=args.fleet,
+                          devices=None if args.device == "cuda" else [device],
+                          **engine_kw)
+        print(f"[serve] fleet: {args.fleet} replicas over "
+              f"{len(set(eng.devices))} device(s)")
+    else:
+        eng = ServeEngine(cfg, params, device=device, **engine_kw)
+    engines = eng.engines if args.fleet else [eng]
     if args.adapt:
         bb = api.backbone(args.arch, preset=args.preset, batch_size=48,
                           seq=64)
@@ -228,7 +248,10 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"[serve] WARNING: {profile.name} budget selected no "
                   "units; serving base weights unchanged")
         else:
-            adaptation.fold_into(eng)
+            # one folded copy a device, shared by the replicas there
+            folded = adaptation.fold_into(params)
+            for e in engines:
+                e.params = params_on(folded, e.device)
             print(f"[serve] adapted under {profile.name}: "
                   f"{adaptation.describe()}")
     def enc_feats() -> Optional[np.ndarray]:
@@ -253,9 +276,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         for ref in online["refreshes"]:
             deferred = (f", {len(ref['deferred_users'])} deferred"
                         if ref["deferred_users"] else "")
+            wire = " (serialized)" if ref["wire_serialized"] else ""
             print(f"[serve] refresh {ref['round']}: users {ref['users']}"
                   f"{deferred}, {ref['resident_rows_swapped']} resident rows "
-                  f"swapped, wire {ref['payload_bytes_wire']} B vs f32 "
+                  f"swapped, wire{wire} {ref['payload_bytes_wire']} B vs f32 "
                   f"{ref['payload_bytes_f32']} B "
                   f"({ref['payload_ratio']:.1f}x), adapt "
                   f"{ref['adapt_seconds']:.2f}s, swap "
@@ -287,6 +311,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise SystemExit(f"[serve] ENGINE ERROR: requests {lost} reached no "
                          "terminal outcome")
     mem, peak = rep["memory"], rep["peak_resident"]
+    if args.fleet:
+        print(f"[serve] fleet: {mem['alive']}/{mem['replicas']} replicas, "
+              f"aggregate KV {mem['kv_cache_bytes'] / 2**20:.2f} MiB; "
+              + ", ".join(f"r{r['replica']}: {r.get('ticks', 0)} ticks/"
+                          f"{r.get('host_syncs', 0)} syncs"
+                          for r in rep["replicas"]))
+        mem = mem["per_replica"][0]  # one replica's layout below
     if mem["kv_paging"]:
         print(f"[serve] paged KV: {mem['kv_cache_bytes'] / 2**20:.2f} MiB "
               f"({'int8' if mem['kv_int8'] else cfg.dtype} pages, "
@@ -315,10 +346,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"[serve] encoder runs: {mem['enc_tokens']} rows a request "
               f"({where}, {run} B a run, "
               f"{mem['enc_arena_bytes'] / 2**20:.2f} MiB arena)")
-    if eng.ssm_state_bytes_per_slot and (mem["kv_paging"]
-                                         or cfg.family != "ssm"):
+    ssm_b = engines[0].ssm_state_bytes_per_slot
+    if ssm_b and (mem["kv_paging"] or cfg.family != "ssm"):
         print(f"[serve] SSD state (conv windows and states, never paged): "
-              f"{eng.ssm_state_bytes_per_slot / 2**10:.1f} KiB a slot")
+              f"{ssm_b / 2**10:.1f} KiB a slot")
     if any(r.truncated for r in reqs):
         print(f"[serve] {sum(r.truncated for r in reqs)} requests truncated "
               f"at max_len={args.max_len}")

@@ -19,14 +19,19 @@ serving chunks:
    tensor, the hand-written grad_quant kernel on the card; the residual is
    kept per user and re-added at the next refresh, so the exchange stays
    unbiased over rounds) and ``ServeEngine.swap_deltas`` installs it in the
-   user's resident arena rows, mid-stream and without a host read.
+   user's resident arena rows, mid-stream and without a host read.  An
+   engine that takes serialized payloads (``FleetRouter``) gets the int8
+   refresh as ``encode_delta_payload`` bytes instead, which its side
+   decodes and swaps into the user's home replica.
 
 ``Personaliser.run_online`` serves one chunk, observes, refreshes and
-repeats; ``last_report`` records the payload bytes (int8 + scales against
-float32), the adapt and swap times and the resident rows swapped.
+repeats; ``last_report`` records the payload bytes (int8 + scales, or the
+serialized payload's length, against float32), the adapt and swap times
+and the resident rows swapped.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Dict, List, Optional
 
@@ -36,6 +41,7 @@ from ..core.policy import SparseUpdatePolicy
 from ..optim import compress as C
 from ..utils import tree_leaves
 from .engine import DeltaSet, Request
+from .fleet import encode_delta_payload
 
 __all__ = ["Personaliser"]
 
@@ -84,10 +90,6 @@ class Personaliser:
             raise ValueError(
                 "engine must be constructed with personalise=<policy>; "
                 "a non-personalised engine has no delta arena to swap into")
-        if hasattr(engine, "push_delta_payload"):
-            raise NotImplementedError(
-                "the FleetRouter wire exchange (push_delta_payload, "
-                "encode_delta_payload) arrives with ROADMAP queue 1, item 16")
         self.session = session
         self.engine = engine
         self.policy = policy
@@ -196,9 +198,14 @@ class Personaliser:
             iters=self.iters, policy_override=self.policy)
         adapt_s = time.perf_counter() - t0
 
+        # the router boundary: an engine that takes serialized payloads
+        # (a FleetRouter) gets the compressed refresh as real bytes, which
+        # its side decodes and decompresses; otherwise the int8 exchange is
+        # handed over in process
+        push = getattr(self.engine, "push_delta_payload", None)
         users, raw_b, wire_b, swapped, swap_s = [], 0, 0, 0, 0.0
         for uid, ad in zip(uids, results):
-            deltas = ad.deltas
+            deltas, send = ad.deltas, None
             raw = 4 * sum(t.numel() for t in tree_leaves(deltas))
             if self.compress:
                 ef = self._ef.get(uid)
@@ -206,13 +213,21 @@ class Personaliser:
                     ef = C.ef_state_init(deltas)
                 q, scales, ef = C.int8_compress(deltas, ef)
                 self._ef[uid] = ef  # the residual survives to the next round
-                wire = _payload_bytes(q) + 4 * len(tree_leaves(scales))
-                deltas = C.int8_decompress(q, scales)
+                if push is not None:
+                    payload = encode_delta_payload(self.policy, q, scales)
+                    wire = len(payload)
+                    send = functools.partial(push, uid, payload)
+                else:
+                    wire = _payload_bytes(q) + 4 * len(tree_leaves(scales))
+                    deltas = C.int8_decompress(q, scales)
             else:
                 wire = raw
-            ds = DeltaSet.from_policy(self.policy, deltas)
+            if send is None:
+                send = functools.partial(
+                    self.engine.swap_deltas, uid,
+                    DeltaSet.from_policy(self.policy, deltas))
             t1 = time.perf_counter()
-            swapped += self.engine.swap_deltas(uid, ds)
+            swapped += send()
             swap_s += time.perf_counter() - t1
             raw_b += raw
             wire_b += wire
@@ -232,7 +247,7 @@ class Personaliser:
             "payload_bytes_f32": raw_b,
             "payload_bytes_wire": wire_b,
             "payload_ratio": raw_b / max(1, wire_b),
-            "wire_serialized": False,
+            "wire_serialized": push is not None and self.compress,
         }
         return self.last_report
 

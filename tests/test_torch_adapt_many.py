@@ -4,8 +4,9 @@ with the JAX weights bridged across and the same episodes from the same
 seeds: a mix of way/shot tasks in two buckets gives the same per-task
 losses, deltas, skipped steps, host transfers and fleet report.  Within
 the port: one task through ``adapt_many`` equals ``adapt`` under the same
-policy; a static criterion raises ``ValueError`` as in the JAX package,
-and ``mesh=`` and ``hosts=`` raise naming their ROADMAP item."""
+policy; a static criterion and ``hosts=2`` without a mesh raise
+``ValueError`` as in the JAX package, and a mesh of two positions gives
+the single-device losses."""
 import jax
 import numpy as np
 import pytest
@@ -156,12 +157,21 @@ def test_routes_of_later_items_raise(ref):
     task = tasks(syn, Task, session.backbone.cfg.vocab)[0]
     with pytest.raises(ValueError, match="static channel mode"):
         session.adapt_many([task], api.JETSON_NANO, criterion="random")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        session.adapt_many([task], api.JETSON_NANO, policy_override=policy,
-                           mesh=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="requires mesh="):
         session.adapt_many([task], api.JETSON_NANO, policy_override=policy,
                            hosts=2)
+    # the mesh route runs (tests/test_torch_fleet_sharding.py holds it):
+    # one task padded to two positions, the copy sliced off
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    one = session.adapt_many([task], api.JETSON_NANO, iters=2,
+                             policy_override=policy)
+    two = session.adapt_many([task], api.JETSON_NANO, iters=2,
+                             policy_override=policy,
+                             mesh=make_debug_mesh(2, devices=["cpu"]))
+    assert len(two) == 1 and session.last_fleet_report["ingestion"] == "global"
+    np.testing.assert_allclose(two[0].losses, one[0].losses, rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_noise_level_gradient_takes_the_same_step_in_both_paths(ref):

@@ -446,14 +446,14 @@ def test_personaliser_refuses_what_it_cannot_serve(loop):
     with pytest.raises(ValueError, match="refresh_cap"):
         Personaliser(pers.session, pers.engine, pers.policy, refresh_cap=0)
 
-    class Router:  # a FleetRouter's delta wire codec is item 16
+    class Router:  # a FleetRouter's wire boundary is accepted
         personalise = pers.policy
 
         def push_delta_payload(self, uid, payload):
             return 0
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Personaliser(pers.session, Router(), pers.policy)
+    router = Router()
+    assert Personaliser(pers.session, router, pers.policy).engine is router
 
 
 def test_serve_launcher_personalises(capsys):

@@ -221,13 +221,32 @@ def test_submit_validates_and_sheds(ref):
 
 
 def _fleet_exchange(tcfg, tp):
-    from types import SimpleNamespace
+    """A ``Personaliser`` over a ``FleetRouter``: accepted, and a refresh's
+    payload bytes cross the router's wire boundary into the user's
+    registered set (tests/test_torch_fleet_serving.py holds the loop to
+    the JAX package's)."""
+    import torch
 
-    from repro_torch.serving import Personaliser
+    from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
+    from repro_torch.optim import compress as C
+    from repro_torch.serving import (
+        FleetRouter, Personaliser, encode_delta_payload,
+    )
 
-    engine = SimpleNamespace(personalise=object(),
-                             push_delta_payload=lambda *a: None)
-    Personaliser(None, engine, None)
+    pol = SparseUpdatePolicy(horizon=1, units=(SelectedUnit(1, "mlp", (0,)),))
+    router = FleetRouter(tcfg, tp, replicas=2, devices=["cpu"],
+                         personalise=pol, **ENGINE)
+    session = _session(tcfg, tp)
+    assert Personaliser(session, router, pol).engine is router
+    d = session.backbone.init_deltas(pol, "cpu")
+    d = {lk: {k: {n: v + 0.5 for n, v in pack.items()}
+              for k, pack in kinds.items()} for lk, kinds in d.items()}
+    q, scales, _ = C.int8_compress(d, C.ef_state_init(d))
+    assert router.push_delta_payload(3, encode_delta_payload(pol, q, scales)
+                                     ) == 0  # user 3 has no home yet
+    got = router._delta_reg[3].deltas["L1"]["mlp"]
+    for n, v in d["L1"]["mlp"].items():
+        torch.testing.assert_close(got[n], v, rtol=0, atol=0.5 / 127)
 
 
 def _remat(tcfg, tp):
@@ -277,41 +296,51 @@ def _session(tcfg, tp):
 
 
 def _score_stream(tcfg, tp):
-    _session(tcfg, tp).score_stream()
+    """One finite mean NLL a sequence (tests/test_torch_block_score.py
+    holds the scores to the JAX package's)."""
+    toks = np.random.default_rng(0).integers(0, tcfg.vocab, (2, 11))
+    nll = _session(tcfg, tp).score_stream(toks.astype(np.int32), block=4)
+    assert nll.shape == (2,) and np.isfinite(nll).all()
 
 
 def _mesh(tcfg, tp):
-    _session(tcfg, tp).adapt_many([], "jetson-nano", mesh=object())
+    """A fleet of one task over two mesh positions gives the single-device
+    losses (tests/test_torch_fleet_sharding.py holds the mesh path)."""
+    from repro_torch import api
+    from repro_torch.core.backbones import lm_backbone
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    session = api.TinyTrainSession(lm_backbone(tcfg, 256, 16), tp,
+                                   max_way=4, device="cpu")
+    task = api.sample_lm_task(np.random.default_rng(0), tcfg.vocab, seq=16,
+                              max_way=4, support_pad=16, query_pad=16)
+    assert session.adapt_many([], "jetson-nano",
+                              mesh=make_debug_mesh(2, devices=["cpu"])) == []
+    one, two = (session.adapt_many([task], "jetson-nano", iters=2, mesh=m)
+                for m in (None, make_debug_mesh(2, devices=["cpu"])))
+    assert two[0].policy.units == one[0].policy.units
+    np.testing.assert_allclose(two[0].losses, one[0].losses, rtol=1e-4,
+                               atol=1e-5)
 
 
-LATER = {
-    "score_stream": (_score_stream, "10"),
-    "fleet_exchange": (_fleet_exchange, "16"),
-    "mesh": (_mesh, "16"),
-}
 # what an earlier slice pinned as a raise and now runs
 NOW_RUN = {"remat": _remat, "vlm": _serves("paligemma-3b"),
-           "audio": _serves("whisper-base")}
+           "audio": _serves("whisper-base"), "score_stream": _score_stream,
+           "fleet_exchange": _fleet_exchange, "mesh": _mesh}
 
 
 @pytest.mark.parametrize("what", ["remat", "score_stream", "fleet_exchange",
                                   "mesh", "vlm", "audio"])
 def test_knobs_of_later_slices_raise(ref, what):
-    """What the port does not run yet raises, naming the ROADMAP item that
-    brings it: ``score_stream``, the fleet's delta exchange and sharded
-    ``adapt_many``.  A policy's remat option and the vlm and audio families
-    run now, and their cases check that they do.  (The ssm family's paged
-    cache and per-slot overlay and the hybrid family run too:
-    ``tests/test_torch_ssm_paging.py``, ``test_torch_ssm_personalise.py``,
-    ``test_torch_hybrid.py``.)"""
+    """What earlier slices pinned as raising, naming the ROADMAP item that
+    would bring it, now runs, and each case checks that it does: a
+    policy's remat option, the vlm and audio families, ``score_stream``
+    (item 10), the fleet's delta exchange and sharded ``adapt_many`` (item
+    16).  (The ssm family's paged cache and per-slot overlay and the hybrid
+    family run too: ``tests/test_torch_ssm_paging.py``,
+    ``test_torch_ssm_personalise.py``, ``test_torch_hybrid.py``.)"""
     tcfg, tp, _ = ref
-    if what in NOW_RUN:
-        NOW_RUN[what](tcfg, tp)
-        return
-    build, item = LATER[what]
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP queue 1, item {item}\b"):
-        build(tcfg, tp)
+    NOW_RUN[what](tcfg, tp)
 
 
 def test_serve_driver_runs_and_refuses_later_flags(capsys):
@@ -353,5 +382,14 @@ def test_serve_driver_runs_and_refuses_later_flags(capsys):
                 "--max-new", "3", "--slots", "2", "--eager"])
     text = capsys.readouterr().out
     assert "3 requests, 9 new tokens" in text and "eager" in text
-    with pytest.raises(SystemExit, match="item 16"):
-        serve.main(["--device", "cpu", "--fleet", "2"])
+    # the fleet: two replicas behind the router, the fused engine only
+    serve.main(["--preset", "smoke", "--device", "cpu", "--requests", "4",
+                "--max-new", "3", "--slots", "2", "--fleet", "2"])
+    text = capsys.readouterr().out
+    assert "[serve] fleet: 2 replicas over 1 device(s)" in text
+    assert "4 requests, 12 new tokens" in text and "done=4" in text
+    assert "[serve] fleet: 2/2 replicas" in text
+    with pytest.raises(SystemExit, match="requires the fused engine"):
+        serve.main(["--device", "cpu", "--fleet", "2", "--eager"])
+    with pytest.raises(SystemExit, match="--fleet must be >= 1"):
+        serve.main(["--device", "cpu", "--fleet", "0"])

@@ -349,12 +349,12 @@ def test_fold_is_exact_on_reference_deltas(ref):
 def test_later_features_raise_naming_their_item(ref):
     """The items that brought the ssm family's paging (12.2), its per-slot
     overlay and fleet adaptation (15.2), the hybrid family and a policy's
-    remat option (9) are closed: those now run
-    (tests/test_torch_ssm_paging.py, test_torch_ssm_personalise.py,
-    test_torch_hybrid.py and test_torch_encdec.py hold them to the JAX
-    package; a remat policy's loss and delta gradients are the plain
-    policy's bit for bit here).  What is still unported raises naming its
-    item: sharded ``adapt_many`` (16)."""
+    remat option (9), and sharded ``adapt_many`` (16) are closed: those now
+    run (tests/test_torch_ssm_paging.py, test_torch_ssm_personalise.py,
+    test_torch_hybrid.py, test_torch_encdec.py and
+    test_torch_fleet_sharding.py hold them to the JAX package; a remat
+    policy's loss and delta gradients are the plain policy's bit for bit
+    here, and a mesh fleet of one task equals the single-device one)."""
     _, session, task, _ = ref
     cfg, params = session.backbone.cfg, session.params
     pol = SparseUpdatePolicy(horizon=0, units=(SelectedUnit(1, "ssm", (0,)),))
@@ -379,8 +379,16 @@ def test_later_features_raise_naming_their_item(ref):
         got.append((loss, torch.autograd.grad(loss, d["L1"]["ssm"]["w_x"])))
     assert torch.equal(got[0][0], got[1][0])
     assert torch.equal(got[0][1][0], got[1][1][0])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        session.adapt_many([task], api.JETSON_NANO, mesh=object())
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    one = session.adapt_many([task], api.JETSON_NANO, iters=2,
+                             policy_override=pol)
+    two = session.adapt_many([task], api.JETSON_NANO, iters=2,
+                             policy_override=pol,
+                             mesh=make_debug_mesh(2, devices=["cpu"]))
+    assert session.last_fleet_report["mesh_axes"] == {"data": 2, "model": 1}
+    np.testing.assert_allclose(two[0].losses, one[0].losses, rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_serve_launcher_adapts_folds_and_serves(capsys):

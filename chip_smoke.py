@@ -307,6 +307,26 @@ exits non-zero:
    tasks, ``hosts=2`` bit for bit with the global mesh, kernel 1 once a
    tap group a shard; the losses' distance to the four-task single-device
    fleet printed against rtol 1e-4 / atol 1e-5.
+22. the training launcher, in bf16 unless named, its checkpoints in a
+   temporary directory removed at the end: (a) ``launch.train.main``
+   in-process with ``examples/distributed_finetune.py``'s arguments on
+   qwen2-1.5b's published config (60 tinytrain steps of 8 x 128 tokens
+   under an 8 MB, half-compute profile, which selects no unit at this
+   width), then again under phase 6's envelope (2,000 MB, 0.8 of the
+   compute; a policy must select units): the policy and probe seconds,
+   ms a step warm, each save's seconds and the checkpoint's bytes; (b)
+   its pieces, under phase 6's envelope, with ``Trainer`` for 12 steps
+   with a checkpoint every 4, a
+   failure injected at step 9 and a restart: the final deltas and Adam
+   state bit for bit the uninterrupted run's, the restore's seconds; (c)
+   ``--mode full`` at the published width, 2 of 28 layers, 3 steps and one
+   save: peak memory, checkpoint bytes, a restore bit-equal to the saved
+   state; (d) mamba2-1.3b's published config, tinytrain under phase 6's
+   envelope: kernels 5 and 5b
+   launched (counted in the kernels' record); (e) qwen2-smoke in f32,
+   weights drawn on the CPU and copied to the card: the launcher's
+   probe, policy, sparse steps and ``Trainer`` card against CPU, the same
+   policy and losses within 1e-5 of max(1, |CPU's|).
 
 Phases 7 to 9 and 17 run right after phase 5, on its weights.  The
 fused serves of phases 5, 7 to 11 and 17 print ``host_syncs`` beside
@@ -315,7 +335,7 @@ inside the tick loop; the eager loop reads every tick by design); phases
 5, 7, 8, 10, 11 and 17's fused serves run their tick loops under
 ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
 the run.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 21) and read
+counts are set to 0 just before each main path (phases 5 to 22) and read
 just after; phase 18's, 19's, 20's and 21's fused serves also run under
 sync debug mode "error".  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
@@ -588,6 +608,32 @@ FLEET_SAMPLED = dict(temperature=SAMPLE_T, top_k=50, sample_seed=11)
 FLEET_SMOKE = dict(slots=2, max_len=48, chunk=4, requests=8, max_new=6)
 # (d) the mesh fleet: two data positions on the one card
 MESH_POSITIONS = 2
+# phase 22: the training launcher (launch.train, runtime.Trainer,
+# checkpoint).  (a) examples/distributed_finetune.py's arguments at
+# qwen2-1.5b's published config
+TRAIN_BUDGET = ["--mem-budget-mb", "8", "--compute-frac", "0.5"]
+TRAIN_EXAMPLE = ["--steps", "60", "--batch", "8", "--seq", "128",
+                 "--mode", "tinytrain"]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 1e-3
+# at the published width the example's 8 MB selects no unit (the
+# cheapest at half its channels, an attention unit's 6 heads, needs
+# 39,321,600 B by core.criterion.policy_memory_bytes at 8 x 128 tokens),
+# so (a) runs again, and (b) and (d) run, under phase 6's envelope
+# (edge-lm scaled by mem=500, compute=1.6)
+TRAIN_WIDE = ["--mem-budget-mb", "2000", "--compute-frac", "0.8"]
+TRAIN_PROFILE = dict(name="cli", mem_kb=2e6, compute_frac=0.8)
+# (e)'s smoke model under the example's own envelope
+TRAIN_SMOKE_PROFILE = dict(name="cli", mem_kb=8e3, compute_frac=0.5)
+# (b) the fault path: a failure at step 9, checkpoints every 4 steps
+TRAIN_FAULT = dict(steps=12, ckpt_every=4, fail_at=9)
+# (c) --mode full at the published width, the depth cut: the whole
+# model's Adam checkpoint (params, m, v in bf16) is ~9.3 GB
+TRAIN_FULL = dict(layers=2, steps=3)
+# (d) mamba2-1.3b's tinytrain through kernels 5 and 5b
+TRAIN_SSD_STEPS = 8
+# (e) qwen2-smoke in f32, card against CPU
+TRAIN_SMOKE = dict(steps=6, batch=4, seq=32, ckpt_every=3)
+TRAIN_LOSS_TOL = 1e-5  # relative to max(1, |want|)
 
 
 
@@ -3161,6 +3207,361 @@ def phase21(dev, gen, pol, profile) -> dict:
     return {"launches": launches, "score_kernel": rec}
 
 
+def recorded(Trainer, rec: dict):
+    """``Trainer`` recording into ``rec`` each step's wall (up to the loss
+    on the host, which the trainer reads next), each save's and the
+    restore's seconds, and the trainer and the final state of its run."""
+    rec.update(step_s=[], save_s=[], restore_s=[])
+
+    class Recorded(Trainer):
+        def __init__(self, cfg, step_fn, loader, **kw):
+            def timed(ts, batch):
+                t0 = time.perf_counter()
+                out = step_fn(ts, batch)
+                float(out[1])
+                rec["step_s"].append(time.perf_counter() - t0)
+                return out
+
+            super().__init__(cfg, timed, loader, **kw)
+
+        def _save(self, state):
+            t0 = time.perf_counter()
+            super()._save(state)
+            rec["save_s"].append(time.perf_counter() - t0)
+
+        def _try_restore(self, init_state):
+            import torch
+
+            t0 = time.perf_counter()
+            out = super()._try_restore(init_state)
+            torch.cuda.synchronize()
+            rec["restore_s"].append(time.perf_counter() - t0)
+            return out
+
+        def run(self, init_state):
+            rec["trainer"] = self
+            rec["state"] = super().run(init_state)
+            return rec["state"]
+
+    return Recorded
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def same_leaves(got, want, what: str) -> int:
+    """Fails unless the two trees are bit-equal leaf by leaf, naming the
+    leaves that part (in the checkpoints' order); returns the leaf
+    count."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten
+
+    (g, gdef), (w, wdef) = _flatten(got), _flatten(want)
+    if gdef != wdef:
+        fail(f"{what}: the trees' structures differ")
+    bad = [(i, (a.float() - b.float()).abs().max().item())
+           for i, (a, b) in enumerate(zip(g, w))
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    if bad:
+        fail(f"{what}: {len(bad)} of {len(g)} leaves differ (leaf, largest "
+             f"difference): {bad[:8]}")
+    return len(g)
+
+
+def finished(rec, steps: int, what: str) -> None:
+    """Fails unless the recorded run reached ``steps`` with finite losses
+    and no skipped step."""
+    st, losses = rec["state"], rec["trainer"].losses
+    if (st.step != steps or st.skipped
+            or not all(math.isfinite(x) for x in losses)):
+        fail(f"{what}: reached step {st.step} of {steps}, {st.skipped} "
+             f"skipped, losses {losses}")
+
+
+def train_main(train_mod, Trainer, argv, rec) -> None:
+    """``launch.train.main(argv)`` in-process with a recording Trainer."""
+    from unittest import mock
+
+    with mock.patch.object(train_mod, "Trainer", recorded(Trainer, rec)):
+        train_mod.main(argv)
+
+
+def train_example(ops, train_mod, rt, tree_leaves, root, budget,
+                  need_units: bool) -> None:
+    """Phase 22 (a): ``launch.train`` with distributed_finetune.py's
+    arguments at qwen2-1.5b's published config, in bf16, under the
+    ``budget`` flags; ``need_units`` fails a policy that selects
+    nothing."""
+    rec, d = {}, os.path.join(root, "a" + budget[1])
+    n = int(TRAIN_EXAMPLE[1])
+    kernel_launches(ops, zero=True)
+    train_main(train_mod, rt.Trainer, [
+        "--arch", "qwen2-1.5b", "--preset", "full", *TRAIN_EXAMPLE, *budget,
+        "--ckpt-dir", d], rec)
+    counts = {k: v for k, v in kernel_launches(ops).items() if v}
+    finished(rec, n, "train (a)")
+    n_delta = sum(t.numel() for t in tree_leaves(rec["state"].train_state[0]))
+    if need_units and not n_delta:
+        fail(f"train (a) {' '.join(budget)}: the policy selected nothing")
+    steps, losses = rec["step_s"], rec["trainer"].losses
+    warm = sorted(steps[1:])
+    step_dir = os.path.join(d, f"step_{n}")
+    print(f"[train] (a) qwen2-1.5b tinytrain {' '.join(budget)}: {n} steps;"
+          f" first {steps[0] * 1e3:.2f} ms, warm "
+          f"{statistics.median(warm) * 1e3:.3f} ms a step (median of "
+          f"{len(warm)}, {warm[0] * 1e3:.3f} .. {warm[-1] * 1e3:.3f}); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {n_delta} delta parameters;"
+          " saves " + ", ".join(f"{x:.4f}" for x in rec["save_s"])
+          + f" s; step_{n} {dir_bytes(step_dir)} B on disk; kernel launches "
+          f"{counts or 'none'}", flush=True)
+
+
+def train_fault(api, configs, T, train_mod, rt, TokenLoader, dev,
+                root) -> None:
+    """Phase 22 (b): the launcher's sparse pieces under ``Trainer`` at
+    qwen2-1.5b's published config: a failure injected at step 9, the
+    restart from the step-8 checkpoint (probe and policy anew, as the
+    launcher restarts), and an uninterrupted run; the restarted deltas
+    and Adam state bit-equal to the uninterrupted run's."""
+    import torch
+
+    F = TRAIN_FAULT
+    cfg = configs.get_config("qwen2-1.5b")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    bb = api.backbone("qwen2-1.5b", preset="full", batch_size=TRAIN_BATCH,
+                      seq=TRAIN_SEQ)
+    profile = api.DeviceProfile(**TRAIN_PROFILE)
+
+    def run(d, hook=None):
+        rec = {}
+        loader = TokenLoader(cfg.vocab, global_batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, seed=0)
+        step_fn, init, rec["policy"], _ = train_mod.sparse_training(
+            bb, params, loader, profile,
+            train_mod.train_optimizer(TRAIN_LR, F["steps"]), dev,
+            n_samples=TRAIN_BATCH)
+        tc = rt.TrainerConfig(total_steps=F["steps"],
+                              ckpt_every=F["ckpt_every"], ckpt_dir=d)
+        recorded(rt.Trainer, rec)(tc, step_fn, loader, failure_hook=hook,
+                                  log_fn=lambda s: None).run(init)
+        return rec
+
+    d = os.path.join(root, "b")
+    try:
+        run(d, rt.failure_at(F["fail_at"]))
+        fail("train (b): the injected failure did not fire")
+    except rt.SimulatedFailure:
+        pass
+    restarted = run(d)
+    whole = run(os.path.join(root, "b-whole"))
+    for rec, what in ((restarted, "restarted"), (whole, "uninterrupted")):
+        finished(rec, F["steps"], f"train (b), {what}")
+    if (restarted["policy"].horizon, restarted["policy"].units) != (
+            whole["policy"].horizon, whole["policy"].units):
+        fail("train (b): the restart's probe chose another policy")
+    resumed = F["fail_at"] // F["ckpt_every"] * F["ckpt_every"]
+    if restarted["trainer"].losses != whole["trainer"].losses[resumed:]:
+        print(f"[train] (b) losses after the restart "
+              f"{restarted['trainer'].losses}, uninterrupted "
+              f"{whole['trainer'].losses}", flush=True)
+    n = same_leaves(restarted["state"].train_state,
+                    whole["state"].train_state,
+                    "train (b), restart against the uninterrupted run")
+    if restarted["trainer"].losses != whole["trainer"].losses[resumed:]:
+        fail("train (b): the losses after the restart differ")
+    print(f"[train] (b) qwen2-1.5b fault path: failure at step "
+          f"{F['fail_at']}, restart from step_{resumed} (restore "
+          f"{restarted['restore_s'][0]:.4f} s): {n} leaves (deltas, Adam m "
+          f"and v, the step) bit-equal to the uninterrupted run's after "
+          f"{F['steps']} steps, and the losses after the restart",
+          flush=True)
+
+
+def train_full(configs, train_mod, rt, CheckpointManager, tree_leaves, dev,
+               root) -> None:
+    """Phase 22 (c): ``launch.train --mode full`` at qwen2-1.5b's published
+    width, its depth cut to TRAIN_FULL["layers"], a few steps and one final
+    save; the peak memory, the checkpoint's bytes and a restore bit-equal
+    to the saved state."""
+    import dataclasses
+
+    import torch
+
+    from unittest import mock
+
+    C, rec, d = TRAIN_FULL, {}, os.path.join(root, "c")
+    cut = dataclasses.replace(configs.get_config("qwen2-1.5b"),
+                              n_layers=C["layers"])
+    whole = configs.preset_config
+
+    def preset_config(arch, preset="smoke"):
+        if (arch, preset) == ("qwen2-1.5b", "full"):
+            return cut
+        return whole(arch, preset)
+
+    base = peak_reset(dev)
+    with mock.patch.object(configs, "preset_config", preset_config):
+        train_main(train_mod, rt.Trainer, [
+            "--arch", "qwen2-1.5b", "--preset", "full", "--mode", "full",
+            "--steps", str(C["steps"]), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-every", str(10 ** 6),
+            "--ckpt-dir", d], rec)
+    peak = peak_bytes(dev)
+    finished(rec, C["steps"], "train (c)")
+    if len(rec["save_s"]) != 1:
+        fail(f"train (c): {len(rec['save_s'])} saves, not one")
+    state = rec["state"].train_state
+    t0 = time.perf_counter()
+    back, _ = CheckpointManager(d).restore(C["steps"], state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    n = same_leaves(back, state, "train (c), restore against the saved state")
+    leaves = tree_leaves(state[0])
+    step_dir = os.path.join(d, f"step_{C['steps']}")
+    print(f"[train] (c) qwen2-1.5b --mode full at {C['layers']} of 28 "
+          f"layers ({sum(t.numel() for t in leaves)} parameters, "
+          f"{leaves[0].dtype}): {C['steps']} steps, "
+          "losses " + ", ".join(f"{x:.4f}" for x in rec["trainer"].losses)
+          + f"; peak {peak} B above the {base} B held before "
+          f"(torch.cuda.max_memory_allocated); save {rec['save_s'][0]:.3f} "
+          f"s, step_{C['steps']} {dir_bytes(step_dir)} B on disk; restore "
+          f"{restore_s:.3f} s (a warm read), {n} leaves bit-equal",
+          flush=True)
+
+
+def train_ssd(ops, train_mod, rt, tree_leaves, root) -> dict:
+    """Phase 22 (d): ``launch.train`` on mamba2-1.3b's published config in
+    bf16 (tinytrain): every forward through kernel 5, every backward
+    through 5b.  Returns their launches."""
+    rec = {}
+    kernel_launches(ops, zero=True)
+    train_main(train_mod, rt.Trainer, [
+        "--arch", "mamba2-1.3b", "--preset", "full", "--mode", "tinytrain",
+        "--steps", str(TRAIN_SSD_STEPS), "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), *TRAIN_WIDE,
+        "--ckpt-dir", os.path.join(root, "d")], rec)
+    counts = kernel_launches(ops)
+    finished(rec, TRAIN_SSD_STEPS, "train (d)")
+    fwd = counts["ssd_scan.launches"]
+    bwd = counts["ssd_scan.bwd_launches"]
+    if fwd <= 0 or bwd <= 0:
+        fail(f"train (d): kernel 5 launched {fwd} times, 5b {bwd}")
+    others = {k: v for k, v in counts.items() if v and "ssd_scan" not in k}
+    warm = sorted(rec["step_s"][1:])
+    n_delta = sum(t.numel() for t in tree_leaves(rec["state"].train_state[0]))
+    print(f"[train] (d) mamba2-1.3b tinytrain: {TRAIN_SSD_STEPS} steps, "
+          f"warm {statistics.median(warm) * 1e3:.3f} ms a step; loss "
+          f"{rec['trainer'].losses[0]:.4f} -> {rec['trainer'].losses[-1]:.4f};"
+          f" {n_delta} delta parameters; kernel 5 {fwd} launches, 5b {bwd} "
+          f"(probe and steps); other kernels {others or 'none'}", flush=True)
+    return {"ssd_scan": fwd, "ssd_scan_bwd": bwd}
+
+
+def train_card_vs_cpu(api, configs, T, train_mod, rt, TokenLoader,
+                      tree_map, dev, root) -> None:
+    """Phase 22 (e): qwen2-smoke in f32 (TF32 off), the weights drawn once
+    on the CPU and copied to the card, through the launcher's pieces
+    (``plan_sparse_update``, ``make_sparse_train_step`` under its Adam
+    and schedule, ``Trainer``): the same policy, losses within
+    TRAIN_LOSS_TOL of max(1, |CPU's|)."""
+    import torch
+
+    S = TRAIN_SMOKE
+    cfg = configs.get_reduced("qwen2-1.5b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    runs = []
+    for i, d in enumerate((torch.device("cpu"), dev)):
+        loader = TokenLoader(cfg.vocab, global_batch=S["batch"],
+                             seq=S["seq"], seed=0)
+        bb = api.backbone("qwen2-1.5b", preset="smoke",
+                          batch_size=S["batch"], seq=S["seq"])
+        step_fn, init, policy, _ = train_mod.sparse_training(
+            bb, tree_map(lambda t: t.to(d), params), loader,
+            api.DeviceProfile(**TRAIN_SMOKE_PROFILE),
+            train_mod.train_optimizer(TRAIN_LR, S["steps"]), d,
+            n_samples=S["batch"])
+        tc = rt.TrainerConfig(total_steps=S["steps"],
+                              ckpt_every=S["ckpt_every"],
+                              ckpt_dir=os.path.join(root, f"e{i}"))
+        tr = rt.Trainer(tc, step_fn, loader, log_fn=lambda s: None)
+        tr.run(init)
+        runs.append((policy, tr.losses))
+    (pc, lc), (pg, lg) = runs
+    if (pc.horizon, pc.units) != (pg.horizon, pg.units):
+        fail(f"train (e): card policy {pg.describe()} against the CPU's "
+             f"{pc.describe()}")
+    gap = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(lg, lc))
+    print(f"[train] (e) qwen2-smoke f32 card against CPU: policy "
+          f"{pc.describe()} on both; {len(lc)} losses, largest gap {gap:.3g}"
+          f" of max(1, |CPU's|) (gate {TRAIN_LOSS_TOL:g})", flush=True)
+    if len(lg) != len(lc) or gap > TRAIN_LOSS_TOL:
+        fail(f"train (e): losses {lg} on the card against {lc}")
+
+
+def phase22(dev) -> dict:
+    """Phase 22, the training launcher (``launch.train``, ``runtime.Trainer``,
+    ``checkpoint``) on one card: (a) distributed_finetune.py's run on
+    qwen2-1.5b, under its own and under phase 6's envelope, (b) its
+    fault path, (c) ``--mode full`` at 2 layers, (d)
+    mamba2-1.3b through kernels 5 and 5b, (e) qwen2-smoke card against
+    CPU.  Checkpoints go to a temporary directory, removed at the end.
+    Returns the launches of kernels 5 and 5b on (d)'s path."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import api, configs, runtime as rt
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    times = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        parts = (
+            ("(a)", lambda: train_example(ops, train_mod, rt, tree_leaves,
+                                          root, TRAIN_BUDGET, False)),
+            ("(a) wide", lambda: train_example(ops, train_mod, rt,
+                                               tree_leaves, root, TRAIN_WIDE,
+                                               True)),
+            ("(b)", lambda: train_fault(api, configs, T, train_mod, rt,
+                                        TokenLoader, dev, root)),
+            ("(c)", lambda: train_full(configs, train_mod, rt,
+                                       CheckpointManager, tree_leaves, dev,
+                                       root)),
+            ("(d)", lambda: train_ssd(ops, train_mod, rt, tree_leaves,
+                                      root)),
+            ("(e)", lambda: train_card_vs_cpu(api, configs, T, train_mod,
+                                              rt, TokenLoader, tree_map,
+                                              dev, root)))
+        out = {}
+        for name, part in parts:
+            t1 = time.perf_counter()
+            out[name] = part()
+            gc.collect()  # a recorded run's trainer and rec form a cycle
+            torch.cuda.empty_cache()
+            times[name] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = out["(d)"]
+    print(f"[phase22] {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+          + f"); main-path launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5600,6 +6001,10 @@ def main() -> int:
     fl = phase21(dev, gen, pol, profile)
     fl_launches = fl["launches"]
 
+    # -- phase 22: the training launcher (launch.train, runtime.Trainer,
+    # checkpoints) --------------------------------------------------------
+    tr_launches = phase22(dev)
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -5666,7 +6071,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:22",
-        "launches": ssd_launches + hyb_launches["ssd_scan"],
+        "launches": (ssd_launches + hyb_launches["ssd_scan"]
+                     + tr_launches["ssd_scan"]),
         **ssd_rec["forward"],
     }, {
         "name": "ssd_scan_bwd",
@@ -5674,7 +6080,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "none: no TPU kernel (XLA autodiff of "
                     "src/repro/models/ssm.py:78 ssd_chunked)",
-        "launches": ssd_bwd_launches + hyb_launches["ssd_scan_bwd"],
+        "launches": (ssd_bwd_launches + hyb_launches["ssd_scan_bwd"]
+                     + tr_launches["ssd_scan_bwd"]),
         **ssd_rec["backward"],
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -31,10 +31,11 @@ from ..optim import Optimizer
 from ..utils import tree_map
 from .backbones import Backbone
 from .criterion import Budget
-from .fisher import potentials_from_chans
+from .fisher import fisher_probe, potentials_from_chans
 from .policy import SparseUpdatePolicy
-from .protonet import episode_accuracy
+from .protonet import episode_accuracy, episode_loss
 from .selection import select_policy
+from .sparse import make_episode_sparse_scan, make_episode_sparse_step
 
 _HOST_SYNCS = [0]
 
@@ -90,22 +91,36 @@ def _probe_and_select(
     criterion: str,
     shard_channels: int,
     step_cache,
+    max_way: int,
     n_support: Optional[int] = None,
 ) -> Tuple[SparseUpdatePolicy, float, int]:
     """Algorithm 1 lines 1-4: Fisher probe -> budgeted policy.
 
-    The probe's tap gradients are reduced on the device (the Fisher
-    kernel) and only the per-channel scores are fetched.  ``n_support``
+    Through a step cache the probe's tap gradients are reduced on the
+    device (the Fisher kernel) and only the per-channel scores are
+    fetched; without one they are fetched and reduced on the host.
+    Either way the probe is one transfer.  ``n_support``
     is the valid-row count of the support set when the caller knows it on
     the host (``Task`` does); otherwise it costs one more transfer.
     Returns (policy, fisher_seconds, host_transfers)."""
     n = _n_valid(support, n_support)
     labels = support["episode_labels"]
-    taps = backbone.make_taps(labels.shape[0], labels.device)
     t0 = time.perf_counter()
-    chans = _fetch(step_cache.probe_fisher()(
-        params, support, pseudo_query, taps, float(n)))
-    potentials = potentials_from_chans(backbone.unit_costs, chans)
+    if step_cache is not None:
+        taps = backbone.make_taps(labels.shape[0], labels.device)
+        chans = _fetch(step_cache.probe_fisher()(
+            params, support, pseudo_query, taps, float(n)))
+        potentials = potentials_from_chans(backbone.unit_costs, chans)
+    else:
+        # the host reduction of the tap gradients (``fisher_from_grads``),
+        # as the JAX package's uncached route computes it: one fetch
+        def probe_loss(p, batch, taps=None):
+            return episode_loss(backbone.features, p, support, pseudo_query,
+                                max_way, taps=taps)
+
+        potentials, chans, _ = fisher_probe(backbone, params, probe_loss,
+                                            support, n)
+        _HOST_SYNCS[0] += 1
     fisher_dt = time.perf_counter() - t0
     policy = select_policy(backbone.unit_costs, potentials, chans, budget,
                            criterion=criterion,
@@ -122,6 +137,7 @@ def adapt_task(
     optimizer: Optimizer,
     *,
     iters: int = 40,
+    max_way: int = 16,
     criterion: str = "tinytrain",
     shard_channels: int = 1,
     policy_override: Optional[SparseUpdatePolicy] = None,
@@ -139,10 +155,12 @@ def adapt_task(
     Non-finite steps are skipped on the device and counted in
     ``skipped_steps``; ``nan_loss_steps`` forces NaN losses at the listed
     steps (the fault hook for that guard).  ``step_cache`` (an
-    ``EpisodeStepCache``, which holds ``max_way``) is required: the port
-    has no uncached path."""
-    if step_cache is None:
-        raise ValueError("adapt_task needs step_cache= (an EpisodeStepCache)")
+    ``EpisodeStepCache``) reuses its steps and holds ``max_way``; without
+    one the steps are built for this task (``make_episode_sparse_scan``,
+    ``make_episode_sparse_step``) with the policy's channels fixed, and
+    ``max_way`` applies."""
+    if step_cache is not None:
+        max_way = step_cache.max_way
     dev = support["episode_labels"].device
     transfers = 0
     if policy_override is None:
@@ -150,13 +168,17 @@ def adapt_task(
             backbone, params, support, pseudo_query, budget,
             criterion=criterion,
             shard_channels=shard_channels, step_cache=step_cache,
-            n_support=n_support)
+            max_way=max_way, n_support=n_support)
     else:
         policy, fisher_dt = policy_override, 0.0
 
     deltas = backbone.init_deltas(policy, dev)
     opt_state = optimizer.init(deltas)
-    ci = step_cache.chan_idx_arrays(policy, dev)
+    # the step's trailing arguments: the channels as tensors through the
+    # cache, fixed in the step without one
+    args = (support, pseudo_query)
+    if step_cache is not None:
+        args += (step_cache.chan_idx_arrays(policy, dev),)
 
     t0 = time.perf_counter()
     losses: list = []
@@ -164,9 +186,12 @@ def adapt_task(
     if iters <= 0:
         pass
     elif fused:
-        run = step_cache.scan_steps(policy, iters, nan_loss_steps)
+        run = (step_cache.scan_steps(policy, iters, nan_loss_steps)
+               if step_cache is not None else make_episode_sparse_scan(
+                   backbone.features, policy, optimizer, max_way, iters,
+                   nan_steps=nan_loss_steps))
         deltas, opt_state, loss_arr, skip_arr = run(
-            params, deltas, opt_state, support, pseudo_query, ci)
+            params, deltas, opt_state, *args)
         loss_h, skip_h = _fetch((loss_arr, skip_arr))
         losses = [float(x) for x in loss_h]
         skipped = int(np.sum(skip_h))
@@ -175,12 +200,13 @@ def adapt_task(
         # eager escape hatch: the step applies the same guard on the device
         # and reports NaN for a skipped step; injection restores the
         # pre-step carry on the host side (the step itself stays clean)
-        step = step_cache.step(policy)
+        step = (step_cache.step(policy) if step_cache is not None else
+                make_episode_sparse_step(backbone.features, policy,
+                                         optimizer, max_way))
         inject = frozenset(int(s) for s in nan_loss_steps)
         for t in range(iters):
             prev = (deltas, opt_state)
-            deltas, opt_state, loss = step(params, deltas, opt_state,
-                                           support, pseudo_query, ci)
+            deltas, opt_state, loss = step(params, deltas, opt_state, *args)
             if t in inject:
                 deltas, opt_state = prev
                 losses.append(float("nan"))

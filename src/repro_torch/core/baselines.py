@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import edge_cnn as E
-from ..optim import Optimizer
+from ..optim import Optimizer, apply_updates
 from ..utils import DeviceLike
 from .criterion import (
     Budget, UnitCost, policy_backward_macs, policy_memory_bytes,
@@ -41,6 +41,19 @@ from .sparse import _value_and_grad, scan_train_loop
 # ---------------------------------------------------------------------------
 # FullTrain
 # ---------------------------------------------------------------------------
+
+
+def make_full_train_step(loss_fn, optimizer: Optimizer):
+    """step(params, opt_state, batch) -> (params, opt_state, loss): one
+    update of every backbone parameter on a token batch, ``loss_fn(params,
+    batch) -> scalar`` (the unbounded-resource baseline), out of place."""
+
+    def step(params, opt_state, batch):
+        loss, grads = _value_and_grad(lambda p: loss_fn(p, batch), params)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return step
 
 
 def make_full_episode_step(feature_fn, optimizer: Optimizer, max_way: int):

@@ -12,7 +12,10 @@ of poisoning the iterations after it.  The guard is computed on the device:
 so a later change can capture the loop as a CUDA graph.  Where the JAX
 package jit-compiles and caches one step per policy structure, PyTorch runs
 eagerly: :class:`EpisodeStepCache` keeps the JAX package's surface (it
-hands out step callables) with nothing to cache.
+hands out step callables) with nothing to cache.  The step factories
+``make_sparse_train_step`` (the training launcher's token-batch step),
+``make_episode_sparse_step`` and ``make_episode_sparse_scan`` (the
+uncached ``adapt_task`` route) close over a policy's channels.
 
 The fleet fine-tune (:meth:`EpisodeStepCache.vmap_scan_steps`) runs T
 tasks of one policy structure as one program: ``torch.func.vmap`` over a
@@ -118,6 +121,82 @@ def scan_train_loop(
             losses[t] = loss.float()
             skipped[t] = ~ok
         return x, opt_state, losses, skipped
+
+    return run
+
+
+def _reported(loss: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """The step's loss, or NaN where the guard skipped it."""
+    return torch.where(ok, loss, torch.full_like(loss, float("nan")))
+
+
+def make_sparse_train_step(
+    loss_fn: Callable[..., torch.Tensor],
+    policy: SparseUpdatePolicy,
+    optimizer: Optimizer,
+    *,
+    donate: bool = True,
+):
+    """The token-batch sparse step: ``loss_fn(params, batch, deltas=...,
+    plan=...) -> scalar``.  Returns step(params, deltas, opt_state, batch)
+    -> (deltas, opt_state, loss).  Params stay the frozen weights; only
+    the deltas are differentiated.  A non-finite step (loss or any
+    gradient) leaves deltas and opt_state as they were and reports the
+    loss as NaN.  ``donate`` is accepted for the JAX package's signature;
+    the step never writes its inputs in place either way."""
+    del donate
+
+    def step(params, deltas, opt_state, batch):
+        deltas, opt_state, loss, ok = _guarded_step(
+            lambda d: loss_fn(params, batch, deltas=d, plan=policy),
+            optimizer, deltas, opt_state, ())
+        return deltas, opt_state, _reported(loss, ok)
+
+    return step
+
+
+def make_episode_sparse_step(
+    feature_fn: Callable[..., torch.Tensor],
+    policy: SparseUpdatePolicy,
+    optimizer: Optimizer,
+    max_way: int,
+):
+    """The ProtoNet sparse step with the policy's channels fixed:
+    step(params, deltas, opt_state, support, query) -> (deltas,
+    opt_state, loss), the loss NaN for a skipped step."""
+
+    def f(d, params, support, query):
+        return episode_loss(feature_fn, params, support, query, max_way,
+                            deltas=d, plan=policy)
+
+    def step(params, deltas, opt_state, support, query):
+        deltas, opt_state, loss, ok = _guarded_step(
+            f, optimizer, deltas, opt_state, (params, support, query))
+        return deltas, opt_state, _reported(loss, ok)
+
+    return step
+
+
+def make_episode_sparse_scan(
+    feature_fn: Callable[..., torch.Tensor],
+    policy: SparseUpdatePolicy,
+    optimizer: Optimizer,
+    max_way: int,
+    iters: int,
+    *,
+    nan_steps: Tuple[int, ...] = (),
+):
+    """The whole ProtoNet fine-tune as one call with no host read inside:
+    run(params, deltas, opt_state, support, query) -> (deltas, opt_state,
+    losses, skipped), losses and skipped of shape (iters,)."""
+    loop = scan_train_loop(
+        lambda d, params, support, query: episode_loss(
+            feature_fn, params, support, query, max_way,
+            deltas=d, plan=policy),
+        optimizer, iters, nan_steps=nan_steps)
+
+    def run(params, deltas, opt_state, support, query):
+        return loop(deltas, opt_state, params, support, query)
 
     return run
 
@@ -245,8 +324,7 @@ class EpisodeStepCache:
         def step(params, deltas, opt_state, support, query, chan_idx):
             deltas, opt_state, loss, ok = _guarded_step(
                 f, opt, deltas, opt_state, (params, support, query, chan_idx))
-            return deltas, opt_state, torch.where(
-                ok, loss, torch.full_like(loss, float("nan")))
+            return deltas, opt_state, _reported(loss, ok)
 
         return step
 

@@ -8,7 +8,8 @@ a mesh of 2 or 8 data positions sits on one card or on the CPU:
     session.adapt_many(tasks, profile, mesh=mesh)
 
 (``make_production_mesh``, a TPU pod's 256 or 512 chips, waits for
-ROADMAP item 17 with ``launch/dryrun.py``.)
+ROADMAP item 22 with ``launch/dryrun.py``; ``launch.train
+--production-mesh`` raises until then.)
 """
 from __future__ import annotations
 

@@ -4,8 +4,10 @@ port of ``repro.optim.optimizers``.
 The same optax-like surface: ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)``, with updates added
 to params.  Trees are nested dicts of tensors.  The moment math is float32
-whatever the parameter dtype, and the moments are stored in the
-parameter's dtype, as in the JAX package's default.
+whatever the parameter dtype; the moments are stored in the parameter's
+dtype unless Adam's ``state_dtype`` names another (bf16 moments halve
+the optimiser's memory), as in the JAX package.  ``lr`` is a number or a
+schedule of the (1-based) int32 step tensor (``optim.schedule``).
 Pure functions: nothing is updated in place.
 """
 from __future__ import annotations
@@ -71,19 +73,24 @@ def momentum(lr, beta: float = 0.9) -> Optimizer:
     return Optimizer(init, update, slots=1)
 
 
-def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> Optimizer:
-    """Adam with the moments stored in each parameter's dtype.  (The JAX
-    package's weight decay, moment dtype and lr schedules have no caller
-    in the port.)"""
+def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0, state_dtype=None) -> Optimizer:
+    """Adam/AdamW: ``u = -lr · m̂ / (sqrt(v̂) + eps)``, less ``lr ·
+    weight_decay · p`` when ``weight_decay`` is set, in float32; the
+    moments stored in ``state_dtype`` (e.g. ``torch.bfloat16``) or each
+    parameter's dtype."""
 
     def init(params):
+        def z(p):
+            return torch.zeros_like(p, dtype=state_dtype or p.dtype)
+
         return {"step": _step0(params),
-                "m": tree_map(torch.zeros_like, params),
-                "v": tree_map(torch.zeros_like, params)}
+                "m": tree_map(z, params),
+                "v": tree_map(z, params)}
 
     def update(grads, state, params):
         step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
         c1 = 1.0 - b1 ** step.float()
         c2 = 1.0 - b2 ** step.float()
 
@@ -98,7 +105,10 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
         v = tree_map(upd_v, state["v"], grads)
 
         def step_fn(m_, v_, p):
-            u = -lr * (m_.float() / c1) / (torch.sqrt(v_.float() / c2) + eps)
+            u = -lr_t * (m_.float() / c1) / (torch.sqrt(v_.float() / c2)
+                                              + eps)
+            if weight_decay:
+                u = u - lr_t * weight_decay * p.float()
             return u.to(p.dtype)
 
         upd = tree_map(step_fn, m, v, params)

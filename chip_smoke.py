@@ -327,6 +327,24 @@ exits non-zero:
    weights drawn on the CPU and copied to the card: the launcher's
    probe, policy, sparse steps and ``Trainer`` card against CPU, the same
    policy and losses within 1e-5 of max(1, |CPU's|).
+23. the planning tools: (a) ``launch.dryrun``'s cells on the meta device,
+   counted by processes of their own started right after the build
+   (every LM arch at train_4k, decode_32k and long_500k on the 16 x 16
+   mesh, qwen2-1.5b's prefill_32k and its train_4k on 2 x 16 x 16):
+   every record counted, or skipped exactly where ``shape_applicable``
+   skips, none with an error, each count's wall printed; (b)
+   ``reanalyze`` from the saved op tables and the roofline table of both
+   meshes; (c) qwen2-1.5b's published config in bf16, random weights and
+   tokens from seed 0: ``launch.dryrun``'s train step at 1 x 4,096 (the
+   dry-run policy, Adam), its prefill at 1 x 32,768 (2 of 28 layers: a
+   32k layer is ~131k dispatched ops) and its decode over a 32,768-row
+   cache, each on the card: the op analyser's FLOPs equal to its count
+   on the meta device at the same shape, ``torch.profiler``'s FLOPs, the
+   warm wall and device busy share beside max(t_compute, t_memory) over
+   the card's peaks, the peak memory's rise beside ``peak_live_bytes``,
+   no port kernel launched; (d) ``launch.train --production-mesh`` for 2
+   steps on qwen2-smoke on the card: the mesh line ``{'data': 16,
+   'model': 16}``.
 
 Phases 7 to 9 and 17 run right after phase 5, on its weights.  The
 fused serves of phases 5, 7 to 11 and 17 print ``host_syncs`` beside
@@ -335,7 +353,7 @@ inside the tick loop; the eager loop reads every tick by design); phases
 5, 7, 8, 10, 11 and 17's fused serves run their tick loops under
 ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
 the run.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 22) and read
+counts are set to 0 just before each main path (phases 5 to 23) and read
 just after; phase 18's, 19's, 20's and 21's fused serves also run under
 sync debug mode "error".  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
@@ -634,6 +652,24 @@ TRAIN_SSD_STEPS = 8
 # (e) qwen2-smoke in f32, card against CPU
 TRAIN_SMOKE = dict(steps=6, batch=4, seq=32, ckpt_every=3)
 TRAIN_LOSS_TOL = 1e-5  # relative to max(1, |want|)
+# phase 23, the planning tools: (a)'s dry-run cells on the meta device,
+# every LM arch at three shapes on the 16 x 16 mesh, qwen2-1.5b's 32k
+# prefill and one 2 x 16 x 16 cell (whose count the 16 x 16 one's reuses);
+# each 32k prefill cell counts ~3.7M ops (~2 min), so the other archs'
+# prefill cells are left to ``launch.dryrun --all``
+PLAN_SHAPES = ("train_4k", "decode_32k", "long_500k")
+PLAN_EXTRA = (("qwen2-1.5b", "prefill_32k", False),
+              ("qwen2-1.5b", "train_4k", True))
+PLAN_WAIT = 600  # s phase 23 waits for the planner's processes at most
+# (c)'s steps on the card, qwen2-1.5b at full width in bf16: (batch, seq);
+# the prefill at 2 of 28 layers (a layer of 32k is 2,048 chunk pairs of
+# chunked_attention, ~131k dispatched ops, each under the analyser and the
+# profiler in turn)
+PLAN_ARCH = "qwen2-1.5b"
+PLAN_STEPS = {"train": (1, 4096), "prefill": (1, 32768), "decode": (1, 32768)}
+PLAN_PREFILL_LAYERS = 2
+TRAIN_POD = ["--preset", "smoke", "--steps", "2", "--batch", "4", "--seq",
+             "32", "--mem-budget-mb", "8", "--production-mesh"]
 
 
 
@@ -3562,6 +3598,310 @@ def phase22(dev) -> dict:
     return launches
 
 
+def plan_step(kind: str, dev, gen):
+    """(fn, args) of phase 23 (c)'s ``kind`` step on qwen2-1.5b's published
+    config: ``launch.dryrun``'s step builders on tensors on ``dev`` (random
+    weights and tokens from ``gen``; on the meta device, with no
+    generator, shapes only).  The decode step attends to a cache holding
+    seq - 1 rows and writes the last."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.backbones import lm_backbone
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config(PLAN_ARCH)
+    if kind == "prefill":
+        cfg = dataclasses.replace(cfg, n_layers=PLAN_PREFILL_LAYERS)
+    b, s = PLAN_STEPS[kind]
+    params = T.init_params(cfg, gen, device=dev)
+
+    def tokens(*shape):
+        if gen is None:
+            return torch.empty(shape, dtype=torch.int32, device=dev)
+        return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    if kind == "train":
+        pol = dryrun.dryrun_policy(cfg)
+        deltas = lm_backbone(cfg, tokens_per_batch=1,
+                             batch_size=1).init_deltas(pol, dev)
+        step, opt = dryrun.build_train_step(cfg, pol)
+        return step, (params, deltas, opt.init(deltas),
+                      {"tokens": tokens(b, s), "labels": tokens(b, s)})
+    if kind == "prefill":
+        return dryrun.build_prefill_step(cfg), (params,
+                                                {"tokens": tokens(b, s)})
+    caches = T.init_caches(cfg, b, s, device=dev)
+    for g in caches.values():
+        g["attn"]["len"].fill_(s - 1)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    return dryrun.build_decode_step(cfg), (params, {"tokens": tokens(b, 1)},
+                                           caches, pos)
+
+
+def plan_worker(src: str, out: str, cells, steps) -> None:
+    """A planner process of phase 23 (no card): the dry-run ``cells``
+    (arch, shape, multi_pod) on the meta device, each record to
+    ``out/<tag>.json`` and its op table to ``out/ops`` (a failed cell
+    recorded with its error, as ``launch.dryrun.main`` does), then the
+    meta counts of (c)'s ``steps`` to ``out/steps.json``."""
+    import traceback
+
+    sys.path.insert(0, src)
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import analyse_ops
+
+    os.makedirs(os.path.join(out, "ops"), exist_ok=True)
+    counts = {}
+    for arch, shape, mp in cells:
+        tag = dryrun.cell_tag(arch, shape, mp)
+        try:
+            rec = dryrun.run_cell(arch, shape, multi_pod=mp, verbose=False,
+                                  ops_path=os.path.join(out, "ops",
+                                                        tag + ".json.gz"),
+                                  counts=counts)
+        except Exception as e:  # recorded; phase 23 fails on it
+            rec = {"arch": arch, "shape": shape,
+                   "mesh": "2x16x16" if mp else "16x16",
+                   "error": f"{type(e).__name__}: {e}",
+                   "traceback": traceback.format_exc()[-4000:]}
+        with open(os.path.join(out, tag + ".json"), "w") as f:
+            json.dump(rec, f, indent=2, default=str)
+    if steps:
+        res = {}
+        for kind in steps:
+            t0 = time.perf_counter()
+            fn, args = plan_step(kind, torch.device("meta"), None)
+            res[kind] = {"flops": analyse_ops(fn, *args)["flops"],
+                         "count_s": time.perf_counter() - t0}
+        with open(os.path.join(out, "steps.json"), "w") as f:
+            json.dump(res, f)
+
+
+def plan_start(src: str):
+    """Starts phase 23's planner processes (spawned, daemonic: an exit
+    that skips phase 23 ends them): (a)'s cells but the 32k prefill, the
+    32k prefill, and (c)'s meta counts, each in its own process on a core
+    of its own.  Returns (the processes, their output directory)."""
+    import multiprocessing
+    import tempfile
+
+    from repro_torch import configs
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+    cells = [(a, s, False) for a in configs.lm_arch_ids()
+             for s in PLAN_SHAPES]
+    work = ((cells + [PLAN_EXTRA[1]], ()), ([PLAN_EXTRA[0]], ()),
+            ([], tuple(PLAN_STEPS)))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=plan_worker, args=(src, out, c, st),
+                         daemon=True) for c, st in work]
+    for p in procs:
+        p.start()
+    return procs, out
+
+
+def plan_profile(fn, args):
+    """One run of ``fn(*args)`` under ``torch.profiler`` (CPU and CUDA,
+    ``with_flops``): (the profiler's FLOPs, the device's busy seconds (the
+    union of its activities), the traced window's seconds, the device
+    activities).  Reads the raw Kineto events: ``key_averages`` takes
+    minutes over a million of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    evs = prof.profiler.kineto_results.events()
+    flops = sum(e.flops() for e in evs)
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in evs
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    t0 = min(e.start_ns() for e in evs)
+    t1 = max(e.start_ns() + e.duration_ns() for e in evs)
+    busy, end = 0, 0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return flops, busy * 1e-9, (t1 - t0) * 1e-9, len(spans)
+
+
+def plan_card(ops, dev, gen, meta: dict) -> None:
+    """Phase 23 (c): each of qwen2-1.5b's three steps on the card in bf16,
+    its analyser count against the meta count at the same shape (equal
+    FLOPs), the profiler's FLOPs, the warm wall and device busy share
+    against max(t_compute, t_memory), and the peak memory's rise against
+    ``peak_live_bytes``; no port kernel launched."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.op_analysis import analyse_ops
+
+    for kind in PLAN_STEPS:
+        fn, args = plan_step(kind, dev, gen)
+        kernel_launches(ops, zero=True)
+        got = analyse_ops(fn, *args)
+        if got["flops"] != meta[kind]["flops"]:
+            fail(f"phase 23 {kind}: the analyser counts {got['flops']} "
+                 f"FLOPs on the card, {meta[kind]['flops']} on meta")
+        walls, rises = [], []
+        for _ in range(2):  # the analyser's run warmed it; time the second
+            base = peak_reset(dev)
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rises.append(peak_bytes(dev, base))
+        pflops, busy_s, window_s, n_dev = plan_profile(fn, args)
+        busy = busy_s / max(window_s, 1e-9)
+        launched = {k: v for k, v in kernel_launches(ops).items() if v}
+        if launched:
+            fail(f"phase 23 {kind}: port kernels launched {launched}")
+        t_c = got["flops"] / PEAK_FLOPS["bfloat16"]
+        t_m = got["bytes"] / HBM_BW
+        wall = walls[-1]
+        b, s = PLAN_STEPS[kind]
+        depth = (f", {PLAN_PREFILL_LAYERS} of "
+                 f"{configs.get_config(PLAN_ARCH).n_layers} layers"
+                 if kind == "prefill" else "")
+        print(f"[plan-card] {kind} {b} x {s}{depth}: analyser "
+              f"{got['flops']:.6e} FLOPs on the card == meta (counted in "
+              f"{meta[kind]['count_s']:.1f} s); profiler "
+              f"{pflops:.6e} (ratio {pflops / got['flops']:.4f}); warm wall "
+              f"{wall * 1e3:.2f} ms (first {walls[0] * 1e3:.2f}); traced: "
+              f"device busy {busy_s * 1e3:.2f} ms of a "
+              f"{window_s * 1e3:.2f} ms window ({busy:.3f}) over {n_dev} "
+              f"device activities; bound "
+              f"max(t_compute {t_c * 1e3:.3f}, t_memory {t_m * 1e3:.3f}) ms"
+              f", achieved {max(t_c, t_m) / wall:.4f}; peak rise "
+              f"{rises[-1]} B vs peak_live_bytes "
+              f"{got['peak_live_bytes']:.0f} (ratio "
+              f"{rises[-1] / max(got['peak_live_bytes'], 1):.4f})",
+              flush=True)
+        del fn, args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase23(ops, dev, gen, planner) -> None:
+    """Phase 23, the planning tools: (a) the planner processes' dry-run
+    cells (every record ``ok`` or skipped exactly where ``shape_applicable``
+    skips, none with an error, each count's wall), (b) ``reanalyze`` over
+    them and the roofline table, (c) :func:`plan_card`, (d) ``launch.train
+    --production-mesh`` on qwen2-smoke on the card."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.launch import reanalyze
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.api import SHAPES_BY_NAME, shape_applicable
+
+    sys.path.insert(0, ROOT)
+    from benchmarks_torch import roofline
+
+    t0 = time.perf_counter()
+    procs, out = planner
+    try:
+        # (c) runs while the planner's counts finish
+        t_c = time.perf_counter()
+        steps = os.path.join(out, "steps.json")
+        procs[2].join(PLAN_WAIT)
+        if procs[2].exitcode != 0 or not os.path.exists(steps):
+            fail(f"phase 23: the meta counts of (c) ended with "
+                 f"{procs[2].exitcode}")
+        with open(steps) as f:
+            meta = json.load(f)
+        plan_card(ops, dev, gen, meta)
+        t_c = time.perf_counter() - t_c
+
+        t_a = time.perf_counter()
+        for p in procs[:2]:
+            p.join(max(1.0, PLAN_WAIT - (time.perf_counter() - t0)))
+            if p.is_alive() or p.exitcode != 0:
+                fail(f"phase 23: a planner process ended with "
+                     f"{p.exitcode} (alive: {p.is_alive()})")
+        t_a = time.perf_counter() - t_a
+        recs = {}
+        for path in sorted(glob.glob(os.path.join(out, "*__*.json"))):
+            with open(path) as f:
+                recs[os.path.basename(path)] = json.load(f)
+        want = len(configs.lm_arch_ids()) * len(PLAN_SHAPES) + len(PLAN_EXTRA)
+        if len(recs) != want:
+            fail(f"phase 23 (a): {len(recs)} records of {want}")
+        for tag, rec in recs.items():
+            ok, _ = shape_applicable(configs.get_config(rec["arch"]),
+                                     SHAPES_BY_NAME[rec["shape"]])
+            if "error" in rec:
+                fail(f"phase 23 (a) {tag}: {rec['error']}\n"
+                     f"{rec.get('traceback', '')}")
+            if ok == ("skipped" in rec) or (ok and not rec["flops_total"]):
+                fail(f"phase 23 (a) {tag}: skipped {rec.get('skipped')!r} "
+                     f"where shape_applicable says {ok}")
+            print(f"[plan] {tag}: " + (
+                f"skipped ({rec['skipped']})" if "skipped" in rec else
+                f"count {rec['count_s']} s"
+                f"{' (reused)' if rec.get('count_reused') else ''}, "
+                f"{rec['flops_total']:.4e} FLOPs, {rec['bytes_total']:.4e} "
+                f"B, peak live {rec['peak_live_bytes']:.4e} B, args "
+                f"{rec['argument_size_in_bytes']} B/device, "
+                f"{rec['bottleneck']}, model_flops_ratio "
+                f"{rec['model_flops_ratio']:.4f}"), flush=True)
+
+        # (b) reanalyze from the saved op tables, then the table
+        n = sum(reanalyze.reanalyze(os.path.join(out, t),
+                                    os.path.join(out, "ops"))
+                for t in recs)
+        print(f"[plan] reanalyze: {n} cells updated", flush=True)
+        for mesh in ("16x16", "2x16x16"):
+            for row in roofline.table(out, mesh):
+                print(f"[roofline] {row}", flush=True)
+
+        # (d) the launcher on the production mesh
+        buf = io.StringIO()
+        root = tempfile.mkdtemp(prefix="chip_smoke_pod_")
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_mod.main(TRAIN_POD + ["--ckpt-dir", root])
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        text = buf.getvalue()
+        if ("mesh={'data': 16, 'model': 16}" not in text
+                or "[train] done: 2 steps" not in text):
+            fail(f"phase 23 (d): launch.train --production-mesh printed "
+                 f"{text[-600:]!r}")
+        print("[plan] (d) launch.train --production-mesh on qwen2-smoke: "
+              + " | ".join(line for line in text.splitlines()
+                           if "mesh=" in line or "done:" in line),
+              flush=True)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"[phase23] {time.perf_counter() - t0:.1f} s ((c) {t_c:.1f}, "
+          f"then (a)'s wait {t_a:.1f})", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3623,6 +3963,10 @@ def main() -> int:
     print(f"[build] {', '.join(build.SOURCES)} for sm_90a in {secs:.1f} s "
           f"(compiled {built or 'none: cached'}; max {max(regs, default=0)} "
           f"registers/thread, {spills} bytes of spill stores)", flush=True)
+
+    # phase 23's planner counts on the meta device in processes of their
+    # own, beside the phases below
+    planner = plan_start(src)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -6004,6 +6348,10 @@ def main() -> int:
     # -- phase 22: the training launcher (launch.train, runtime.Trainer,
     # checkpoints) --------------------------------------------------------
     tr_launches = phase22(dev)
+
+    # -- phase 23: the planning tools (launch.dryrun, reanalyze, the
+    # roofline table, the analyser on the card, --production-mesh) -------
+    phase23(ops, dev, gen, planner)
 
     print(smi)
     print(json.dumps({"kernels": [{

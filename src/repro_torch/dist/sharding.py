@@ -1,6 +1,14 @@
-"""Task-axis placement for fleet adaptation: the port of
-``repro.dist.sharding``'s ``FleetShardingRules``.
+"""Placement rules: the port of ``repro.dist.sharding``.
 
+:class:`ShardingRules` is the TP/DP placement planner of every registered
+arch: for params, deltas, optimiser state, batches and caches it answers
+"where does this tensor live" on a ("data", "model") or ("pod", "data",
+"model") mesh, with the JAX package's divisibility guards and rules line
+for line.  The port runs no SPMD partitioner, so its trees of specs are
+what the dry run reads: each leaf's per-device shape
+(:meth:`ShardingRules.shard_shape`), hence its bytes on one device.
+
+:class:`FleetShardingRules` is the fleet's task-axis placement.
 ``TinyTrainSession.adapt_many`` stacks N tasks' episodes and channel
 indices along a leading task axis.  On a mesh these rules split that axis
 over the mesh's data axes (every axis but ``model``) while the frozen
@@ -17,12 +25,13 @@ in the JAX package, so the rules are testable against a mesh-shaped fake
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..utils import tree_leaves, tree_map
+from ..models.api import ArchConfig
+from ..utils import named_tree_map, tree_leaves, tree_map
 
 Spec = Tuple[Any, ...]
 
@@ -169,6 +178,212 @@ class FleetShardingRules:
                 lambda x, _o=off, _w=hi - lo, _d=d: _to(x[_o:_o + _w], _d),
                 blocks[h]))
         return shards
+
+
+class ShardingRules:
+    """TP/DP placement of one arch on one mesh (``axis_names`` and an axis
+    -> size ``shape``: the port's :class:`~.mesh.Mesh` or a mesh-shaped
+    fake).  A dimension that does not divide its axis is replicated:
+
+    - attention q/o projections shard over heads (TP) when heads divide;
+    - MLP / SSM inner dims shard over 'model' when they divide;
+    - MoE experts shard over 'model' (EP), over ('model', *data) for
+      full-EP archs whose expert count covers the whole mesh (deepseek),
+      else the per-expert FFN dim shards (expert-TP);
+    - vocab/embedding shards only when the vocab divides;
+    - ``seq_parallel=True`` replicates block weights and shards the
+      *sequence* dim of the batch over 'model' instead.
+
+    The tree methods return trees of specs (the JAX package's trees of
+    ``NamedSharding``)."""
+
+    def __init__(self, cfg: ArchConfig, mesh: Any, *,
+                 seq_parallel: bool = False):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.seq_parallel = seq_parallel
+        self.sizes = dict(mesh.shape)
+        self.tp = int(self.sizes.get("model", 1))
+        self.dp, self.dp_size = _dp_axes(mesh)
+
+    # -- divisibility guards ----------------------------------------------
+
+    @property
+    def shard_q_heads(self) -> bool:
+        return self.cfg.n_heads > 0 and self.cfg.n_heads % self.tp == 0
+
+    @property
+    def shard_ffn(self) -> bool:
+        return self.cfg.d_ff > 0 and self.cfg.d_ff % self.tp == 0
+
+    @property
+    def shard_vocab(self) -> bool:
+        return self.cfg.vocab % self.tp == 0
+
+    @property
+    def shard_ssm(self) -> bool:
+        return (self.cfg.ssm_state > 0 and self.cfg.ssm_head_dim > 0
+                and self.cfg.n_ssm_heads % self.tp == 0)
+
+    @property
+    def shard_experts(self) -> bool:
+        return self.cfg.n_experts > 0 and self.cfg.n_experts % self.tp == 0
+
+    @property
+    def shard_experts_full(self) -> bool:
+        """Full EP: experts cover the whole mesh (model x data)."""
+        return (self.cfg.n_experts > 0
+                and self.cfg.n_experts % (self.tp * self.dp_size) == 0)
+
+    @property
+    def shard_expert_ffn(self) -> bool:
+        return self.cfg.d_expert > 0 and self.cfg.d_expert % self.tp == 0
+
+    # -- per-tensor specs --------------------------------------------------
+
+    def param_spec(self, name: str, shape: Sequence[int]) -> Spec:
+        """Placement of one named parameter; replicated unless matched."""
+        none: Spec = tuple(None for _ in shape)
+        parts = name.split("/")
+        leaf = parts[-1]
+        module = parts[-2] if len(parts) > 1 else ""
+
+        if leaf in ("embed", "unembed", "lm_head") or name == "embed":
+            if self.shard_vocab and len(shape) >= 1:
+                return ("model",) + none[1:]
+            return none
+        if self.seq_parallel and name.startswith("stacks"):
+            # SP replicates block weights; activations shard on sequence
+            return none
+        if module == "attn":
+            if not self.shard_q_heads:
+                return none
+            if leaf in ("wq", "w_uq"):
+                return none[:-1] + ("model",)
+            if leaf == "wo":
+                return none[:-2] + ("model", None)
+            return none
+        if module == "mlp":
+            if not self.shard_ffn:
+                return none
+            if leaf in ("w_gate", "w_up"):
+                return none[:-1] + ("model",)
+            if leaf == "w_down":
+                return none[:-2] + ("model", None)
+            return none
+        if module == "moe":
+            if leaf not in ("w_gate", "w_up", "w_down") or len(shape) < 4:
+                return none
+            if self.shard_experts_full:
+                return (None, ("model",) + self.dp) + none[2:]
+            if self.shard_experts:
+                return (None, "model") + none[2:]
+            if self.shard_expert_ffn:
+                if leaf == "w_down":
+                    return none[:-2] + ("model", None)
+                return none[:-1] + ("model",)
+            return none
+        if module == "ssm":
+            if not self.shard_ssm:
+                return none
+            if leaf in ("w_x", "w_z"):
+                return none[:-1] + ("model",)
+            if leaf == "w_out":
+                return none[:-2] + ("model", None)
+            return none
+        return none
+
+    def delta_spec(self, name: str, shape: Sequence[int]) -> Spec:
+        """Placement of one delta leaf (no layer-stack dim): the selected-
+        channel dim, where the full weight carries its TP dim, shards over
+        'model' when it divides."""
+        none: Spec = tuple(None for _ in shape)
+        leaf = name.split("/")[-1]
+        if not shape:
+            return none
+        if leaf in ("w_down", "w_out", "wo") and shape[0] % self.tp == 0:
+            return ("model",) + none[1:]
+        if shape[-1] % self.tp == 0:
+            return none[:-1] + ("model",)
+        return none
+
+    def _dp_axis(self) -> Any:
+        return self.dp if len(self.dp) > 1 else (self.dp[0] if self.dp
+                                                 else None)
+
+    def batch_spec(self) -> Dict[str, Spec]:
+        """(batch, seq) placement for token batches."""
+        spec = (self._dp_axis(), "model" if self.seq_parallel else None)
+        return {"tokens": spec, "labels": spec}
+
+    def shard_shape(self, spec: Spec, shape: Sequence[int]) -> Tuple[int, ...]:
+        """One device's block of a leaf of ``shape`` under ``spec``: each
+        dimension divided by the product of its axes' sizes
+        (``NamedSharding.shard_shape``); a dimension they do not divide
+        raises."""
+        out = []
+        for i, n in enumerate(shape):
+            ax = spec[i] if i < len(spec) else None
+            axes = () if ax is None else (ax if isinstance(ax, tuple)
+                                          else (ax,))
+            k = int(np.prod([self.sizes[a] for a in axes])) if axes else 1
+            if n % k:
+                raise ValueError(f"dimension {i} of {tuple(shape)} does not "
+                                 f"split over {axes} ({k})")
+            out.append(int(n) // k)
+        return tuple(out)
+
+    # -- trees of specs ----------------------------------------------------
+
+    def params(self, params: Any) -> Any:
+        return named_tree_map(
+            lambda name, x: self.param_spec(name, x.shape), params)
+
+    def deltas(self, deltas: Any) -> Any:
+        return named_tree_map(
+            lambda name, x: self.delta_spec(name, x.shape), deltas)
+
+    def opt_state(self, opt_shapes: Any, deltas_sh: Any = None) -> Any:
+        # moment tensors mirror their delta leaves; scalars replicate
+        return named_tree_map(
+            lambda name, x: (self.delta_spec(name, x.shape)
+                             if getattr(x, "ndim", 0) else ()),
+            opt_shapes)
+
+    def batch(self, batch: Any) -> Any:
+        dp_axis = self._dp_axis()
+
+        def spec(name, x):
+            ndim = len(x.shape)
+            if ndim == 0:
+                return ()
+            s = [None] * ndim
+            if dp_axis is not None and int(x.shape[0]) % self.dp_size == 0:
+                s[0] = dp_axis
+            if self.seq_parallel and ndim >= 2 and x.shape[1] % self.tp == 0:
+                s[1] = "model"
+            return tuple(s)
+
+        return named_tree_map(spec, batch)
+
+    def caches(self, caches: Any, seq_sharded: bool = False) -> Any:
+        """KV/state caches: batch-sharded over data; optionally the seq dim
+        over 'model' for batch=1 long-context cells."""
+
+        def spec(name, x):
+            ndim = len(x.shape)
+            s = [None] * ndim
+            # stacked cache leaves are (L, B, ...); len leaves (B,)/(L, B)
+            if name.endswith("len"):
+                return tuple(s)
+            if ndim >= 2:
+                if seq_sharded and ndim >= 3 and x.shape[2] % self.tp == 0:
+                    s[2] = "model"
+                elif self.dp and x.shape[1] % self.dp_size == 0:
+                    s[1] = self._dp_axis()
+            return tuple(s)
+
+        return named_tree_map(spec, caches)
 
 
 def map_shards(fn: Callable, *args: Any) -> Any:

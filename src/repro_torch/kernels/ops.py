@@ -1,13 +1,14 @@
 """Public entry points of the port's kernels, dispatched by device.
 
-A tensor on the CPU runs the kernel's plain PyTorch version; a tensor on a
-card launches the hand-written kernel and never the plain version (the
-kernel wrapper raises on what it does not take).  Each entry counts its
-kernel launches in a plain integer attribute, ``<entry>.launches``, so a
-run can show that its main path went through the kernel (``ssd_scan``
-also counts its backward's in ``ssd_scan.bwd_launches``; its two
-``torch.autograd.Function`` classes count where they launch, so a launch
-that a ``torch.func.vmap`` folds for many tasks counts once).
+A tensor on the CPU (or the meta device of the dry run) runs the kernel's
+plain PyTorch version; a tensor on a card launches the hand-written kernel
+and never the plain version (the kernel wrapper raises on what it does not
+take).  Each entry counts its kernel launches in a plain integer
+attribute, ``<entry>.launches``, so a run can show that its main path went
+through the kernel (``ssd_scan`` also counts its backward's in
+``ssd_scan.bwd_launches``; its two ``torch.autograd.Function`` classes
+count where they launch, so a launch that a ``torch.func.vmap`` folds for
+many tasks counts once).
 
 Entries: ``fisher``/``fisher_auto``/``fisher_tapgrads`` (Eq. 2),
 ``flash_attention`` (aligned: whole sequences, positions from 0),
@@ -34,7 +35,10 @@ from .ssd_scan import SSDScanFn
 
 
 def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
+    """Whether ``t`` goes to the kernel: on a card yes; on the CPU, and on
+    the meta device (the dry run's shape-only tensors, which no kernel can
+    read), the plain version runs and no launch is counted."""
+    if t.device.type in ("cpu", "meta"):
         return False
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for device {t.device}")

@@ -1,15 +1,17 @@
-"""Mesh construction for the fleet path: the port of ``repro.launch.mesh``.
+"""Mesh construction: the port of ``repro.launch.mesh``.
 
-``make_debug_mesh`` lays ("data", "model") positions over the given
-devices, or every visible CUDA device, round-robin; devices may repeat, so
-a mesh of 2 or 8 data positions sits on one card or on the CPU:
+Both builders lay named positions over the given devices, or every visible
+CUDA device, round-robin (:func:`~..dist.mesh.make_mesh`); devices may
+repeat, so a mesh of many positions sits on one card, on the CPU or, for
+the dry run's shapes only, on the meta device:
 
     mesh = make_debug_mesh(2, devices=["cuda:0", "cuda:0"])
     session.adapt_many(tasks, profile, mesh=mesh)
 
-(``make_production_mesh``, a TPU pod's 256 or 512 chips, waits for
-ROADMAP item 22 with ``launch/dryrun.py``; ``launch.train
---production-mesh`` raises until then.)
+``make_production_mesh`` is the JAX package's pod layout, ("data",
+"model") = (16, 16), or ("pod", "data", "model") = (2, 16, 16) with
+``multi_pod``: ``launch.dryrun`` plans every cell on it and ``launch.train
+--production-mesh`` prints it.  Larger topologies only change the sizes.
 """
 from __future__ import annotations
 
@@ -25,3 +27,13 @@ def make_debug_mesh(n_devices: int = 1, model: int = 1,
     model, at least 1)."""
     data = max(1, n_devices // model)
     return make_mesh((data, model), ("data", "model"), devices)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence[DeviceLike]] = None
+                         ) -> Mesh:
+    """The (16, 16) ("data", "model") mesh, or with ``multi_pod`` the (2,
+    16, 16) ("pod", "data", "model") one: 256 or 512 positions."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), devices)
+    return make_mesh((16, 16), ("data", "model"), devices)

@@ -21,6 +21,9 @@ Runs on the card unless ``--device cpu``.  Weights are random, from a
 ``torch.Generator`` seeded with ``--seed``.  (In ``repro.launch.train``
 ``--device`` names the device profile; here it is the torch device, and
 ``--profile`` names the profile, as in ``repro_torch.launch.serve``.)
+``--production-mesh`` lays the pod's (16, 16) ("data", "model") mesh over
+that device and prints it, as the JAX launcher prints ``dict(mesh.shape)``;
+the mesh is only printed, and training proceeds as on the debug mesh.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ from ..models import transformer as T
 from ..optim import Optimizer, adam, warmup_cosine
 from ..runtime import Trainer, TrainerConfig
 from ..utils import resolve_device, tree_leaves
-from .mesh import make_debug_mesh
+from .mesh import make_debug_mesh, make_production_mesh
+
 
 def on_device(batch: Dict[str, np.ndarray],
               device: torch.device) -> Dict[str, torch.Tensor]:
@@ -112,16 +116,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights' generator")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise SystemExit(
-            "[train] --production-mesh: make_production_mesh (a TPU pod's "
-            "256 or 512 chips) is not ported; it waits for ROADMAP item 22 "
-            "with launch/dryrun.py")
 
     device = resolve_device(args.device)
     cfg = configs.preset_config(args.arch, args.preset)
-    mesh = (make_debug_mesh(torch.cuda.device_count())
-            if device.type == "cuda" else make_debug_mesh(1, devices=[device]))
+    if args.production_mesh:
+        # the pod layout's 256 positions over the chosen device; the step
+        # runs on that device as on the debug mesh
+        mesh = make_production_mesh(devices=[device])
+    elif device.type == "cuda":
+        mesh = make_debug_mesh(torch.cuda.device_count())
+    else:
+        mesh = make_debug_mesh(1, devices=[device])
     print(f"[train] arch={cfg.name} mode={args.mode} mesh={mesh.shape}")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -131,8 +131,9 @@ def ssd_chunked(
     On a card the scan is the kernel pair behind ``ops.ssd_scan`` (float32
     inside, gradients for x, dt, B and C); ``need_state=False`` then skips
     the final state, which comes back None.  On the CPU it is
-    :func:`ssd_chunked_plain`."""
-    if x.device.type == "cpu":
+    :func:`ssd_chunked_plain`, and on the meta device too, so the dry run
+    counts the XLA form that the JAX package's dry run compiles."""
+    if x.device.type in ("cpu", "meta"):
         return ssd_chunked_plain(x, dt, a, bmat, cmat, chunk, init_state)
     from ..kernels import ops
 

@@ -201,18 +201,26 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator, *,
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], *,
                 device: DeviceLike = "cuda") -> Params:
     """Random weights in the JAX package's layout and distributions
     (uniform ±1/sqrt(d_in) projections, N(0, 0.02²) embedding, zero
     biases, rmsnorm weights 0 since the norm scales by ``1 + w``).  The
     numbers are ``generator``'s, which must live on ``device``; they are
-    not ``jax.random``'s — load JAX weights with ``bridge`` instead."""
+    not ``jax.random``'s — load JAX weights with ``bridge`` instead.
+    On ``device="meta"`` the generator may be None: the tree's shapes and
+    dtypes, nothing drawn or allocated (``jax.eval_shape`` of the JAX
+    package's ``init_params``)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if generator is None and dev.type != "meta":
+        raise ValueError("init_params needs a generator (None only on "
+                         "device='meta')")
     dtype = torch_dtype(cfg)
 
     def dense(*shape):  # (..., d_in, d_out)
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=dev)
         s = 1.0 / math.sqrt(shape[-2])
         if len(shape) == 4:
             # an expert stack (L, E, d_in, d_out): filled a matrix at a

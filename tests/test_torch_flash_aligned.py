@@ -16,6 +16,7 @@ from test_torch_ssd_scan import tf32_round
 from repro_torch.kernels import flash_aligned as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_ref
+from torch_devices import elsewhere
 
 CONFIGS = {  # tests/test_kernels.py, TestFlashAttention.test_vs_oracle
     "gqa_causal": dict(b=2, s=256, hq=4, hkv=2, d=64, causal=True, window=0),
@@ -100,7 +101,7 @@ def test_non_cpu_tensor_never_runs_the_plain_version(monkeypatch):
         raise AssertionError("the plain version ran")
 
     monkeypatch.setattr(ops, "flash_attention_ref", plain)
-    q, k, v = (torch.from_numpy(a).to("meta")
+    q, k, v = (elsewhere(torch.from_numpy(a))
                for a in _qkv(CONFIGS["gqa_causal"]))
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention(q, k, v)

@@ -15,6 +15,7 @@ from test_torch_flash_aligned import _assert_close
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_cached_ref
+from torch_devices import elsewhere
 
 B, SQ, HQ, HKV, D, SMAX = 3, 8, 4, 2, 32, 64
 
@@ -158,8 +159,8 @@ def test_plain_version_dtype_and_shape():
 
 
 def test_non_cpu_tensor_never_runs_the_plain_version():
-    q, k, v = (torch.from_numpy(a).to("meta") for a in _qkv())
-    off = torch.zeros(B, dtype=torch.int32, device="meta")
+    q, k, v = (elsewhere(torch.from_numpy(a)) for a in _qkv())
+    off = elsewhere(torch.zeros(B, dtype=torch.int32))
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention_cached(q, k, v, q_offset=off, kv_len=off)
 

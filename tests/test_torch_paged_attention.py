@@ -17,6 +17,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
     flash_attention_cached_ref, flash_attention_paged_ref,
 )
+from torch_devices import elsewhere
 
 
 def _pallas_paged(q, kp, vp, table, q_off, kv_len):
@@ -148,7 +149,7 @@ def test_plain_version_dtype_and_shape():
 
 
 def test_non_cpu_tensor_never_runs_the_plain_version():
-    q, kp, vp, table, q_off, kv_len = (torch.from_numpy(a).to("meta")
+    q, kp, vp, table, q_off, kv_len = (elsewhere(torch.from_numpy(a))
                                        for a in _paged_case())
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention_paged(q, kp, vp, table, q_offset=q_off,

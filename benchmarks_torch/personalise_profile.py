@@ -122,9 +122,9 @@ def main() -> int:
     tick_s = collections.defaultdict(list)
     advance = E.ServeEngine._advance
 
-    def timed_advance(self, plan):
+    def timed_advance(self, plan, *args, **kw):
         t0 = time.perf_counter()
-        out = advance(self, plan)
+        out = advance(self, plan, *args, **kw)
         torch.cuda.synchronize()
         kind = ("pers " if self.personalise is not None else "plain ")
         # the tick's kind, read only after the synchronise above

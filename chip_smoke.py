@@ -345,6 +345,22 @@ exits non-zero:
    no port kernel launched; (d) ``launch.train --production-mesh`` for 2
    steps on qwen2-smoke on the card: the mesh line ``{'data': 16,
    'model': 16}``.
+24. the overlay registry and the capped MoE decode: (a) qwen2-1.5b's
+   published config in bf16, a spec registered over the built-in
+   ``mlp`` from outside the package (``w_up`` and ``w_down`` only,
+   through ``serving.engine.register_unit_overlay``, the built-in
+   restored after), two users' seeded deltas on 128 neurons of 4 layers,
+   phase 5's traffic split between them: ``ServeEngine(personalise=)``'s
+   streams identical to each user's folded engine's and unlike the base
+   model's, kernel 2 launched; (b) a raw folder
+   (``register_unit_folder``) folds one layer's ``w_down`` rows on the
+   card bit for bit as on the CPU, and ``ServeEngine(personalise=)``
+   refuses it; (c) mixtral-8x7b at its published width, 8 of 32 layers,
+   one decode step of 8 slots after a 16-token prefill:
+   ``decode_step(drop_free=False)`` (the capped queue) against
+   ``drop_free=True``, the dropped assignments printed, the rows with
+   none dropped equal to bf16 rounding, and ``op_analysis``'s FLOPs of
+   ``dryrun.build_decode_step`` on the card equal to its meta count.
 
 Phases 7 to 9 and 17 run right after phase 5, on its weights.  The
 fused serves of phases 5, 7 to 11 and 17 print ``host_syncs`` beside
@@ -353,7 +369,7 @@ inside the tick loop; the eager loop reads every tick by design); phases
 5, 7, 8, 10, 11 and 17's fused serves run their tick loops under
 ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync there fails
 the run.  The kernel launch
-counts are set to 0 just before each main path (phases 5 to 23) and read
+counts are set to 0 just before each main path (phases 5 to 24) and read
 just after; phase 18's, 19's, 20's and 21's fused serves also run under
 sync debug mode "error".  The last three lines are the card's
 ``nvidia-smi`` name and power limit, the kernels' JSON record and
@@ -670,6 +686,17 @@ PLAN_STEPS = {"train": (1, 4096), "prefill": (1, 32768), "decode": (1, 32768)}
 PLAN_PREFILL_LAYERS = 2
 TRAIN_POD = ["--preset", "smoke", "--steps", "2", "--batch", "4", "--seq",
              "32", "--mem-budget-mb", "8", "--production-mesh"]
+# phase 24, the overlay registry and the capped MoE decode: (a) a spec
+# registered over the built-in mlp (w_up and w_down only), two users'
+# seeded deltas on REG_CHANS d_ff neurons of REG_LAYERS of qwen2-1.5b,
+# phase 5's traffic split between the users
+REG_LAYERS = (2, 9, 16, 23)
+REG_CHANS = 128
+REG_SCALE = 0.2  # the deltas' std (the weights' is ~0.015 and ~0.006)
+REG_ENGINE = dict(slots=8, max_len=512, chunk=32)
+# (c) mixtral-8x7b at its published width, 8 of 32 layers (phase 18's
+# rolling serve's depth): a decode batch of 8 slots after a 16-token prefill
+CAPPED = dict(layers=8, slots=8, prompt=16, max_len=64)
 
 
 
@@ -3902,6 +3929,301 @@ def phase23(ops, dev, gen, planner) -> None:
           f"then (a)'s wait {t_a:.1f})", flush=True)
 
 
+def registry_serve(ops, dev, gen) -> tuple:
+    """Phase 24 (a): a declarative spec registered over the built-in
+    ``mlp`` from outside the package (through ``serving.engine``'s
+    re-export), then restored: two users' deltas served per slot through
+    ``ServeEngine(personalise=)`` and through each user's folded engine,
+    the same streams, kernel 2 launched.  Returns (qwen2-1.5b's config,
+    its params, kernel 2's launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
+    from repro_torch.models import layers as L
+    from repro_torch.models import overlay as OV
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import DeltaSet, Request, ServeEngine
+    from repro_torch.serving import engine as serving_engine
+
+    cfg = configs.get_config("qwen2-1.5b")
+    params = T.init_params(cfg, gen, device=dev)
+    dt, d = T.torch_dtype(cfg), cfg.d_model
+    rng = np.random.default_rng(24)
+    pol = SparseUpdatePolicy(horizon=min(REG_LAYERS), units=tuple(
+        SelectedUnit(lid, "mlp", tuple(int(c) for c in np.sort(rng.choice(
+            cfg.d_ff, REG_CHANS, replace=False)))) for lid in REG_LAYERS))
+
+    def randn(*shape):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * REG_SCALE).to(dt)
+
+    users = {u: {f"L{lid}": {"mlp": {"w_up": randn(d, REG_CHANS),
+                                      "w_down": randn(REG_CHANS, d)}}
+                 for lid in REG_LAYERS} for u in (0, 1)}
+
+    def zero_pack(cfg_, lid, k, dtype, device):
+        return {"w_up": torch.zeros((cfg_.d_model, k), dtype=dtype,
+                                    device=device),
+                "w_down": torch.zeros((k, cfg_.d_model), dtype=dtype,
+                                      device=device)}
+
+    def requests():
+        r = np.random.default_rng(0)
+        return [Request(uid=i % 2, prompt=r.integers(
+            0, cfg.vocab, int(n)).astype(np.int32), max_new=16)
+            for i, n in enumerate(r.integers(32, 257, 8))]
+
+    builtin = OV.get_overlay("mlp")
+    serving_engine.register_unit_overlay(OV.UnitOverlay(
+        "mlp", "mlp", (OV.Edit("w_up", "w_up", "out"),
+                       OV.Edit("w_down", "w_down", "in")),
+        delta_init=zero_pack))
+    try:
+        kernel_launches(ops, zero=True)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, params, personalise=pol, device=dev,
+                          **REG_ENGINE)
+        arena = sorted(eng._delta_tmpl[REG_LAYERS[0]]["mlp"][0])
+        for u, dd in users.items():
+            eng.swap_deltas(u, DeltaSet.from_policy(pol, dd))
+        eng.tick_sync_debug = "error"
+        reqs = requests()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = eng.last_run_report
+        got = streams_of(reqs)
+        del eng
+        folded = {}
+        for u, dd in users.items():
+            fe = ServeEngine(cfg, OV.fold_deltas(cfg, params, dd, pol),
+                             device=dev, **REG_ENGINE)
+            folded[u] = streams_of(fe.run(requests()))
+            del fe
+        launches = ops.flash_attention_cached.launches
+        oracle = [folded[i % 2][i] for i in range(len(reqs))]
+        base = streams_of(ServeEngine(cfg, params, device=dev,
+                                      **REG_ENGINE).run(requests()))
+    finally:
+        OV.register_unit_overlay(builtin)
+    torch.cuda.empty_cache()
+    # why a slot's rows come from the whole block's product: a batched
+    # product reduces in another order than a folded copy's x @ W
+    probe = []
+    slots = REG_ENGINE["slots"]
+    for name in ("w_up", "w_down"):
+        w = params["stacks"]["g0"]["mlp"][name][REG_LAYERS[0]]
+        stk = w.expand(slots, *w.shape).contiguous()
+        for rows in (1, 8):  # a decode tick's rows a slot, a block's
+            x = torch.randn((slots, rows, w.shape[0]), generator=gen,
+                            device=dev).to(dt)
+            ref = x.reshape(-1, w.shape[0]) @ w
+            bat = torch.bmm(x, stk).reshape(ref.shape)
+            port = L.bmm(x, stk).reshape(ref.shape)
+            probe.append((name, rows, (bat.float() - ref.float()).abs().max()
+                          .item(), torch.equal(port, ref)))
+    same = got == oracle
+    print(f"[registry] (a) per-slot products at {slots} slots against the "
+          f"shared x @ W: " + "; ".join(
+              f"{n} {r} row(s) a slot: torch.bmm max |diff| {e:.4g}, "
+              f"layers.bmm {'bit-equal' if q else 'DIFFERS'}"
+              for n, r, e, q in probe), flush=True)
+    if not all(q for *_, q in probe):
+        fail("phase 24 (a): layers.bmm's per-slot product is not the "
+             "shared product's")
+    print(f"[registry] (a) qwen2-1.5b bf16 published width: a spec "
+          f"registered over the built-in mlp (edits w_up, w_down; the "
+          f"arena's packs {arena}), {pol.describe()}, two users: "
+          f"{len(reqs)} requests, {sum(len(o) for o, _ in got)} new tokens "
+          f"per slot in {wall:.3f} s ({rep['ticks']} ticks, "
+          f"{rep['host_syncs']} host syncs for {rep['chunks']} chunks); "
+          f"per-slot vs folded engines "
+          f"{'identical' if same else 'DIFFERENT'}, base "
+          f"{'differs' if base != got else 'EQUAL'}; flash_cached launches "
+          f"{launches}; the built-in mlp restored "
+          f"({OV.get_overlay('mlp') is builtin})", flush=True)
+    one_sync_a_chunk(rep, "phase 24 (a)")
+    if arena != ["w_down", "w_up"]:
+        fail(f"phase 24 (a): the arena's packs {arena} are not the "
+             "registered spec's")
+    if not all(o == "done" for _, o in got):
+        fail(f"phase 24 (a): requests not done: {got}")
+    if not same:
+        fail(f"phase 24 (a): per-slot streams {got} differ from the folded "
+             f"engines' {oracle}")
+    if base == got:
+        fail("phase 24 (a): the deltas changed no stream")
+    if launches <= 0 or launches % cfg.n_layers:
+        fail(f"phase 24 (a): flash_cached launched {launches} times")
+    if OV.get_overlay("mlp") is not builtin:
+        fail("phase 24 (a): the built-in mlp spec was not restored")
+    return cfg, params, launches
+
+
+def registry_raw(cfg, params, dev) -> None:
+    """Phase 24 (b): a raw folder (``register_unit_folder``) folds one
+    layer's ``w_down`` rows on the card bit for bit as on the CPU, and
+    ``ServeEngine(personalise=)`` refuses it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.policy import SelectedUnit, SparseUpdatePolicy
+    from repro_torch.models import overlay as OV
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving import engine as serving_engine
+
+    @serving_engine.register_unit_folder("mlp_rows")
+    def fold_rows(cfg_, stack, j, dd, idx):
+        w = stack["mlp"]["w_down"].clone()
+        w[j, torch.as_tensor(idx, device=w.device).long(), :] += dd["w"].to(
+            w.dtype)
+        stack["mlp"]["w_down"] = w
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    chans = tuple(range(0, cfg.d_ff, cfg.d_ff // 64))
+    pol = SparseUpdatePolicy(horizon=0, units=(
+        SelectedUnit(0, "mlp_rows", chans),))
+    gen = torch.Generator(device=dev).manual_seed(24)
+    dw = (torch.randn((len(chans), cfg.d_model), generator=gen, device=dev)
+          * REG_SCALE).to(params["embed"].dtype)
+    w = params["stacks"]["g0"]["mlp"]["w_down"][:1]
+    card, host = (OV.fold_deltas(
+        one, {"stacks": {"g0": {"mlp": {"w_down": w.to(where)}}}},
+        {"L0": {"mlp_rows": {"w": dw.to(where)}}},
+        pol)["stacks"]["g0"]["mlp"]["w_down"]
+        for where in (dev, torch.device("cpu")))
+    same = torch.equal(card.cpu(), host)
+    moved = int((host != w.cpu()).sum())
+    try:
+        ServeEngine(cfg, params, personalise=pol, device=dev, **REG_ENGINE)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    finally:
+        OV._UNIT_OVERLAYS.pop("mlp_rows")  # the phase's kind, unregistered
+    print(f"[registry] (b) a raw folder of {len(chans)} w_down rows of "
+          f"qwen2-1.5b's layer 0 ({moved} elements changed): card "
+          f"{'bit-equal to' if same else 'DIFFERS FROM'} the CPU; "
+          f"ServeEngine(personalise=) refused it: {refused!r}", flush=True)
+    if not same or not moved:
+        fail("phase 24 (b): the raw folder's card fold is not the CPU's")
+    if refused is None or "no per-slot overlay" not in refused:
+        fail(f"phase 24 (b): the engine did not refuse a raw folder "
+             f"({refused!r})")
+
+
+def capped_decode(dev, gen) -> None:
+    """Phase 24 (c): mixtral-8x7b at its published width (CAPPED's depth):
+    one decode step of 8 slots with the capped expert queues
+    (``drop_free=False``, the dry run's) against the drop-free one, the
+    dropped assignments counted, rows with none dropped equal to bf16
+    rounding; ``op_analysis``'s FLOPs of ``dryrun.build_decode_step`` on
+    the card equal to its count on the meta device."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import analyse_ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(configs.get_config("mixtral-8x7b"),
+                              n_layers=CAPPED["layers"])
+    b, s, max_len = CAPPED["slots"], CAPPED["prompt"], CAPPED["max_len"]
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    tok = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev)
+    pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+    caches = T.init_caches(cfg, b, max_len, device=dev)
+    with torch.no_grad():
+        T.prefill_block(cfg, params, prompt, caches,
+                        torch.zeros((b,), dtype=torch.int32, device=dev))
+    keeps = []
+    real = L._queue_slots
+
+    def spy(sel, e, cap):
+        out = real(sel, e, cap)
+        keeps.append((cap, out[1].reshape(b, -1)))
+        return out
+
+    L._queue_slots = spy
+    try:
+        with torch.no_grad():
+            capped, _ = T.decode_step(cfg, params, tok, tree_map(
+                lambda t: t.clone(), caches), pos, drop_free=False)
+    finally:
+        L._queue_slots = real
+    with torch.no_grad():
+        free, _ = T.decode_step(cfg, params, tok, tree_map(
+            lambda t: t.clone(), caches), pos, drop_free=True)
+    dropped = sum(int((~k).sum()) for _, k in keeps)
+    hit = torch.zeros(b, dtype=torch.bool, device=dev)
+    for _, k in keeps:
+        hit |= ~k.all(dim=1)
+    ok = ~hit
+    gap = ((capped[ok].float() - free[ok].float()).abs().max().item()
+           if ok.any() else 0.0)
+    caps = sorted({c for c, _ in keeps})
+    step = dryrun.build_decode_step(cfg)
+    card = analyse_ops(step, params, {"tokens": tok}, caches, pos)
+    meta = analyse_ops(step, T.init_params(cfg, None, device="meta"),
+                       {"tokens": torch.empty((b, 1), dtype=tok.dtype,
+                                              device="meta")},
+                       T.init_caches(cfg, b, max_len, device="meta"),
+                       torch.empty((b,), dtype=torch.int32, device="meta"))
+    print(f"[capped] (c) mixtral-8x7b bf16 published width, "
+          f"{cfg.n_layers} of {configs.get_config('mixtral-8x7b').n_layers}"
+          f" layers, decode of {b} slots after a {s}-token prefill: capped "
+          f"queues of {caps} slots over {len(keeps)} MoE layers dropped "
+          f"{dropped} of {sum(k.numel() for _, k in keeps)} assignments "
+          f"(slots hit {int(hit.sum())}); rows with none dropped: max |capped"
+          f" - drop-free| {gap:.6g} (max |logit| "
+          f"{free.float().abs().max().item():.4g}); build_decode_step "
+          f"{card['flops']:.6e} FLOPs on the card, {meta['flops']:.6e} on "
+          f"meta; {time.perf_counter() - t0:.1f} s", flush=True)
+    if len(keeps) != cfg.n_layers or caps != [max(4, int(
+            cfg.capacity_factor * b * cfg.top_k / cfg.n_experts))]:
+        fail(f"phase 24 (c): {len(keeps)} capped dispatches of {caps} slots")
+    if not (torch.isfinite(capped).all() and torch.isfinite(free).all()):
+        fail("phase 24 (c): non-finite logits")
+    if ok.any():
+        max_err(capped[ok], free[ok], TOL["bfloat16"],
+                "phase 24 (c): rows with no dropped assignment",
+                atol=BF16_RMS_TOL * rms(free[ok]))
+    if card["flops"] != meta["flops"]:
+        fail(f"phase 24 (c): the analyser counts {card['flops']} FLOPs on "
+             f"the card, {meta['flops']} on meta")
+    del params, caches
+    torch.cuda.empty_cache()
+
+
+def phase24(ops, dev, gen) -> int:
+    """Phase 24, the overlay registry and the capped MoE decode:
+    :func:`registry_serve`, :func:`registry_raw`, :func:`capped_decode`.
+    Returns kernel 2's launches on (a)'s serves."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, params, launches = registry_serve(ops, dev, gen)
+    t_a = time.perf_counter() - t0
+    registry_raw(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t0 - t_a
+    capped_decode(dev, gen)
+    total = time.perf_counter() - t0
+    print(f"[phase24] {total:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) "
+          f"{total - t_a - t_b:.1f})", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6353,6 +6675,10 @@ def main() -> int:
     # roofline table, the analyser on the card, --production-mesh) -------
     phase23(ops, dev, gen, planner)
 
+    # -- phase 24: the overlay registry (a declarative kind and a raw
+    # folder from outside the package) and the capped MoE decode -------
+    reg_launches = phase24(ops, dev, gen)
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -6371,7 +6697,7 @@ def main() -> int:
                      + moe_launches["flash_cached"]
                      + hyb_launches["flash_cached"]
                      + enc_launches["flash_cached"]
-                     + fl_launches["flash_cached"]),
+                     + fl_launches["flash_cached"] + reg_launches),
         **flash,
     }, {
         "name": "flash_attention_cached_sq32",

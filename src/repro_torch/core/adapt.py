@@ -74,6 +74,11 @@ class AdaptResult:
     # fine-tune steps skipped by the non-finite guard (carry passthrough)
     skipped_steps: int = 0
 
+    @property
+    def steps_per_sec(self) -> float:
+        n = len(self.losses or ())
+        return n / self.train_seconds if self.train_seconds > 0 else 0.0
+
 
 def _n_valid(support: Dict[str, Any], n_support: Optional[int]) -> int:
     if n_support is not None:

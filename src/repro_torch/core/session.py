@@ -430,6 +430,13 @@ class TinyTrainSession:
     def _on(self, tree: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return _tensors(tree, self.device)
 
+    def compiled_steps(self) -> int:
+        """Distinct sparse-step builders the step cache holds: per-step
+        and whole-loop steps by policy structure, and the fleet programs;
+        the JAX package's count of compiled step variants."""
+        c = self.step_cache
+        return len(c._steps) + len(c._scans) + len(c._vscans)
+
     def adapt(
         self,
         task: Task,

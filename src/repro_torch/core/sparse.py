@@ -38,7 +38,7 @@ import torch
 from ..dist import context as dist_context
 from ..dist.sharding import _dp_axes, map_shards
 from ..optim import Optimizer, apply_updates
-from ..utils import tree_leaves, tree_map
+from ..utils import tree_leaves, tree_map, tree_size
 from .backbones import Backbone
 from .fisher import leaf_taps, tap_grads
 from .policy import SparseUpdatePolicy
@@ -201,6 +201,12 @@ def make_episode_sparse_scan(
     return run
 
 
+def _remat(policy: SparseUpdatePolicy) -> bool:
+    """The policy asks its steps to recompute in the backward (the one
+    part of a step beyond its structure that the step reads)."""
+    return bool((policy.meta or {}).get("remat", False))
+
+
 class EpisodeStepCache:
     """The adaptation engine's step functions.  Channel indices are passed
     as tensors (``chan_idx_arrays``), as the JAX package passes them to
@@ -211,6 +217,11 @@ class EpisodeStepCache:
         self.backbone = backbone
         self.optimizer = optimizer
         self.max_way = max_way
+        # step builders by policy structure (and iters, injected NaN
+        # steps): the JAX package's compiled step variants
+        self._steps: Dict[Tuple, Callable] = {}
+        self._scans: Dict[Tuple, Callable] = {}
+        self._probe: Optional[Callable] = None
         # fleet programs by (policy structure, iters), and the (task count,
         # episode shapes) variants each has run: what the JAX package
         # compiles once each
@@ -231,6 +242,20 @@ class EpisodeStepCache:
         episode shapes) variants, the quantity the JAX package's
         O(#buckets x #structures) compile contract bounds."""
         return len(self._fleet_variants)
+
+    def probe_grad(self):
+        """g(params, support, query, taps) -> the episode loss's gradient
+        with respect to ``taps``, in their shape: a ``torch.func.grad``
+        built once for each backbone (episodes pass as arguments)."""
+        if self._probe is None:
+            feature_fn, max_way = self.backbone.features, self.max_way
+
+            def f(params, support, query, taps):
+                return episode_loss(feature_fn, params, support, query,
+                                    max_way, taps=taps)
+
+            self._probe = torch.func.grad(f, argnums=3)
+        return self._probe
 
     def probe_fisher(self):
         """pf(params, support, query, taps, n) -> {(layer, kind): Δ_o}: the
@@ -318,28 +343,39 @@ class EpisodeStepCache:
 
     def step(self, policy: SparseUpdatePolicy):
         """step(params, deltas, opt_state, support, query, chan_idx) ->
-        (deltas, opt_state, loss), the loss NaN for a skipped step."""
-        f, opt = self._loss(policy), self.optimizer
+        (deltas, opt_state, loss), the loss NaN for a skipped step; built
+        once for each policy structure."""
+        key = (self._key(policy), _remat(policy))
+        if key not in self._steps:
+            f, opt = self._loss(policy), self.optimizer
 
-        def step(params, deltas, opt_state, support, query, chan_idx):
-            deltas, opt_state, loss, ok = _guarded_step(
-                f, opt, deltas, opt_state, (params, support, query, chan_idx))
-            return deltas, opt_state, _reported(loss, ok)
+            def step(params, deltas, opt_state, support, query, chan_idx):
+                deltas, opt_state, loss, ok = _guarded_step(
+                    f, opt, deltas, opt_state,
+                    (params, support, query, chan_idx))
+                return deltas, opt_state, _reported(loss, ok)
 
-        return step
+            self._steps[key] = step
+        return self._steps[key]
 
     def scan_steps(self, policy: SparseUpdatePolicy, iters: int,
                    nan_steps: Tuple[int, ...] = ()):
         """The whole fine-tune loop as one call: run(params, deltas,
         opt_state, support, query, chan_idx) -> (deltas, opt_state, losses,
-        skipped), one loss transfer per adapt() instead of ``iters``."""
-        loop = scan_train_loop(self._loss(policy), self.optimizer,
-                               int(iters), nan_steps=nan_steps)
+        skipped), one loss transfer per adapt() instead of ``iters``; built
+        once for each (policy structure, iters, NaN steps)."""
+        key = (self._key(policy), _remat(policy), int(iters),
+               tuple(nan_steps))
+        if key not in self._scans:
+            loop = scan_train_loop(self._loss(policy), self.optimizer,
+                                   int(iters), nan_steps=nan_steps)
 
-        def run(params, deltas, opt_state, support, query, chan_idx):
-            return loop(deltas, opt_state, params, support, query, chan_idx)
+            def run(params, deltas, opt_state, support, query, chan_idx):
+                return loop(deltas, opt_state, params, support, query,
+                            chan_idx)
 
-        return run
+            self._scans[key] = run
+        return self._scans[key]
 
     def vmap_scan_steps(self, policy: SparseUpdatePolicy, iters: int,
                         mode: Optional[str] = None):
@@ -466,7 +502,8 @@ class EpisodeStepCache:
                     pos = torch.full((n,), lo, dtype=torch.int32,
                                      device=dev)
                     logits, caches = T.prefill_block(
-                        cfg, params, tb[:, lo:lo + blk], caches, pos, valid)
+                        cfg, params, tb[:, lo:lo + blk], caches, pos, valid,
+                        drop_free=True)
                     m = min(blk, s - 1 - lo)  # positions with a next token
                     if m <= 0:
                         continue
@@ -496,7 +533,7 @@ class EpisodeStepCache:
 
 
 def deltas_param_count(deltas: Any) -> int:
-    return sum(t.numel() for t in tree_leaves(deltas))
+    return tree_size(deltas)
 
 
 def sparse_memory_report(

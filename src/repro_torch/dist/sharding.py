@@ -115,6 +115,22 @@ class FleetShardingRules:
         blk = n_padded // n_hosts
         return [(h * blk, (h + 1) * blk) for h in range(n_hosts)]
 
+    def replicated(self, tree: Any) -> Any:
+        """The placement spec of every leaf of a broadcast tree (frozen
+        params, shared taps): ``()``, whole on every data position."""
+        return tree_map(lambda x: (), tree)
+
+    def tasks(self, tree: Any) -> Any:
+        """The placement spec of every leaf of a task-stacked tree
+        (episodes, channel indices, valid counts): :meth:`task_spec` of its
+        rank and leading size."""
+
+        def spec(x):
+            ndim = len(np.shape(x))
+            return self.task_spec(ndim, int(np.shape(x)[0]) if ndim else 0)
+
+        return tree_map(spec, tree)
+
     # -- placement (needs a Mesh with devices) -----------------------------
 
     def shard_devices(self) -> List[torch.device]:

@@ -26,6 +26,9 @@ count).  The record keeps the JAX record's keys, with these differences:
 - no collective is counted (``collective_bytes`` and ``t_collective_s``
   are None) and ``bottleneck`` is taken over compute and memory;
 - the op table goes to ``<out>/ops/<tag>.json.gz`` in place of the HLO;
+- a decode cell counts the MoE's capped expert queues, as the JAX
+  cell does (``build_decode_step``; the serving engine runs them
+  drop-free);
 - ``--opt rowmoe`` is recorded with no effect: the port's MoE runs every
   expert over every row and has no dispatch placement to change.
 
@@ -183,6 +186,11 @@ def build_prefill_step(cfg: ArchConfig):
 
 
 def build_decode_step(cfg: ArchConfig):
+    """The decode cell's step: one token a slot through
+    ``decode_step`` at its default, the MoE's capped queue (``drop_free``
+    False, as the JAX dry run's step counts it), not the serving
+    engine's drop-free one."""
+
     @torch.no_grad()
     def step(params, batch, caches, pos):
         return T.decode_step(cfg, params, batch["tokens"], caches, pos,

@@ -47,6 +47,10 @@ from ..utils import resolve_device, tree_leaves
 from .mesh import make_debug_mesh, make_production_mesh
 
 
+# kept for older callers; the canonical resolver lives in repro_torch.configs
+preset_config = configs.preset_config
+
+
 def on_device(batch: Dict[str, np.ndarray],
               device: torch.device) -> Dict[str, torch.Tensor]:
     """A loader batch as tensors on ``device``."""

@@ -46,6 +46,7 @@ import torch.utils.checkpoint
 
 from ..kernels import ops
 from . import overlay as OV
+from .overlay import delta_in_rows, delta_out_cols  # noqa: F401  (re-export)
 
 Params = Dict[str, Any]
 
@@ -108,12 +109,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 def bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w``, or a product per slot when ``w`` carries a leading slot
     axis ``(B, d, f)`` (the serving engine's per-slot delta overlay): row b
-    of ``x`` (B, ..., d) against its own weight matrix."""
+    of ``x`` (B, ..., d) against its own weight matrix.
+
+    Slot b's rows are taken from the whole block's product with ``w[b]``,
+    the very product a folded copy of those weights runs (same shape, same
+    kernel), so a slot's values are bit for bit its folded engine's.  A
+    batched product is not: on the card cuBLAS picks another reduction
+    order for it, and greedy bf16 streams at full width part (PERF.md §6,
+    PR 30).  The bytes read are the same, every ``w[b]`` once."""
     if w.dim() == 2:
         return x @ w
     b = x.shape[0]
-    y = torch.bmm(x.reshape(b, -1, x.shape[-1]), w)
-    return y.reshape(*x.shape[:-1], w.shape[-1])
+    flat = x.reshape(-1, x.shape[-1])
+    ys = torch.stack([flat @ wi for wi in w.unbind(0)])  # (B, B * n, f)
+    # slot b's rows of its own product: the (b, b) blocks
+    y = ys.view(b, b, -1, ys.shape[-1]).diagonal(dim1=0, dim2=1)
+    # contiguous: the kernels downstream (q into kernel 2) take no strides
+    return y.permute(2, 0, 1).contiguous().reshape(*x.shape[:-1],
+                                                   w.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -148,9 +161,31 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str,
     return y
 
 
+def mlp_delta_init(d_model: int, d_ff_sel: int, act: str,
+                   dtype: torch.dtype = torch.float32, device=None) -> Params:
+    """Zero delta pack for ``d_ff_sel`` selected d_ff neurons."""
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if act in ("swiglu", "geglu"):
+        return {"w_gate": z(d_model, d_ff_sel), "w_up": z(d_model, d_ff_sel),
+                "w_down": z(d_ff_sel, d_model)}
+    return {"w_up": z(d_model, d_ff_sel), "w_down": z(d_ff_sel, d_model)}
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA / MQA, contiguous or paged KV cache)
 # ---------------------------------------------------------------------------
+
+
+def attn_delta_init(cfg, n_sel_heads: int, dtype: torch.dtype = torch.float32,
+                    device=None) -> Params:
+    """Zero delta pack for ``n_sel_heads`` selected query heads (the
+    cross-attention's too: its projections have attention's shapes)."""
+    k = n_sel_heads * cfg.head_dim
+    return {"wq": torch.zeros((cfg.d_model, k), dtype=dtype, device=device),
+            "wo": torch.zeros((k, cfg.d_model), dtype=dtype, device=device)}
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -166,16 +201,20 @@ def dot_attention(
     *,
     causal: bool,
     window: int = 0,
+    q_offset=0,
     kv_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain masked attention. q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D).
 
-    Query i sits at position i; ``kv_len`` (B,) masks cache rows per
-    sample.  Masked scores are -1e30, so a row with no valid key averages
-    every row of v, as the JAX package's version does.  Unlike it, rows at
-    or past ``kv_len`` are zeroed in v first: a stale non-finite row left
-    in the slot by an earlier stream would otherwise turn its zero weight
-    into NaN (ROADMAP queue 3).  For finite caches the result is the same.
+    Query i sits at position ``q_offset + i``: ``q_offset`` is a scalar
+    or a per-sample (B,) vector (a block prefill's queries start at each
+    slot's own cache length).  ``kv_len``, a scalar or (B,), masks cache
+    rows per sample.  Masked scores are -1e30, so a row with no valid key
+    averages every row of v, as the JAX package's version does.  Unlike
+    it, rows at or past ``kv_len`` are zeroed in v first: a stale
+    non-finite row left in the slot by an earlier stream would otherwise
+    turn its zero weight into NaN (ROADMAP queue 3).  For finite caches
+    the result is the same.
     """
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -183,14 +222,20 @@ def dot_attention(
     dev = q.device
     kpos = torch.arange(sk, device=dev)[None, None, :]
     if kv_len is not None:
+        if not torch.is_tensor(kv_len) or kv_len.dim() == 0:
+            kv_len = torch.as_tensor(kv_len, device=dev).expand(b)
         seen = kpos[0] < kv_len[:, None]                   # (B, Sk)
         v = torch.where(seen[:, :, None, None], v, torch.zeros_like(v))
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     scores = scores / math.sqrt(d)
-    qpos = torch.arange(sq, device=dev)[None, :]   # (1, sq)
-    mask = torch.ones((1, sq, sk), dtype=torch.bool, device=dev)
+    qpos = torch.arange(sq, device=dev)[None, :]      # (1, sq)
+    if torch.is_tensor(q_offset) and q_offset.dim():  # per-sample: (B, sq)
+        qpos = q_offset.to(dev)[:, None] + qpos
+    else:
+        qpos = qpos + q_offset
+    mask = torch.ones((qpos.shape[0], sq, sk), dtype=torch.bool, device=dev)
     if causal:
         mask = mask & (kpos <= qpos[..., None])
     if window > 0:
@@ -882,6 +927,14 @@ def _moe_apply_rows(
     return y, aux
 
 
+# the per-kind zero delta packs, attached to the overlay registry's specs
+# (the shapes live here)
+OV.set_delta_init("mlp", lambda cfg, lid, k, dtype, device: mlp_delta_init(
+    cfg.d_model, k, cfg.act, dtype, device))
+OV.set_delta_init("attn", lambda cfg, lid, k, dtype, device: attn_delta_init(
+    cfg, k, dtype, device))
+OV.set_delta_init("xattn", lambda cfg, lid, k, dtype, device: attn_delta_init(
+    cfg, k, dtype, device))
 OV.set_delta_init("mla", lambda cfg, lid, k, dtype, device: mla_delta_init(
     cfg, k, dtype, device))
 OV.set_delta_init("moe", lambda cfg, lid, k, dtype, device: moe_delta_init(

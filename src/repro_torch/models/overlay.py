@@ -1,12 +1,17 @@
-"""Channel deltas of every LM unit kind the port runs: the port of
-``repro.models.overlay``.
+"""The unit-kind overlay registry: the port of ``repro.models.overlay``.
 
 A TinyTrain delta edits a few columns or rows of a weight matrix,
-``W ⊕ scatter(ΔW, idx)``.  The column math lives here once: the
-adaptation forward (``layers.attention_apply`` / ``mla_apply`` /
-``mlp_apply`` / ``moe_apply``) adds the delta's contribution at the
-selected columns, and :func:`fold_deltas` adds the delta into a serving
-copy of the weights.
+``W ⊕ scatter(ΔW, idx)``.  Each unit kind declares that edit once, as a
+:class:`UnitOverlay` of :class:`Edit` s, and every consumer derives from
+it: :func:`fold_deltas` adds the deltas into a serving copy of the
+weights (``UnitOverlay.fold``), the serving engine's per-slot overlay
+(:func:`slot_params`) gives every slot its own effective weights
+``W ⊕ scatter(ΔW_b, idx_b)`` (``UnitOverlay.slot_weights``), through the
+same scatter-add (:func:`_add_at`), so a slot serving a user's deltas
+computes with exactly the weights a folded copy holds; :func:`unit_cols`
+gives the channel -> column expansion, and :func:`delta_init` the zero
+delta pack (attached by the model modules at import, where the shapes
+live).
 
 Per edited weight, ``mode`` says what the selected channels index:
 ``"out"`` output columns (``ΔW`` is ``(D, K)``, added at ``W[:, cols]``),
@@ -16,22 +21,24 @@ at ``W[idx]``).  A head expands to its contiguous columns: ``head_dim``
 for attention, ``qk_nope + qk_rope`` (``w_uq``) and ``v_head_dim``
 (``wo``) for MLA, ``ssm_head_dim`` for an SSD head.  A policy names MLA's
 heads ``"attn"``; :func:`resolve_kind` maps them to ``"mla"`` on an MLA
-config, as the JAX package does.
+config, as the JAX package does.  The encoder-decoder family's
+cross-attention heads (``xattn``) take attention's edits on the layer's
+``xattn`` weights.
 
-The serving engine's per-slot overlay (:func:`slot_params`) gives every
-slot its own effective weights ``W ⊕ scatter(ΔW_b, idx_b)`` through the
-same scatter-add as :func:`fold_deltas` (:func:`_add_at`), so a slot
-serving a user's deltas computes with exactly the weights a folded copy
-holds; a MoE unit's overlay is the slot's whole expert stack ``(B, E, D,
-F)``, an SSD unit's the slot's ``w_z``/``w_x`` columns and ``w_out`` rows
-by SSD head, which ``ssm.ssd_apply`` takes through ``layers.bmm``.  The
-encoder-decoder family's cross-attention heads (``xattn``) take
-attention's edit tuple on the layer's ``xattn`` weights, in the fold and
-the per-slot overlay alike.
+New unit kinds plug in with one :func:`register_unit_overlay` call (a
+spec registered under a built-in kind's name replaces it); the legacy
+:func:`register_unit_folder` decorator takes a raw fold function for
+folders that do not fit the declarative shape, which fold offline but
+cannot be served per slot.  The per-slot forward
+(``models.transformer``) applies the kinds it names at each layer
+(``transformer.overlay_kinds``), taking each spec's ``param_key``
+weights; the serving engine refuses any other kind under
+``personalise=``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,68 +66,24 @@ def delta_in_rows(y: torch.Tensor, h: torch.Tensor, dw: torch.Tensor,
     return y + h.index_select(-1, idx) @ dw.to(h.dtype)
 
 
-def _head_dim(cfg) -> int:
-    return cfg.head_dim
+# ---------------------------------------------------------------------------
+# Declarative per-kind specs
+# ---------------------------------------------------------------------------
 
 
-def _qk_dim(cfg) -> int:
-    return cfg.qk_nope_dim + cfg.qk_rope_dim
+@dataclasses.dataclass(frozen=True)
+class Edit:
+    """One edited weight matrix of a unit kind."""
 
+    delta_name: str  # key in the unit's delta pack
+    param_name: str  # key in the stack's parameter dict
+    mode: str  # out | in | lead
+    # channel indices -> weight columns (None: channels index directly)
+    cols: Optional[Callable[[Any, torch.Tensor], torch.Tensor]] = None
+    optional: bool = False  # skip silently when absent from the delta pack
 
-def _v_dim(cfg) -> int:
-    return cfg.v_head_dim
-
-
-def _ssm_dim(cfg) -> int:
-    return cfg.ssm_head_dim
-
-
-# kind -> (param sub-dict, ((delta name, mode, head width or None), ...)):
-# the head width expands a channel to its columns (None: a channel is one
-# column, row or expert); edits named in a delta pack but absent from it
-# (w_gate of a plain-GELU MLP) are skipped
-EDITS: Dict[str, Tuple[str, Tuple[Tuple[str, str, Any], ...]]] = {
-    "attn": ("attn", (("wq", "out", _head_dim), ("wo", "in", _head_dim))),
-    "xattn": ("xattn", (("wq", "out", _head_dim), ("wo", "in", _head_dim))),
-    "mla": ("attn", (("w_uq", "out", _qk_dim), ("wo", "in", _v_dim))),
-    "mlp": ("mlp", (("w_gate", "out", None), ("w_up", "out", None),
-                    ("w_down", "in", None))),
-    "moe": ("moe", (("w_gate", "lead", None), ("w_up", "lead", None),
-                    ("w_down", "lead", None))),
-    "ssm": ("ssm", (("w_z", "out", _ssm_dim), ("w_x", "out", _ssm_dim),
-                    ("w_out", "in", _ssm_dim))),
-}
-
-
-def resolve_kind(cfg, kind: str) -> str:
-    """A policy's unit kind -> its edits' key: attention heads are MLA's
-    on an MLA config."""
-    if kind == "attn" and getattr(cfg, "mla", False):
-        return "mla"
-    return kind
-
-
-def _cols(cfg, width, idx: torch.Tensor) -> torch.Tensor:
-    return idx if width is None else head_cols(idx, width(cfg))
-
-
-# kind -> delta_init(cfg, layer_id, n_channels, dtype, device), for kinds
-# whose shapes live in their model module (registered there at import)
-_DELTA_INITS: Dict[str, Callable[..., Params]] = {}
-
-
-def set_delta_init(kind: str, fn: Callable[..., Params]) -> None:
-    """Attach a zero-delta builder to a unit kind (the model modules call
-    this at import, as in the JAX package)."""
-    _DELTA_INITS[kind] = fn
-
-
-def _edits(cfg, kind: str):
-    try:
-        return EDITS[resolve_kind(cfg, kind)]
-    except KeyError:
-        raise ValueError(
-            f"no unit kind {kind!r} (known: {sorted(EDITS)})") from None
+    def col_idx(self, cfg, idx: torch.Tensor) -> torch.Tensor:
+        return idx if self.cols is None else self.cols(cfg, idx)
 
 
 def _add_at(w: torch.Tensor, dw: torch.Tensor, cols: torch.Tensor,
@@ -130,6 +93,8 @@ def _add_at(w: torch.Tensor, dw: torch.Tensor, cols: torch.Tensor,
     ``"in"`` adds dw (N, K, D) at rows and ``"lead"`` dw (N, K, ...) at
     the second axis (the experts).  The one scatter-add of the fold and
     the per-slot overlay."""
+    if mode not in ("out", "in", "lead"):
+        raise ValueError(f"unknown edit mode {mode!r}")
     b = torch.arange(w.shape[0], device=w.device)[:, None]
     dw = dw.to(w.dtype)
     if mode == "out":
@@ -138,33 +103,181 @@ def _add_at(w: torch.Tensor, dw: torch.Tensor, cols: torch.Tensor,
         w[b, cols, :] = w[b, cols, :] + dw
 
 
+@dataclasses.dataclass(frozen=True)
+class UnitOverlay:
+    """Fold + per-slot overlay of one unit kind, derived from its edits."""
+
+    kind: str
+    param_key: str  # key of the parameter sub-dict inside a stack group
+    edits: Tuple[Edit, ...]
+    # zero delta pack: delta_init(cfg, layer_id, n_channels, dtype, device);
+    # attached by the model modules at import (the shapes live there)
+    delta_init: Optional[Callable[..., Params]] = None
+
+    def fold(self, cfg, stack: Params, j: int, d: Params, idx) -> None:
+        """Add unit ``d`` (channels ``idx``, numpy or a tensor) into layer
+        ``j`` of a stack group, in place in the group's tensors:
+        :func:`fold_deltas` hands it the copies it may write."""
+        sub = stack[self.param_key]
+        for e in self.edits:
+            if e.optional and e.delta_name not in d:
+                continue
+            w = sub[e.param_name]
+            i = torch.as_tensor(np.asarray(idx, np.int64)
+                                if not torch.is_tensor(idx) else idx,
+                                device=w.device).long()
+            _add_at(w[j:j + 1], d[e.delta_name].to(w.device)[None],
+                    e.col_idx(cfg, i)[None], e.mode)
+
+    def slot_weights(self, cfg, params: Params, d_stack: Params,
+                     idx_stack: torch.Tensor) -> Params:
+        """Per-slot effective weights for one layer's parameter dict.
+
+        ``params`` is the layer's dict (no stack axis), ``d_stack`` the
+        slot-stacked delta pack ((B, ...) leaves) and ``idx_stack`` the
+        slot-stacked channel indices (B, K).  Returns a copy of ``params``
+        in which every edited weight gains a leading slot axis: ``W_eff[b]
+        = W ⊕ scatter(ΔW_b, cols(idx_b))``, the scatter-add :meth:`fold`
+        performs.  A zero row gives ``W`` itself."""
+        out = dict(params)
+        idx = idx_stack.long()
+        for e in self.edits:
+            if e.optional and e.delta_name not in d_stack:
+                continue
+            w = params[e.param_name]
+            w_eff = w.expand(idx.shape[0], *w.shape).clone()
+            _add_at(w_eff, d_stack[e.delta_name], e.col_idx(cfg, idx), e.mode)
+            out[e.param_name] = w_eff
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_UNIT_OVERLAYS: Dict[str, Any] = {}
+
+
+def register_unit_overlay(spec: UnitOverlay) -> UnitOverlay:
+    """Register (or replace) the declarative spec of ``spec.kind``."""
+    _UNIT_OVERLAYS[spec.kind] = spec
+    return spec
+
+
+def register_unit_folder(kind: str):
+    """Register ``fn(cfg, stack, j, d, idx)`` as the folder for a unit kind.
+
+    The escape hatch for folders that do not fit the declarative
+    :class:`Edit` shape: the kind folds offline but has no per-slot
+    overlay (the serving engine refuses it under ``personalise=``).
+    :func:`fold_deltas` passes the stack group with its sub-dicts copied
+    and ``idx`` as an int32 numpy array; the folder assigns new tensors
+    into those dicts rather than write into the ones it finds there."""
+
+    def deco(fn):
+        _UNIT_OVERLAYS[kind] = fn
+        return fn
+
+    return deco
+
+
+def get_overlay(kind: str):
+    """The registered spec (or raw folder) of a registry key."""
+    try:
+        return _UNIT_OVERLAYS[kind]
+    except KeyError:
+        raise ValueError(
+            f"no unit folder registered for kind {kind!r} "
+            f"(known: {sorted(_UNIT_OVERLAYS)})") from None
+
+
+def resolve_kind(cfg, kind: str) -> str:
+    """A policy's unit kind -> its registry key: attention heads are MLA's
+    on an MLA config."""
+    if kind == "attn" and getattr(cfg, "mla", False):
+        return "mla"
+    return kind
+
+
+def unit_cols(cfg, kind: str, param_name: str):
+    """The channel -> column expansion of one edited weight:
+    ``unit_cols(cfg, 'attn', 'wq')(idx)``."""
+    spec = get_overlay(resolve_kind(cfg, kind))
+    for e in spec.edits:
+        if e.param_name == param_name:
+            return lambda idx: e.col_idx(cfg, idx)
+    raise ValueError(
+        f"kind {kind!r} has no edit for weight {param_name!r} "
+        f"(edits: {[e.param_name for e in spec.edits]})")
+
+
+def set_delta_init(kind: str, fn: Callable[..., Params]) -> None:
+    """Attach ``delta_init(cfg, layer_id, n_channels, dtype, device)`` to a
+    registered kind (the model modules call this at import, as in the JAX
+    package)."""
+    _UNIT_OVERLAYS[kind] = dataclasses.replace(_UNIT_OVERLAYS[kind],
+                                               delta_init=fn)
+
+
 def delta_init(cfg, layer_id: int, kind: str, n_channels: int,
                dtype: torch.dtype, device) -> Params:
-    """Zero delta pack for one selected unit."""
-    _edits(cfg, kind)
-    kind = resolve_kind(cfg, kind)
-    if kind in _DELTA_INITS:
-        return _DELTA_INITS[kind](cfg, layer_id, n_channels, dtype, device)
+    """Zero delta pack for one selected unit, via the registry."""
+    spec = get_overlay(resolve_kind(cfg, kind))
+    if getattr(spec, "delta_init", None) is None:
+        raise ValueError(f"kind {kind!r} registered without a delta_init")
+    return spec.delta_init(cfg, layer_id, n_channels, dtype, device)
 
-    def z(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
 
-    d = cfg.d_model
-    if kind in ("attn", "xattn"):  # cross-attention: attention's shapes
-        k = n_channels * cfg.head_dim
-        return {"wq": z(d, k), "wo": z(k, d)}
-    if cfg.act in ("swiglu", "geglu"):
-        return {"w_gate": z(d, n_channels), "w_up": z(d, n_channels),
-                "w_down": z(n_channels, d)}
-    return {"w_up": z(d, n_channels), "w_down": z(n_channels, d)}
+# ---------------------------------------------------------------------------
+# Built-in unit kinds.  The column math appears here once; the fold, the
+# per-slot overlay and the adaptation forward read it from the registry.
+# ---------------------------------------------------------------------------
+
+_ATTN_EDITS = (
+    Edit("wq", "wq", "out", lambda cfg, idx: head_cols(idx, cfg.head_dim)),
+    Edit("wo", "wo", "in", lambda cfg, idx: head_cols(idx, cfg.head_dim)),
+)
+
+register_unit_overlay(UnitOverlay("mlp", "mlp", (
+    Edit("w_gate", "w_gate", "out", optional=True),
+    Edit("w_up", "w_up", "out"),
+    Edit("w_down", "w_down", "in"),
+)))
+register_unit_overlay(UnitOverlay("attn", "attn", _ATTN_EDITS))
+register_unit_overlay(UnitOverlay("xattn", "xattn", _ATTN_EDITS))
+register_unit_overlay(UnitOverlay("mla", "attn", (
+    Edit("w_uq", "w_uq", "out",
+         lambda cfg, idx: head_cols(idx, cfg.qk_nope_dim + cfg.qk_rope_dim)),
+    Edit("wo", "wo", "in", lambda cfg, idx: head_cols(idx, cfg.v_head_dim)),
+)))
+register_unit_overlay(UnitOverlay("ssm", "ssm", (
+    Edit("w_z", "w_z", "out",
+         lambda cfg, idx: head_cols(idx, cfg.ssm_head_dim)),
+    Edit("w_x", "w_x", "out",
+         lambda cfg, idx: head_cols(idx, cfg.ssm_head_dim)),
+    Edit("w_out", "w_out", "in",
+         lambda cfg, idx: head_cols(idx, cfg.ssm_head_dim)),
+)))
+register_unit_overlay(UnitOverlay("moe", "moe", (
+    Edit("w_gate", "w_gate", "lead"),
+    Edit("w_up", "w_up", "lead"),
+    Edit("w_down", "w_down", "lead"),
+)))
+
+
+# ---------------------------------------------------------------------------
+# Fold (a serving copy) and the per-slot overlay
+# ---------------------------------------------------------------------------
 
 
 def fold_deltas(cfg, params: Any, deltas: Any, policy) -> Any:
     """A serving copy with ``W += scatter(ΔW, idx)`` for every policy unit.
 
     The returned tree shares every untouched tensor with ``params``; each
-    edited stacked weight is copied once and then updated in place, in the
-    weight's dtype (the delta is cast first, as in the JAX package)."""
+    weight a spec edits is copied once and then updated in place, in the
+    weight's dtype (the delta is cast first, as in the JAX package).  A
+    raw folder (:func:`register_unit_folder`) gets the stack group with its
+    sub-dicts copied, so the caller's ``params`` are never touched."""
     from .transformer import stack_groups  # late: transformer imports here
 
     where = {lid: (gi, j) for gi, (_, ids) in enumerate(stack_groups(cfg))
@@ -175,44 +288,34 @@ def fold_deltas(cfg, params: Any, deltas: Any, policy) -> Any:
     copied = set()
     for u in policy.units:
         gi, j = where[u.layer]
-        key, edits = _edits(cfg, u.kind)
-        sub = out["stacks"][f"g{gi}"][key]
+        stack = out["stacks"][f"g{gi}"]
         d = deltas[f"L{u.layer}"][u.kind]
-        for name, mode, width in edits:
-            if name not in d:
-                continue
-            if (gi, key, name) not in copied:
-                sub[name] = sub[name].clone()
-                copied.add((gi, key, name))
-            w = sub[name]
-            idx = torch.as_tensor(np.asarray(u.channels, np.int64),
-                                  device=w.device)
-            _add_at(w[j:j + 1], d[name].to(w.device)[None],
-                    _cols(cfg, width, idx)[None], mode)
+        idx = np.asarray(u.channels, np.int32)
+        spec = get_overlay(resolve_kind(cfg, u.kind))
+        if not isinstance(spec, UnitOverlay):
+            spec(cfg, stack, j, d, idx)
+            continue
+        sub = stack[spec.param_key]
+        for e in spec.edits:
+            key = (gi, spec.param_key, e.param_name)
+            if e.delta_name in d and key not in copied:
+                sub[e.param_name] = sub[e.param_name].clone()
+                copied.add(key)
+        spec.fold(cfg, stack, j, d, idx)
     return out
 
 
 def slot_params(cfg, kind: str, params: Params, d_stack: Params,
                 idx_stack: torch.Tensor) -> Params:
-    """Per-slot effective weights for one layer (the serving overlay; the
-    port of ``UnitOverlay.slot_weights`` behind ``slot_params``).
-
-    ``params`` is the layer's parameter dict for the unit's kind (no stack
-    axis), ``d_stack`` the slot-stacked delta pack ((B, ...) leaves) and
-    ``idx_stack`` the slot-stacked channel indices (B, K).  Returns a copy
-    of ``params`` in which every edited weight gains a leading slot axis:
-    ``W_eff[b] = W ⊕ scatter(ΔW_b, cols(idx_b))``, the scatter-add
-    :func:`fold_deltas` performs.  A zero row gives ``W`` itself.  ``kind``
-    is the policy's (``"attn"`` resolves to MLA's edits on an MLA
-    config)."""
-    _, edits = _edits(cfg, kind)
-    out = dict(params)
-    idx = idx_stack.long()
-    for name, mode, width in edits:
-        if name not in d_stack:
-            continue
-        w = params[name]
-        w_eff = w.expand(idx.shape[0], *w.shape).clone()
-        _add_at(w_eff, d_stack[name], _cols(cfg, width, idx), mode)
-        out[name] = w_eff
-    return out
+    """Per-slot effective weights for one layer (the serving overlay):
+    :meth:`UnitOverlay.slot_weights` of the policy kind's spec (``"attn"``
+    resolves to MLA's on an MLA config).  Raises for a kind registered
+    through :func:`register_unit_folder`: it folds offline but cannot
+    overlay per slot."""
+    spec = get_overlay(resolve_kind(cfg, kind))
+    if not isinstance(spec, UnitOverlay):
+        raise ValueError(
+            f"kind {kind!r} has no per-slot overlay (registered via the "
+            "legacy register_unit_folder; use register_unit_overlay to "
+            "serve it per slot)")
+    return spec.slot_weights(cfg, params, d_stack, idx_stack)

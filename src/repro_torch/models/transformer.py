@@ -43,7 +43,8 @@ over ``moe_start_layer`` dense-head MLP layers of ``dense_d_ff`` and MoE
 layers with a shared expert; its MTP head (``params["mtp"]``: a
 projection, one block of the last layer's kind, a norm) adds ``0.1 x``
 its loss to ``lm_loss``, and the MoE aux adds ``0.01 x``.  The serving
-programs run the MoE drop-free (``drop_free``), training capped.
+programs run the MoE drop-free (``drop_free=True``), training and the
+dry run's decode step capped.
 
 The encoder-decoder family (whisper): :func:`encode` runs a stack of
 ``n_enc_layers`` non-causal attention + MLP layers (``params["encoder"]``,
@@ -165,6 +166,20 @@ def cache_kind(cfg: ArchConfig, layer: int) -> str:
     """Key of a layer's serving cache: ``"ssm"``, else ``"attn"`` (MLA's
     latent cache included, as in the JAX package)."""
     return "ssm" if block_kind(cfg, layer) == "ssm" else "attn"
+
+
+def overlay_kinds(cfg: ArchConfig, layer: int) -> Tuple[str, ...]:
+    """The policy unit kinds the per-slot forward applies at ``layer``
+    (``overlay=``): its mixer's (``"attn"``, MLA's heads included, or
+    ``"ssm"``), its FFN's (``"mlp"`` or ``"moe"``) and, on an
+    encoder-decoder config, ``"xattn"``.  An overlay under any other kind
+    would be carried and never applied."""
+    kinds = ("ssm" if block_kind(cfg, layer) == "ssm" else "attn",)
+    if ffn_kind(cfg, layer) != "none":
+        kinds += (ffn_kind(cfg, layer),)
+    if cfg.is_encoder_decoder:
+        kinds += ("xattn",)
+    return kinds
 
 
 def stack_groups(cfg: ArchConfig) -> List[Tuple[str, List[int]]]:
@@ -368,7 +383,9 @@ def _apply_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
     def eff(kind: str) -> Params:
         if kind in ov:
             d_stk, i_stk = ov[kind]
-            return OV.slot_params(cfg, kind, p[kind], d_stk, i_stk)
+            spec = OV.get_overlay(OV.resolve_kind(cfg, kind))
+            key = getattr(spec, "param_key", kind)  # a raw folder: refused
+            return OV.slot_params(cfg, kind, p[key], d_stk, i_stk)
         return p[kind]
 
     h = L.apply_norm(cfg.norm, p["norm1"], x)
@@ -890,6 +907,7 @@ def decode_step(
     embed_prefix: Optional[torch.Tensor] = None,
     overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
     plan=None,
+    drop_free: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: new token -> logits (B, 1, vocab), caches updated
     in place.  ``enc_out`` (B, Se, D) is each slot's encoder output (an
@@ -899,16 +917,20 @@ def decode_step(
     and keeps its cache length, SSD conv window and state bit for bit; its
     logits are meaningless, and the other slots' are those of the unmasked
     call.  ``overlay`` + ``plan`` decode each slot against its own delta
-    set (see :func:`forward_hidden`).  MoE layers run drop-free: no queue
-    drops a token, so a slot's stream does not depend on its batch
-    neighbours."""
+    set (see :func:`forward_hidden`).  ``drop_free=True`` is the serving
+    engine's setting: the MoE queues are sized so no routed token drops,
+    and a slot's stream does not depend on its batch neighbours.  The
+    default, as in the JAX package, is the capped queue of training,
+    ``max(4, int(capacity_factor · B · top_k / E))`` over the B tokens of
+    the step, which the dry run counts."""
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=tokens.device)
     positions = pos[:, None] if pos.dim() else pos.expand(tokens.shape)
     x = _swap_prefix(x, positions, embed_prefix)
     h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
                                enc_out=enc_out, step_valid=valid,
-                               overlay=overlay, plan=plan, drop_free=True)
+                               overlay=overlay, plan=plan,
+                               drop_free=drop_free)
     return unembed(cfg, params, h), caches
 
 
@@ -924,6 +946,7 @@ def prefill_block(
     embed_prefix: Optional[torch.Tensor] = None,
     overlay: Optional[Dict[int, Dict[str, Tuple[Any, Any]]]] = None,
     plan=None,
+    drop_free: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Sequence-mode prompt ingestion: a whole (B, S) block per call
     (``enc_out`` and ``embed_prefix`` as in :func:`decode_step`).
@@ -932,7 +955,8 @@ def prefill_block(
     attends causally from its own offset through the cached flash kernel
     (a rolling window cache folds the block position by position, an MLA
     layer reads its latent cache in the absorbed form); MoE layers run
-    drop-free, as in :func:`decode_step`.
+    drop-free unless ``drop_free=False`` (the JAX package's default here
+    too).
     ``valid`` must be a left-aligned prefix mask per slot (all-False rows
     are paused slots and advance nothing).  Returns (logits (B, S, vocab),
     caches); only logits at valid positions are meaningful."""
@@ -946,5 +970,6 @@ def prefill_block(
                            device=tokens.device)
     h, caches = forward_hidden(cfg, params, x, positions, caches=caches,
                                enc_out=enc_out, seq_valid=valid,
-                               overlay=overlay, plan=plan, drop_free=True)
+                               overlay=overlay, plan=plan,
+                               drop_free=drop_free)
     return unembed(cfg, params, h), caches

@@ -5,9 +5,10 @@ The same optax-like surface: ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)``, with updates added
 to params.  Trees are nested dicts of tensors.  The moment math is float32
 whatever the parameter dtype; the moments are stored in the parameter's
-dtype unless Adam's ``state_dtype`` names another (bf16 moments halve
-the optimiser's memory), as in the JAX package.  ``lr`` is a number or a
-schedule of the (1-based) int32 step tensor (``optim.schedule``).
+dtype unless ``state_dtype`` (Adam's and momentum's) names another (bf16
+moments halve the optimiser's memory), as in the JAX package.  ``lr`` is
+a number or a schedule of the (1-based) int32 step tensor
+(``optim.schedule``).
 Pure functions: nothing is updated in place.
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, Callable, Tuple
 
 import torch
 
-from ..utils import tree_leaves, tree_map
+from ..utils import global_norm, tree_leaves, tree_map
 
 PyTree = Any
 
@@ -54,13 +55,15 @@ def sgd(lr) -> Optimizer:
     return Optimizer(init, update, slots=0)
 
 
-def momentum(lr, beta: float = 0.9) -> Optimizer:
+def momentum(lr, beta: float = 0.9, state_dtype=None) -> Optimizer:
     """Heavy-ball momentum, ``mu = beta · mu + g``, ``u = -lr · mu`` in
-    float32, the buffer stored in each parameter's dtype."""
+    float32, the buffer stored in ``state_dtype`` or each parameter's
+    dtype."""
 
     def init(params):
         return {"step": _step0(params),
-                "mu": tree_map(torch.zeros_like, params)}
+                "mu": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=state_dtype or p.dtype), params)}
 
     def update(grads, state, params):
         step = state["step"] + 1
@@ -122,8 +125,7 @@ def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
     1e-9))``, ‖g‖ the float32 norm of every leaf together."""
 
     def update(grads, state, params):
-        leaves = tree_leaves(grads)
-        gn = torch.sqrt(sum(torch.sum(g.float().square()) for g in leaves))
+        gn = global_norm(grads)
         scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
         grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
         return opt.update(grads, state, params)

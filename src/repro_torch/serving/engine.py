@@ -650,6 +650,20 @@ class ServeEngine:
         if personalise is not None:
             dtype = T.torch_dtype(cfg)
             for u in personalise.units:
+                spec = OV.get_overlay(OV.resolve_kind(cfg, u.kind))
+                if not isinstance(spec, OV.UnitOverlay):
+                    raise ValueError(
+                        f"kind {u.kind!r} has no per-slot overlay "
+                        "(registered via the legacy register_unit_folder); "
+                        "it can fold offline but not personalise per slot")
+                if u.kind not in T.overlay_kinds(cfg, u.layer):
+                    # the JAX engine serves the base weights for such a
+                    # unit without a word
+                    raise ValueError(
+                        f"kind {u.kind!r} of layer {u.layer} is not one the "
+                        f"per-slot forward applies there "
+                        f"({T.overlay_kinds(cfg, u.layer)}): its deltas "
+                        "would be carried and never served")
                 self._delta_tmpl.setdefault(u.layer, {})[u.kind] = (
                     OV.delta_init(cfg, u.layer, u.kind, u.n_channels, dtype,
                                   self.device),
@@ -1186,7 +1200,7 @@ class ServeEngine:
         self._forwards += 1
         logits, self.caches = T.decode_step(
             self.cfg, self.params, tok[:, None].long(), self.caches, pos,
-            step, **self._fwd_kwargs())
+            step, drop_free=True, **self._fwd_kwargs())
         return logits[:, 0], step.to(torch.int32)
 
     def _block_program(self, st: SlotState, act: torch.Tensor,
@@ -1211,7 +1225,7 @@ class ServeEngine:
         B = toks.shape[1]
         logits, self.caches = T.prefill_block(
             self.cfg, self.params, toks.long(), self.caches, pos, valid,
-            **self._fwd_kwargs())
+            drop_free=True, **self._fwd_kwargs())
         last = (n_blk - 1).clamp(0, B - 1).long()
         idx = last[:, None, None].expand(-1, 1, logits.shape[-1])
         return logits.gather(1, idx)[:, 0], n_blk
@@ -1524,11 +1538,12 @@ class ServeEngine:
         fr["busy_s"] += time.perf_counter() - t0
         return rows
 
-    def fused_drain(self, rows: List[torch.Tensor]) -> None:
-        """Fetch one dispatched chunk's event rows (the chunk's one host
-        sync) and book them."""
+    def fused_drain(self, handle: List[torch.Tensor]) -> None:
+        """Fetch one dispatched chunk's event rows (``handle``, what
+        :meth:`fused_dispatch` returned; the chunk's one host sync) and
+        book them."""
         t0, s0 = time.perf_counter(), _telemetry.host_sync_count()
-        self._drain(rows, self._frun)
+        self._drain(handle, self._frun)
         self._frun["syncs"] += _telemetry.host_sync_count() - s0
         self._frun["busy_s"] += time.perf_counter() - t0
 
@@ -2082,3 +2097,12 @@ class ServeEngine:
         else:
             self._run_eager(max_ticks)
         return requests
+
+
+# the overlay registry's entry points, under the names the JAX package's
+# engine exports them by: external unit kinds plug in with
+# register_unit_overlay (or a raw register_unit_folder)
+register_unit_folder = OV.register_unit_folder
+register_unit_overlay = OV.register_unit_overlay
+fold_kind = OV.resolve_kind
+fold_deltas = OV.fold_deltas

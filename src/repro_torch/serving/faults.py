@@ -72,6 +72,13 @@ class FaultConfig:
                     f"exhaust_ticks window must be non-empty, got "
                     f"[{t0}, {t1})")
 
+    @property
+    def any_serving(self) -> bool:
+        """Some part of the plan injects a serving fault."""
+        return bool(self.nan_logits or self.force_preempt
+                    or self.exhaust_ticks is not None
+                    or self.queue_limit is not None)
+
 
 def nan_hit(faults: FaultConfig, rid: Coord, tok_idx: Coord) -> Coord:
     """The slot's next emitted token is a NaN target: (slots,) bool for

@@ -1,11 +1,16 @@
-"""Small helpers shared across the port."""
+"""Small helpers shared across the port: the device an entry point runs
+on, and tree helpers over nested dicts, lists and tuples of tensors (the
+port of ``repro.utils``'s pytree helpers)."""
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, List, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device]
+PyTree = Any
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
@@ -64,3 +69,54 @@ def named_tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return fn("/".join(path), node, *others)
 
     return walk((), tree, *rest)
+
+
+def tree_size(tree: PyTree) -> int:
+    """Total number of scalar elements in a tree of tensors (or arrays)."""
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: PyTree) -> int:
+    """Total bytes of a tree of tensors (or arrays), each in its dtype."""
+    return sum(int(np.prod(x.shape)) * (x.element_size() if torch.is_tensor(x)
+                                        else np.dtype(x.dtype).itemsize)
+               for x in tree_leaves(tree))
+
+
+def tree_zeros_like(tree: PyTree, dtype=None) -> PyTree:
+    return tree_map(lambda x: torch.zeros_like(x, dtype=dtype or x.dtype),
+                    tree)
+
+
+def tree_cast(tree: PyTree, dtype) -> PyTree:
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree: PyTree, s) -> PyTree:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_finite(tree: PyTree) -> torch.Tensor:
+    """0-dim bool tensor: every element of every leaf is finite (read on
+    the leaves' device; nothing is fetched)."""
+    leaves = [torch.isfinite(x).all() for x in tree_leaves(tree)]
+    return functools.reduce(torch.logical_and, leaves, torch.tensor(
+        True, device=leaves[0].device if leaves else None))
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """The float32 L2 norm of every leaf together."""
+    return torch.sqrt(sum(torch.sum(x.float().square())
+                          for x in tree_leaves(tree)))
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b

@@ -150,7 +150,7 @@ def test_xattn_slot_params_is_the_fold(setup):
     s = setup
     cfg, tp, policy = s["cfg"], s["tp"], s["policy"]
     if not cfg.is_encoder_decoder:
-        with pytest.raises(ValueError, match="no unit kind"):
+        with pytest.raises(ValueError, match="no unit folder registered"):
             OV.slot_params(cfg, "conv", {}, {}, torch.zeros((1, 1)))
         return
     (u,) = [u for u in policy.units if u.kind == "xattn"]

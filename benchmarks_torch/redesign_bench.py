@@ -19,14 +19,23 @@ Rows (bf16 unless named):
 - ``fisher_tapgrads`` (28, 48, 8960) f32: kernel 1 at qwen2-1.5b's d_ff
   tap group, 40 of 48 rows valid (the adapt episode's mask), four buffer
   sets cycled past the 50 MB L2, beside ``torch.einsum``;
-- ``flash_cached gemma-2b block prefill`` and ``flash_paged gemma-2b block
-  prefill``: kernels 2 and 4 at B 8, Sq 8, Hq 8, Hkv 1, D 256, max_len
-  512, ragged cursors (``chip_smoke.py``'s), one K/V buffer per layer of
-  gemma-2b's 18 cycled past the L2, beside SDPA with a mask and beside a
-  page gather + SDPA.
+- ``flash_cached <model> block prefill`` and ``flash_paged <model> block
+  prefill``: kernels 2 and 4 at B 8, Sq 8 and ragged cursors
+  (``chip_smoke.py``'s) at three models' heads: gemma-2b's (Hq 8, Hkv 1,
+  D 256, max_len 512, 18 layers), paligemma-3b's (gemma-2b's heads at
+  max_len 768, the cursors past the first block moved past its 256-row
+  image prefix: ``chip_smoke.py`` phase 20's) and stablelm-12b's (Hq 32,
+  Hkv 8, D 160, max_len 512, 40 layers), and two controls on the D 128
+  path, qwen2-1.5b's (Hq 12, Hkv 2, 28 layers) and mixtral-8x7b's (Hq 32,
+  Hkv 8, 16 layers); one K/V buffer per layer cycled past the L2, beside
+  SDPA with a mask and beside a page gather + SDPA.
 
 Each time is the median of 5 trials of CUDA events around enough calls to
-pass 2 ms, with its spread; each row also holds the largest error against
+pass 2 ms, with its spread.  The block rows also give the device time
+without the host's launch cost (``graph_ms``, ``library_graph_ms``): two
+calls a layer captured in one CUDA graph and replayed, since a call there
+takes about as long to launch from Python as to run.  Each row also holds
+the largest error against
 the plain version on the same inputs and the bound (the larger of the
 bytes over 3.35 TB/s and the operations over the dtype's dense peak).
 Prints one line a row and, last, one JSON object with ``nvidia-smi``'s
@@ -63,6 +72,16 @@ ALIGNED = [  # (row, B, S, Hq, Hkv, D, dtype)
     ("bench full f32", 2, 2048, 8, 2, 128, "float32"),
     ("qwen2-1.5b prefill", 1, 4096, 12, 2, 128, "bfloat16"),
 ]
+# (model, B, Sq, Hq, Hkv, D, max_len, layers, q_offset, kv_len)
+BLOCKS = [
+    ("gemma-2b", 8, 8, 8, 1, 256, 512, 18, Q_OFFSET, KV_LEN),
+    ("paligemma-3b", 8, 8, 8, 1, 256, 768, 18,
+     [o + 256 if o else o for o in Q_OFFSET],
+     [n + 256 if o else n for o, n in zip(Q_OFFSET, KV_LEN)]),
+    ("stablelm-12b", 8, 8, 32, 8, 160, 512, 40, Q_OFFSET, KV_LEN),
+    ("qwen2-1.5b", 8, 8, 12, 2, 128, 512, 28, Q_OFFSET, KV_LEN),
+    ("mixtral-8x7b", 8, 8, 32, 8, 128, 512, 16, Q_OFFSET, KV_LEN),
+]
 ROWS = ("aligned", "fisher", "block")
 
 
@@ -97,6 +116,21 @@ def timed(fn: Callable[[], Any], trials: int = 5):
     return statistics.median(per), min(per), max(per)
 
 
+def graphed(fn: Callable[[], Any], st: List[int], n: int):
+    """(median, min, max) device ms a call of ``fn`` without the host's
+    launch cost: ``n`` calls captured in one CUDA graph (``st[0]`` set to
+    the capture stream for the kernels' C entries), replayed under
+    ``timed``."""
+    import torch
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        st[0] = torch.cuda.current_stream().cuda_stream
+        for _ in range(n):
+            fn()
+    return tuple(x / n for x in timed(g.replay))
+
+
 def bound(nbytes: float, nops: float, peak: float):
     t_b, t_o = nbytes / HBM, nops / peak
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
@@ -106,10 +140,10 @@ def causal_pairs(s: int) -> int:
     return s * (s + 1) // 2
 
 
-def block_pairs(sq: int):
+def block_pairs(sq: int, q_offset=Q_OFFSET, kv_len=KV_LEN):
     """(K/V rows read, visible (query, key) pairs) of the block cursors."""
     rows = keys = 0
-    for qo, kl in zip(Q_OFFSET, KV_LEN):
+    for qo, kl in zip(q_offset, kv_len):
         rows += max(0, min(kl, qo + sq))
         keys += sum(max(0, min(kl - 1, qo + i) + 1) for i in range(sq))
     return rows, keys
@@ -222,6 +256,14 @@ def fisher_row(dev, gen, stream) -> Dict[str, Any]:
 
 
 def block_rows(dev, gen, stream) -> List[Dict[str, Any]]:
+    rows = []
+    for blk in BLOCKS:
+        rows += block_shape(dev, gen, stream, *blk)
+    return rows
+
+
+def block_shape(dev, gen, stream, model, b, sq, hq, hkv, d, sk, layers,
+                q_offset, kv_len) -> List[Dict[str, Any]]:
     import torch
     import torch.nn.functional as F
 
@@ -230,10 +272,9 @@ def block_rows(dev, gen, stream) -> List[Dict[str, Any]]:
         flash_attention_cached_ref, flash_attention_paged_ref,
     )
 
-    b, sq, hq, hkv, d, sk, layers = 8, 8, 8, 1, 256, 512, 18
     bf = torch.bfloat16
-    qo = torch.tensor(Q_OFFSET, dtype=torch.int32, device=dev)
-    kl = torch.tensor(KV_LEN, dtype=torch.int32, device=dev)
+    qo = torch.tensor(q_offset, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(bf)
     ks = torch.randn((layers, b, sk, hkv, d), generator=gen, device=dev).to(bf)
     vs = torch.randn((layers, b, sk, hkv, d), generator=gen, device=dev).to(bf)
@@ -245,12 +286,13 @@ def block_rows(dev, gen, stream) -> List[Dict[str, Any]]:
         return it[0]
 
     c_entry, p_entry = flash_attention._entry(), flash_paged._entry()
+    st = [stream]  # the stream a launch goes to: a graph's while captured
 
     def run_cached():
         i = layer()
         check(c_entry(q.data_ptr(), ks[i].data_ptr(), vs[i].data_ptr(),
                       out.data_ptr(), qo.data_ptr(), kl.data_ptr(), b, sq, sk,
-                      hq, hkv, d, 1, 0, 1, stream), "flash_cached_fwd")
+                      hq, hkv, d, 1, 0, 1, st[0]), "flash_cached_fwd")
 
     # pages of 16 over a permuted arena: the page i of sample j holds its
     # logical rows [16 i, 16 i + 16)
@@ -258,7 +300,7 @@ def block_rows(dev, gen, stream) -> List[Dict[str, Any]]:
     n_pages = b * mp
     perm = torch.randperm(n_pages, generator=gen, device=dev)
     table = perm.view(b, mp).to(torch.int32).contiguous()
-    for j, n in enumerate(KV_LEN):
+    for j, n in enumerate(kv_len):
         table[j, -(-n // PAGE):] = -1
     idx = table.long().clamp(min=0)
     kps = torch.empty((layers, n_pages, PAGE, hkv, d), device=dev, dtype=bf)
@@ -271,7 +313,7 @@ def block_rows(dev, gen, stream) -> List[Dict[str, Any]]:
         check(p_entry(q.data_ptr(), kps[i].data_ptr(), vps[i].data_ptr(),
                       out.data_ptr(), table.data_ptr(), qo.data_ptr(),
                       kl.data_ptr(), b, sq, hq, hkv, d, n_pages, PAGE, mp, 1,
-                      stream), "flash_paged_fwd")
+                      st[0]), "flash_paged_fwd")
 
     pos = torch.arange(sk, device=dev)
     qpos = qo[:, None].long() + torch.arange(sq, device=dev)[None, :]
@@ -292,7 +334,7 @@ def block_rows(dev, gen, stream) -> List[Dict[str, Any]]:
         F.scaled_dot_product_attention(qt, kk, vv, attn_mask=mask,
                                        enable_gqa=True)
 
-    kv_rows, keys = block_pairs(sq)
+    kv_rows, keys = block_pairs(sq, q_offset, kv_len)
     nbytes = 2 * (2 * b * sq * hq * d + 2 * kv_rows * hkv * d) + 8 * b
     nops = 4 * d * hq * keys
     rows = []
@@ -312,12 +354,16 @@ def block_rows(dev, gen, stream) -> List[Dict[str, Any]]:
         err = (out.float() - want.float()).abs().max().item()
         ms = timed(run)
         lms = timed(lib)
+        gms, glms = graphed(run, st, 2 * layers), graphed(lib, st, 2 * layers)
+        st[0] = stream
         bms, by = bound(nbytes + extra, nops, PEAK["bfloat16"])
-        rows.append({"name": f"{what} gemma-2b block prefill",
+        rows.append({"name": f"{what} {model} block prefill",
                      "shape": [b, sq, hq, hkv, d, sk], "dtype": "bfloat16",
                      "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
-                     "library_ms": lms[0], "bound_ms": bms, "bound_by": by,
-                     "max_abs_err": err})
+                     "library_ms": lms[0], "graph_ms": gms[0],
+                     "graph_ms_min": gms[1], "graph_ms_max": gms[2],
+                     "library_graph_ms": glms[0], "bound_ms": bms,
+                     "bound_by": by, "max_abs_err": err})
     return rows
 
 
@@ -347,9 +393,14 @@ def main(out: Optional[str] = None, only=ROWS) -> Dict[str, Any]:
     for r in rows:
         extra = (f", 3xTF32 bound {r['bound_tf32x3_ms']:.5f} ms"
                  if "bound_tf32x3_ms" in r else "")
+        graph = (f", in a CUDA graph {r['graph_ms']:.4f} ms "
+                 f"({r['graph_ms_min']:.4f}-{r['graph_ms_max']:.4f}), "
+                 f"library {r['library_graph_ms']:.4f} ms"
+                 if "graph_ms" in r else "")
         print(f"[redesign] {r['name']} {r['shape']} {r['dtype']}: "
               f"{r['ms']:.4f} ms ({r['ms_min']:.4f}-{r['ms_max']:.4f}), "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+              f"library {r['library_ms']:.4f} ms{graph}, bound "
+              f"{r['bound_ms']:.5f} "
               f"ms ({r['bound_by']}){extra}, max abs err "
               f"{r['max_abs_err']:.3g}", flush=True)
     rec = {"bench": "redesign", "root": ROOT, "build_s": built,

@@ -20,9 +20,15 @@ exits non-zero:
    see, two runs bit-equal, and exactly the cached kernel's output on the
    same rows laid out contiguously, at the 4096-row cache too; the launch
    geometry of both at the main shape, at least 128 CTAs, and their time
-   also as launches replayed from a CUDA graph; both again at gemma-2b's
-   block prefill (D 256, one kv head: parity, paged equal to cached, each
-   timed beside SDPA and a page gather + SDPA); Fisher: f32 at 1e-5, bf16
+   also as launches replayed from a CUDA graph; both again past D 128, on
+   the tensor cores with Q read from shared memory, at gemma-2b's block
+   prefill (D 256, one kv head) and stablelm-12b's (D 160, 32 heads over
+   8): f32 and bf16 parity, the fixed max |err| <= 3e-2, paged equal to
+   cached, two runs bit-equal, the empty slot exactly 0, each launch held
+   to ``flash_attention.block_plan_model`` with ptxas's registers and
+   spill stores, each timed beside its bound, its plain version, SDPA and
+   a page gather + SDPA; no bf16 instantiation built on the FMA loops;
+   Fisher: f32 at 1e-5, bf16
    inputs at 2e-2, masked rows holding NaN, the tap-gradient launch held
    to its host-side model, and its task axis (T = 1, 3, 4 stacked d_ff
    groups with ragged masks: one launch, each task bit-equal to a
@@ -336,7 +342,7 @@ exits non-zero:
    ``reanalyze`` from the saved op tables and the roofline table of both
    meshes; (c) qwen2-1.5b's published config in bf16, random weights and
    tokens from seed 0: ``launch.dryrun``'s train step at 1 x 4,096 (the
-   dry-run policy, Adam), its prefill at 1 x 32,768 (2 of 28 layers: a
+   dry-run policy, Adam), its prefill at 1 x 32,768 (1 of 28 layers: a
    32k layer is ~131k dispatched ops) and its decode over a 32,768-row
    cache, each on the card: the op analyser's FLOPs equal to its count
    on the meta device at the same shape, ``torch.profiler``'s FLOPs, the
@@ -531,9 +537,15 @@ FISHER_TASKS = (1, 3, 4)
 # over requests 0 and 1), so at T 0.7 every draw is the argmax; at 3 the
 # draws leave it
 SAMPLE_T = 3.0
-# kernels 2 and 4 at gemma-2b's block prefill (D 256 on their FMA loops):
-# timed beside SDPA and a page gather + SDPA, 18 layers' buffers cycled
+# kernels 2 and 4 past D 128, where their tensor-core path reads Q from
+# shared memory: gemma-2b's block prefill (D 256, 8 heads over one kv
+# head, its 18 layers' buffers cycled) and stablelm-12b's (D 160, 32 heads
+# over 8, its 40 layers), phase 3's cursors at max_len 512; each held to
+# the same gates as phase 3's main shape and timed beside SDPA and a page
+# gather + SDPA
 WIDE_BLOCK = dict(B=8, Sq=8, Hq=8, Hkv=1, D=256, Sk=512, layers=18)
+STABLELM_BLOCK = dict(B=8, Sq=8, Hq=32, Hkv=8, D=160, Sk=512, layers=40)
+WIDE_BLOCKS = (("gemma-2b's", WIDE_BLOCK), ("stablelm-12b's", STABLELM_BLOCK))
 # phase 18, the moe family at its published widths with the depth cut to
 # fit one 80 GB card: mixtral-8x7b at 16 of 32 layers (46.9 GB of bf16
 # weights), deepseek-v3-671b at 4 of 61 (its 3 dense-head layers and one
@@ -678,12 +690,12 @@ PLAN_EXTRA = (("qwen2-1.5b", "prefill_32k", False),
               ("qwen2-1.5b", "train_4k", True))
 PLAN_WAIT = 600  # s phase 23 waits for the planner's processes at most
 # (c)'s steps on the card, qwen2-1.5b at full width in bf16: (batch, seq);
-# the prefill at 2 of 28 layers (a layer of 32k is 2,048 chunk pairs of
+# the prefill at 1 of 28 layers (a layer of 32k is 2,048 chunk pairs of
 # chunked_attention, ~131k dispatched ops, each under the analyser and the
-# profiler in turn)
+# profiler in turn; the script's wall keeps it to one)
 PLAN_ARCH = "qwen2-1.5b"
 PLAN_STEPS = {"train": (1, 4096), "prefill": (1, 32768), "decode": (1, 32768)}
-PLAN_PREFILL_LAYERS = 2
+PLAN_PREFILL_LAYERS = 1
 TRAIN_POD = ["--preset", "smoke", "--steps", "2", "--batch", "4", "--seq",
              "32", "--mem-budget-mb", "8", "--production-mesh"]
 # phase 24, the overlay registry and the capped MoE decode: (a) a spec
@@ -1535,10 +1547,11 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
     """Kernels 2 and 4 at a model's block prefill ``blk`` (its
     ``q_offset`` / ``kv_len`` / ``pages`` where it has them, else phase 3's
     cursors over 256 pages), f32 at 1e-4 and bf16 under the per-slot gate, the paged
-    kernel equal to the cached one on the same rows; then each timed in
-    bf16 over ``blk["layers"]`` buffer sets cycled, beside its bound, its
-    plain version and SDPA or a page gather + SDPA.  Returns the largest
-    errors, keyed by kernel."""
+    kernel equal to the cached one on the same rows, each kernel's second
+    run bit-equal to its first, and exactly 0 for a slot that sees no key;
+    then each timed in bf16 over ``blk["layers"]`` buffer sets cycled,
+    beside its bound, its plain version and SDPA or a page gather + SDPA.
+    Returns the largest errors, keyed by kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -1562,10 +1575,12 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
         kp = fill_pages(torch.zeros((n_pages, PAGE_SIZE, Hkv, D),
                                     dtype=dtype, device=dev), k, table, kv_len)
         vp = fill_pages(torch.zeros_like(kp), v, table, kv_len)
-        got = ops.flash_attention_cached(q, k, v, q_offset=qo, kv_len=kl,
-                                         causal=True)
-        pgot = ops.flash_attention_paged(q, kp, vp, table, q_offset=qo,
-                                         kv_len=kl)
+        got, again = (ops.flash_attention_cached(q, k, v, q_offset=qo,
+                                                 kv_len=kl, causal=True)
+                      for _ in range(2))
+        pgot, pagain = (ops.flash_attention_paged(q, kp, vp, table,
+                                                  q_offset=qo, kv_len=kl)
+                        for _ in range(2))
         want = cached_ref(q, k, v, q_offset=qo, kv_len=kl, causal=True)
         pwant = kref.flash_attention_paged_ref(q, kp, vp, table,
                                                q_offset=qo, kv_len=kl)
@@ -1576,15 +1591,27 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
         bf16_gate(got, want, dname, f"flash_cached {model} block")
         bf16_gate(pgot, pwant, dname, f"flash_paged {model} block")
         same = torch.equal(pgot, got)
+        rerun = torch.equal(got, again) and torch.equal(pgot, pagain)
+        blind = [i for i, (o, n) in enumerate(zip(q_off, kv_len))
+                 if min(n, o + Sq) <= 0]
+        zero = all(not got[i].any() and not pgot[i].any() for i in blind)
         print(f"[{tag}-kernel] flash_cached / flash_paged {dname} at {model} "
               f"block prefill (B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
               f"Sk={Sk}, kv_len {kv_len}): max abs err {err:.3g} / {perr:.3g} (tol {tol:g}"
               f"{', per-slot bf16 gate' if dname == 'bfloat16' else ''}); "
               f"paged {'equal to' if same else 'DIFFERS FROM'} cached on the "
-              f"same rows", flush=True)
+              f"same rows; a second run {'bit-equal' if rerun else 'DIFFERS'}"
+              f"; slots {blind} (no key) {'exactly 0' if zero else 'NOT 0'}",
+              flush=True)
         if not same:
             fail(f"flash_paged differs from flash_cached at {model} block "
                  f"prefill ({dname})")
+        if not rerun:
+            fail(f"kernels 2 and 4 at {model} block prefill ({dname}): two "
+                 "runs on the same inputs differ")
+        if not zero:
+            fail(f"kernels 2 and 4 at {model} block prefill ({dname}): a "
+                 "slot that sees no key does not give exactly 0")
         worst["flash_cached"] = max(worst["flash_cached"], err)
         worst["flash_paged"] = max(worst["flash_paged"], perr)
 
@@ -1677,6 +1704,60 @@ def block_kernels(ops, flash_attention, flash_paged, cached_ref, blk,
     del ks, vs, kps, vps
     torch.cuda.empty_cache()
     return worst
+
+
+NO_LOG = "none: the library was loaded from build/, not compiled in this run"
+
+
+def block_geometry(build, flash_attention, blk, model: str) -> dict:
+    """The launch kernels 2 and 4 make in bf16 at block prefill ``blk``
+    (pages of 16 over ``blk["pages"]`` or 256 pages), read through
+    ``flash_cached_plan``/``flash_paged_plan`` and held to the host-side
+    model ``flash_attention.block_plan_model``, printed with ptxas's
+    registers and spill stores of the tensor-core instantiation it runs
+    (fails if this build has none; says so where the library was loaded
+    from ``build/`` and no ptxas log exists).  Returns the plans, keyed by
+    kernel."""
+    import torch
+
+    B, Sq, Hq, Hkv, D, Sk = (blk[k] for k in ("B", "Sq", "Hq", "Hkv", "D",
+                                              "Sk"))
+    n_pages, mp = blk.get("pages", DEFAULT_PAGES), Sk // PAGE_SIZE
+    plans = {}
+    for what, entry, args, rows, src in (
+            ("flash_cached", "flash_cached_plan", (B, Sq, Sk, Hq, Hkv, D, 1),
+             ("contig", Sk), "ContigRows"),
+            ("flash_paged", "flash_paged_plan",
+             (B, Sq, Hq, Hkv, D, n_pages, PAGE_SIZE, mp, 1),
+             ("paged", PAGE_SIZE, mp), "PagedRows")):
+        plan = launch_plan(build.load(what), entry, *args)
+        want = flash_attention.block_plan_model(B, Sq, Hq, Hkv, D,
+                                                torch.bfloat16, rows)
+        log = build.BUILD_LOG.get(what, (0, ""))[1]
+        parts = ("flash_block_kernel", "13__nv_bfloat16", f"Li{D}E", "Lb1E",
+                 src)
+        regs = ptxas_report(log, *parts)
+        spill = ptxas_report(log, *parts, what="spill")
+        print(f"[geometry] {what} bf16 {model} B={B} Sq={Sq} Hq={Hq} "
+              f"Hkv={Hkv} D={D} "
+              f"{'Sk=' + str(Sk) if src == 'ContigRows' else f'pages of {PAGE_SIZE}'}: "
+              f"{plan['CTAs']} CTAs in clusters of {plan['cluster']}, "
+              f"{plan['threads']} threads, {plan['smem_bytes']} B of dynamic "
+              f"shared memory, {plan['stages']} stages, {plan['registers']} "
+              f"registers a thread; tensor cores, Q from {want['q_tile']} "
+              f"(ptxas log: "
+              f"{NO_LOG if not log else f'{regs} registers, {spill} bytes of spill stores'})",
+              flush=True)
+        diff = {k: (plan[k], want[k]) for k in PLAN_KEYS
+                if k != "registers" and plan[k] != want[k]}
+        if diff:
+            fail(f"{what} at {model} block prefill: launch (card, model) "
+                 f"differ: {diff}")
+        if log and regs is None:
+            fail(f"{what}: this build has no tensor-core bf16 instantiation "
+                 f"at D {D}")
+        plans[what] = plan
+    return plans
 
 
 def tap_kernels(ops, fisher_kernel, tapgrads_ref, row_mask, n_valid, taps,
@@ -4495,25 +4576,20 @@ def main() -> int:
         worst, p_worst = max(worst, err), max(p_worst, perr)
     del k, v, kp, vp
 
-    # the launch each kernel makes at the main shape (bf16)
-    for what, lib, entry, args in (
-            ("flash_cached", "flash_cached", "flash_cached_plan",
-             (B, Sq, Sk, Hq, Hkv, D, 1)),
-            ("flash_paged", "flash_paged", "flash_paged_plan",
-             (B, Sq, Hq, Hkv, D, DEFAULT_PAGES, PAGE_SIZE, Sk // PAGE_SIZE,
-              1))):
-        plan = launch_plan(build.load(lib), entry, *args)
-        rows = "ContigRows" if lib == "flash_cached" else "PagedRows"
-        ptx = ptxas_report(build.BUILD_LOG.get(lib, (0, ""))[1],
-                              "flash_block_kernel", "13__nv_bfloat16",
-                              f"Li{D}E", "Lb1E", rows)
-        print(f"[geometry] {what} bf16 B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
-              f"{'Sk=' + str(Sk) if rows == 'ContigRows' else f'pages of {PAGE_SIZE}'}: "
-              f"{plan['CTAs']} CTAs in clusters of {plan['cluster']}, "
-              f"{plan['threads']} threads, {plan['smem_bytes']} B of dynamic "
-              f"shared memory, {plan['stages']} stages, {plan['registers']} "
-              f"registers a thread (ptxas log: "
-              f"{'not in this build' if ptx is None else ptx})", flush=True)
+    # the launch each kernel makes at the main shape (bf16), and no bf16
+    # instantiation of either kernel built on the FMA loops
+    logs = " ".join(build.BUILD_LOG.get(n, (0, ""))[1]
+                    for n in ("flash_cached", "flash_paged"))
+    fma_bf16 = re.findall(r"flash_block_kernelI13__nv_bfloat16Li(\d+)ELb0E",
+                          logs)
+    if fma_bf16:
+        fail("kernels 2 and 4 built bf16 FMA loops at D "
+             f"{sorted(set(fma_bf16))}")
+    if not logs.strip():
+        print(f"[geometry] no bf16 FMA instantiation: not checked ({NO_LOG})",
+              flush=True)
+    for what, plan in block_geometry(build, flash_attention, MAIN,
+                                     "qwen2-1.5b's").items():
         if plan["CTAs"] < 128:
             fail(f"{what} spans {plan['CTAs']} CTAs at the main shape, "
                  "fewer than 128")
@@ -4578,99 +4654,20 @@ def main() -> int:
              "max_abs_err": p_worst}
     del kps, vps
 
-    # kernels 2 and 4 at gemma-2b's block prefill (D 256, one kv head: the
-    # FMA loops of flash_block.cuh): parity, then each beside SDPA and a
-    # page gather + SDPA, one buffer set a layer cycled past the L2
-    wb, wsq, whq, whkv, wd, wsk, wl = (WIDE_BLOCK[x] for x in (
-        "B", "Sq", "Hq", "Hkv", "D", "Sk", "layers"))
-    bf = torch.bfloat16
-    wq = torch.randn((wb, wsq, whq, wd), generator=gen, device=dev).to(bf)
-    wks = torch.randn((wl, wb, wsk, whkv, wd), generator=gen,
-                      device=dev).to(bf)
-    wvs = torch.randn((wl, wb, wsk, whkv, wd), generator=gen,
-                      device=dev).to(bf)
-    wmp = wsk // PAGE_SIZE
-    wtable = page_table(KV_LEN, PAGE_SIZE, wmp, DEFAULT_PAGES, gen, dev)
-    wkps = torch.zeros((wl, DEFAULT_PAGES, PAGE_SIZE, whkv, wd), device=dev,
-                       dtype=bf)
-    wvps = torch.zeros_like(wkps)
-    for i in range(wl):
-        fill_pages(wkps[i], wks[i], wtable, KV_LEN)
-        fill_pages(wvps[i], wvs[i], wtable, KV_LEN)
-    wgot = ops.flash_attention_cached(wq, wks[0], wvs[0], q_offset=qo,
-                                      kv_len=kl)
-    wwant = flash_attention_cached_ref(wq, wks[0], wvs[0], q_offset=qo,
-                                       kv_len=kl)
-    wpgot = ops.flash_attention_paged(wq, wkps[0], wvps[0], wtable,
-                                      q_offset=qo, kv_len=kl)
-    torch.cuda.synchronize()
-    w_err = (wgot.float() - wwant.float()).abs().max().item()
-    if not w_err <= TOL["bfloat16"]:
-        fail(f"flash_cached at D 256: max abs error {w_err}")
-    bf16_gate(wgot, wwant, "bfloat16", "flash_cached at D 256")
-    if not torch.equal(wpgot, wgot):
-        fail("flash_paged differs from flash_cached at gemma-2b's block "
-             "prefill")
-    wout = torch.empty_like(wq)
-    c_entry = flash_attention._entry()
-    it["i"] = 0
-
-    def wide_layer():
-        i = it["i"] = (it["i"] + 1) % wl
-        return i
-
-    def run_wide_cached():
-        i = wide_layer()
-        rc = c_entry(wq.data_ptr(), wks[i].data_ptr(), wvs[i].data_ptr(),
-                   wout.data_ptr(), qo.data_ptr(), kl.data_ptr(), wb, wsq,
-                   wsk, whq, whkv, wd, 1, 0, 1, stream)
-        if rc:
-            fail(f"flash_cached_fwd returned cudaError {rc}")
-
-    def run_wide_paged():
-        i = wide_layer()
-        rc = p_entry(wq.data_ptr(), wkps[i].data_ptr(), wvps[i].data_ptr(),
-                     wout.data_ptr(), wtable.data_ptr(), qo.data_ptr(),
-                     kl.data_ptr(), wb, wsq, whq, whkv, wd, DEFAULT_PAGES,
-                     PAGE_SIZE, wmp, 1, stream)
-        if rc:
-            fail(f"flash_paged_fwd returned cudaError {rc}")
-
-    wqt = wq.transpose(1, 2)
-    wrows_ok = (wtable >= 0).repeat_interleave(PAGE_SIZE, dim=1)
-    widx = wtable.long().clamp(min=0)
-
-    def run_wide_sdpa():
-        i = wide_layer()
-        F.scaled_dot_product_attention(wqt, wks[i].transpose(1, 2),
-                                       wvs[i].transpose(1, 2),
-                                       attn_mask=mask, enable_gqa=True)
-
-    def run_wide_gather_sdpa():
-        i = wide_layer()
-        kk = wkps[i][widx].reshape(wb, wsk, whkv, wd).transpose(1, 2)
-        vv = wvps[i][widx].reshape(wb, wsk, whkv, wd).transpose(1, 2)
-        F.scaled_dot_product_attention(
-            wqt, kk, vv, attn_mask=mask & wrows_ok[:, None, None],
-            enable_gqa=True)
-
-    nbytes, nops = flash_work(Q_OFFSET, KV_LEN, wsq, whq, whkv, wd, 2, 0)
-    for what, run, lib, extra in (
-            ("flash_cached", run_wide_cached, run_wide_sdpa, 0),
-            ("flash_paged", run_wide_paged, run_wide_gather_sdpa,
-             4 * wtable.numel())):
-        k_ms = time_ms(run, 4 * wl)
-        l_ms = time_ms(lib, 4 * wl)
-        t_bytes = (nbytes + extra) / HBM_BYTES_PER_S
-        t_ops = nops / PEAK_OPS["bfloat16"]
-        print(f"[time] {what} bf16 gemma-2b block prefill B={wb} Sq={wsq} "
-              f"Hq={whq} Hkv={whkv} D={wd} max_len={wsk}: kernel "
-              f"{k_ms:.4f} ms, bound {1e3 * max(t_bytes, t_ops):.5f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
-              f"{'sdpa' if what == 'flash_cached' else 'page gather + sdpa'} "
-              f"{l_ms:.4f} ms; max abs err {w_err:.3g}, paged equal to "
-              f"cached", flush=True)
-    del wks, wvs, wkps, wvps
+    # kernels 2 and 4 past D 128 (gemma-2b's D 256, stablelm-12b's D 160:
+    # the tensor-core path with Q read from shared memory): block_kernels'
+    # gates and the fixed max |err| <= 3e-2, then each timed beside SDPA
+    # and a page gather + SDPA; each launch held to its model
+    for model, blk in WIDE_BLOCKS:
+        err = block_kernels(ops, flash_attention, flash_paged,
+                            flash_attention_cached_ref, blk, model, "wide",
+                            dev, gen)
+        if not max(err.values()) <= TOL["bfloat16"]:
+            fail(f"kernels 2 and 4 at {model} block prefill: max abs error "
+                 f"{err}")
+        flash["max_abs_err"] = max(flash["max_abs_err"], err["flash_cached"])
+        paged["max_abs_err"] = max(paged["max_abs_err"], err["flash_paged"])
+        block_geometry(build, flash_attention, blk, model)
     print(f"[gate] kernels 2 and 4, bf16, per slot: every slot within 3e-2 "
           f"|want| + min(3e-2, 0.1 rms(want[slot])); the largest err / "
           f"allowed {GATE_WORST['ratio']:.4f} ({GATE_WORST['what']})",

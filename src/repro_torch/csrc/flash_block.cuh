@@ -39,16 +39,59 @@
 //     the input dtype, double-buffered when a CTA walks more than one tile;
 //     rows outside the band (or behind an unmapped page) are zero-filled and
 //     never read, so a non-finite stale row cannot reach the output;
-//   * bf16 with D <= 128: four warps, each owning 16 query rows of the tile
-//     (a warp with no live row does no product); S = Q K^T and O += P V on the
-//     tensor cores (mma.sync m16n8k16, f32 accumulate), Q and the accumulator
-//     in registers, V read with ldmatrix.trans, P rounded to bf16 for the
-//     second product.  f32 (held to 1e-4) and bf16 with D > 128 (past the
-//     register file at these tiles): FMA loops over the same tiles, 256
+//   * bf16, every D from 16 to 256: four warps, each owning 16 query rows of
+//     the tile (a warp with no live row does no product); S = Q K^T and O +=
+//     P V on the tensor cores (mma.sync m16n8k16, f32 accumulate), the
+//     accumulator in registers, K read with ldmatrix, V with ldmatrix.trans,
+//     P rounded to bf16 for the second product.  Past D 128 only the k-steps
+//     (D / 16) and the output's n-tiles (D / 8) grow; the arithmetic, the
+//     base-2 online softmax, the masks and the combine are the D <= 128 ones;
+//   * where Q's A fragments live.  A thread's share of the accumulator is
+//     D / 2 floats and its scores 32; Q's fragments add D / 4 registers.
+//     At D <= 128 that is at most 128 and all of it fits (ptxas: 227
+//     registers at D 128 with contiguous rows, 207 with paged ones, no
+//     spill), so Q stays in registers, loaded once.  Q read from shared
+//     memory there too (below) drops them to 170 and 162 but costs kernel
+//     2 time: on an H100 80GB HBM3 at 700 W (benchmarks_torch/
+//     redesign_bench.py --only block, device time a call in a CUDA graph,
+//     two runs each) 0.0093-0.0094 -> 0.0099-0.0100 ms at qwen2-1.5b's
+//     block prefill (Hq 12 over 2) and 0.0195-0.0196 -> 0.0206-0.0207 at
+//     mixtral-8x7b's (32 over 8), where kernel 4 gains at most 2 % (0.0110-
+//     0.0111 -> 0.0111-0.0112, 0.0233-0.0235 -> 0.0230).
+//     At D 256 it is 224 before any address or fragment of K and V, and
+//     the build below already takes 246 without Q's 64: they would not fit
+//     the 255 a thread may hold.  So past D 128 the CTA's 64 query rows
+//     are staged once in shared memory, bf16, in rows padded by 16 bytes
+//     (the K/V rows' layout: eight ldmatrix rows fall in eight distinct
+//     16-byte bank groups at every D that is a multiple of 16), and each
+//     k-step's A fragment is read with ldmatrix.x4, as FlashAttention-2
+//     does at this head dim: one ldmatrix a k-step and 64 (D + 8) x 2
+//     bytes of shared memory (33,792 at D 256) for D / 4 registers.  Two
+//     warps a 16-row band, each with half of D's columns, would halve the
+//     accumulator too, but need P and the row statistics exchanged through
+//     shared memory every tile; wgmma would need the paged rows in its
+//     swizzled layout.  Neither is needed: ptxas (CUDA 12.8, sm_90a) fits
+//     the one-warp band in 213 registers at D 160 and 246 at D 256 with
+//     contiguous rows, 168 and 243 with paged ones, with no spill store
+//     (chip_smoke.py's [geometry] lines print them);
+//   * f32 (held to 1e-4) alone runs FMA loops over the same tiles, 256
 //     threads each owning 4 rows, in the same split layout.  One TF32
 //     product would miss 1e-4, but three of split operands meet it, as
 //     kernel 3's float32 path (flash_aligned.cu) and the SSD scan show: a
 //     tensor-core f32 path here is open work, not a limit of the format.
+//
+// Shared memory (bf16): two K/V stages of 2 x 64 x (D + 8) x 2 bytes
+// (67,584 at D 256), the Q tile past D 128, the row statistics, the
+// combine's weights and the stages' row flags: 172,544 bytes at D 256 plus
+// the page table's run, within the 232,448 a block may have; the f32
+// partial accumulator (64 x (D + 4) x 4 bytes) aliases the stages after the
+// tile walk.  What bounds the work is bytes: at gemma-2b's block prefill
+// (8 slots of 8 tokens, 8 heads of 256 over one kv head, chip_smoke.py's
+// cursors) the K/V rows some query sees, Q and the output are 1.93 MB,
+// 0.58 us at 3.35 TB/s, against 89 MFLOP of products, 0.09 us at the
+// tensor cores' bf16 peak; at stablelm-12b's (32 heads of 160 over 8)
+// 8.3 MB and 0.22 GFLOP, 2.5 us and 0.22 us.  What is left is latency:
+// the CTAs in flight, each walking one or two tiles.
 
 #pragma once
 
@@ -91,6 +134,17 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 b16 matrices: lanes 8m..8m+7 give the row addresses of matrix
+// m, and r[m] receives its fragment (lane l: row l / 4, columns 2 (l % 4)
+// and 2 (l % 4) + 1)
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 // four 8 x 8 b16 matrices, transposed: lanes 8m..8m+7 give the row addresses
@@ -191,16 +245,21 @@ struct Params {
 template <typename T, int D, bool MMA>
 struct Cfg {
   static constexpr int NT = MMA ? 128 : 256;
+  // MMA: Q's A fragments read from a shared tile, not held in registers
+  static constexpr bool QSM = MMA && D > 128;
   static constexpr int LDK = D + 16 / (int)sizeof(T);  // staged K/V row (+16 B)
   static constexpr int LDA = D + 4;                     // partial acc row, f32
   static constexpr int LDQ = D + 1;                     // FMA: Q row, f32
   static constexpr int LDP = BN + 1;                    // FMA: score row, f32
   static constexpr size_t stage_bytes = 2 * BN * LDK * sizeof(T);  // K + V
-  // FMA: sQ, sP; both: m, l, corr, l_total (BM each), e (MAX_SPLIT x BM),
-  // the row flags of each stage (BN ints)
+  // QSM: the Q tile in K/V's row layout; FMA: sQ, sP
+  static constexpr size_t q_bytes =
+      MMA ? (QSM ? sizeof(T) * (size_t)(BM * LDK) : 0)
+          : sizeof(float) * (size_t)(BM * LDQ + BM * LDP);
+  // the Q tile (or sQ, sP); m, l, corr, l_total (BM each), e (MAX_SPLIT x
+  // BM), the row flags of each stage (BN ints)
   static constexpr size_t fixed_bytes(int stages) {
-    return (MMA ? 0 : sizeof(float) * (size_t)(BM * LDQ + BM * LDP)) +
-           sizeof(float) * (size_t)(4 * BM + MAX_SPLIT * BM) +
+    return q_bytes + sizeof(float) * (size_t)(4 * BM + MAX_SPLIT * BM) +
            sizeof(int) * (size_t)(stages * BN);
   }
   static constexpr int STAGES =
@@ -220,10 +279,11 @@ flash_block_kernel(const Params p, const Rows rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* const stage0 = reinterpret_cast<T*>(smem);
   float* const sAcc = reinterpret_cast<float*>(smem);  // after the tile loop
+  T* const sQt = reinterpret_cast<T*>(smem + C::stage_area);         // QSM
   float* const sQ = reinterpret_cast<float*>(smem + C::stage_area);  // FMA
   float* const sP = sQ + BM * C::LDQ;                                // FMA
-  float* const sM = reinterpret_cast<float*>(smem + C::stage_area) +
-                    (MMA ? 0 : BM * C::LDQ + BM * C::LDP);
+  float* const sM =
+      reinterpret_cast<float*>(smem + C::stage_area + C::q_bytes);
   float* const sL = sM + BM;
   float* const sC = sL + BM;
   float* const sLt = sC + BM;
@@ -296,7 +356,7 @@ flash_block_kernel(const Params p, const Rows rows) {
   const int g = lane / 4, t = lane % 4;
   const int ra = warp * 16 + g, rb = ra + 8;
   const bool wlive = MMA ? warp * 16 < live : warp * 8 < live;
-  uint32_t qf[MMA ? D / 16 : 1][4];
+  uint32_t qf[MMA && !C::QSM ? D / 16 : 1][4];
   float acc_m[MMA ? D / 8 : 1][4];
   float m_a = NEG_INIT, m_b = NEG_INIT, l_a = 0.f, l_b = 0.f;
   // FMA: thread (tx, ty) owns rows 4 ty + a, columns tx + 16 j
@@ -307,7 +367,21 @@ flash_block_kernel(const Params p, const Rows rows) {
 #pragma unroll
     for (int nn = 0; nn < D / 8; ++nn)
       acc_m[nn][0] = acc_m[nn][1] = acc_m[nn][2] = acc_m[nn][3] = 0.f;
-    if (wlive) {
+    if constexpr (C::QSM) {
+      // the live warps' rows as 16-byte copies, committed with the first
+      // tile's; rows past `live` zero-filled (read by ldmatrix, never stored)
+      constexpr int EPC = 16 / (int)sizeof(T), CH = D / EPC;
+      const int nrows = ntiles > 0 ? min(BM, (live + 15) & ~15) : 0;
+      for (int idx = tid; idx < nrows * CH; idx += NT) {
+        const int r = idx / CH, x = idx % CH;
+        const int rr = r0 + min(r, live - 1);
+        cp_async16(sQt + r * LDK + x * EPC,
+                   static_cast<const T*>(p.q) +
+                       (((size_t)b * Sq + rr % Sq) * p.Hq + kvh * group +
+                        rr / Sq) * D + x * EPC,
+                   r < live);
+      }
+    } else if (wlive) {
       auto qrow = [&](int r) {
         const int rr = r0 + min(r, live - 1);
         return reinterpret_cast<const uint32_t*>(
@@ -364,13 +438,28 @@ flash_block_kernel(const Params p, const Rows rows) {
         float s[NS][4];
 #pragma unroll
         for (int nn = 0; nn < NS; ++nn) s[nn][0] = s[nn][1] = s[nn][2] = s[nn][3] = 0.f;
+        // ldmatrix rows: Q's A fragment (rows 0-7 / 8-15 x columns 0-7 /
+        // 8-15 of the warp's band), K's B fragments of n-tiles nn, nn + 1
+        // (keys 0-7 / 8-15 x features 0-7 / 8-15 of the k-step)
+        const T* const qr =
+            sQt + (warp * 16 + (lane & 15)) * LDK + (lane >> 4) * 8;
+        const T* const kr =
+            cK + ((lane >> 4) * 8 + (lane & 7)) * LDK + ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t af[4];
+          if constexpr (C::QSM) {
+            ldsm_x4(af, qr + kk * 16);
+          } else {
+            af[0] = qf[kk][0], af[1] = qf[kk][1], af[2] = qf[kk][2],
+            af[3] = qf[kk][3];
+          }
 #pragma unroll
-          for (int nn = 0; nn < NS; ++nn) {
-            const T* kr = &cK[(nn * 8 + g) * LDK + kk * 16 + 2 * t];
-            mma_bf16(s[nn], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                     *reinterpret_cast<const uint32_t*>(kr + 8));
+          for (int nn = 0; nn < NS; nn += 2) {
+            uint32_t bk[4];
+            ldsm_x4(bk, kr + nn * 8 * LDK + kk * 16);
+            mma_bf16(s[nn], af, bk[0], bk[1]);
+            mma_bf16(s[nn + 1], af, bk[2], bk[3]);
           }
         }
         const int qa = qpos_of(ra), qb = qpos_of(rb);
@@ -604,7 +693,7 @@ flash_block_kernel(const Params p, const Rows rows) {
 template <typename T, int D, class Rows>
 cudaError_t launch(Params p, const Rows& rows, int B, cudaStream_t stream,
                    int* plan) {
-  constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value && D <= 128;
+  constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;  // f32: FMA
   using C = Cfg<T, D, MMA>;
   void (*kern)(const Params, const Rows) = flash_block_kernel<T, D, MMA, Rows>;
   // once per instantiation (and process), not once per launch

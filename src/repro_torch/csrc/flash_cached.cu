@@ -30,8 +30,9 @@
 // distributed shared memory in rank order (128 CTAs at B 8, Hkv 2, Sk 512,
 // against 16 before the split); K/V rows arrive as 16-byte cp.async copies
 // into bf16 shared memory, double-buffered; bf16 products on the tensor
-// cores (mma.sync m16n8k16), the 48 live rows of a group at Sq 8 as 3 m16
-// tiles; f32 and D > 128 on FMA loops in the same layout.
+// cores (mma.sync m16n8k16) at every head dim, the 48 live rows of a group
+// at Sq 8 as 3 m16 tiles, Q from shared memory past D 128; f32 on FMA loops
+// in the same layout.
 
 #include "flash_block.cuh"
 

@@ -19,6 +19,49 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
+# csrc/flash_block.cuh's tiles: query rows a CTA, cache rows a logical kv
+# tile, CTAs a cluster at most, and the dynamic shared memory of one block
+BM, BN, MAX_SPLIT, SMEM_MAX = 64, 64, 8, 232448
+
+
+def block_plan_model(b: int, sq: int, hq: int, hkv: int, d: int,
+                     dtype: torch.dtype, rows: tuple) -> dict:
+    """The launch kernels 2 and 4 make (``flash_block.cuh``'s ``launch``),
+    computed on the host: ``CTAs``, ``cluster``, ``threads``,
+    ``smem_bytes`` (dynamic), ``stages`` (the keys of the C entries'
+    ``*_plan`` but registers), and ``path`` (``"mma"``: tensor cores, every
+    bf16 head dim; ``"fma"``: f32) and ``q_tile`` (where the MMA path reads
+    Q's fragments: ``"registers"`` up to D 128, ``"shared"`` past it).
+    ``rows`` is the row source: ``("contig", Sk)`` or ``("paged",
+    page_size, max_pages)``."""
+    mma = dtype == torch.bfloat16
+    elt = 2 if mma else 4
+    ldk = d + 16 // elt                   # a staged K/V row, +16 bytes
+    stage = 2 * BN * ldk * elt            # K + V
+    q_shared = mma and d > 128
+    q_bytes = (BM * ldk * elt if q_shared else 0) if mma else \
+        4 * (BM * (d + 1) + BM * (BN + 1))
+
+    def fixed(stages):
+        return q_bytes + 4 * (4 * BM + MAX_SPLIT * BM) + 4 * stages * BN
+
+    stages = 2 if mma or 2 * stage + fixed(2) <= 200 * 1024 else 1
+    kind, *geom = rows
+    tiles = -(-(geom[0] if kind == "contig" else geom[0] * geom[1]) // BN)
+    run_ints = 0  # PagedRows::run_ints of a rank's longest run
+    if kind == "paged":
+        ps, mp = geom
+        run_ints = min(-(-(-(-tiles // MAX_SPLIT) * BN) // ps) + 1, mp)
+    cluster = 1
+    while cluster < MAX_SPLIT and cluster < tiles:
+        cluster *= 2
+    return {"CTAs": -(-(hq // hkv * sq) // BM) * cluster * hkv * b,
+            "cluster": cluster, "threads": 128 if mma else 256,
+            "smem_bytes": stages * stage + fixed(stages) + 4 * run_ints,
+            "stages": stages, "path": "mma" if mma else "fma",
+            "q_tile": ("shared" if q_shared else "registers") if mma
+            else "f32 shared"}
+
 
 def _entry():
     global _fn

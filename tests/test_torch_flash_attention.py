@@ -6,6 +6,8 @@ JAX is imported inside the reference helper only, so that the card's
 tests run on a machine without it:
 ``python -m pytest -q -m cuda tests/test_torch_flash_attention.py``."""
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -202,6 +204,7 @@ def cuda_device():
     dict(b=8, sq=8, hq=12, hkv=2, d=128, smax=512),  # qwen2-1.5b prefill
     dict(b=3, sq=8, hq=4, hkv=2, d=16, smax=48),     # qwen2-smoke
     dict(b=2, sq=5, hq=16, hkv=1, d=256, smax=130),  # ragged edges, 2 CTAs
+    dict(b=8, sq=8, hq=32, hkv=8, d=160, smax=512),  # stablelm-12b prefill
 ])
 def test_cuda_kernel_matches_plain(cuda_device, shape, window, dtype, tol):
     rng = np.random.default_rng(0)
@@ -240,14 +243,21 @@ BN, MAX_SPLIT = 64, 8  # the kernels' logical tile rows and cluster size
 
 def _split_combine(q, k, v, q_off, kv_len, window, n_split=None,
                    drop_rank=None, edge_unmasked=False, double_rank=None,
-                   drop_tile=None, double_tile=None, fault_slots=None):
+                   drop_tile=None, double_tile=None, fault_slots=None,
+                   mma=False, ksteps=None, ncols=None):
     """The kernels' split-and-combine algebra in plain float32 torch, in
     their order: 64-row tiles from row 0; the band's n tiles dealt out in
     runs of ceil(n / 8) to ``n_split`` ranks (the kernels' cluster size by
     default); per rank an online softmax in base 2 from the sentinel (m =
     -1e30, l = 0, acc = 0), rows outside the band zero-filled; then M = max
     m_j, e_j = 2^(m_j - M), out = sum e_j acc_j / max(sum e_j l_j, 1e-30) in
-    rank order.  Causal.  Planted faults for the gate's tests:
+    rank order.  Causal.  ``mma`` takes the bf16 path's products (on inputs
+    already rounded to bf16): S summed over 16-deep k-steps in order, then
+    acc scaled by the correction and P rounded to bf16 added 16 keys at a
+    time, as mma.sync accumulates them; l sums the unrounded P.  Planted
+    faults of that path: ``ksteps`` keeps only the first k-steps of S, and
+    ``ncols`` leaves the accumulator's columns from there on unwritten.
+    Planted faults of the split for the gate's tests:
     ``drop_rank`` leaves that rank out of the combine's sums,
     ``double_rank`` adds that rank twice, ``drop_tile``/``double_tile``
     skip or repeat that 64-row tile (an index into the band) in its rank's
@@ -296,12 +306,27 @@ def _split_combine(q, k, v, q_off, kv_len, window, n_split=None,
                     vis = inb[None] & (s[None] <= qpos[:, None])
                     if window and not edge:
                         vis = vis & (s[None] > qpos[:, None] - window)
-                    sc = torch.where(vis, (qr @ kt.T) * scale, -math.inf)
+                    if mma:
+                        sc = torch.zeros(group * sq, BN)
+                        for kk in range(0, d if ksteps is None
+                                        else 16 * ksteps, 16):
+                            sc += qr[:, kk:kk + 16] @ kt[:, kk:kk + 16].T
+                    else:
+                        sc = qr @ kt.T
+                    sc = torch.where(vis, sc * scale, -math.inf)
                     m_new = torch.maximum(m, sc.amax(1))
                     corr = torch.exp2(m - m_new)
                     p = torch.exp2(sc - m_new[:, None])
                     l = l * corr + p.sum(1)
-                    acc = acc * corr[:, None] + p @ vt
+                    acc = acc * corr[:, None]
+                    if mma:
+                        pb = p.bfloat16().float()
+                        for j in range(0, BN, 16):
+                            acc += pb[:, j:j + 16] @ vt[j:j + 16]
+                        if ncols is not None:
+                            acc[:, ncols:] = 0
+                    else:
+                        acc = acc + p @ vt
                     m = m_new
                 parts.append((m, l, acc))
             big_m = torch.stack([pt[0] for pt in parts]).amax(0)
@@ -452,6 +477,123 @@ def test_per_slot_gate_sees_a_fault_in_the_longest_slot_only(case,
     assert whole_passes != whole_sees
 
 
+# -- the launch and the bf16 path's arithmetic past D 128 --------------------
+
+HEADER = (Path(FA.__file__).resolve().parents[1] / "csrc"
+          / "flash_block.cuh")
+
+
+def test_block_plan_model_mirrors_the_header():
+    """``block_plan_model``'s tiles are the header's, and the header's
+    ``launch`` sends every bf16 head dim to the tensor cores (the FMA loops
+    are f32's alone), with Q's fragments in shared memory past D 128."""
+    src = HEADER.read_text()
+    consts = {name: int(val) for name, val in re.findall(
+        r"constexpr (?:int|size_t) (BM|BN|MAX_SPLIT|SMEM_MAX) = (\d+);", src)}
+    assert consts == dict(BM=FA.BM, BN=FA.BN, MAX_SPLIT=FA.MAX_SPLIT,
+                          SMEM_MAX=FA.SMEM_MAX)
+    mma = re.findall(r"constexpr bool MMA = ([^;]*);", src)
+    assert mma == ["std::is_same<T, __nv_bfloat16>::value"]
+    assert re.findall(r"constexpr bool QSM = ([^;]*);", src) == [
+        "MMA && D > 128"]
+
+
+# row sources and the cluster each gives: contiguous caches of 8 to 4096
+# rows, page tables of 1- to 16-row pages (chip_smoke.py's max_len 512 and
+# 768 among them), and a 65,536-row table of 4-row pages, whose rank reads
+# a run of 2,049 table entries into shared memory beside the tiles
+PLAN_ROWS = [(("contig", 8), 1), (("contig", 100), 2), (("contig", 200), 4),
+             (("contig", 512), 8), (("contig", 768), 8), (("contig", 4096), 8),
+             (("paged", 16, 32), 8), (("paged", 16, 48), 8),
+             (("paged", 5, 103), 8), (("paged", 1, 4096), 8),
+             (("paged", 4, 16384), 8)]
+# (B, Sq, Hq, Hkv): gemma-2b's and stablelm-12b's block prefill, a decode,
+# block_score's block of 32
+PLAN_HEADS = [(8, 8, 8, 1), (8, 8, 32, 8), (8, 1, 12, 2), (8, 32, 12, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", range(16, 257, 16))
+def test_block_plan_model_fits_every_head_dim(d, dtype):
+    """What the compiler does not check, at every head dim and both dtypes:
+    the launch with a paged rank's run of table entries still fits a
+    block's 232,448 bytes of shared memory (the header's static_assert
+    covers the tiles alone), the cluster each row source gets, and the
+    path: bf16 runs 128 threads on the tensor cores with two stages, Q
+    from registers up to D 128 and from shared memory past it (172,544
+    bytes at D 256 on a contiguous cache), f32 the FMA loops' 256
+    threads."""
+    for rows, cluster in PLAN_ROWS:
+        for b, sq, hq, hkv in PLAN_HEADS:
+            plan = FA.block_plan_model(b, sq, hq, hkv, d, dtype, rows)
+            assert plan["smem_bytes"] <= FA.SMEM_MAX
+            assert plan["cluster"] == cluster
+            if dtype == torch.bfloat16:
+                assert (plan["path"], plan["threads"], plan["stages"]) == (
+                    "mma", 128, 2)
+                assert plan["q_tile"] == ("shared" if d > 128
+                                          else "registers")
+                if d == 256 and rows[0] == "contig":
+                    assert plan["smem_bytes"] == 172544
+            else:
+                assert (plan["path"], plan["threads"]) == ("fma", 256)
+
+
+def _mma_case(d, hq, seed=5):
+    """bf16 q, k, v over one kv head (B 4, Sq 8, a 256-row cache: four
+    tiles, a cluster of 4) and blocks ending at each slot's last row, from
+    an empty cache to a full one."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .bfloat16() for shape in ((4, 8, hq, d), (4, 256, 1, d),
+                                         (4, 256, 1, d)))
+    kv_len = np.asarray([0, 70, 200, 256], np.int32)
+    return q, k, v, np.maximum(kv_len - 8, 0).astype(np.int32), kv_len
+
+
+def _mma_ref(q, k, v, q_off, kv_len, window):
+    return flash_attention_cached_ref(q, k, v, q_offset=torch.from_numpy(q_off),
+                                      kv_len=torch.from_numpy(kv_len),
+                                      window=window)
+
+
+# (D, query heads over one kv head, window): stablelm-12b's group of 4 (32
+# rows a CTA: two warps idle) at D 144 and 160, gemma-2b's of 8 (64 rows)
+# at D 256, with and without a window
+MMA_CASES = [(144, 4, 0), (160, 4, 0), (160, 4, 100), (256, 8, 0),
+             (256, 8, 100)]
+
+
+@pytest.mark.parametrize("d, hq, window", MMA_CASES)
+def test_mma_path_past_d128_within_the_bf16_gate(d, hq, window, one_thread):
+    """The bf16 path's arithmetic at D 144-256 (``_split_combine(mma=True)``:
+    S over D / 16 k-steps, P rounded to bf16, 16 keys a k-step) lies
+    within kernels 2 and 4's bf16 gate of the plain version, whole and per
+    slot, and gives exactly 0 for the empty cache."""
+    q, k, v, q_off, kv_len = _mma_case(d, hq)
+    got = _split_combine(q.float(), k.float(), v.float(), q_off, kv_len,
+                         window, mma=True).bfloat16()
+    _assert_close_slots(got, _mma_ref(q, k, v, q_off, kv_len, window), 3e-2)
+    assert torch.all(got[0] == 0)
+
+
+MMA_FAULTS = [("k-steps past column 128 dropped", dict(ksteps=8)),
+              ("n-tiles past column 128 unwritten", dict(ncols=128))]
+
+
+@pytest.mark.parametrize("case", MMA_FAULTS, ids=[c[0] for c in MMA_FAULTS])
+@pytest.mark.parametrize("d, hq", [(160, 4), (256, 8)])
+def test_bf16_gate_rejects_a_planted_mma_fault(d, hq, case, one_thread):
+    """A path that stops at D 128 (the k-steps of S past column 128
+    dropped, or the accumulator's n-tiles past it never written) fails the
+    bf16 gate at D 160 and 256."""
+    q, k, v, q_off, kv_len = _mma_case(d, hq)
+    bad = _split_combine(q.float(), k.float(), v.float(), q_off, kv_len, 0,
+                         mma=True, **case[1]).bfloat16()
+    with pytest.raises(AssertionError):
+        _assert_close_slots(bad, _mma_ref(q, k, v, q_off, kv_len, 0), 3e-2)
+
+
 # (what, shape, q_offset, kv_len, window); q_offset None: kv_len - Sq, from 0
 SPLIT_CASES = [
     ("tile edges, cache 1024", dict(b=7, sq=8, hq=12, hkv=2, d=128, smax=1024),
@@ -469,6 +611,8 @@ SPLIT_CASES = [
     ("D 64", dict(b=4, sq=8, hq=8, hkv=2, d=64, smax=1024),
      None, [0, 63, 65, 1024], 0),
     ("D 256", dict(b=4, sq=8, hq=4, hkv=1, d=256, smax=1024),
+     None, [0, 63, 65, 1024], 0),
+    ("D 160", dict(b=4, sq=8, hq=8, hkv=2, d=160, smax=1024),
      None, [0, 63, 65, 1024], 0),
 ]
 

@@ -215,6 +215,7 @@ SHAPES = [
     dict(b=8, sq=8, hq=12, hkv=2, d=128, s=512),  # qwen2-1.5b prefill
     dict(b=3, sq=8, hq=4, hkv=2, d=16, s=48),     # qwen2-smoke
     dict(b=2, sq=5, hq=16, hkv=1, d=256, s=130),  # ragged edges, 2 CTAs
+    dict(b=8, sq=8, hq=32, hkv=8, d=160, s=512),  # stablelm-12b prefill
 ]
 
 
@@ -285,6 +286,7 @@ SPLIT_CASES = [
      [0, 116, 512]),
     ("D 64", dict(b=4, sq=8, hq=8, hkv=2, d=64, s=1024), [0, 63, 65, 1024]),
     ("D 256", dict(b=4, sq=8, hq=4, hkv=1, d=256, s=1024), [0, 63, 65, 1024]),
+    ("D 160", dict(b=4, sq=8, hq=8, hkv=2, d=160, s=1024), [0, 63, 65, 1024]),
 ]
 
 

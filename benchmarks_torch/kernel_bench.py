@@ -20,8 +20,9 @@ names its rows, and gives:
   counted for these inputs (visible query-key pairs for attention);
 - ``library_ms``: one PyTorch call that computes the same function, where
   one exists (``F.scaled_dot_product_attention`` for the attention rows, a
-  page gather before it for the paged rows), a yardstick the port never
-  calls; else null;
+  page gather before it for the paged rows; for ``fisher``, where none
+  does, the pair of ``torch.einsum`` calls its ``port`` names), a
+  yardstick the port never calls; else null;
 - ``max_abs_err`` against the plain version (the paged rows: against the
   contiguous kernel on the same rows; the int8 unpack: against the fp
   read), and ``tol``, which it must not exceed times max(1, max |want|).
@@ -159,11 +160,17 @@ def run_rows(quick: bool, dev) -> List[Dict[str, Any]]:
     # fisher: Eq. 2 over materialised activations and gradients
     n, d, c = (4, 512, 256) if quick else (16, 2048, 1024)
     a, g = randn(n, d, c), randn(n, d, c, scale=0.1)
-    row("fisher", f"({n}x{d}x{c})", "csrc/fisher.cu",
+    def einsum_pair():
+        u = torch.einsum("ndc,ndc->nc", a, g)
+        return torch.einsum("nc,nc->c", u, u).div_(2 * n)
+
+    row("fisher", f"({n}x{d}x{c})",
+        "csrc/fisher.cu; library: two calls, einsum('ndc,ndc->nc') then "
+        "einsum('nc,nc->c') / (2n) (no single call computes Eq. 2)",
         lambda: ops.fisher(a, g), lambda: ref.fisher_ref(a, g),
         ops.fisher(a, g), ref.fisher_ref(a, g),
         nbytes=4 * (2 * n * d * c + c), nops=2 * n * d * c + 2 * n * c,
-        tol=1e-5)
+        tol=1e-5, library=einsum_pair)
 
     # flash attention, aligned mode: kernel 3
     b, s, hq, hkv, hd = (1, 512, 4, 2, 64) if quick else (2, 2048, 8, 2, 128)

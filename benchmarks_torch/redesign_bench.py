@@ -19,6 +19,15 @@ Rows (bf16 unless named):
 - ``fisher_tapgrads`` (28, 48, 8960) f32: kernel 1 at qwen2-1.5b's d_ff
   tap group, 40 of 48 rows valid (the adapt episode's mask), four buffer
   sets cycled past the 50 MB L2, beside ``torch.einsum``;
+- ``fisher <name>``: kernel 1's (N, D, C) route through ``fisher_fwd``
+  at the bench's (16, 2048, 1024) and qwen2-1.5b's d_ff over an episode
+  of 48 rows of 64 tokens (48, 64, 8960), f32 and bf16, and at two edge
+  CNN layers at 84 px, f32: the first (64 support images, a 42 x 42 map,
+  8 channels: (64, 1764, 8)) and a late depthwise one of mcunet-5fps
+  (576 channels at 3 x 3: (64, 9, 576)); buffer sets cycled past the
+  L2, beside the plain version and the einsum pair (``einsum("ndc,ndc->
+  nc")``, then ``einsum("nc,nc->c") / (2n)``: two calls, since no single
+  one computes Eq. 2), eager and in a CUDA graph;
 - ``flash_cached <model> block prefill`` and ``flash_paged <model> block
   prefill``: kernels 2 and 4 at B 8, Sq 8 and ragged cursors
   (``chip_smoke.py``'s) at three models' heads: gemma-2b's (Hq 8, Hkv 1,
@@ -28,7 +37,9 @@ Rows (bf16 unless named):
   Hkv 8, D 160, max_len 512, 40 layers), and two controls on the D 128
   path, qwen2-1.5b's (Hq 12, Hkv 2, 28 layers) and mixtral-8x7b's (Hq 32,
   Hkv 8, 16 layers); one K/V buffer per layer cycled past the L2, beside
-  SDPA with a mask and beside a page gather + SDPA.
+  SDPA with a mask and beside a page gather + SDPA; and their f32 path
+  (FMA loops) at qwen2-1.5b's and gemma-2b's shapes (``... f32``), beside
+  SDPA in f32 (TF32 off).
 
 Each time is the median of 5 trials of CUDA events around enough calls to
 pass 2 ms, with its spread.  The block rows also give the device time
@@ -82,7 +93,17 @@ BLOCKS = [
     ("qwen2-1.5b", 8, 8, 12, 2, 128, 512, 28, Q_OFFSET, KV_LEN),
     ("mixtral-8x7b", 8, 8, 32, 8, 128, 512, 16, Q_OFFSET, KV_LEN),
 ]
-ROWS = ("aligned", "fisher", "block")
+# kernels 2 and 4's f32 path, at these of BLOCKS' models
+BLOCKS_F32 = ("qwen2-1.5b", "gemma-2b")
+# kernel 1's (N, D, C) route: (name, N, D, C, dtypes)
+GENERAL = [
+    ("bench", 16, 2048, 1024, ("float32", "bfloat16")),
+    ("wide", 48, 64, 8960, ("float32", "bfloat16")),
+    ("cnn-early", 64, 1764, 8, ("float32",)),
+    ("cnn-head", 64, 9, 576, ("float32",)),
+]
+L2_BYTES = 50 * 2 ** 20
+ROWS = ("aligned", "fisher", "general", "block")
 
 
 def _smi() -> Optional[str]:
@@ -255,15 +276,82 @@ def fisher_row(dev, gen, stream) -> Dict[str, Any]:
             "finite_with_nan_rows": finite}
 
 
+def general_rows(dev, gen, stream) -> List[Dict[str, Any]]:
+    import torch
+
+    from repro_torch.kernels import fisher as fisher_kernel
+    from repro_torch.kernels.ref import fisher_ref
+
+    entry = fisher_kernel._entry()
+    rows = []
+    for name, n, d, c, dtypes in GENERAL:
+        for dname in dtypes:
+            dt = getattr(torch, dname)
+            elt = torch.empty((), dtype=dt).element_size()
+            nbytes = 2 * n * d * c * elt
+            sets = max(1, math.ceil(2 * L2_BYTES / nbytes))
+            bufs = [(torch.randn((n, d, c), generator=gen, device=dev).to(dt),
+                     (0.1 * torch.randn((n, d, c), generator=gen,
+                                        device=dev)).to(dt))
+                    for _ in range(sets)]
+            out = torch.empty((c,), device=dev)
+            it, st = [0], [stream]
+
+            def nxt():
+                it[0] = (it[0] + 1) % sets
+                return bufs[it[0]]
+
+            def run():
+                a, g = nxt()
+                check(entry(a.data_ptr(), g.data_ptr(), None, out.data_ptr(),
+                            n, d, c, 1.0 / (2 * n), 0,
+                            0 if dt == torch.float32 else 1, st[0]),
+                      "fisher_fwd")
+
+            def plain():
+                fisher_ref(*nxt())
+
+            def einsum():
+                a, g = nxt()
+                u = torch.einsum("ndc,ndc->nc", a, g)
+                torch.einsum("nc,nc->c", u, u).div_(2 * n)
+
+            it[0] = sets - 1
+            run()
+            want = fisher_ref(*bufs[0])
+            torch.cuda.synchronize()
+            err = (out - want).abs().max().item()
+            ms, pms, lms = timed(run), timed(plain), timed(einsum)
+            gms, glms = graphed(run, st, 20), graphed(einsum, st, 20)
+            st[0] = stream
+            bms, by = bound(nbytes + 4 * c, 2 * n * d * c + 3 * n * c,
+                            PEAK[dname])
+            rows.append({"name": f"fisher {name}", "shape": [n, d, c],
+                         "dtype": dname, "ms": ms[0], "ms_min": ms[1],
+                         "ms_max": ms[2], "plain_ms": pms[0],
+                         "library_ms": lms[0], "graph_ms": gms[0],
+                         "graph_ms_min": gms[1], "graph_ms_max": gms[2],
+                         "library_graph_ms": glms[0], "bound_ms": bms,
+                         "bound_by": by, "max_abs_err": err,
+                         "buffer_sets": sets})
+            del bufs
+    return rows
+
+
 def block_rows(dev, gen, stream) -> List[Dict[str, Any]]:
+    import torch
+
     rows = []
     for blk in BLOCKS:
         rows += block_shape(dev, gen, stream, *blk)
+    for blk in BLOCKS:
+        if blk[0] in BLOCKS_F32:
+            rows += block_shape(dev, gen, stream, *blk, dt=torch.float32)
     return rows
 
 
 def block_shape(dev, gen, stream, model, b, sq, hq, hkv, d, sk, layers,
-                q_offset, kv_len) -> List[Dict[str, Any]]:
+                q_offset, kv_len, dt=None) -> List[Dict[str, Any]]:
     import torch
     import torch.nn.functional as F
 
@@ -272,7 +360,10 @@ def block_shape(dev, gen, stream, model, b, sq, hq, hkv, d, sk, layers,
         flash_attention_cached_ref, flash_attention_paged_ref,
     )
 
-    bf = torch.bfloat16
+    bf = torch.bfloat16 if dt is None else dt
+    code = 1 if bf == torch.bfloat16 else 0
+    dname = str(bf).split(".")[-1]
+    elt = torch.empty((), dtype=bf).element_size()
     qo = torch.tensor(q_offset, dtype=torch.int32, device=dev)
     kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(bf)
@@ -292,7 +383,7 @@ def block_shape(dev, gen, stream, model, b, sq, hq, hkv, d, sk, layers,
         i = layer()
         check(c_entry(q.data_ptr(), ks[i].data_ptr(), vs[i].data_ptr(),
                       out.data_ptr(), qo.data_ptr(), kl.data_ptr(), b, sq, sk,
-                      hq, hkv, d, 1, 0, 1, st[0]), "flash_cached_fwd")
+                      hq, hkv, d, 1, 0, code, st[0]), "flash_cached_fwd")
 
     # pages of 16 over a permuted arena: the page i of sample j holds its
     # logical rows [16 i, 16 i + 16)
@@ -312,8 +403,8 @@ def block_shape(dev, gen, stream, model, b, sq, hq, hkv, d, sk, layers,
         i = layer()
         check(p_entry(q.data_ptr(), kps[i].data_ptr(), vps[i].data_ptr(),
                       out.data_ptr(), table.data_ptr(), qo.data_ptr(),
-                      kl.data_ptr(), b, sq, hq, hkv, d, n_pages, PAGE, mp, 1,
-                      st[0]), "flash_paged_fwd")
+                      kl.data_ptr(), b, sq, hq, hkv, d, n_pages, PAGE, mp,
+                      code, st[0]), "flash_paged_fwd")
 
     pos = torch.arange(sk, device=dev)
     qpos = qo[:, None].long() + torch.arange(sq, device=dev)[None, :]
@@ -335,7 +426,7 @@ def block_shape(dev, gen, stream, model, b, sq, hq, hkv, d, sk, layers,
                                        enable_gqa=True)
 
     kv_rows, keys = block_pairs(sq, q_offset, kv_len)
-    nbytes = 2 * (2 * b * sq * hq * d + 2 * kv_rows * hkv * d) + 8 * b
+    nbytes = elt * (2 * b * sq * hq * d + 2 * kv_rows * hkv * d) + 8 * b
     nops = 4 * d * hq * keys
     rows = []
     for what, run, ref, lib, extra in (
@@ -356,9 +447,10 @@ def block_shape(dev, gen, stream, model, b, sq, hq, hkv, d, sk, layers,
         lms = timed(lib)
         gms, glms = graphed(run, st, 2 * layers), graphed(lib, st, 2 * layers)
         st[0] = stream
-        bms, by = bound(nbytes + extra, nops, PEAK["bfloat16"])
-        rows.append({"name": f"{what} {model} block prefill",
-                     "shape": [b, sq, hq, hkv, d, sk], "dtype": "bfloat16",
+        bms, by = bound(nbytes + extra, nops, PEAK[dname])
+        tag = "" if code else " f32"
+        rows.append({"name": f"{what} {model} block prefill{tag}",
+                     "shape": [b, sq, hq, hkv, d, sk], "dtype": dname,
                      "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
                      "library_ms": lms[0], "graph_ms": gms[0],
                      "graph_ms_min": gms[1], "graph_ms_max": gms[2],
@@ -388,6 +480,8 @@ def main(out: Optional[str] = None, only=ROWS) -> Dict[str, Any]:
         rows += aligned_rows(dev, gen, stream)
     if "fisher" in only:
         rows.append(fisher_row(dev, gen, stream))
+    if "general" in only:
+        rows += general_rows(dev, gen, stream)
     if "block" in only:
         rows += block_rows(dev, gen, stream)
     for r in rows:
@@ -397,8 +491,10 @@ def main(out: Optional[str] = None, only=ROWS) -> Dict[str, Any]:
                  f"({r['graph_ms_min']:.4f}-{r['graph_ms_max']:.4f}), "
                  f"library {r['library_graph_ms']:.4f} ms"
                  if "graph_ms" in r else "")
+        plain = (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r
+                 else "")
         print(f"[redesign] {r['name']} {r['shape']} {r['dtype']}: "
-              f"{r['ms']:.4f} ms ({r['ms_min']:.4f}-{r['ms_max']:.4f}), "
+              f"{r['ms']:.4f} ms ({r['ms_min']:.4f}-{r['ms_max']:.4f}){plain}, "
               f"library {r['library_ms']:.4f} ms{graph}, bound "
               f"{r['bound_ms']:.5f} "
               f"ms ({r['bound_by']}){extra}, max abs err "

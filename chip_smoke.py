@@ -32,7 +32,12 @@ exits non-zero:
    inputs at 2e-2, masked rows holding NaN, the tap-gradient launch held
    to its host-side model, and its task axis (T = 1, 3, 4 stacked d_ff
    groups with ragged masks: one launch, each task bit-equal to a
-   one-task launch, timed at T = 4 beside ``torch.einsum``); grad_quant: codes, scale and
+   one-task launch, timed at T = 4 beside ``torch.einsum``), and its
+   (N, D, C) route at (4, 1024, 512), (6, 7, 77) and ``FISHER_GENERAL``'s
+   four shapes, f32 and bf16, masked (NaN rows) and unmasked, two runs
+   bit-equal, each launch held to ``fisher.general_plan`` (at least a
+   wave of CTAs at the bench's and the wide shape), timed beside its
+   bound, its plain version and the einsum pair; grad_quant: codes, scale and
    residual exactly equal, f32 and bf16 g, a ragged multi-block size, ties,
    zeros and a NaN, on each of its paths (one CTA, on chip, two passes:
    one element either side of the on-chip capacity, two leaves), its one
@@ -532,6 +537,12 @@ FLEET_SHOTS = (4, 4, 4)
 FLEET_ITERS = 4
 # kernel 1's task axis at the adapt's d_ff group, the masks ragged
 FISHER_TASKS = (1, 3, 4)
+# kernel 1's (N, D, C) route: the kernel bench's row, qwen2-1.5b's d_ff
+# over phase 6's episode (48 rows of 64 tokens), materialised, and two
+# edge-CNN layers at 84 px: the first (64 support images, a 42 x 42 map,
+# 8 channels) and a late depthwise one of mcunet-5fps (576 at 3 x 3)
+FISHER_GENERAL = {"bench": (16, 2048, 1024), "wide": (48, 64, 8960),
+                  "cnn-early": (64, 1764, 8), "cnn-head": (64, 9, 576)}
 # phase 17's sampling temperature: the random-weight qwen2-1.5b's next
 # token leads its runner-up by about 17 logits (phase 17 prints the lead
 # over requests 0 and 1), so at T 0.7 every draw is the argmax; at 3 the
@@ -4704,23 +4715,98 @@ def main() -> int:
                 print(f"[parity] fisher_tapgrads {dname} {shape} masked="
                       f"{m is not None}: max abs err {err:.3g} (tol {tol:g} "
                       f"rel+abs)", flush=True)
-        for shape in ((4, 1024, 512), (6, 7, 77)):
+        # kernel 1's (N, D, C) route: two earlier shapes and FISHER_GENERAL's,
+        # masked (NaN in the masked rows) and unmasked, each run twice
+        # (bit-equal), its launch held to the host-side model
+        for shape in ((4, 1024, 512), (6, 7, 77), *FISHER_GENERAL.values()):
             a = torch.randn(shape, generator=gen, device=dev).to(dtype)
             g = (0.1 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
             m = (torch.arange(shape[0], device=dev) < shape[0] - 2).float()
-            a[-2:], g[-2:] = float("nan"), float("nan")
-            got = ops.fisher(a, g, mask=m)
-            want = fisher_ref(a, g, m)
+            m[shape[0] // 2] = 0.0
+            an, gn = a.clone(), g.clone()
+            an[m == 0], gn[m == 0] = float("nan"), float("nan")
+            got = ops.fisher(an, gn, mask=m)
+            bits = torch.equal(got, ops.fisher(an, gn, mask=m))
+            want = fisher_ref(an, gn, m)
             torch.cuda.synchronize()
             err = max_err(got, want, tol, f"fisher {dname} {shape}")
-            clean_a, clean_g = a[:-2].contiguous(), g[:-2].contiguous()
-            got = ops.fisher(clean_a, clean_g)
-            err2 = max_err(got, fisher_ref(clean_a, clean_g), tol,
+            got = ops.fisher(a, g)
+            bits = bits and torch.equal(got, ops.fisher(a, g))
+            err2 = max_err(got, fisher_ref(a, g), tol,
                            f"fisher {dname} {shape} unmasked")
             f_worst = max(f_worst, err, err2)
+            gp = fisher_kernel.general_launch_plan(a, g)
+            gm = fisher_kernel.general_plan(*shape, dtype)
             print(f"[parity] fisher {dname} {shape}: masked (NaN rows) max "
                   f"abs err {err:.3g}, unmasked {err2:.3g} (tol {tol:g} "
-                  f"rel+abs)", flush=True)
+                  f"rel+abs), two runs {'bit-equal' if bits else 'DIFFER'}; "
+                  f"launch {gp['blocks']} CTAs in clusters of "
+                  f"{gp['cluster']} ({gp['d_ranks']} d x {gp['row_ranks']} "
+                  f"row ranks), {gp['threads_x']} x {gp['threads_y']} "
+                  f"threads, {gp['vec']} columns a thread, "
+                  f"{gp['registers']} registers", flush=True)
+            if not bits:
+                fail(f"fisher {dname} {shape}: two runs differ")
+            if any(gp[k] != gm[k] for k in fisher_kernel.GENERAL_PLAN_KEYS):
+                fail(f"fisher {dname} {shape}: launch {gp} differs from the "
+                     f"model")
+            least = {FISHER_GENERAL["bench"]: fisher_kernel.GWAVE,
+                     FISHER_GENERAL["wide"]: fisher_kernel.GWAVE,
+                     FISHER_GENERAL["cnn-early"]: 2,
+                     FISHER_GENERAL["cnn-head"]: 19}.get(shape, 1)
+            if gp["blocks"] < least:  # a wave; the first design's, beaten
+                fail(f"fisher {dname} {shape}: {gp['blocks']} CTAs")
+            del a, g, an, gn
+    # the (N, D, C) route's time at FISHER_GENERAL's shapes through its C
+    # entry, beside the plain version and the einsum pair, buffer sets
+    # cycled past the L2
+    g_entry = fisher_kernel._entry()
+    for gname, shape in FISHER_GENERAL.items():
+        for dtype in ((torch.float32, torch.bfloat16)
+                      if gname in ("bench", "wide") else (torch.float32,)):
+            dname = str(dtype).split(".")[-1]
+            n, d, c = shape
+            elt = torch.empty((), dtype=dtype).element_size()
+            gbytes = 2 * n * d * c * elt
+            sets = max(1, -(-100 * 2 ** 20 // gbytes))
+            bufs = [(torch.randn(shape, generator=gen, device=dev).to(dtype),
+                     torch.randn(shape, generator=gen, device=dev).to(dtype))
+                    for _ in range(sets)]
+            g_out = torch.empty((c,), device=dev)
+            it["i"] = 0
+
+            def next_ag(bufs=bufs):
+                i = it["i"] = (it["i"] + 1) % len(bufs)
+                return bufs[i]
+
+            def run_general(n=n, d=d, c=c, code=int(dtype != torch.float32),
+                            g_out=g_out, next_ag=next_ag):
+                a, g = next_ag()
+                err = g_entry(a.data_ptr(), g.data_ptr(), None,
+                              g_out.data_ptr(), n, d, c, 1.0 / (2 * n), 0,
+                              code, stream)
+                if err:
+                    fail(f"fisher_fwd returned cudaError {err}")
+
+            def run_general_plain(next_ag=next_ag):
+                fisher_ref(*next_ag())
+
+            def run_general_einsum(n=n, next_ag=next_ag):
+                a, g = next_ag()
+                u = torch.einsum("ndc,ndc->nc", a, g)
+                torch.einsum("nc,nc->c", u, u).div_(2 * n)
+
+            k_ms = time_ms(run_general, 50)
+            p_ms = time_ms(run_general_plain, 20)
+            l_ms = time_ms(run_general_einsum, 20)
+            t_bytes = (gbytes + 4 * c) / HBM_BYTES_PER_S
+            t_ops = (2 * n * d * c + 3 * n * c) / PEAK_OPS[dname]
+            b_ms = 1e3 * max(t_bytes, t_ops)
+            print(f"[time] fisher (N, D, C) {gname} {dname} {shape}: kernel "
+                  f"{k_ms:.4f} ms, bound {b_ms:.5f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain "
+                  f"{p_ms:.4f} ms, einsum pair {l_ms:.4f} ms", flush=True)
+            del bufs
 
     # time the ffn group's reduction, f32 tap gradients as the probe makes
     # them, cycling through 4 buffers (4 x 48 MB > the 50 MB L2) since the

@@ -7,7 +7,8 @@ is the tap-gradient route, always with a leading task axis (the
 reference's ``jax.vmap`` of the probe adds a grid axis to the Pallas call):
 one launch for a fleet's (T, L, B, C) stack with a per-task mask and valid
 count, and T = 1 for one task's probe.  :func:`fisher_cuda` is the
-materialised-activation form.  Their plain PyTorch versions are
+materialised-activation form (its (N, D, C) kernel's launch:
+:func:`general_plan`).  Their plain PyTorch versions are
 ``kernels.ref.fisher_tapgrads_ref`` and ``fisher_ref``; ``kernels.ops``
 chooses between them and these wrappers by the tensors' device.
 """
@@ -26,8 +27,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the mask's valid rows compacted RCH at a time into shared memory
 RT, RU, RCH = 128, 8, 1024
 PLAN_KEYS = ("blocks", "threads", "vec", "rows_ahead", "rows_a_pass")
+# the (N, D, C) kernel's launch (csrc/fisher.cu, general_plan): at most GT
+# threads a CTA, GSPLIT CTAs a cluster, GCH valid rows compacted a pass, a
+# D-rank at least GDMIN d values, the grid at least GWAVE CTAs (the SMs)
+# where the columns allow it
+GT, GCH, GSPLIT, GWAVE, GDMIN = 256, 256, 8, 132, 128
+GENERAL_PLAN_KEYS = ("blocks", "cluster", "threads_x", "threads_y", "vec",
+                     "rows_a_chunk", "d_ranks", "row_ranks", "d_chunk",
+                     "reducers")
 _fn = None
 _tap_fn = None
+_plan_fn = None
 
 
 def _entry():
@@ -56,6 +66,19 @@ def _tap_entry():
         fn.restype = ctypes.c_int
         _tap_fn = fn
     return _tap_fn
+
+
+def _plan_entry():
+    """``fisher_general_plan(a, g, N, D, C, dtype, plan)``."""
+    global _plan_fn
+    if _plan_fn is None:
+        fn = build.load("fisher").fisher_general_plan
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _plan_fn = fn
+    return _plan_fn
 
 
 def rows_vec(c: int, dtype: torch.dtype, aligned: bool = True) -> int:
@@ -98,19 +121,101 @@ def rows_plan(layers: int, n: int, c: int, dtype: torch.dtype,
     return out
 
 
-def compact_rows(mask: Optional[torch.Tensor], n: int) -> list:
+def compact_rows(mask: Optional[torch.Tensor], n: int,
+                 per_pass: int = RCH) -> list:
     """The rows the D == 1 route reads, pass by pass, as its first warp
     compacts them into shared memory: [(rows, weights)] for each pass of
-    ``RCH`` rows, the rows whose mask is non-zero in increasing order, each
-    with weight m^2 (every row with weight 1 without a mask)."""
+    ``per_pass`` rows (``RCH``; the (N, D, C) kernel's is ``GCH``), the
+    rows whose mask is non-zero in increasing order, each with weight m^2
+    (every row with weight 1 without a mask)."""
     out = []
-    for r0 in range(0, n, RCH):
-        m = (torch.ones(min(RCH, n - r0)) if mask is None
-             else mask[r0:r0 + RCH].float())
+    for r0 in range(0, n, per_pass):
+        m = (torch.ones(min(per_pass, n - r0)) if mask is None
+             else mask[r0:r0 + per_pass].float())
         keep = [r0 + i for i in range(m.numel()) if m[i] != 0]
         out.append((keep, [float(mask[r] ** 2) if mask is not None else 1.0
                            for r in keep]))
     return out
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def general_plan(n: int, d: int, c: int, dtype: torch.dtype,
+                 aligned: bool = True) -> dict:
+    """The (N, D, C) kernel's launch as ``csrc/fisher.cu`` makes it (a
+    model for the CPU tests and the card's launch check; the kernel does
+    not call it).  A column tile of ``threads_x * vec`` columns is one
+    cluster of ``cluster = d_ranks * row_ranks`` CTAs of ``threads_x *
+    threads_y`` threads; rank (rn, rd) reads d in ``[rd * d_chunk, (rd + 1)
+    * d_chunk)`` of the valid rows ``rn, rn + row_ranks, ...`` of each
+    pass's compacted list, ``rows_a_chunk`` rows at a time; ``reducers``
+    threads sum one (row, column) of a chunk over the d lanes.
+
+    ``reads(block, thread, rows)`` gives what a thread loads, for the
+    valid rows ``rows`` in order (``compact_rows``' rows, all passes):
+    (its rows, its d values, its columns), each a list."""
+    vec = rows_vec(c, dtype, aligned)
+    nb = 16 // vec if vec > 1 else 8
+    groups = c // vec
+    sd_max = 1
+    while sd_max < GSPLIT and -(-d // (2 * sd_max)) >= GDMIN:
+        sd_max *= 2
+    sn_max = min(GSPLIT, 1 << (max(1, n) - 1).bit_length())
+    s_max = min(GSPLIT, sd_max * sn_max)
+    hi = min(32, 1 << (groups - 1).bit_length())
+    lo = min(4, hi)
+    tx, s = next(((t, k) for t in (32, 16, 8, 4, 2, 1) if lo <= t <= hi
+                  for k in (1, 2, 4, 8)
+                  if k <= s_max and -(-groups // t) * k >= GWAVE),
+                 (lo, s_max))
+    sn = 1
+    while 2 * sn <= s and 2 * sn * nb <= n:
+        sn *= 2
+    sd = min(s // sn, sd_max)
+    sn = s // sd
+    dc = -(-d // sd)
+    ty = max(vec, min(GT // tx, _pow2_floor(dc)))
+    ty = max(ty, 32 // tx)
+    tiles = -(-groups // tx)
+    ct = tx * vec
+
+    def reads(block: int, thread: int, rows):
+        if not (0 <= block < tiles * s and 0 <= thread < tx * ty):
+            raise IndexError(f"({block}, {thread}) outside the launch")
+        tile, rank = divmod(block, s)
+        rn, rd = divmod(rank, sd)
+        ty_, tx_ = divmod(thread, tx)
+        c0 = tile * ct + tx_ * vec
+        if c0 >= c:
+            return [], [], []
+        mine = []
+        for p0 in range(0, n, GCH):  # each pass's list, dealt by row-rank
+            in_pass = [r for r in rows if p0 <= r < p0 + GCH]
+            mine += in_pass[rn::sn]
+        lo_d = rd * dc
+        return (mine, list(range(lo_d + ty_, min(d, lo_d + dc), ty)),
+                list(range(c0, c0 + vec)))
+
+    return dict(blocks=tiles * s, cluster=s, threads_x=tx, threads_y=ty,
+                vec=vec, rows_a_chunk=nb, d_ranks=sd, row_ranks=sn,
+                d_chunk=dc, reducers=max(1, ty // (nb * vec)), tiles=tiles,
+                reads=reads)
+
+
+def general_launch_plan(a: torch.Tensor, g: torch.Tensor) -> dict:
+    """The launch the (N, D, C) kernel would make for a, g (their shape,
+    dtype and alignment), from the CUDA library, without making it:
+    ``GENERAL_PLAN_KEYS`` and ``registers``, a thread's, from the
+    compiled kernel."""
+    n, d, c = g.shape
+    out = (ctypes.c_int * (len(GENERAL_PLAN_KEYS) + 1))()
+    err = _plan_entry()(a.data_ptr(), g.data_ptr(), n, d, c,
+                        _DTYPES[g.dtype], out)
+    if err:
+        raise RuntimeError(f"fisher_general_plan failed: cudaError {err}")
+    return dict(zip((*GENERAL_PLAN_KEYS, "registers"), out))
 
 
 def plan(g: torch.Tensor) -> dict:

@@ -371,3 +371,226 @@ def test_cuda_tapgrads_over_many_passes(cuda_device, dtype):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The (N, D, C) kernel's launch (csrc/fisher.cu, fisher_general_kernel)
+# ---------------------------------------------------------------------------
+
+# (N, D, C): the kernel bench's row, qwen2-1.5b's d_ff over an episode of
+# 48 rows of 64 tokens, an edge CNN's first layer at 84 px (64 support
+# images, a 42 x 42 map, 8 channels) and a late depthwise layer of
+# mcunet-5fps (576 channels at 3 x 3)
+GENERAL_SHAPES = {"bench": (16, 2048, 1024), "wide": (48, 64, 8960),
+                  "cnn-early": (64, 1764, 8), "cnn-head": (64, 9, 576)}
+
+
+def _mask_with_holes(n, seed):
+    """A (N,) mask with zero rows (a third, at least one) and weights
+    other than 1."""
+    rng = np.random.default_rng(seed)
+    m = np.where(rng.random(n) < 0.33, 0.0, rng.random(n) + 0.5)
+    m[n // 2] = 0.0
+    return torch.from_numpy(m.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape, dtype, aligned", [
+    (GENERAL_SHAPES["bench"], torch.float32, True),
+    (GENERAL_SHAPES["bench"], torch.bfloat16, True),
+    (GENERAL_SHAPES["wide"], torch.float32, True),
+    (GENERAL_SHAPES["wide"], torch.bfloat16, True),
+    (GENERAL_SHAPES["cnn-early"], torch.float32, True),
+    (GENERAL_SHAPES["cnn-head"], torch.float32, True),
+    ((6, 7, 77), torch.float32, True),           # ragged D and C
+    ((5, 3, 300), torch.bfloat16, True),         # 300 columns: no 8-wide load
+    ((300, 5, 12), torch.float32, True),         # two compaction passes
+    ((4, 1024, 512), torch.float32, False),      # an unaligned operand
+])
+def test_general_plan_reads_every_valid_element_once(shape, dtype, aligned):
+    """Over the whole launch, every (n, d, c) of a valid row is read by
+    exactly one thread and no masked row is read at all."""
+    n, d, c = shape
+    plan = FK.general_plan(n, d, c, dtype, aligned)
+    mask = _mask_with_holes(n, 3)
+    (rows,) = [sum((rs for rs, _ in FK.compact_rows(mask, n, FK.GCH)), [])]
+    assert rows == torch.nonzero(mask).flatten().tolist()
+    seen = np.zeros(shape, np.int8)
+    for blk in range(plan["blocks"]):
+        for th in range(plan["threads_x"] * plan["threads_y"]):
+            rs, ds, cs = plan["reads"](blk, th, rows)
+            if rs and ds and cs:
+                seen[np.ix_(rs, ds, cs)] += 1
+    valid = mask.numpy() != 0
+    assert (seen[valid] == 1).all()
+    assert (seen[~valid] == 0).all()
+    assert plan["vec"] == FK.rows_vec(c, dtype, aligned)
+    assert plan["cluster"] == plan["d_ranks"] * plan["row_ranks"] <= 8
+    assert plan["blocks"] % plan["cluster"] == 0
+
+
+@pytest.mark.parametrize("name", list(GENERAL_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_general_grid_fills_the_card(name, dtype):
+    """At least one wave of the 132 SMs at the bench's and the wide shape;
+    at the edge CNNs' narrow shapes, more than the first design's CTAs
+    (one, and 18), by splitting the rows across the cluster."""
+    n, d, c = GENERAL_SHAPES[name]
+    plan = FK.general_plan(n, d, c, dtype)
+    threads = plan["threads_x"] * plan["threads_y"]
+    assert 32 <= threads <= FK.GT and threads % 32 == 0
+    if name in ("bench", "wide"):
+        assert plan["blocks"] >= FK.GWAVE
+    else:
+        first = -(-c // 32)
+        assert plan["blocks"] > first and plan["cluster"] == 8
+    # the rows are split first, a whole chunk of rows a rank; d where the
+    # rows run out (the bench's 16 rows) and d is long
+    rows_enough = n >= plan["cluster"] * plan["rows_a_chunk"]
+    assert (plan["d_ranks"] == 1) == rows_enough
+
+
+def _general_model(a, g, mask, scale, mask_norm):
+    """``fisher_general_kernel`` emulated CTA by CTA in float32: each
+    thread's sum over its d values, the d lanes' partials summed in lane
+    order through the kernel's shared-memory layout (R threads an entry,
+    then their butterfly), u over the D-ranks in rank order, the square
+    weighted by m^2 into each thread's accumulator, and at the end the
+    CTA's row slots in order and the cluster's ranks in rank order."""
+    n, d, c = a.shape
+    p = FK.general_plan(n, d, c, a.dtype)
+    S, sd, sn = p["cluster"], p["d_ranks"], p["row_ranks"]
+    TX, TY, VEC, NB = (p["threads_x"], p["threads_y"], p["vec"],
+                       p["rows_a_chunk"])
+    R, dc = p["reducers"], p["d_chunk"]
+    NT, CT = TX * TY, TX * VEC
+    LDP, slots, per = NB * CT + 4, NT // (R * CT), TY // R
+    t = np.arange(NT)
+    e0, r = t // R, t % R
+    col, js = e0 % CT, e0 // CT
+    a32, g32 = a.float().numpy(), g.float().numpy()
+    passes = FK.compact_rows(mask, n, FK.GCH)
+    msum = np.float32(0.0 if mask is None else mask.sum().item())
+    sc = np.float32(scale / max(msum, 1.0) if mask_norm else scale)
+    out = np.zeros(c, np.float32)
+    for tile in range(p["tiles"]):
+        acc = np.zeros((S, NT), np.float32)
+        s_u = np.zeros((S, 2, 16 * 32), np.float32)
+        buf = 0
+        for rows, weights in passes:
+            cnt = len(rows)
+            nch = -(-(-(-cnt // sn)) // NB)
+            for ch in range(nch):
+                for rank in range(S):
+                    rn, rd = divmod(rank, sd)
+                    k0 = rn + sn * ch * NB
+                    nv = min(NB, -(-(cnt - k0) // sn)) if k0 < cnt else 0
+                    s_part = np.zeros(FK.GT * 20, np.float32)
+                    cols = tile * CT + np.arange(CT)
+                    live = cols < c
+                    for ty in range(TY):
+                        for i in range(nv):
+                            row = rows[k0 + sn * i]
+                            pv = np.zeros(CT, np.float32)
+                            for dd in range(rd * dc + ty,
+                                            min(d, rd * dc + dc), TY):
+                                pv[live] += (a32[row, dd, cols[live]]
+                                             * g32[row, dd, cols[live]])
+                            s_part[ty * LDP + i * CT:
+                                   ty * LDP + (i + 1) * CT] = pv
+                    for j0 in range(NB):
+                        sel = js == j0 % slots  # rows js, js + slots, ...
+                        u = np.zeros(NT, np.float32)
+                        for k in range(per):
+                            u += s_part[(r * per + k) * LDP + j0 * CT + col]
+                        o = R // 2
+                        while o:
+                            u = u + u[t ^ o]
+                            o //= 2
+                        own = sel & (r == 0)
+                        if sd == 1:
+                            if j0 < nv:
+                                w = np.float32(weights[k0 + sn * j0])
+                                acc[rank, own] += w * (u[own] * u[own])
+                        else:
+                            s_u[rank, buf, j0 * CT + col[own]] = u[own]
+                if sd > 1:
+                    for rank in range(S):
+                        rn, rd = divmod(rank, sd)
+                        k0 = rn + sn * ch * NB
+                        nv = min(NB, -(-(cnt - k0) // sn)) if k0 < cnt else 0
+                        for j0 in range(rd, nv, sd):
+                            own = (js == j0 % slots) & (r == 0)
+                            u = np.zeros(own.sum(), np.float32)
+                            for q in range(sd):
+                                u += s_u[rn * sd + q, buf, j0 * CT + col[own]]
+                            w = np.float32(weights[k0 + sn * j0])
+                            acc[rank, own] += w * (u * u)
+                    buf ^= 1
+        fin = np.zeros((S, CT), np.float32)
+        for rank in range(S):
+            part = np.zeros(NT, np.float32)
+            own = r == 0
+            part[js[own] * CT + col[own]] = acc[rank, own]
+            for q in range(slots):
+                fin[rank] += part[q * CT:(q + 1) * CT]
+        tot = np.zeros(CT, np.float32)
+        for q in range(S):
+            tot += fin[q]
+        cols = tile * CT + np.arange(CT)
+        out[cols[cols < c]] = (tot * sc)[cols < c]
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("shape, dtype", [
+    ((6, 7, 77), torch.float32),       # row-ranks, scalar columns
+    ((5, 3, 300), torch.float32),      # 16-byte loads, d lanes past D
+    ((3, 1100, 12), torch.float32),    # 8 D-ranks, a DSMEM combine a row
+    ((10, 300, 40), torch.bfloat16),   # 2 D-ranks x 4 row-ranks, R = 2
+    ((300, 5, 9), torch.float32),      # two compaction passes
+    ((2, 300, 64), torch.float32),     # 2 D-ranks x 2 row-ranks, R = 2
+])
+@pytest.mark.parametrize("masked", [False, True])
+def test_general_model_matches_plain(shape, dtype, masked):
+    """The kernel's order of sums, emulated, is the plain version's Eq. 2
+    to the file's tolerance; NaN in the masked rows is never read."""
+    n = shape[0]
+    a = _t(_normal(shape, 0), "float32").to(dtype)
+    g = _t(_normal(shape, 1, 0.1), "float32").to(dtype)
+    mask = _mask_with_holes(n, 4) if masked else None
+    if masked:
+        a[mask == 0], g[mask == 0] = float("nan"), float("nan")
+    scale = 0.5 if masked else 1.0 / (2 * n)
+    got = _general_model(a, g, mask, scale, masked)
+    want = fisher_ref(a, g, mask)
+    assert torch.isfinite(got).all()
+    tol = TOL[str(dtype).split(".")[-1]]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GENERAL_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_general_matches_plain(cuda_device, name, dtype, masked):
+    """The (N, D, C) kernel at the four named shapes against the plain
+    version, NaN in the masked rows; two runs bit-equal; the launch the
+    library makes is the model's."""
+    shape = GENERAL_SHAPES[name]
+    a = _t(_normal(shape, 0), dtype).to(cuda_device)
+    g = _t(_normal(shape, 1, 0.1), dtype).to(cuda_device)
+    mask = _mask_with_holes(shape[0], 5).to(cuda_device) if masked else None
+    if masked:
+        a[mask == 0], g[mask == 0] = float("nan"), float("nan")
+    n0 = ops.fisher.launches
+    got = ops.fisher(a, g, mask=mask)
+    again = ops.fisher(a, g, mask=mask)
+    assert ops.fisher.launches == n0 + 2
+    want = fisher_ref(a, g, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    plan = FK.general_launch_plan(a, g)
+    model = FK.general_plan(*shape, a.dtype)
+    assert {k: plan[k] for k in FK.GENERAL_PLAN_KEYS} == {
+        k: model[k] for k in FK.GENERAL_PLAN_KEYS}

@@ -49,7 +49,7 @@ def test_rows_are_the_references_and_agree(bench, run):
         assert r["plain_ms"] > 0 and r["bound_ms"] > 0
         assert r["bound_by"] in ("bytes", "operations")
     lib = {r["name"] for r in rec["rows"] if r["library_ms"] is not None}
-    assert lib == {"flash_attention", "cached_flash_contig_decode",
+    assert lib == {"fisher", "flash_attention", "cached_flash_contig_decode",
                    "cached_flash_paged_decode", "cached_flash_contig_prefill8",
                    "cached_flash_paged_prefill8"}
 

@@ -171,19 +171,23 @@ def _trainers():
 
 
 @pytest.mark.parametrize("max_skips,raises", [(10, False), (1, True)])
-def test_non_finite_steps_are_skipped_as_in_jax(tmp_path, max_skips,
-                                                raises):
+def test_non_finite_steps_are_skipped_as_in_jax(tmp_path, monkeypatch,
+                                                max_skips, raises):
     """A non-finite loss keeps the previous state and counts a skip; more
-    than ``max_skips`` abort.  Both packages' Trainers, one step function."""
+    than ``max_skips`` abort.  Both packages' Trainers, one step function,
+    on one fake clock at equal step times, so that neither logs a
+    straggler step that the other does not."""
     losses = [1.0, float("nan"), 2.0, float("inf"), 3.0, 4.0]
+    clock = {"now": 0.0}
+    monkeypatch.setattr(time, "perf_counter", lambda: clock["now"])
     seen = {}
     for name, trainer, config, zero in _trainers():
         logs = []
         tc = config(total_steps=len(losses), ckpt_every=100,
                     ckpt_dir=str(tmp_path / name), max_skips=max_skips,
                     log_every=2)
-        tr = trainer(tc, _Counter(losses), TokenLoader(64, 2, 4),
-                     log_fn=logs.append)
+        tr = trainer(tc, _Counter(losses, [1.0] * len(losses), clock),
+                     TokenLoader(64, 2, 4), log_fn=logs.append)
         if raises:
             with pytest.raises(RuntimeError, match="too many non-finite"):
                 tr.run(zero)
